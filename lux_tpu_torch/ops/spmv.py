@@ -1,0 +1,236 @@
+"""Block-CSR segmented reduction by destination (the PageRank hot loop).
+
+Counterpart of ``lux_tpu.ops.pallas_spmv``.  Edges are re-laid out on the
+host into the static block-CSR form: each VERTEX block of ``v_blk``
+vertices owns a contiguous run of ``t_chunk``-edge chunks, its edges
+sorted by destination, padded at the tail of its last chunk with the
+sentinel ``e_dst_rel == v_blk``.  :func:`spmv_blockcsr` reduces the
+per-edge values of each block into its vertices.
+
+On a CUDA tensor it launches the hand-written kernel
+(``csrc/spmv_blockcsr.cu``, one CTA per vertex block); on a CPU tensor it
+runs :func:`spmv_blockcsr_plain`, the plain PyTorch version of the same
+function.  ``spmv_blockcsr.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lux_tpu_torch.graph.csc import HostGraph
+from lux_tpu_torch.ops import cuda_build
+
+V_BLK = 512  # output vertex block
+T_CHUNK = 512  # edges per chunk
+
+#: dtype -> the kernel's value-kind code (csrc/lux_ops.cuh LuxKind)
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_OPS = {"sum": 0, "min": 1, "max": 2}
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class BlockCSR:
+    """Host-precomputed static block-CSR layout for one part.
+
+    Arrays:
+      e_src_pos: (C, T) int32   gather positions (padding -> 0)
+      e_dst_rel: (C, T) int32   dst - block_base, in [0, v_blk); padding
+                                holds v_blk
+      e_weight:  (C, T) float32 | None — only for weighted graphs
+      chunk_block: (C,) int32   output vertex block of each chunk (sorted)
+      chunk_first: (C,) int32   1 on the first chunk of each block
+    """
+
+    nv: int
+    num_vblocks: int
+    num_chunks: int
+    e_src_pos: np.ndarray
+    e_dst_rel: np.ndarray
+    e_weight: Optional[np.ndarray]
+    chunk_block: np.ndarray
+    chunk_first: np.ndarray
+    v_blk: int = V_BLK
+    t_chunk: int = T_CHUNK
+
+
+def build_blockcsr(
+    g: HostGraph,
+    src_pos: Optional[np.ndarray] = None,
+    v_blk: int = V_BLK,
+    t_chunk: int = T_CHUNK,
+) -> BlockCSR:
+    """Re-lay out a CSC graph into chunk-aligned vertex blocks (numpy;
+    byte-identical to ``lux_tpu.ops.pallas_spmv.build_blockcsr``).
+
+    ``src_pos`` defaults to the raw source ids (single-part layout).
+    Every block gets at least one chunk, so an empty block is one chunk
+    of padding."""
+    if src_pos is None:
+        src_pos = g.col_idx.astype(np.int32)
+    num_vblocks = _round_up(g.nv, v_blk) // v_blk
+    ne = int(g.row_ptr[-1])
+
+    block_lo = np.asarray(
+        g.row_ptr[np.minimum(np.arange(num_vblocks) * v_blk, g.nv)], np.int64)
+    block_hi = np.asarray(
+        g.row_ptr[np.minimum((np.arange(num_vblocks) + 1) * v_blk, g.nv)],
+        np.int64)
+    chunks_per_block = np.maximum(1, -(-(block_hi - block_lo) // t_chunk))
+    num_chunks = int(chunks_per_block.sum())
+    chunk_start = np.zeros(num_vblocks + 1, np.int64)
+    np.cumsum(chunks_per_block, out=chunk_start[1:])
+
+    e_src_pos = np.zeros((num_chunks, t_chunk), np.int32)
+    e_dst_rel = np.full((num_chunks, t_chunk), v_blk, np.int32)
+    e_weight = None
+    if g.weights is not None:
+        e_weight = np.zeros((num_chunks, t_chunk), np.float32)
+
+    # every edge's chunk and slot computed array-wise, then placed with one
+    # flat scatter per array (edges are CSC-ordered, blocks contiguous)
+    dst = g.dst_of_edges()
+    e_block = np.repeat(np.arange(num_vblocks, dtype=np.int64),
+                        block_hi - block_lo)
+    within = np.arange(ne, dtype=np.int64) - block_lo[e_block]
+    e_chunk = chunk_start[e_block] + within // t_chunk
+    flat = e_chunk * t_chunk + within % t_chunk
+    e_src_pos.reshape(-1)[flat] = src_pos[:ne]
+    e_dst_rel.reshape(-1)[flat] = (
+        dst[:ne].astype(np.int64) - e_block * v_blk).astype(np.int32)
+    if e_weight is not None:
+        e_weight.reshape(-1)[flat] = g.weights[:ne]
+    chunk_block = np.repeat(np.arange(num_vblocks, dtype=np.int32),
+                            chunks_per_block)
+    chunk_first = np.zeros(num_chunks, np.int32)
+    chunk_first[chunk_start[:-1]] = 1
+    return BlockCSR(
+        nv=g.nv,
+        num_vblocks=num_vblocks,
+        num_chunks=num_chunks,
+        e_src_pos=e_src_pos,
+        e_dst_rel=e_dst_rel,
+        e_weight=e_weight,
+        chunk_block=chunk_block,
+        chunk_first=chunk_first,
+        v_blk=v_blk,
+        t_chunk=t_chunk,
+    )
+
+
+def reduce_neutral(op: str, dtype: torch.dtype):
+    """The identity of ``op`` in ``dtype`` as a Python scalar: 0 for sum,
+    the iinfo bound for integer min/max, +-inf for float min/max."""
+    if op == "sum":
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if op == "sum" else dtype
+
+
+def spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
+                        op: str = "sum", v_blk: int = V_BLK,
+                        num_vblocks: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spmv_blockcsr`: a scatter of every
+    real slot into its global vertex (padding goes to a dump slot that is
+    cut off).  Sums accumulate in f32; min/max keep the dtype."""
+    del chunk_first  # block starts are implied by chunk_block
+    n = num_vblocks * v_blk
+    dst = chunk_block.long()[:, None] * v_blk + e_dst_rel.long()
+    dst = torch.where(e_dst_rel < v_blk, dst, n).reshape(-1)
+    dtype = _out_dtype(op, edge_vals.dtype)
+    vals = edge_vals.reshape(-1).to(dtype)
+    out = torch.full((n + 1,), reduce_neutral(op, dtype), dtype=dtype,
+                     device=edge_vals.device)
+    if op == "sum":
+        out.index_add_(0, dst, vals)
+    else:
+        out.scatter_reduce_(0, dst, vals, reduce="amin" if op == "min" else "amax")
+    return out[:n]
+
+
+_lib_bound = None
+
+
+def _lib():
+    global _lib_bound
+    if _lib_bound is None:
+        lib = cuda_build.load("spmv_blockcsr")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lux_spmv_blockcsr.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+        lib.lux_spmv_blockcsr.restype = ci
+        _lib_bound = lib
+    return _lib_bound
+
+
+def _check(edge_vals, e_dst_rel, chunk_block, chunk_first, op, v_blk,
+           num_vblocks):
+    if op not in _OPS:
+        raise ValueError(f"spmv_blockcsr op must be sum|min|max, got {op!r}")
+    if not num_vblocks:
+        raise ValueError("num_vblocks is required (use BlockCSR.num_vblocks)")
+    if edge_vals.dim() != 2 or e_dst_rel.shape != edge_vals.shape:
+        raise ValueError(
+            f"edge_vals {tuple(edge_vals.shape)} and e_dst_rel "
+            f"{tuple(e_dst_rel.shape)} must be the same (C, T) shape")
+    num_chunks = edge_vals.shape[0]
+    for name, t in (("chunk_block", chunk_block), ("chunk_first", chunk_first)):
+        if t.shape != (num_chunks,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 of shape ({num_chunks},)")
+    if e_dst_rel.dtype != torch.int32:
+        raise ValueError("e_dst_rel must be int32")
+    allowed = ((torch.float32, torch.bfloat16) if op == "sum"
+               else (torch.float32, torch.int32))
+    if edge_vals.dtype not in allowed:
+        raise TypeError(f"spmv_blockcsr op={op} takes {allowed}, got {edge_vals.dtype}")
+    devices = {t.device for t in (edge_vals, e_dst_rel, chunk_block, chunk_first)}
+    if len(devices) != 1:
+        raise ValueError(f"spmv_blockcsr inputs span devices {devices}")
+
+
+def spmv_blockcsr(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
+                  chunk_block: torch.Tensor, chunk_first: torch.Tensor,
+                  op: str = "sum", v_blk: int = V_BLK,
+                  num_vblocks: int = 0) -> torch.Tensor:
+    """Segmented reduction of (C, T) per-slot values by destination ->
+    (num_vblocks * v_blk,).  sum takes f32 or bf16 and returns f32;
+    min/max take f32 or int32 and keep the dtype.  Vertices with no edge
+    get the neutral element.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    _check(edge_vals, e_dst_rel, chunk_block, chunk_first, op, v_blk,
+           num_vblocks)
+    if edge_vals.device.type == "cpu":
+        return spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block,
+                                   chunk_first, op, v_blk, num_vblocks)
+    if edge_vals.device.type != "cuda":
+        raise ValueError(f"spmv_blockcsr runs on cpu or cuda, not {edge_vals.device}")
+    tensors = (edge_vals, e_dst_rel, chunk_block)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("spmv_blockcsr needs contiguous inputs")
+    out = torch.empty(num_vblocks * v_blk, dtype=_out_dtype(op, edge_vals.dtype),
+                      device=edge_vals.device)
+    with torch.cuda.device(edge_vals.device):
+        rc = _lib().lux_spmv_blockcsr(
+            edge_vals.data_ptr(), _KIND[edge_vals.dtype], e_dst_rel.data_ptr(),
+            chunk_block.data_ptr(), edge_vals.shape[0], edge_vals.shape[1],
+            v_blk, num_vblocks, _OPS[op], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spmv_blockcsr kernel launch failed: CUDA error {rc}")
+    spmv_blockcsr.launches += 1
+    return out
+
+
+spmv_blockcsr.launches = 0

@@ -2,11 +2,13 @@
 
 -ni fixed iterations on one part, ELAPSED TIME + derived GTEPS on exit.
 ``--method pallas`` runs the block-CSR SpMV kernel path; the other
-methods run the pull engine (``mxscan`` = the segmented-scan kernel).
-Runs on the card unless ``--device cpu``.  The elapsed time covers the
-``-ni`` iterations only: graph load, layout build, the host-to-device
-copy and an untimed warm-up run of the same ``-ni`` iterations on a
-copy of the state come before the timer starts.
+methods run the pull engine (``mxscan`` = the segmented-scan kernel),
+whose per-edge gather ``--route-gather`` replaces with the routed pull
+(ops/expand.py).  Runs on the card unless ``--device cpu``.  The elapsed
+time covers the ``-ni`` iterations only: graph load, layout build, the
+routed plan's construction, the host-to-device copy and an untimed
+warm-up run of the same ``-ni`` iterations on a copy of the state come
+before the timer starts.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.shards import build_pull_shards, to_device
 from lux_tpu_torch.models.pagerank import (PageRankProgram, check_ranks,
                                            make_pallas_runner)
-from lux_tpu_torch.ops import cuda_build
+from lux_tpu_torch.ops import cuda_build, expand
 from lux_tpu_torch.utils.config import parse_args
 from lux_tpu_torch.utils.device import resolve_device
 from lux_tpu_torch.utils.timing import Timer, report_elapsed
@@ -34,13 +36,17 @@ class RunResult:
     ranks: np.ndarray  # (nv,) pre-divided ranks, float32
     seconds: float  # iterations only, device-fenced
     gteps: float
+    route_gather: str = ""  # the routed mode that ran ("" = direct)
 
 
-def prepare(cfg, g, dev):
+def prepare(cfg, g, dev, route=None):
     """Set up the method's layout and state on ``dev``; returns
     (iterate, state, ranks): ``iterate(state, n)`` runs n iterations in
     place on ``state``, ``ranks(state)`` reads the (nv,) pre-divided
-    ranks to the host."""
+    ranks to the host.  With ``cfg.route_gather`` the routed plan is
+    built here (set-up, like the kernel build), unless the caller hands
+    in ``route``, a plan it built for the same graph (and ``-ng``) with
+    ops/expand or apps/common.build_pull_route."""
     if dev.type == "cuda":
         cuda_build.load_all()  # building and loading are set-up, not iterations
     if cfg.method == "pallas":
@@ -49,10 +55,15 @@ def prepare(cfg, g, dev):
     shards = build_pull_shards(g, cfg.num_parts)
     prog = PageRankProgram(nv=g.nv, dtype=cfg.dtype)
     arrays = to_device(shards.arrays, dev)
+    if route is None and cfg.route_gather:
+        route = common.build_pull_route(cfg, shards, prog)
+    if route is not None:
+        common.check_route_mode(cfg, route)
+        route = expand.plan_to_device(route, dev)
 
     def iterate(state, n):
         pull.run_pull_fixed(prog, shards.spec, arrays, state, n, cfg.method,
-                            donate=True)
+                            route=route, donate=True)
 
     return (iterate, pull.init_state(prog, arrays),
             lambda s: shards.scatter_to_global(s.float().cpu().numpy()))
@@ -70,12 +81,15 @@ def timed_iterations(iterate, state, n: int, dev) -> float:
     return timer.stop()
 
 
-def run(argv=None) -> RunResult:
-    """The app's body: parse, load, iterate, report, check."""
+def run(argv=None, route=None) -> RunResult:
+    """The app's body: parse, load, iterate, report, check.  ``route``:
+    an already built routed plan for the same graph, as ``prepare``
+    takes it (library callers reuse one plan across runs)."""
     cfg = parse_args(argv, description=__doc__)
     dev = resolve_device(cfg.device)
+    common.resolve_route_auto(cfg)
     g = common.load_graph(cfg)
-    iterate, state, read_ranks = prepare(cfg, g, dev)
+    iterate, state, read_ranks = prepare(cfg, g, dev, route)
     elapsed = timed_iterations(iterate, state, cfg.num_iters, dev)
     ranks = read_ranks(state)
     gteps = report_elapsed(elapsed, g.ne, cfg.num_iters)
@@ -86,7 +100,7 @@ def run(argv=None) -> RunResult:
             "pagerank (fixed-point residual)",
             check_ranks(g, ranks, num_iters=cfg.num_iters, dtype=cfg.dtype))
         rc = 0 if ok else 1
-    return RunResult(rc, g, ranks, elapsed, gteps)
+    return RunResult(rc, g, ranks, elapsed, gteps, cfg.route_gather)
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,8 @@
     python -m lux_tpu_torch.apps.profile_pagerank --rmat-scale 20 --rmat-ef 16 \\
         -ni 10 --method pallas
 
-Takes the app's flags.  Times ``-ni`` iterations as the app does
+Takes the app's flags (``--route-gather`` included: its plan is built in
+set-up, before either window).  Times ``-ni`` iterations as the app does
 (``apps.pagerank.timed_iterations``), then runs ``-ni`` more under
 ``torch.profiler`` and prints one JSON line: the app's ms/iteration, the
 CUDA kernel time per iteration from the trace, the device's idle share
@@ -31,6 +32,7 @@ def main(argv=None) -> int:
     dev = resolve_device(cfg.device)
     if dev.type != "cuda":
         raise SystemExit("profile_pagerank measures the card; --device cuda")
+    common.resolve_route_auto(cfg)
     g = common.load_graph(cfg)
     iterate, state, _ = prepare(cfg, g, dev)
     n = cfg.num_iters
@@ -42,7 +44,8 @@ def main(argv=None) -> int:
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     print(json.dumps({
-        "method": cfg.method, "iters": n, "nv": g.nv, "ne": g.ne,
+        "method": cfg.method, "route_gather": cfg.route_gather, "iters": n,
+        "nv": g.nv, "ne": g.ne,
         "device": torch.cuda.get_device_name(dev),
         "ms_per_iter": wall_ms / n, "kernel_ms_per_iter": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,

@@ -12,6 +12,10 @@ Environment knobs:
   LUX_SUM_MODE         scan | mxsum | mxscan — under ``auto``, forces the
                        float-sum strategy on every platform.
   LUX_METHOD_PLATFORM  overrides the platform name used for resolution.
+  LUX_ROUTE_MODE       routed | routed-pf — what the bare --route-gather
+                       runs (default routed-pf).
+  LUX_REDUCE_MODE      group | mxreduce — the reduce of --route-gather
+                       fused-pf (default group).
 """
 from __future__ import annotations
 
@@ -73,3 +77,44 @@ def resolve_sum(method: str, reduce: str = "sum", platform: str | None = None) -
     if method == "auto" and reduce == "sum" and resolved == "scan":
         return sum_mode()
     return resolved
+
+
+#: LOAD-phase route modes: "routed" = the unfused Benes expand (one
+#: kernel per pass), "routed-pf" = the pass-fused replay (2-3 passes per
+#: kernel, ops/expand.to_pf).  Both are bitwise-identical to the direct
+#: gather, so either is always safe to follow.
+ROUTE_MODES = ("routed", "routed-pf")
+
+
+def route_mode() -> str:
+    """The routed-plan flavor the bare ``--route-gather`` runs:
+    LUX_ROUTE_MODE when set (validated), else "routed-pf" (the
+    reference's default).  The reference's chip-measured overlay entry
+    is never read here; an H100 measurement would be its own row."""
+    env = os.environ.get("LUX_ROUTE_MODE")
+    if env:
+        if env not in ROUTE_MODES:
+            raise ValueError(
+                f"LUX_ROUTE_MODE must be one of {ROUTE_MODES}, got {env!r}")
+        return env
+    return "routed-pf"
+
+
+#: REDUCE-phase modes of the fused routed loop: "group" = the plain
+#: masked group reshape-reduce (torch), "mxreduce" = the segmented
+#: reduction inside the route's final kernel (ops/shuffle
+#: .mxreduce_pass_gather).  Float sums associate differently in the two,
+#: so the default stays "group", as in the reference.
+REDUCE_MODES = ("group", "mxreduce")
+
+
+def reduce_mode() -> str:
+    """The fused-reduce flavor ``--route-gather fused-pf`` follows:
+    LUX_REDUCE_MODE when set (validated), else "group"."""
+    env = os.environ.get("LUX_REDUCE_MODE")
+    if env:
+        if env not in REDUCE_MODES:
+            raise ValueError(
+                f"LUX_REDUCE_MODE must be one of {REDUCE_MODES}, got {env!r}")
+        return env
+    return "group"

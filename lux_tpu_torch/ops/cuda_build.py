@@ -30,6 +30,10 @@ BUILD_DIR = CSRC / "build"
 SOURCES = {
     "spmv_blockcsr": "spmv_blockcsr.cu",
     "mxscan_segmented": "mxscan_segmented.cu",
+    "lane_gather": "lane_gather.cu",
+    "sublane_gather": "sublane_gather.cu",
+    "fused_pass_gather": "fused_pass_gather.cu",
+    "mxreduce_pass_gather": "mxreduce_pass_gather.cu",
 }
 
 NVCC_FLAGS = (

@@ -9,13 +9,36 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional
+
+
+def env_int(name: str, default: Optional[int] = None, *,
+            minimum: Optional[int] = None,
+            maximum: Optional[int] = None) -> Optional[int]:
+    """Parse an integer environment knob, with an error that names the
+    variable.  Unset or empty reads as ``default``; a set-but-garbage or
+    out-of-bounds value raises ValueError (a mistyped thread count must
+    fail the launch, not quietly run single-threaded)."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        val = int(raw.strip())
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}") from None
+    if minimum is not None and val < minimum:
+        raise ValueError(f"{name} must be >= {minimum}, got {val}")
+    if maximum is not None and val > maximum:
+        raise ValueError(f"{name} must be <= {maximum}, got {val}")
+    return val
+
 
 #: reference flags this package does not run yet
 NOT_PORTED = (
     "-start", "-verbose", "-v", "--max-iters", "--distributed", "--ckpt-dir",
     "--ckpt-every", "--profile-dir", "--exchange", "--edge-shards",
-    "--feat-shards", "--sort-segments", "--compact-gather", "--route-gather",
+    "--feat-shards", "--sort-segments", "--compact-gather",
     "--repartition-every", "--repartition-threshold", "--weighted", "--delta",
     "--serve", "--serve-queries", "--serve-sources", "--serve-buckets",
     "--serve-wait-ms", "--serve-timeout-ms", "--serve-max-queue", "--sources",
@@ -24,6 +47,9 @@ NOT_PORTED = (
 )
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
+
+#: --route-gather modes (the reference's); the bare flag means "auto"
+ROUTE_GATHER = ("auto", "expand", "expand-pf", "fused", "fused-pf", "fused-mx")
 
 
 @dataclasses.dataclass
@@ -36,6 +62,8 @@ class RunConfig:
     #: "pallas" runs the block-CSR SpMV kernel path
     method: str = "auto"
     dtype: str = "float32"  # state storage dtype
+    #: routed pull mode ("" = the direct gather; see ROUTE_GATHER)
+    route_gather: str = ""
     rmat_scale: int = 16  # synthetic graph size when file is None
     rmat_ef: int = 8
     seed: int = 0
@@ -53,6 +81,19 @@ def parse_args(argv=None, description: str = "") -> RunConfig:
                     help="segment-reduction strategy; auto = the measured "
                          "per-platform winner (engine.methods); pallas = "
                          "the block-CSR SpMV kernel")
+    ap.add_argument("--route-gather", nargs="?", const="auto", default="",
+                    choices=ROUTE_GATHER,
+                    help="Benes-routed pull (ops/expand.py): 'expand' "
+                         "replaces the per-edge state gather with lane "
+                         "shuffles (bitwise-identical); 'fused' also "
+                         "replaces the segmented reduce (deterministic "
+                         "group association).  The '-pf' variants run the "
+                         "pass-fused kernel (2-3 passes per kernel, same "
+                         "bits); 'fused-mx' reduces inside the route's "
+                         "last kernel; 'fused-pf' follows LUX_REDUCE_MODE "
+                         "(default group).  The bare flag means 'auto': "
+                         "expand-pf, or expand under "
+                         "LUX_ROUTE_MODE=routed.  Not with --method pallas")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"], help="state storage dtype")
     ap.add_argument("--rmat-scale", type=int, default=16)
@@ -69,6 +110,9 @@ def parse_args(argv=None, description: str = "") -> RunConfig:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if ns.num_parts != 1:
         ap.error("-ng: only one part (-ng 1) is ported to lux_tpu_torch yet")
+    if ns.route_gather and ns.method == "pallas":
+        ap.error("--route-gather does not combine with --method pallas: the "
+                 "block-CSR runner has its own gather and no routed form")
     return RunConfig(
         file=ns.file,
         num_parts=ns.num_parts,
@@ -76,6 +120,7 @@ def parse_args(argv=None, description: str = "") -> RunConfig:
         check=ns.check,
         method=ns.method,
         dtype=ns.dtype,
+        route_gather=ns.route_gather,
         rmat_scale=ns.rmat_scale,
         rmat_ef=ns.rmat_ef,
         seed=ns.seed,

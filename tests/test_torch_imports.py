@@ -1,5 +1,6 @@
 """lux_tpu_torch stands alone: importing every module of it loads neither
-jax nor any lux_tpu module, builds no kernel and starts no process."""
+jax nor any lux_tpu module, builds no kernel and no native library, and
+starts no process."""
 import json
 import os
 import subprocess
@@ -13,10 +14,12 @@ import lux_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(lux_tpu_torch.__path__, "lux_tpu_torch."))
 for n in names:
     importlib.import_module(n)
+from lux_tpu_torch import native
 from lux_tpu_torch.ops import cuda_build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "lux_tpu" or m.startswith("lux_tpu."))
-print(json.dumps({"modules": names, "bad": bad, "libs": sorted(cuda_build._libs)}))
+print(json.dumps({"modules": names, "bad": bad, "libs": sorted(cuda_build._libs),
+                  "native": native._lib is not None or native._tried}))
 """
 
 
@@ -28,6 +31,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["libs"] == []
-    assert "lux_tpu_torch.ops.scan" in res["modules"]
-    assert "lux_tpu_torch.apps.pagerank" in res["modules"]
-    assert len(res["modules"]) >= 20
+    assert res["native"] is False
+    for name in ("ops.scan", "apps.pagerank", "native", "ops.route", "ops.shuffle",
+                 "ops.expand"):
+        assert f"lux_tpu_torch.{name}" in res["modules"]
+    assert len(res["modules"]) >= 24

@@ -21,6 +21,7 @@ from lux_tpu_torch.apps import pagerank as app
 from lux_tpu_torch.engine import methods, pull
 from lux_tpu_torch.graph import generate, shards
 from lux_tpu_torch.models import pagerank as pr
+from lux_tpu_torch.ops import expand
 from lux_tpu_torch.program import library, spec
 
 ITERS = 10
@@ -166,9 +167,37 @@ def test_app_cuda_without_card_raises():
 
 @pytest.mark.parametrize("argv,msg", [
     (["-verbose"], "not ported"), (["--distributed"], "not ported"),
-    (["--route-gather", "expand"], "not ported"), (["-ng", "2"], "-ng"),
+    (["--exchange", "ring"], "not ported"), (["-ng", "2"], "-ng"),
     (["--frobnicate"], "unrecognized")])
 def test_app_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
         app.main(argv + ["--device", "cpu"])
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["expand", "expand-pf", "fused", "fused-pf", "fused-mx", None])
+def test_app_route_gather_on_cpu_with_check(mode, capsys):
+    """--route-gather through the CLI; the bare flag resolves to
+    expand-pf.  Expand modes with the same reduce are bitwise the direct
+    run; every mode is within rtol 1e-5 of the float64 oracle."""
+    argv = ["--rmat-scale", "8", "--rmat-ef", "6", "-ni", "4", "--device", "cpu",
+            "-check", "--method", "mxscan", "--route-gather"] + ([mode] if mode else [])
+    res = app.run(argv)
+    assert res.rc == 0 and "[PASS]" in capsys.readouterr().out
+    assert res.route_gather == (mode or "expand-pf")
+    want = pr.pagerank_reference(res.graph, 4)
+    np.testing.assert_allclose(res.ranks, want, rtol=1e-5)
+    if res.route_gather.startswith("expand"):
+        direct = app.run(argv[:-2] if mode else argv[:-1])
+        np.testing.assert_array_equal(res.ranks, direct.ranks)
+
+
+def test_app_route_gather_rejects_pallas_and_foreign_plans(capsys):
+    with pytest.raises(SystemExit):
+        app.main(["--route-gather", "--method", "pallas", "--device", "cpu"])
+    assert "--method pallas" in capsys.readouterr().err
+    g = generate.rmat(6, 4, seed=0)
+    plan = expand.plan_expand_shards(shards.build_pull_shards(g, 1))
+    with pytest.raises(ValueError, match="replays 'expand'"):
+        app.run(["--rmat-scale", "6", "--rmat-ef", "4", "-ni", "1", "--device", "cpu",
+                 "--route-gather", "fused"], route=plan)

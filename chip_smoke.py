@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """On-card smoke test of lux_tpu_torch: build, check and time the CUDA
-kernels, then drive single-GPU PageRank through the app, direct and
-routed.
+kernels, then drive single-GPU PageRank (direct and routed) and
+collaborative filtering through the apps.
 
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
 It takes no options: the main path is the repository's headline size,
-RMAT scale 20, edge factor 16, seed 0, 10 PageRank iterations.
+RMAT scale 20, edge factor 16, seed 0, 10 iterations; for collaborative
+filtering (K = 20) that is the rating graph bipartite_ratings(2^19, 2^19,
+2^23): 2^20 vertices, 2^24 edges.
 
 Phases, each printing one JSON line with its seconds:
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build    nvcc of the six kernel sources, all in parallel, and g++ of
+  2. build    nvcc of the seven kernel sources, all in parallel, and g++ of
               the native route colorer; seconds of each.
   3. kernels  spmv_blockcsr and mxscan_segmented against their plain
               PyTorch versions, at a small ragged shape and at the main
@@ -50,15 +52,17 @@ Phases, each printing one JSON line with its seconds:
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
-per 8 bytes moved, so its operation time is far below it).
-Then the kernel table as one JSON line, the nvidia-smi line, and the
-verdict line {"ok": true, "device": {...}} last.  Any failed phase exits
+per 4 bytes moved, so its operation time is far below it).
+Then the kernel table as one JSON line, the smoke's seconds, the
+nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
+last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -74,6 +78,17 @@ RUN_KERNEL = {"pallas": "spmv_blockcsr", "mxscan": "mxscan_segmented",
               "expand": "lane_gather", "expand-pf": "fused_pass_gather",
               "fused": "lane_gather", "fused-pf": "fused_pass_gather",
               "fused-mx": "mxreduce_pass_gather"}
+CF_K = 20  # latent features (models/colfilter.K)
+CF_ROUTED_SCALE = 18  # the routed CF runs: two expand plans each
+CF_GAMMA = 1e-3  # the accuracy runs' step (the app's 3.5e-7 barely moves)
+CF_RTOL = 1e-4  # against the f64 oracle: 10 iterations of f32 sums
+#: the kernel each CF run must have launched >= ITERS times
+CF_RUN_KERNEL = {"pallas": "spmv_blockcsr_2d", "expand-pf": "fused_pass_gather",
+                 "expand": "lane_gather"}
+
+
+#: the process pool of the f64 CF oracle, stopped on every exit path
+_POOL = None
 
 
 class PhaseFailure(Exception):
@@ -236,7 +251,7 @@ def ragged_graph(np, csc):
 
 def counters(spmv, scan, shuffle) -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    return {"spmv_blockcsr": spmv.spmv_blockcsr,
+    return {"spmv_blockcsr": spmv.spmv_blockcsr, "spmv_blockcsr_2d": spmv.spmv_blockcsr_2d,
             "mxscan_segmented": scan.mxscan_segmented, **shuffle.KERNELS}
 
 
@@ -436,6 +451,81 @@ def path_yardsticks(torch, np, expand, segment, sh, plans, dev, reps: int):
     return out
 
 
+def cf_argv(scale: int) -> list:
+    """The CF app's flags at ``scale`` (edge factor EF, seed 0, ITERS, -check)."""
+    return ["--rmat-scale", str(scale), "--rmat-ef", str(EF), "--seed", "0",
+            "-ni", str(ITERS), "-check", "--device", "cuda"]
+
+
+def cf_oracle_f64(scale: int):
+    """The float64 numpy oracle of CF (models/colfilter.colfilter_reference)
+    at gamma = CF_GAMMA on the app's rating graph of ``scale``; returns
+    (state (nv, K) float64, its RMSE, seconds).  Runs in a spawned process
+    while the card works: at scale 20 it takes minutes on the host."""
+    import numpy as np
+    from lux_tpu_torch.apps import common
+    from lux_tpu_torch.models import colfilter as cf
+    from lux_tpu_torch.utils.config import parse_args
+
+    g = common.load_graph(parse_args(cf_argv(scale)), weighted=True, bipartite=True)
+    t0 = time.perf_counter()
+    v = cf.colfilter_reference(g, ITERS, gamma=CF_GAMMA, dtype=np.float64)
+    return v, cf.rmse(g, v), time.perf_counter() - t0
+
+
+def spmv_2d_cases(torch, np, spmv, bc, dev, ks, reps: int, timed: bool):
+    """spmv_blockcsr_2d against its plain version on one block-CSR layout,
+    for each K in ``ks``, f32 and bf16 values (positive, so rtol holds);
+    off the main shape also K = 20 values 4 bytes off a 16-byte boundary
+    (the kernel's scalar path)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    e_dst = torch.from_numpy(bc.e_dst_rel).to(dev)
+    cb = torch.from_numpy(bc.chunk_block).to(dev)
+    cf = torch.from_numpy(bc.chunk_first).to(dev)
+    C, T = bc.e_dst_rel.shape
+    n = bc.num_vblocks * bc.v_blk
+    flat_dst = torch.from_numpy(np.where(
+        bc.e_dst_rel < bc.v_blk,
+        bc.chunk_block[:, None].astype(np.int64) * bc.v_blk + bc.e_dst_rel,
+        n).reshape(-1)).to(dev)
+    cases = [(k, dt, 0) for k in ks for dt in (torch.float32, torch.bfloat16)]
+    if not timed:
+        cases.append((20, torch.float32, 1))
+    rows = []
+    for k, dtype, offset in cases:
+        flat = torch.rand(C * T * k + offset, device=dev, generator=gen) + 0.01
+        vals = flat[offset:].view(C, T, k).to(dtype)
+        del flat
+
+        def kernel():
+            return spmv.spmv_blockcsr_2d(vals, e_dst, cb, cf, v_blk=bc.v_blk,
+                                         num_vblocks=bc.num_vblocks)
+
+        def plain():
+            return spmv.spmv_blockcsr_2d_plain(vals, e_dst, cb, cf, v_blk=bc.v_blk,
+                                               num_vblocks=bc.num_vblocks)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        row = {"k": k, "dtype": str(dtype).replace("torch.", ""), "shape": [C, T, k],
+               "offset_bytes": 4 * offset, "max_abs_err": compare(torch, got, want, False)}
+        del got, want
+        if timed:
+            # inputs read once (values, e_dst_rel, chunk_block), output written once
+            nbytes = C * T * (k * vals.element_size() + 4) + C * 4 + n * k * 4
+            vflat = vals.reshape(-1, k).float()
+            row.update(
+                kernel_ms=time_ms(torch, kernel, reps),
+                plain_ms=time_ms(torch, plain, max(2, reps // 4)),
+                library_ms=time_ms(torch, lambda: torch.zeros(n + 1, k, device=dev)
+                                   .index_add_(0, flat_dst, vflat), max(2, reps // 4)),
+                bound_ms=bound_ms(nbytes), bytes=nbytes)
+            del vflat
+        rows.append(row)
+        del vals
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -444,13 +534,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script only runs on the card",
               file=sys.stderr)
         return 2
+    t_smoke = time.perf_counter()
     from lux_tpu_torch import native
+    from lux_tpu_torch.apps import colfilter as cf_app
+    from lux_tpu_torch.apps import common
     from lux_tpu_torch.apps import pagerank as app
     from lux_tpu_torch.graph import csc, generate
     from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.models import colfilter as cf_model
     from lux_tpu_torch.models.pagerank import pagerank_reference
     from lux_tpu_torch.ops import cuda_build, expand, scan, segment, shuffle, spmv
     from lux_tpu_torch.ops import route as route_mod
+    from lux_tpu_torch.utils.config import parse_args
+
+    # the f64 CF oracle takes minutes on the host: start it now, beside the card
+    global _POOL
+    _POOL = multiprocessing.get_context("spawn").Pool(1)
+    cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -584,6 +684,94 @@ def main() -> int:
             require(mode == "expand-pf", f"the bare --route-gather ran {mode}")
     require(np.array_equal(ranks["fused-pf"], ranks["fused"]),
             "fused-pf ranks differ from fused")
+    del plans, ranks, ref, res, sh, g, small, small_bc
+    torch.cuda.empty_cache()
+
+    # 7. collaborative filtering's kernel against its plain version
+    t0 = time.perf_counter()
+    g_cf = common.load_graph(parse_args(cf_argv(SCALE)), weighted=True, bipartite=True)
+    bc_cf = spmv.build_blockcsr(g_cf)
+    rows_2d = (spmv_2d_cases(torch, np, spmv, spmv.build_blockcsr(ragged_graph(np, csc)), dev,
+                             (1, 3, CF_K), REPS, False)
+               + spmv_2d_cases(torch, np, spmv, bc_cf, dev, (CF_K,), REPS, True))
+    emit({"phase": "cf_kernel", "spmv_blockcsr_2d": rows_2d,
+          "graph": {"scale": SCALE, "ef": EF, "nv": g_cf.nv, "ne": g_cf.ne,
+                    "chunks": bc_cf.num_chunks, "vblocks": bc_cf.num_vblocks},
+          "seconds": time.perf_counter() - t0})
+    del bc_cf
+    torch.cuda.empty_cache()
+
+    # 8. collaborative filtering through the app: the kernel path and the
+    # engine at scale 20, the routed reads at CF_ROUTED_SCALE
+    t0 = time.perf_counter()
+    g_r = common.load_graph(parse_args(cf_argv(CF_ROUTED_SCALE)), weighted=True,
+                            bipartite=True)
+    sh_r = build_pull_shards(g_r, 1)
+    route_mod.reset_color_stats()
+    plan_e = expand.plan_cf_route_shards(sh_r)
+    t1 = time.perf_counter()
+    plan_pf = expand.to_pf(plan_e)
+    emit({"phase": "cf_plan", "scale": CF_ROUTED_SCALE, "nv": g_r.nv, "ne": g_r.ne,
+          "expand_seconds": t1 - t0, "to_pf_seconds": time.perf_counter() - t1,
+          "arrays": len(plan_e[1]), "pf_arrays": len(plan_pf[1]),
+          "colorer_calls": dict(route_mod.COLOR_STATS)})
+    del g_r, sh_r
+    states = {}
+    for scale, label, extra, route in (
+            (SCALE, "pallas", ["--method", "pallas"], None),
+            (SCALE, "scatter", ["--method", "scatter"], None),
+            (SCALE, "auto", [], None),
+            (CF_ROUTED_SCALE, "direct", [], None),
+            (CF_ROUTED_SCALE, "expand-pf", ["--route-gather", "expand-pf"], plan_pf),
+            (CF_ROUTED_SCALE, "expand", ["--route-gather", "expand"], plan_e)):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = cf_app.run(cf_argv(scale) + extra, route=route)
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        launches[f"cf-{label}"] = counts
+        states[label] = res.state
+        finite = (bool(np.isfinite(res.state).all())
+                  and res.state.shape == (res.graph.nv, CF_K))
+        emit({"phase": "cf_main", "run": label, "scale": scale, "argv": extra, "rc": res.rc,
+              "launches": counts, "finite": finite, "rmse": res.rmse,
+              "rmse_init": cf_model.init_rmse(res.graph), "gteps": res.gteps,
+              "ms_per_iter": res.seconds * 1e3 / ITERS, "seconds": res.seconds,
+              "wall_seconds": time.perf_counter() - t0, "nv": res.graph.nv,
+              "ne": res.graph.ne, "device": smi})
+        require(res.rc == 0, f"cf {label}: -check failed")
+        require(finite, f"cf {label}: state not finite or misshaped")
+        if label in CF_RUN_KERNEL:
+            name = CF_RUN_KERNEL[label]
+            require(counts[name] >= ITERS, f"cf {label}: {name} launched {counts[name]} times")
+        if route is not None:
+            require(np.array_equal(res.state, states["direct"]),
+                    f"cf {label}: state differs from the direct run at scale {scale}")
+        del res
+    del plan_e, plan_pf, states
+    torch.cuda.empty_cache()
+
+    # the libraries at gamma = CF_GAMMA against the f64 oracle
+    t0 = time.perf_counter()
+    run_2d, s0 = cf_model.make_pallas_runner(g_cf, gamma=CF_GAMMA, device=dev)
+    got = {"make_pallas_runner": run_2d(s0, ITERS)[: g_cf.nv].float().cpu().numpy()}
+    del run_2d, s0
+    torch.cuda.empty_cache()
+    got["colfilter"] = cf_model.colfilter(g_cf, ITERS, gamma=CF_GAMMA, device=dev)
+    t1 = time.perf_counter()
+    v64, rmse64, oracle_s = cf_oracle.get(timeout=1200)
+    for name, v in got.items():
+        rel = float(np.max(np.abs(v - v64) / np.abs(v64)))
+        rmse = cf_model.rmse(g_cf, v)
+        emit({"phase": "cf_accuracy", "runner": name, "gamma": CF_GAMMA, "iters": ITERS,
+              "max_rel_err_vs_f64": rel, "rmse": rmse, "rmse_init": cf_model.init_rmse(g_cf),
+              "oracle_rmse": rmse64, "oracle_seconds": oracle_s,
+              "oracle_wait_seconds": time.perf_counter() - t1,
+              "runs_seconds": t1 - t0})
+        require(bool(np.isfinite(v).all()) and v.shape == (g_cf.nv, CF_K),
+                f"{name}: state not finite or misshaped")
+        require(rel <= CF_RTOL, f"{name}: off the f64 oracle by {rel}")
+        require(rmse < cf_model.init_rmse(g_cf), f"{name}: training did not lower the RMSE")
 
     def timed(rows, op="sum", dtype="float32"):
         return next(r for r in rows if "kernel_ms" in r and r["op"] == op
@@ -601,6 +789,14 @@ def main() -> int:
                       "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": "bytes",
                       "library_ms": r["library_ms"]})
+    r = next(x for x in rows_2d if "kernel_ms" in x and x["dtype"] == "float32")
+    table.append({"name": "spmv_blockcsr_2d", "route": "cuda",
+                  "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES['spmv_blockcsr_2d']}",
+                  "replaces": "lux_tpu/ops/pallas_spmv.py:343",
+                  "launches": launches["cf-pallas"]["spmv_blockcsr_2d"],
+                  "max_abs_err": max(x["max_abs_err"] for x in rows_2d),
+                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                  "bound_by": "bytes", "library_ms": r["library_ms"]})
     for name, r, replaces in (
             ("lane_gather", rows_lane, "lux_tpu/ops/pallas_shuffle.py:89"),
             ("sublane_gather", rows_sub, "lux_tpu/ops/pallas_shuffle.py:116"),
@@ -613,6 +809,7 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": "bytes", "library_ms": r["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -626,3 +823,7 @@ if __name__ == "__main__":
     except PhaseFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        if _POOL is not None:
+            _POOL.terminate()
+            _POOL.join()

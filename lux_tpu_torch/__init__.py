@@ -2,10 +2,10 @@
 
 The module layout mirrors ``lux_tpu`` so each counterpart is easy to find:
 ``graph`` (host CSC graph, RMAT, ``.lux`` files, padded pull shards),
-``ops`` (segmented reductions, with the block-CSR SpMV and the segmented
-scan as hand-written CUDA kernels under ``csrc/``), ``program`` (the
+``ops`` (segmented reductions, the block-CSR SpMVs and the routed pull,
+with their hand-written CUDA kernels under ``csrc/``), ``program`` (the
 declarative vertex-program language), ``engine`` (the pull engine),
-``models`` (PageRank) and ``apps`` (the CLI).
+``models`` (PageRank, collaborative filtering) and ``apps`` (the CLIs).
 
 Host-side graph code is numpy; device code is torch.  Entry points take
 an explicit ``device`` and default to ``"cuda"``; they run on the CPU

@@ -1,35 +1,92 @@
-"""Shared app-driver scaffolding: load graph, routed-pull planning,
-report, check verdict."""
+"""Shared app-driver scaffolding: load graph, pull-engine set-up,
+routed-pull planning, the timed window, report, check verdict."""
 from __future__ import annotations
 
 import logging
 
 import numpy as np
 
-from lux_tpu_torch.engine import methods
+from lux_tpu_torch.engine import methods, pull
 from lux_tpu_torch.graph import generate
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.format import read_lux
-from lux_tpu_torch.ops import expand
+from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+from lux_tpu_torch.ops import cuda_build, expand
 from lux_tpu_torch.ops import shuffle as shuf
 from lux_tpu_torch.utils.config import RunConfig
+from lux_tpu_torch.utils.timing import Timer
 
 log = logging.getLogger("lux_tpu_torch")
 
 
-def load_graph(cfg: RunConfig) -> HostGraph:
-    """The ``-file`` graph, else the synthetic RMAT of --rmat-scale /
-    --rmat-ef / --seed."""
+def load_graph(cfg: RunConfig, weighted: bool = False,
+               bipartite: bool = False) -> HostGraph:
+    """The ``-file`` graph, else a synthetic one from --rmat-scale /
+    --rmat-ef / --seed: RMAT, or with ``bipartite`` the rating graph of
+    collaborative filtering (2^scale vertices, half users and half
+    items, 2^scale * ef / 2 ratings, each an edge both ways).
+    ``weighted`` requires edge weights of a file, and gives RMAT some."""
     if cfg.file:
         try:
             g = read_lux(cfg.file)
         except (OSError, ValueError) as e:
             raise SystemExit(f"cannot read {cfg.file}: {e}")
+        if weighted and not g.weighted:
+            raise SystemExit(f"{cfg.file} has no edge weights")
         log.info("loaded %s: nv=%d ne=%d", cfg.file, g.nv, g.ne)
         return g
-    g = generate.rmat(cfg.rmat_scale, cfg.rmat_ef, seed=cfg.seed)
+    if bipartite:
+        n_half = (1 << cfg.rmat_scale) // 2
+        g = generate.bipartite_ratings(
+            n_half, n_half, (1 << cfg.rmat_scale) * cfg.rmat_ef // 2, seed=cfg.seed)
+    else:
+        g = generate.rmat(cfg.rmat_scale, cfg.rmat_ef, seed=cfg.seed,
+                          weighted=weighted)
     log.info("synthetic graph: nv=%d ne=%d", g.nv, g.ne)
     return g
+
+
+def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None):
+    """An app's set-up for a ``-ni`` run on ``dev``: ``--method pallas``
+    builds ``pallas_runner(g, dtype=, device=)`` (the model's block-CSR
+    kernel path), any other method the pull engine running ``prog``.
+    Returns (iterate, state, read): ``iterate(state, n)`` runs n
+    iterations in place on ``state``, ``read(state)`` brings the (nv,
+    ...) state to the host as float32.  With ``cfg.route_gather`` the
+    routed plan is built here (set-up, like the kernel build), unless the
+    caller hands in ``route``, a plan it built for the same graph with
+    ops/expand or :func:`build_pull_route`."""
+    if dev.type == "cuda":
+        cuda_build.load_all()  # building and loading are set-up, not iterations
+    if cfg.method == "pallas":
+        run, state = pallas_runner(g, dtype=cfg.dtype, device=dev)
+        return run, state, lambda s: s[: g.nv].float().cpu().numpy()
+    shards = build_pull_shards(g, cfg.num_parts)
+    arrays = to_device(shards.arrays, dev)
+    if route is None and cfg.route_gather:
+        route = build_pull_route(cfg, shards, prog)
+    if route is not None:
+        check_route_mode(cfg, route)
+        route = expand.plan_to_device(route, dev)
+
+    def iterate(state, n):
+        pull.run_pull_fixed(prog, shards.spec, arrays, state, n, cfg.method,
+                            route=route, donate=True)
+
+    return (iterate, pull.init_state(prog, arrays),
+            lambda s: shards.scatter_to_global(s.float().cpu().numpy()))
+
+
+def timed_iterations(iterate, state, n: int, dev) -> float:
+    """Seconds of ``n`` iterations in place on ``state``, device-fenced:
+    the apps' one definition of the iteration time.  The same ``n``
+    iterations run first on a copy of the state, untimed, so first-launch
+    costs (kernel module loading, allocator growth, the card's clocks
+    rising from idle) stay out of it."""
+    iterate(state.clone(), n)
+    timer = Timer(dev)
+    iterate(state, n)
+    return timer.stop()
 
 
 def print_check(name: str, violations: int) -> bool:
@@ -80,27 +137,34 @@ def resolve_route_auto(cfg) -> None:
 def build_pull_route(cfg: RunConfig, shards, prog):
     """ONE --route-gather plan construction for a pull-layout run (host
     set-up: call it OUTSIDE the timed window): the fused plans for the
-    'fused*' modes, the expand plan otherwise; '' = None.  Returns the
-    (static, numpy arrays) plan."""
+    'fused*' modes, the CF per-column src + dst plan for wide programs,
+    the expand plan otherwise; '' = None.  Returns the (static, numpy
+    arrays) plan."""
     rg = cfg.route_gather
     if not rg:
         return None
     resolve_route_auto(cfg)
     rg = cfg.route_gather
-    if getattr(prog, "k", 1) > 1:
-        raise SystemExit(
-            "--route-gather supports scalar vertex state; the per-column "
-            "routes of wide programs are not ported yet")
     pf = route_is_pf(rg)
+    wide = getattr(prog, "k", 1) > 1
     if route_base(rg) == "fused":
+        if wide:
+            raise SystemExit(
+                "--route-gather fused supports scalar vertex state; "
+                "wide dst-dependent programs route with "
+                "--route-gather expand (per-column src + dst plans)")
         return expand.plan_fused_shards(shards, prog.reduce, pf=pf,
                                         mx=route_mx(rg))
+    if wide:
+        return expand.plan_cf_route_shards(shards, pf=pf)
     return expand.plan_expand_shards(shards, pf=pf)
 
 
 def route_mode_of(plan) -> str:
     """The --route-gather mode a built plan replays."""
     static = plan[0]
+    if isinstance(static, expand.CFRouteStatic):
+        static = static.src
     pf = isinstance(static.r1, shuf.StaticRoutePF)
     if isinstance(static, expand.FusedStatic):
         if static.mx is not None:

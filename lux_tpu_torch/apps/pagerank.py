@@ -18,15 +18,13 @@ import sys
 import numpy as np
 
 from lux_tpu_torch.apps import common
-from lux_tpu_torch.engine import pull
+from lux_tpu_torch.apps.common import timed_iterations
 from lux_tpu_torch.graph.csc import HostGraph
-from lux_tpu_torch.graph.shards import build_pull_shards, to_device
 from lux_tpu_torch.models.pagerank import (PageRankProgram, check_ranks,
                                            make_pallas_runner)
-from lux_tpu_torch.ops import cuda_build, expand
 from lux_tpu_torch.utils.config import parse_args
 from lux_tpu_torch.utils.device import resolve_device
-from lux_tpu_torch.utils.timing import Timer, report_elapsed
+from lux_tpu_torch.utils.timing import report_elapsed
 
 
 @dataclasses.dataclass
@@ -40,45 +38,11 @@ class RunResult:
 
 
 def prepare(cfg, g, dev, route=None):
-    """Set up the method's layout and state on ``dev``; returns
-    (iterate, state, ranks): ``iterate(state, n)`` runs n iterations in
-    place on ``state``, ``ranks(state)`` reads the (nv,) pre-divided
-    ranks to the host.  With ``cfg.route_gather`` the routed plan is
-    built here (set-up, like the kernel build), unless the caller hands
-    in ``route``, a plan it built for the same graph (and ``-ng``) with
-    ops/expand or apps/common.build_pull_route."""
-    if dev.type == "cuda":
-        cuda_build.load_all()  # building and loading are set-up, not iterations
-    if cfg.method == "pallas":
-        run_blockcsr, state = make_pallas_runner(g, dtype=cfg.dtype, device=dev)
-        return run_blockcsr, state, lambda s: s[: g.nv].float().cpu().numpy()
-    shards = build_pull_shards(g, cfg.num_parts)
-    prog = PageRankProgram(nv=g.nv, dtype=cfg.dtype)
-    arrays = to_device(shards.arrays, dev)
-    if route is None and cfg.route_gather:
-        route = common.build_pull_route(cfg, shards, prog)
-    if route is not None:
-        common.check_route_mode(cfg, route)
-        route = expand.plan_to_device(route, dev)
-
-    def iterate(state, n):
-        pull.run_pull_fixed(prog, shards.spec, arrays, state, n, cfg.method,
-                            route=route, donate=True)
-
-    return (iterate, pull.init_state(prog, arrays),
-            lambda s: shards.scatter_to_global(s.float().cpu().numpy()))
-
-
-def timed_iterations(iterate, state, n: int, dev) -> float:
-    """Seconds of ``n`` iterations in place on ``state``, device-fenced:
-    the app's one definition of the iteration time.  The same ``n``
-    iterations run first on a copy of the state, untimed, so first-launch
-    costs (kernel module loading, allocator growth, the card's clocks
-    rising from idle) stay out of it."""
-    iterate(state.clone(), n)
-    timer = Timer(dev)
-    iterate(state, n)
-    return timer.stop()
+    """Set up the method's layout and state on ``dev`` (apps/common.prepare);
+    returns (iterate, state, ranks), ``ranks(state)`` reading the (nv,)
+    pre-divided ranks to the host."""
+    return common.prepare(cfg, g, dev, PageRankProgram(nv=g.nv, dtype=cfg.dtype),
+                          make_pallas_runner, route)
 
 
 def run(argv=None, route=None) -> RunResult:

@@ -1,11 +1,13 @@
-"""Device-time breakdown of PageRank iterations on the card.
+"""Device-time breakdown of PageRank or collaborative-filtering iterations
+on the card.
 
     python -m lux_tpu_torch.apps.profile_pagerank --rmat-scale 20 --rmat-ef 16 \\
-        -ni 10 --method pallas
+        -ni 10 --method pallas [--app colfilter]
 
 Takes the app's flags (``--route-gather`` included: its plan is built in
-set-up, before either window).  Times ``-ni`` iterations as the app does
-(``apps.pagerank.timed_iterations``), then runs ``-ni`` more under
+set-up, before either window) and ``--app pagerank|colfilter`` (default
+pagerank).  Times ``-ni`` iterations as the apps do
+(``apps.common.timed_iterations``), then runs ``-ni`` more under
 ``torch.profiler`` and prints one JSON line: the app's ms/iteration, the
 CUDA kernel time per iteration from the trace, the device's idle share
 (1 - traced kernel time / the app's unprofiled wall time of an equal
@@ -14,6 +16,7 @@ not used), and the kernels by total device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 
@@ -21,22 +24,28 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from lux_tpu_torch.apps import common
-from lux_tpu_torch.apps.pagerank import prepare, timed_iterations
+from lux_tpu_torch.apps import colfilter, common, pagerank
 from lux_tpu_torch.utils.config import parse_args
 from lux_tpu_torch.utils.device import resolve_device
 
+#: --app -> (its set-up, whether its graph is the weighted rating graph)
+APPS = {"pagerank": (pagerank.prepare, False), "colfilter": (colfilter.prepare, True)}
+
 
 def main(argv=None) -> int:
-    cfg = parse_args(argv, description=__doc__)
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--app", default="pagerank", choices=sorted(APPS))
+    ns, rest = ap.parse_known_args(argv)
+    cfg = parse_args(rest, description=__doc__)
     dev = resolve_device(cfg.device)
     if dev.type != "cuda":
         raise SystemExit("profile_pagerank measures the card; --device cuda")
+    prepare, rating = APPS[ns.app]
     common.resolve_route_auto(cfg)
-    g = common.load_graph(cfg)
+    g = common.load_graph(cfg, weighted=rating, bipartite=rating)
     iterate, state, _ = prepare(cfg, g, dev)
     n = cfg.num_iters
-    wall_ms = timed_iterations(iterate, state, n, dev) * 1e3
+    wall_ms = common.timed_iterations(iterate, state, n, dev) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         iterate(state, n)
         torch.cuda.synchronize(dev)
@@ -44,8 +53,8 @@ def main(argv=None) -> int:
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     print(json.dumps({
-        "method": cfg.method, "route_gather": cfg.route_gather, "iters": n,
-        "nv": g.nv, "ne": g.ne,
+        "app": ns.app, "method": cfg.method, "route_gather": cfg.route_gather,
+        "iters": n, "nv": g.nv, "ne": g.ne,
         "device": torch.cuda.get_device_name(dev),
         "ms_per_iter": wall_ms / n, "kernel_ms_per_iter": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,

@@ -55,8 +55,8 @@ def _route_static_types() -> dict:
     from lux_tpu_torch.ops import expand, shuffle
 
     return {cls.__name__: cls for cls in (
-        expand.ExpandStatic, expand.FusedStatic, expand.FFStatic,
-        expand.FFLevelStatic, shuffle.StaticRoute, shuffle.StaticPass,
+        expand.ExpandStatic, expand.FusedStatic, expand.CFRouteStatic,
+        expand.FFStatic, expand.FFLevelStatic, shuffle.StaticRoute, shuffle.StaticPass,
         shuffle.StaticRoutePF, shuffle.StaticGroup, shuffle.StaticStep,
         shuffle.StaticMXGroup)}
 
@@ -74,8 +74,7 @@ def _port_static(x, types: dict):
     cls = types.get(name)
     if cls is None:
         raise TypeError(f"plan static node {name!r} has no counterpart in "
-                        "lux_tpu_torch (the CF and bucket routes are not "
-                        "ported)")
+                        "lux_tpu_torch (the bucket routes are not ported)")
     mine = {f.name for f in dataclasses.fields(cls)}
     if set(fields) != mine:
         raise ValueError(f"{name}: fields {sorted(fields)} differ from the "

@@ -61,3 +61,43 @@ template <> __device__ __forceinline__ int32_t load_as<int32_t, int32_t>(const i
 template <> __device__ __forceinline__ uint32_t load_as<uint32_t, int32_t>(const int32_t* p) {
   return static_cast<uint32_t>(*p);
 }
+
+// The first index of the sorted a[0, n) whose value is >= key.
+__device__ __forceinline__ int lower_bound_i32(const int32_t* a, int n, int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (a[m] < key) lo = m + 1; else hi = m;
+  }
+  return lo;
+}
+
+// The slot range [span[0], span[1]) of vertex block b in a block-CSR layout
+// (ops/spmv.build_blockcsr): a block's chunks are contiguous and
+// chunk_block is sorted, so two binary searches find them.  Threads 0 and
+// 32 search; every thread of the CTA must call it (it ends in a barrier).
+__device__ __forceinline__ void blockcsr_span(const int32_t* chunk_block, int num_chunks,
+                                              int t_chunk, int b, long long* span) {
+  if (threadIdx.x == 0)
+    span[0] = (long long)lower_bound_i32(chunk_block, num_chunks, b) * t_chunk;
+  if (threadIdx.x == 32)
+    span[1] = (long long)lower_bound_i32(chunk_block, num_chunks, b + 1) * t_chunk;
+  __syncthreads();
+}
+
+// The boundary table of one vertex block from its len slots' destination
+// ids d (sorted; padding == v_blk only at the tail): seg[v] = the first slot
+// whose destination is >= v, for v in [0, v_blk + 1], so vertex v owns
+// slots [seg[v], seg[v + 1]) and padding is never inside one.  Slot i opens
+// vertices prev+1 .. cur, prev being its predecessor's destination; a
+// virtual slot at len with destination v_blk + 1 closes every vertex the
+// real slots did not reach.  Every thread of the CTA must call it (it ends
+// in a barrier).
+__device__ __forceinline__ void blockcsr_segments(const int32_t* d, int len, int v_blk, int* seg) {
+  for (int i = threadIdx.x; i <= len; i += blockDim.x) {
+    const int cur = i < len ? min(max(d[i], 0), v_blk) : v_blk + 1;
+    const int prev = i > 0 ? min(max(d[i - 1], 0), v_blk) : -1;
+    for (int v = prev + 1; v <= cur; ++v) seg[v] = i;
+  }
+  __syncthreads();
+}

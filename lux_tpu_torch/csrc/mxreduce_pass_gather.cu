@@ -47,15 +47,6 @@ constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ int padix(int p) { return p + (p >> 5); }
 
-__device__ __forceinline__ int lower_bound_i32(const int32_t* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int m = (lo + hi) >> 1;
-    if (a[m] < key) lo = m + 1; else hi = m;
-  }
-  return lo;
-}
-
 // Runs of equal rank seen in order: the first run (kept, it may continue a
 // run that began before), the open last run, and everything in between
 // combined into acc as it closes.

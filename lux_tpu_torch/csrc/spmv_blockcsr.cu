@@ -37,15 +37,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ int lower_bound_i32(const int32_t* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int m = (lo + hi) >> 1;
-    if (a[m] < key) lo = m + 1; else hi = m;
-  }
-  return lo;
-}
-
 template <typename TIn, typename TAcc, int OP>
 __global__ void __launch_bounds__(kThreads)
 spmv_blockcsr_kernel(const TIn* __restrict__ vals, const int32_t* __restrict__ dst_rel,
@@ -55,23 +46,10 @@ spmv_blockcsr_kernel(const TIn* __restrict__ vals, const int32_t* __restrict__ d
   extern __shared__ int seg[];  // v_blk + 2 slot offsets, relative to the span
   __shared__ long long span[2];
   const int b = blockIdx.x;
-  if (threadIdx.x == 0)
-    span[0] = (long long)lower_bound_i32(chunk_block, num_chunks, b) * t_chunk;
-  if (threadIdx.x == 32)
-    span[1] = (long long)lower_bound_i32(chunk_block, num_chunks, b + 1) * t_chunk;
-  __syncthreads();
+  blockcsr_span(chunk_block, num_chunks, t_chunk, b, span);
   const long long lo = span[0];
   const int len = (int)(span[1] - lo);
-  const int32_t* d = dst_rel + lo;
-  // Slot i opens vertices prev+1 .. cur, where prev is its predecessor's
-  // destination.  A virtual slot at len with destination v_blk + 1 closes
-  // every vertex the block's real edges did not reach.
-  for (int i = threadIdx.x; i <= len; i += blockDim.x) {
-    const int cur = i < len ? min(max(d[i], 0), v_blk) : v_blk + 1;
-    const int prev = i > 0 ? min(max(d[i - 1], 0), v_blk) : -1;
-    for (int v = prev + 1; v <= cur; ++v) seg[v] = i;
-  }
-  __syncthreads();
+  blockcsr_segments(dst_rel + lo, len, v_blk, seg);
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const TIn* x = vals + lo;

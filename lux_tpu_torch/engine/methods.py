@@ -16,6 +16,8 @@ Environment knobs:
                        runs (default routed-pf).
   LUX_REDUCE_MODE      group | mxreduce — the reduce of --route-gather
                        fused-pf (default group).
+  LUX_CF_ERR_DOT       vpu | mxu — the collaborative-filtering error-dot
+                       (default vpu).
 """
 from __future__ import annotations
 
@@ -118,3 +120,23 @@ def reduce_mode() -> str:
                 f"LUX_REDUCE_MODE must be one of {REDUCE_MODES}, got {env!r}")
         return env
     return "group"
+
+
+#: CF error-dot flavors (models/colfilter.err_dot): "vpu" = the elementwise
+#: multiply + a sum over the K lanes, "mxu" = the K-contraction as a
+#: (rows, K) @ (K, 1) f32 matmul.  Both are exact per term; only the f32
+#: association of the K-sum differs.
+CF_DOT_MODES = ("vpu", "mxu")
+
+
+def cf_err_dot_mode() -> str:
+    """The CF error-dot flavor the drivers run: LUX_CF_ERR_DOT when set
+    (validated), else "vpu".  The port has measured no winner on the card
+    yet, and the reference's chip-measured overlay entry is never read."""
+    env = os.environ.get("LUX_CF_ERR_DOT")
+    if env:
+        if env not in CF_DOT_MODES:
+            raise ValueError(
+                f"LUX_CF_ERR_DOT must be one of {CF_DOT_MODES}, got {env!r}")
+        return env
+    return "vpu"

@@ -18,7 +18,9 @@ loop too, so each iteration launches its kernels eagerly.
 ``route=`` switches to the routed pull (ops/expand.py): an
 (ExpandStatic, arrays) plan replaces the LOAD phase's gather with the
 routed expand (bitwise equal), a (FusedStatic, arrays) plan replaces
-load AND reduce.  Route arrays are stacked per part, (P, ...).
+load AND reduce, and a (CFRouteStatic, arrays) plan routes both reads of
+a wide destination-dependent program.  Route arrays are stacked per
+part, (P, ...).
 """
 from __future__ import annotations
 
@@ -115,7 +117,12 @@ def local_pull_step(prog: PullProgram, arrays: ShardArrays,
     phase to the routed expand; (FusedStatic, arrays) replaces BOTH the
     load and the segmented reduce with the fused routed pipeline
     (ops/expand.apply_fused — destination-state-independent programs
-    only)."""
+    only); (CFRouteStatic, arrays) routes the source and destination reads
+    of a wide (V, K) state column by column (ops/expand.apply_cf_route)."""
+    if route is not None and isinstance(route[0], expand.CFRouteStatic):
+        gath = expand.apply_cf_route(full_state, local_state, route[0], route[1])
+        acc = pull_reduce_part(prog, arrays, gath, method)
+        return prog.apply(local_state, acc, arrays)
     if route is not None and isinstance(route[0], expand.FusedStatic):
         assert route[0].reduce == prog.reduce, (
             f"fused plan was built for reduce={route[0].reduce!r} but the "

@@ -1,7 +1,8 @@
 """Synthetic graph generator for tests and benchmarks.
 
-Stays numpy with the same RNG sequence as ``lux_tpu.graph.generate.rmat``,
-so the same seed gives byte-identical graphs in both packages.
+Stays numpy with the same RNG sequences as ``lux_tpu.graph.generate``'s
+``rmat`` and ``bipartite_ratings``, so the same arguments give
+byte-identical graphs in both packages.
 """
 from __future__ import annotations
 
@@ -44,3 +45,21 @@ def rmat(
     w = (rng.integers(1, max_weight + 1, size=ne).astype(np.int32)
          if weighted else None)
     return from_edge_list(src, dst, nv, weights=w)
+
+
+def bipartite_ratings(
+    n_users: int, n_items: int, n_ratings: int, seed: int = 0, max_rating: int = 5
+) -> HostGraph:
+    """Weighted bipartite rating graph with every rating as an edge in BOTH
+    directions (user -> item and item -> user), so that collaborative
+    filtering, which updates destinations only, trains both sides.  Users
+    are vertices [0, n_users), items [n_users, n_users + n_items); ratings
+    are uniform in [1, max_rating]."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, n_users, size=n_ratings)
+    items = rng.integers(0, n_items, size=n_ratings) + n_users
+    ratings = rng.integers(1, max_rating + 1, size=n_ratings).astype(np.int32)
+    src = np.concatenate([users, items])
+    dst = np.concatenate([items, users])
+    w = np.concatenate([ratings, ratings])
+    return from_edge_list(src, dst, n_users + n_items, weights=w)

@@ -29,6 +29,7 @@ BUILD_DIR = CSRC / "build"
 #: kernel name -> its source under csrc/
 SOURCES = {
     "spmv_blockcsr": "spmv_blockcsr.cu",
+    "spmv_blockcsr_2d": "spmv_blockcsr_2d.cu",
     "mxscan_segmented": "mxscan_segmented.cu",
     "lane_gather": "lane_gather.cu",
     "sublane_gather": "sublane_gather.cu",

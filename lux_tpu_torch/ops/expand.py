@@ -29,7 +29,8 @@ at N = 2^24), fill_forward about one.  The PASS-FUSED form (``to_pf`` /
 ``pf=True``) chains 2-3 passes per kernel with the tile held in shared
 memory; the FUSED plan (``plan_fused``) also replaces the segmented reduce
 with a group layout, and its MXREDUCE form (``mx=True``) reduces inside
-the route's last kernel.
+the route's last kernel.  The CF plan (``plan_cf_route_shards``) routes a
+wide (V, K) state's source AND destination reads, one column at a time.
 
 On the H100 the direct gather is a native ``index_select``; whether
 routing pays there is a measurement (PERF.md), not an assumption.
@@ -434,13 +435,18 @@ def _to_pf_one(static, arrays, knobs=(None, None, None)):
         return (dataclasses.replace(static, r1=r1s, r2=r2s, vr=vrs),
                 tuple(r1n) + tuple(ffa) + tuple(r2n) + (gmask,) + warr
                 + (gslot,) + tuple(vrn))
+    if isinstance(static, CFRouteStatic):
+        n_src = _num_expand_arrays(static.src)
+        s_src, a_src = _to_pf_one(static.src, arrays[:n_src], knobs)
+        s_dst, a_dst = _to_pf_one(static.dst, arrays[n_src:], knobs)
+        return CFRouteStatic(src=s_src, dst=s_dst), tuple(a_src) + tuple(a_dst)
     raise TypeError(f"to_pf: unsupported plan static {type(static)}")
 
 
 def to_pf(plan, max_block=None, max_group=None, smem_bytes=None):
     """Upgrade a routed plan to the PASS-FUSED replay (``routed-pf``):
-    every Benes route inside the plan (expand r1/r2, fused r1/r2/vr) is
-    regrouped so 2-3 consecutive permutation passes run in ONE kernel
+    every Benes route inside the plan (expand r1/r2, fused r1/r2/vr, CF
+    src/dst) is regrouped so 2-3 consecutive permutation passes run in ONE kernel
     with intermediates in shared memory (ops/shuffle.pf_from_frozen) —
     fewer device-memory sweeps per iteration, bitwise-identical replay
     (the same per-pass permutations move the same bits; the
@@ -971,6 +977,61 @@ def plan_expand_shards(shards, pf: bool = False):
     plan = _stack_parts(shards.arrays.src_pos.shape[0],
                         lambda i: _expand_plan_one(shards, i))
     return to_pf(plan) if pf else plan
+
+
+# ---------------------------------------------------------------------------
+# the routed load of wide (V, K) destination-dependent programs (CF)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CFRouteStatic:
+    """Routed load for WIDE (V, K) programs that read the destination's
+    state per edge (collaborative filtering): the source gather routes
+    per feature column through ``src``, and the destination-state read
+    ``local_state[dst_local]``, also a gather of sorted runs, through
+    ``dst`` (an expand plan over the part's local state)."""
+
+    src: ExpandStatic
+    dst: ExpandStatic
+
+
+def _cf_plan_one(shards, i: int):
+    """ONE part's CF route plan."""
+    arrays = shards.arrays
+    v_pad = arrays.row_ptr.shape[1] - 1
+    m = int(np.count_nonzero(arrays.edge_mask[i]))
+    s_src, a_src = plan_expand(np.asarray(arrays.src_pos[i]), m,
+                               shards.spec.gathered_size)
+    s_dst, a_dst = plan_expand(np.asarray(arrays.dst_local[i]), m, v_pad)
+    return CFRouteStatic(src=s_src, dst=s_dst), tuple(a_src) + tuple(a_dst)
+
+
+def plan_cf_route_shards(shards, pf: bool = False):
+    """(CFRouteStatic, stacked arrays) for the wide destination-dependent
+    pull: the src plan's arrays, then the dst plan's (split by the
+    statics' array counts).  ``pf=True``: both sub-plans pass-fused."""
+    plan = _stack_parts(shards.arrays.src_pos.shape[0],
+                        lambda i: _cf_plan_one(shards, i))
+    return to_pf(plan) if pf else plan
+
+
+def apply_cf_route(full_state: torch.Tensor, local_state: torch.Tensor,
+                   static: CFRouteStatic, arrays):
+    """(src_state (e_pad, K), dst_state (e_pad, K)) through routed expands,
+    one feature column at a time (each column made contiguous, then
+    replayed as 1-D state); on real edge slots bitwise equal to the
+    direct gathers ``full_state[src_pos]`` and ``local_state[dst_local]``."""
+    n_src = _num_expand_arrays(static.src)
+    a_src, a_dst = arrays[:n_src], arrays[n_src:]
+
+    def columns(state, st, arr):
+        return torch.stack([apply_expand(state[:, c].contiguous(), st, arr)
+                            for c in range(state.shape[1])], dim=1)
+
+    return (columns(full_state, static.src, a_src),
+            columns(local_state, static.dst, a_dst))
+
 
 def plan_to_device(plan, device):
     """A (static, arrays) plan with its arrays — numpy or tensors — as

@@ -5,12 +5,14 @@ host into the static block-CSR form: each VERTEX block of ``v_blk``
 vertices owns a contiguous run of ``t_chunk``-edge chunks, its edges
 sorted by destination, padded at the tail of its last chunk with the
 sentinel ``e_dst_rel == v_blk``.  :func:`spmv_blockcsr` reduces the
-per-edge values of each block into its vertices.
+per-edge values of each block into its vertices; :func:`spmv_blockcsr_2d`
+sums K-wide per-edge rows (collaborative filtering's accumulation).
 
-On a CUDA tensor it launches the hand-written kernel
-(``csrc/spmv_blockcsr.cu``, one CTA per vertex block); on a CPU tensor it
-runs :func:`spmv_blockcsr_plain`, the plain PyTorch version of the same
-function.  ``spmv_blockcsr.launches`` counts kernel launches.
+On a CUDA tensor each launches its hand-written kernel
+(``csrc/spmv_blockcsr.cu``, ``csrc/spmv_blockcsr_2d.cu``, one CTA per
+vertex block); on a CPU tensor it runs its plain PyTorch version
+(``*_plain``).  ``spmv_blockcsr.launches`` and
+``spmv_blockcsr_2d.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -140,6 +142,13 @@ def _out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if op == "sum" else dtype
 
 
+def _flat_dst(e_dst_rel, chunk_block, v_blk: int, n: int) -> torch.Tensor:
+    """(C*T,) global vertex of every slot; padding slots get the dump
+    index ``n``."""
+    dst = chunk_block.long()[:, None] * v_blk + e_dst_rel.long()
+    return torch.where(e_dst_rel < v_blk, dst, n).reshape(-1)
+
+
 def spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
                         op: str = "sum", v_blk: int = V_BLK,
                         num_vblocks: int = 0) -> torch.Tensor:
@@ -148,8 +157,7 @@ def spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
     cut off).  Sums accumulate in f32; min/max keep the dtype."""
     del chunk_first  # block starts are implied by chunk_block
     n = num_vblocks * v_blk
-    dst = chunk_block.long()[:, None] * v_blk + e_dst_rel.long()
-    dst = torch.where(e_dst_rel < v_blk, dst, n).reshape(-1)
+    dst = _flat_dst(e_dst_rel, chunk_block, v_blk, n)
     dtype = _out_dtype(op, edge_vals.dtype)
     vals = edge_vals.reshape(-1).to(dtype)
     out = torch.full((n + 1,), reduce_neutral(op, dtype), dtype=dtype,
@@ -234,3 +242,83 @@ def spmv_blockcsr(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
 
 
 spmv_blockcsr.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the 2-D variant: K-wide per-slot values (collaborative filtering)
+# ---------------------------------------------------------------------------
+
+
+def spmv_blockcsr_2d_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
+                           v_blk: int = V_BLK, num_vblocks: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`spmv_blockcsr_2d`: an ``index_add_``
+    of the flattened (C*T, K) rows, widened to f32, into an (n + 1, K)
+    buffer whose dump row takes the padding and is cut off."""
+    del chunk_first  # block starts are implied by chunk_block
+    n = num_vblocks * v_blk
+    k = edge_vals.shape[-1]
+    out = torch.zeros((n + 1, k), dtype=torch.float32, device=edge_vals.device)
+    out.index_add_(0, _flat_dst(e_dst_rel, chunk_block, v_blk, n),
+                   edge_vals.reshape(-1, k).to(torch.float32))
+    return out[:n]
+
+
+def _fn2d():
+    """The kernel's C entry point, typed (the library is built, loaded and
+    cached by cuda_build.load under its lock; retyping is idempotent)."""
+    fn = cuda_build.load("spmv_blockcsr_2d").lux_spmv_blockcsr_2d
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    fn.restype = ci
+    return fn
+
+
+def spmv_blockcsr_2d(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
+                     chunk_block: torch.Tensor, chunk_first: torch.Tensor,
+                     v_blk: int = V_BLK, num_vblocks: int = 0) -> torch.Tensor:
+    """Segmented SUM of (C, T, K) per-slot values by destination ->
+    (num_vblocks * v_blk, K) f32.  Values are f32 or bf16 and accumulate
+    in f32; padding slots (``e_dst_rel == v_blk``) are skipped by their
+    index; vertices with no edge get 0.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (``csrc/spmv_blockcsr_2d.cu``),
+    counted by ``spmv_blockcsr_2d.launches``."""
+    if not num_vblocks:
+        raise ValueError("num_vblocks is required (use BlockCSR.num_vblocks)")
+    if edge_vals.dim() != 3 or e_dst_rel.shape != edge_vals.shape[:2]:
+        raise ValueError(
+            f"edge_vals {tuple(edge_vals.shape)} must be (C, T, K) over the "
+            f"(C, T) e_dst_rel {tuple(e_dst_rel.shape)}")
+    num_chunks = edge_vals.shape[0]
+    for name, t in (("chunk_block", chunk_block), ("chunk_first", chunk_first)):
+        if t.shape != (num_chunks,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 of shape ({num_chunks},)")
+    if e_dst_rel.dtype != torch.int32:
+        raise ValueError("e_dst_rel must be int32")
+    if edge_vals.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"spmv_blockcsr_2d takes float32 or bfloat16 values, "
+                        f"got {edge_vals.dtype}")
+    devices = {t.device for t in (edge_vals, e_dst_rel, chunk_block, chunk_first)}
+    if len(devices) != 1:
+        raise ValueError(f"spmv_blockcsr_2d inputs span devices {devices}")
+    if edge_vals.device.type == "cpu":
+        return spmv_blockcsr_2d_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
+                                      v_blk, num_vblocks)
+    if edge_vals.device.type != "cuda":
+        raise ValueError(f"spmv_blockcsr_2d runs on cpu or cuda, not {edge_vals.device}")
+    if not all(t.is_contiguous() for t in (edge_vals, e_dst_rel, chunk_block)):
+        raise ValueError("spmv_blockcsr_2d needs contiguous inputs")
+    k = edge_vals.shape[2]
+    out = torch.empty((num_vblocks * v_blk, k), dtype=torch.float32,
+                      device=edge_vals.device)
+    with torch.cuda.device(edge_vals.device):
+        rc = _fn2d()(
+            edge_vals.data_ptr(), _KIND[edge_vals.dtype], e_dst_rel.data_ptr(),
+            chunk_block.data_ptr(), num_chunks, edge_vals.shape[1], v_blk,
+            num_vblocks, k, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"spmv_blockcsr_2d kernel launch failed: CUDA error {rc}")
+    spmv_blockcsr_2d.launches += 1
+    return out
+
+
+spmv_blockcsr_2d.launches = 0

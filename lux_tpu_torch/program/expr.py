@@ -148,9 +148,12 @@ def _popcount(x):
     return count.to(x.dtype)
 
 
-def _dot_lanes(a, b, mode):
-    """The per-edge K-dim dot product: "vpu" sums the elementwise product
-    over the last axis, "mxu" contracts it as a (rows, K) @ (K, 1) matmul."""
+def dot_lanes(a, b, mode):
+    """The per-edge K-dim dot product (collaborative filtering's error-dot,
+    models/colfilter.err_dot): "vpu" sums the elementwise product over the
+    last axis, "mxu" contracts it as a (rows, K) @ (K, 1) matmul, which on
+    the card is full f32 (``torch.backends.cuda.matmul.allow_tf32`` stays
+    False, PyTorch's default)."""
     prod = a * b
     if mode == "mxu":
         ones = torch.ones((prod.shape[-1], 1), dtype=torch.float32, device=prod.device)
@@ -192,7 +195,7 @@ def _builtins(device=None) -> Dict[str, Callable]:
         "sum_lanes": lambda x: x.sum(-1),
         "popcount": _popcount,
         "isin": _isin,
-        "dot_lanes": _dot_lanes,
+        "dot_lanes": dot_lanes,
     }
 
 

@@ -232,3 +232,63 @@ def test_routed_pagerank_on_card(cuda, mode):
                    "--route-gather", mode, "--device", "cuda", "-check"])
     assert res.rc == 0
     np.testing.assert_allclose(res.ranks, pr.pagerank_reference(res.graph, 10), rtol=1e-5)
+
+
+# --- collaborative filtering: the 2-D block-CSR SpMV ---------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v_blk", [128, 512])
+@pytest.mark.parametrize("k", [1, 3, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_spmv_2d_kernel_matches_plain(cuda, v_blk, k, dtype, aligned):
+    """Every K and value type on the corner layout; ``aligned=False`` puts
+    the values 4 bytes off a 16-byte boundary, so the scalar path runs."""
+    _, bc = _corner_layout(v_blk)
+    shape = bc.e_dst_rel.shape + (k,)
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(40 + k)
+    flat = torch.from_numpy(rng.random(n + 2, dtype=np.float32) + 0.01).to(dtype).to(cuda)
+    vals = (flat[:n] if aligned else flat[2:]).view(shape)
+    args = (torch.from_numpy(bc.e_dst_rel).to(cuda), torch.from_numpy(bc.chunk_block).to(cuda),
+            torch.from_numpy(bc.chunk_first).to(cuda))
+    kw = dict(v_blk=bc.v_blk, num_vblocks=bc.num_vblocks)
+    before = spmv.spmv_blockcsr_2d.launches
+    got = spmv.spmv_blockcsr_2d(vals, *args, **kw)
+    assert spmv.spmv_blockcsr_2d.launches == before + 1
+    want = spmv.spmv_blockcsr_2d_plain(vals, *args, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("argv", [["--method", "pallas"], ["--method", "scatter"], [],
+                                  ["--route-gather", "expand-pf"]])
+def test_colfilter_on_card_matches_oracle(cuda, argv):
+    """The CF app at RMAT 12 on the card against the f32 oracle, rtol 3e-5
+    / atol 1e-7 (the reference's CF tolerance)."""
+    from lux_tpu_torch.apps import colfilter as app
+    from lux_tpu_torch.models import colfilter as cf
+
+    res = app.run(["--rmat-scale", "12", "--rmat-ef", "8", "-ni", "10", "--device", "cuda",
+                   "-check"] + argv)
+    assert res.rc == 0
+    np.testing.assert_allclose(res.state, cf.colfilter_reference(res.graph, 10),
+                               rtol=3e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runner", ["pallas", "engine"])
+def test_colfilter_library_on_card_moves_state(cuda, runner):
+    """At gamma = 1e-3 the state moves, so the oracle check has teeth."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models import colfilter as cf
+
+    g = generate.bipartite_ratings(2048, 2048, 32768, seed=4)
+    if runner == "pallas":
+        got = cf.colfilter_pallas(g, 10, gamma=1e-3, device=cuda)
+    else:
+        got = cf.colfilter(g, 10, gamma=1e-3, device=cuda)
+    want = cf.colfilter_reference(g, 10, gamma=1e-3)
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=1e-7)
+    assert cf.rmse(g, got) < cf.init_rmse(g)

@@ -33,6 +33,6 @@ def test_port_imports_no_jax_and_no_lux_tpu():
     assert res["libs"] == []
     assert res["native"] is False
     for name in ("ops.scan", "apps.pagerank", "native", "ops.route", "ops.shuffle",
-                 "ops.expand"):
+                 "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
-    assert len(res["modules"]) >= 24
+    assert len(res["modules"]) >= 26

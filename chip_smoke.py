@@ -33,9 +33,14 @@ Phases, each printing one JSON line with its seconds:
               row counts and the main path's (2^24/128, 128)),
               sublane_gather (d = 2, 4, 8 at a small and a 2^21-column
               shape), fused_pass_gather on every group of the main
-              expand-pf plan, mxreduce_pass_gather on the main fused-mx
-              plan's reduce group (sum/min/max, f32 and int32).  Gathers
-              and mx min/max/int32 bitwise, mx f32 sums rtol 1e-5.  Beside
+              expand-pf plan (with each tile size's launch and the CTAs
+              an SM holds), mxreduce_pass_gather on the main fused-mx
+              plan's reduce group (sum/min/max, f32 and int32; its
+              chunks, grid, the CTAs an SM holds, each of its three
+              launches' traced time and the fold's share) and, on the
+              same values, a rank map whose one output block holds every
+              tile.  Gathers and mx min/max/int32 bitwise, mx f32 sums
+              rtol 1e-5.  Beside
               them the path-level yardsticks: the whole routed expand
               against index_select, and the fused-mx apply against
               index_select plus the mxscan segment sum.
@@ -336,9 +341,26 @@ def sublane_cases(torch, np, shuffle, dev, reps: int):
     return out
 
 
+def device_ms_by_kernel(torch, fn, reps: int = 5) -> dict:
+    """Device milliseconds per call of ``fn`` by CUDA kernel name, from
+    torch.profiler over ``reps`` calls (after one untraced call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def fused_cases(torch, np, shuffle, expand, plan_pf, dev, reps: int):
     """fused_pass_gather on every group of the main expand-pf plan, in
-    replay order (each group's input is the previous group's output)."""
+    replay order (each group's input is the previous group's output);
+    with each tile size's launch and the CTAs one SM holds."""
     static, arrays = plan_pf
     r1a, _, r2a = expand.split_arrays(static, arrays)
     rng = np.random.default_rng(15)
@@ -366,7 +388,13 @@ def fused_cases(torch, np, shuffle, expand, plan_pf, dev, reps: int):
             y, i = got.reshape(-1), i + k
     mean = {k: sum(g[k] for g in groups) / len(groups)
             for k in ("kernel_ms", "plain_ms", "bound_ms")}
-    return {"groups": groups, "max_abs_err": 0.0, "library_ms": None, **mean}
+    launch = {}
+    for g in groups:
+        rows = static.r1.n // 128 if g["route"] == "r1" else static.r2.n // 128
+        launch.setdefault(f'{g["route"]}/{g["block_rows"]}', {
+            **shuffle.fused_launch_shape(rows, g["block_rows"], 4),
+            "ctas_per_sm": shuffle.occupancy("fused_pass_gather", 4, 1, g["block_rows"])})
+    return {"groups": groups, "launch": launch, "max_abs_err": 0.0, "library_ms": None, **mean}
 
 
 def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
@@ -405,13 +433,42 @@ def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
     nbytes = (n2 * (4 + k * idx[0].element_size() + dst_rel.element_size())
               + mxg.num_blocks * mxg.v_blk * 4)
     per_block = torch.bincount(tile_block.long(), minlength=mxg.num_blocks)
+    g = dataclasses.replace(mxg, op="sum")
+    y = shuffle._relayout(xf, g.view, g.perm_axes).reshape(g.kshape)
+    # the three launches (fill, chunks, fold): each one's device time
+    by_name = device_ms_by_kernel(torch, lambda: shuffle.mxreduce_pass_gather(
+        y, idx, dst_rel, tile_block, g))
+    passes = {p: sum(ms for key, ms in by_name.items() if f"mx_{p}_kernel" in key)
+              for p in ("fill", "chunk", "fold")}
+    traced = sum(passes.values())
+    # a larger hub on the same values and steps: one output block holds
+    # every tile, each of its v_blk ranks spans n2 / v_blk elements
+    pos = torch.arange(n2, device=dev)
+    hub_rel = torch.where(dst_rel.reshape(-1) < mxg.v_blk, pos * mxg.v_blk // n2,
+                          mxg.v_blk).to(dst_rel.dtype).reshape(dst_rel.shape)
+    hub_tb = torch.zeros_like(tile_block)
+    hub = dataclasses.replace(g, num_blocks=1)
+    got = shuffle.mxreduce_pass_gather(y, idx, hub_rel, hub_tb, hub)
+    # a rank here sums 2^18 values: the plain version in float64, whose
+    # own rounding stays far below rtol 1e-5 (in f32 it would not)
+    want = shuffle.mxreduce_pass_gather_plain(y.double(), idx, hub_rel, hub_tb, hub)
+    torch.cuda.synchronize()
+    hub_err = compare(torch, got, want, exact=False)
     return {"cases": rows, "n2": n2, "steps": k, "tile_rows": mxg.block_rows,
-            "num_blocks": mxg.num_blocks, "v_blk": mxg.v_blk, "max_abs_err": err,
-            # the imbalance of one CTA per output block: the largest block's
-            # tiles, and its share of all tiles
+            "num_blocks": mxg.num_blocks, "v_blk": mxg.v_blk, "max_abs_err": max(err, hub_err),
+            # the output blocks' sizes, which the chunked grid no longer follows
             "max_tiles_per_block": int(per_block.max()),
             "mean_tiles_per_block": float(per_block.float().mean()),
             "largest_block_share": float(per_block.max()) / tile_block.numel(),
+            "launch": {**shuffle.mx_launch_shape(y.shape[0], mxg.block_rows),
+                       "ctas_per_sm": shuffle.occupancy("mxreduce_pass_gather", torch.float32,
+                                                        "sum", idx[0].element_size())},
+            "traced_ms": passes, "fold_share": passes["fold"] / traced if traced else None,
+            "hub": {"largest_block_share": 1.0, "max_abs_err": hub_err,
+                    "kernel_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather(
+                        y, idx, hub_rel, hub_tb, hub), reps),
+                    "plain_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather_plain(
+                        y, idx, hub_rel, hub_tb, hub), max(2, reps // 4))},
             "library_ms": None, "bound_ms": bound_ms(nbytes), "bytes": nbytes, **timed}
 
 

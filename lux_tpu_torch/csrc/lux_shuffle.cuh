@@ -1,6 +1,7 @@
 // Shared pieces of the routed-pull kernels (lane_gather, sublane_gather,
-// fused_pass_gather, mxreduce_pass_gather): raw-bit element types, four-wide
-// vector loads and stores, and the step table of a chained pass group.
+// fused_pass_gather, mxreduce_pass_gather): raw-bit element types, vector
+// loads and stores, the step table of a chained pass group, and the
+// swizzled shared-memory tile the two chained kernels step in.
 //
 // The gathers only move bits, so values travel as unsigned integers of their
 // width (uint32_t for float32 and int32, uint16_t for bfloat16).
@@ -69,7 +70,7 @@ __device__ __forceinline__ int relayout_src(const Relayout& r, int q) {
   return src;
 }
 
-// Four consecutive indices starting at a multiple of 4.
+// Four consecutive indices starting at a multiple of 4 (lane_gather).
 template <typename I> struct Idx4;
 template <> struct Idx4<uint8_t> {
   static __device__ __forceinline__ void load(const uint8_t* p, int out[4]) {
@@ -84,15 +85,11 @@ template <> struct Idx4<int32_t> {
   }
 };
 
-// Four consecutive raw elements stored at a multiple of 4.
+// Four consecutive raw elements stored at a multiple of 4 (lane_gather).
 template <typename T> struct Vec4;
 template <> struct Vec4<uint32_t> {
   static __device__ __forceinline__ void store(uint32_t* p, const uint32_t v[4]) {
     *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  static __device__ __forceinline__ void load(const uint32_t* p, uint32_t v[4]) {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
-    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
   }
 };
 template <> struct Vec4<uint16_t> {
@@ -100,17 +97,151 @@ template <> struct Vec4<uint16_t> {
     *reinterpret_cast<uint2*>(p) = make_uint2(v[0] | (uint32_t(v[1]) << 16),
                                               v[2] | (uint32_t(v[3]) << 16));
   }
-  static __device__ __forceinline__ void load(const uint16_t* p, uint16_t v[4]) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    v[0] = w.x & 0xffffu; v[1] = w.x >> 16; v[2] = w.y & 0xffffu; v[3] = w.y >> 16;
+};
+
+// --- the chained kernels' tile -------------------------------------------
+//
+// A thread of fused_pass_gather or mxreduce_pass_gather owns units of 16
+// consecutive tile positions: it loads their indices in one 16-byte load
+// (uint8) and, in each step, reads their 16 sources into registers; after
+// a barrier it writes them back IN PLACE, so a tile needs one buffer.  In
+// shared memory the tile is kept as 16-byte chunks with chunk c stored at
+// chunk c ^ ((c >> 3) & 7): the eight threads of a quarter-warp then store
+// their 16-byte pieces to eight distinct bank groups, where the plain layout
+// would put them on two.  Reads go through the same map (Tile<T>::swz).
+
+constexpr int kUnit = 16;  // tile positions a thread owns together
+
+template <typename T> struct Tile {
+  static constexpr int kShift = sizeof(T) == 4 ? 2 : 3;  // log2(elements a chunk)
+  static constexpr int kPerChunk = 1 << kShift;
+  static __device__ __forceinline__ int chunk(int c) { return c ^ ((c >> 3) & 7); }
+  static __device__ __forceinline__ int swz(int p) {
+    return p ^ (((p >> (kShift + 3)) & 7) << kShift);
   }
 };
 
-// Copy nbytes (a multiple of 16, both pointers 16-byte aligned) with the
-// whole block, 16 bytes a thread.
-__device__ __forceinline__ void block_copy16(const void* __restrict__ src, void* __restrict__ dst,
-                                             long long nbytes) {
-  const uint4* s = static_cast<const uint4*>(src);
-  uint4* d = static_cast<uint4*>(dst);
-  for (long long i = threadIdx.x; i < nbytes / 16; i += blockDim.x) d[i] = s[i];
+__device__ __forceinline__ void cp_async16(void* dst_smem, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst_smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Wait for every cp.async this thread issued (a barrier must follow).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start copying elems elements (elems * sizeof(T) a multiple of 16, src
+// 16-byte aligned) into the swizzled tile, 16 bytes a thread per copy, all
+// in flight at once; cp_async_wait_all() and a barrier complete it.
+template <typename T>
+__device__ __forceinline__ void tile_load_async(const T* __restrict__ src, T* tile, int elems) {
+  const int chunks = elems / Tile<T>::kPerChunk;
+  const char* s = reinterpret_cast<const char*>(src);
+  char* d = reinterpret_cast<char*>(tile);
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+    cp_async16(d + 16 * Tile<T>::chunk(c), s + 16LL * c);
+}
+
+// Sixteen consecutive indices (or ranks) starting at a multiple of 16.
+template <typename I> struct Idx16;
+template <> struct Idx16<uint8_t> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ int operator[](int j) const {
+    const unsigned word = j < 4 ? w.x : j < 8 ? w.y : j < 12 ? w.z : w.w;
+    return (word >> (8 * (j & 3))) & 0xff;
+  }
+};
+template <> struct Idx16<int32_t> {
+  int4 w[4];
+  __device__ __forceinline__ void load(const int32_t* p) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) w[m] = __ldg(reinterpret_cast<const int4*>(p) + m);
+  }
+  __device__ __forceinline__ int operator[](int j) const {
+    const int4& v = w[j >> 2];
+    return (j & 3) == 0 ? v.x : (j & 3) == 1 ? v.y : (j & 3) == 2 ? v.z : v.w;
+  }
+};
+
+__device__ __forceinline__ uint32_t bits32(uint32_t a) { return a; }
+__device__ __forceinline__ uint32_t bits32(int32_t a) { return static_cast<uint32_t>(a); }
+__device__ __forceinline__ uint32_t bits32(float a) { return __float_as_uint(a); }
+
+// One 16-byte chunk of consecutive elements v[0 .. 16 / sizeof(T)).
+template <typename T>
+__device__ __forceinline__ uint4 pack_chunk(const T* v) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(bits32(v[0]), bits32(v[1]), bits32(v[2]), bits32(v[3]));
+  } else {
+    return make_uint4(v[0] | (uint32_t(v[1]) << 16), v[2] | (uint32_t(v[3]) << 16),
+                      v[4] | (uint32_t(v[5]) << 16), v[6] | (uint32_t(v[7]) << 16));
+  }
+}
+
+// Store the 16 values of the unit at tile position p0 (a multiple of 16):
+// into the swizzled tile, or straight to device memory.
+template <typename T>
+__device__ __forceinline__ void store16_tile(T* tile, int p0, const T (&v)[kUnit]) {
+  constexpr int e = Tile<T>::kPerChunk;
+#pragma unroll
+  for (int m = 0; m < kUnit / e; ++m)
+    *reinterpret_cast<uint4*>(tile + Tile<T>::swz(p0 + m * e)) = pack_chunk(v + m * e);
+}
+template <typename T>
+__device__ __forceinline__ void store16_global(T* __restrict__ dst, const T (&v)[kUnit]) {
+  constexpr int e = Tile<T>::kPerChunk;
+#pragma unroll
+  for (int m = 0; m < kUnit / e; ++m)
+    reinterpret_cast<uint4*>(dst)[m] = pack_chunk(v + m * e);
+}
+
+// The address arithmetic of a step, out of the inner loop.  A relayout
+// permutes the bits of a tile position (every axis is a power of two), and
+// the swizzle XORs bits into bits, so both distribute over positions with
+// disjoint bits: the swizzled source of tile position toff | row | lane is
+// swz(toff | rel(row)) ^ swz(rel(lane)).  Each CTA tabulates the second
+// term for the 128 lanes of every step (lut[s * 128 + lane], in shared
+// memory); a unit computes the first once per step; an element costs one
+// table read and one XOR.
+template <typename T>
+__device__ __forceinline__ void build_lane_luts(const StepPlan& plan, uint16_t* lut) {
+  const int l = threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s)
+    if (s < plan.n_steps && l < kLane)
+      lut[s * kLane + l] =
+          (uint16_t)Tile<T>::swz(plan.has_relayout[s] ? relayout_src(plan.rel[s], l) : l);
+}
+
+// The swizzled source of the unit's row part in step s.
+template <typename T>
+__device__ __forceinline__ int step_base(const StepPlan& plan, int s, int toff, int row) {
+  return Tile<T>::swz(toff | (plan.has_relayout[s] ? relayout_src(plan.rel[s], row) : row));
+}
+
+// One step's reads for a unit: v[j] = the step input's element at
+// row | q[j] (after the step's relayout, if any), through base and the
+// step's lane table.
+template <typename T, typename I>
+__device__ __forceinline__ void step_read16(const T* tile, int base, const uint16_t* lut,
+                                            const Idx16<I>& q, T (&v)[kUnit]) {
+#pragma unroll
+  for (int j = 0; j < kUnit; ++j) v[j] = tile[base ^ lut[q[j]]];
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory (above the default
+// 48 KB it must opt in; the kernel's static shared memory counts against the
+// same per-block limit).  `opted` caches the largest size granted so far.
+template <typename K>
+inline cudaError_t opt_in_smem(K kernel, size_t bytes, size_t* opted) {
+  if (bytes <= *opted) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *opted = bytes;
+  return e;
 }

@@ -9,204 +9,324 @@
 // in order, so the tiles of one block accumulate in grid order.
 //
 // What bounds it on the H100: memory.  Per group-space element it reads the
-// value, one index per step and one rank byte, and it writes the small
-// totals vector: n2 * (esize + steps * isize + 1) + totals bytes.  The
-// one-hot contraction would multiply the work by v_blk for nothing here.
+// value, one index per step and one rank, and it writes the totals once:
+// n2 * (esize + steps * isize + isize) + num_blocks * v_blk * 4 bytes — at
+// the main path's plan (n2 = 2^25, f32, 2 steps of uint8) 203.5 MB, 0.061 ms
+// over 3.35 TB/s.  The one-hot contraction would multiply the work by v_blk
+// for nothing here.
 //
-// Design.  Hopper runs CTAs in no order, so one CTA owns one output block:
-// the planner aligns every block's span to tiles, so a block's tiles are
-// contiguous (tile_block is nondecreasing) and the CTA finds them by binary
-// search.  It walks them in order, in chunks of up to kChunk elements:
-//   * load the chunk into shared memory (a pad word every 32 elements keeps
-//     the per-thread walk below free of bank conflicts);
-//   * run the group's steps tile by tile, ping-pong between two buffers,
-//     each step's relayout folded into its read address;
-//   * reduce: ranks are nondecreasing along the final layout, and a rank's
-//     real slots are contiguous (sentinel slots, rank == v_blk, are padding
-//     and carry nothing), so each thread walks a contiguous slice in order,
-//     combining runs of equal rank.  A run closed strictly inside a slice
-//     belongs to that thread alone and is combined into the block's
-//     accumulator directly; the runs touching a slice's ends are merged in
-//     slice order by warp 0 (eight slices a lane, then lane 0 over the
-//     lanes).  The order of every combination is fixed, so results are
-//     deterministic, with no atomics.
-// Float sums accumulate in f32 (out f32); int32 sums wrap through uint32;
-// min/max keep the type (NaN propagates like torch.minimum/maximum).
-// Known limit: a block that spans many tiles (an RMAT hub) is walked by one
-// CTA, so that CTA sets the kernel's tail — the same hub cost as
-// spmv_blockcsr; splitting it is later work.
+// Design: one sorted-key segmented reduce over the whole array, balanced
+// over the card.  Along the final layout the flat key
+// tile_block[tile] * v_blk + rank never decreases once sentinel slots
+// (rank == v_blk, padding that carries nothing) are set aside: each tile
+// lies in one output block, a block's tiles are contiguous, and ranks never
+// decrease within a block's span.  So the array can be cut at any tile
+// boundary, whatever the blocks' sizes (an RMAT hub block holds 27 % of the
+// tiles at scale 20).  Three launches on the caller's stream:
+//   0. fill: every total starts as the reduce's neutral value, so keys no
+//      real slot touches come out neutral;
+//   1. chunks: one CTA of 512 threads per chunk of kChunk = 8,192 elements
+//      (whole tiles; the last chunk may be short), two CTAs per SM.  The
+//      chunk comes in with cp.async into a swizzled shared buffer; each
+//      thread owns 16 consecutive positions, loads their indices and ranks
+//      16 at a time (the ranks and its tile's block before the steps, so
+//      their latency hides behind them), runs the group's steps in place
+//      as fused_pass_gather does (lane tables included), and keeps the
+//      final step's 16 values in registers.  It walks
+//      them in order, combining runs of equal key: a run closed strictly
+//      inside its slice is complete and is written straight to out[key].
+//      The slices' summaries (run count, first and last run) are combined
+//      in a fixed tree of warp shuffles, over the 32 lanes of each warp,
+//      then over the 16 warps; runs closed there are complete too.  The chunk's first and last
+//      runs may continue into its neighbours: they go to the summary (key
+//      and value of each, and the run count) in scratch;
+//   2. fold: one thread per chunk.  A chunk whose first run does not
+//      continue the previous non-empty chunk's last run starts a chain:
+//      it folds the first runs of the following chunks with the same key,
+//      in chunk order, while each of those chunks holds that one run only
+//      (a hub's key may span dozens of chunks), and writes out[key]; a
+//      chunk's last run (when it has two or more) starts a chain the same
+//      way.
+// Every combination has a fixed order, so results are deterministic, with
+// no atomics.  Float sums accumulate in f32 (out f32); int32 sums wrap
+// through uint32; min/max keep the type (NaN propagates like
+// torch.minimum/maximum).
 #include "lux_ops.cuh"
 #include "lux_shuffle.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunk = 8192;  // ops/shuffle.MX_MAX_TILE_ELEMS
-constexpr int kPadded = kChunk + kChunk / 32;
-constexpr int kMaxSmem = 232448;
+constexpr int kThreads = 512;
+constexpr int kChunk = kThreads * kUnit;  // 8192 = ops/shuffle.MX_CHUNK_ELEMS
+constexpr int kWarps = kThreads / 32;
+constexpr int kFoldThreads = 256;
+constexpr int kFillThreads = 256;
 
-__device__ __forceinline__ int padix(int p) { return p + (p >> 5); }
-
-// Runs of equal rank seen in order: the first run (kept, it may continue a
-// run that began before), the open last run, and everything in between
-// combined into acc as it closes.
+// Runs of equal key seen in order: the first run (kept, it may continue a
+// run that began before), the open last run, and every run in between,
+// which is complete when it closes and is written to out.  Once finished
+// (n == 1: first == last) it summarises a slice: its run count, its first
+// and its last run.
 template <typename TAcc, int OP>
 struct Runs {
   int fk, lk, n;
   TAcc fv, lv;
   __device__ void init() { fk = -1; lk = -1; n = 0; fv = Combine<TAcc, OP>::neutral(); lv = fv; }
-  __device__ void add(int k, TAcc v, TAcc* acc) {
+  __device__ void add(int k, TAcc v, TAcc* out) {
     if (n > 0 && k == lk) { lv = Combine<TAcc, OP>::apply(lv, v); return; }
     if (n == 1) { fk = lk; fv = lv; }
-    else if (n > 1) acc[lk] = Combine<TAcc, OP>::apply(acc[lk], lv);
+    else if (n > 1) out[lk] = Combine<TAcc, OP>::apply(Combine<TAcc, OP>::neutral(), lv);
     lk = k; lv = v; ++n;
   }
-  // Fold a later summary (its first run, and its last run if it has two).
-  __device__ void add_summary(int sfk, TAcc sfv, int slk, TAcc slv, int sn, TAcc* acc) {
-    if (sn == 0) return;
-    add(sfk, sfv, acc);
-    if (sn > 1) add(slk, slv, acc);
-  }
   __device__ void finish() { if (n == 1) { fk = lk; fv = lv; } }
-  __device__ void flush(TAcc* acc) {
-    if (n > 1) acc[fk] = Combine<TAcc, OP>::apply(acc[fk], fv);
-    if (n > 0) acc[lk] = Combine<TAcc, OP>::apply(acc[lk], lv);
-  }
 };
 
-template <typename T, typename TAcc, int OP, typename I>
-__global__ void __launch_bounds__(kThreads)
-mxreduce_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ranks,
-                const int32_t* __restrict__ tile_block, int num_tiles, int tile_elems,
-                int v_blk, TAcc* __restrict__ out) {
+// The summary of slice a followed by slice b.  A run the two close — a's
+// last and b's first, joined or not, unless it is the result's first or
+// last run — is complete and is written to out.  Associative, so a fixed
+// tree of these combinations is deterministic.
+template <typename TAcc, int OP>
+__device__ Runs<TAcc, OP> combine(const Runs<TAcc, OP>& a, const Runs<TAcc, OP>& b,
+                                  TAcc* __restrict__ out) {
   using C = Combine<TAcc, OP>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* buf0 = reinterpret_cast<T*>(smem);
-  T* buf1 = buf0 + kPadded;
-  TAcc* acc = reinterpret_cast<TAcc*>(buf1 + kPadded);
-  TAcc* s_fv = acc + v_blk;
-  TAcc* s_lv = s_fv + kThreads;
-  int* s_fk = reinterpret_cast<int*>(s_lv + kThreads);
-  int* s_lk = s_fk + kThreads;
-  int* s_n = s_lk + kThreads;
-  __shared__ int span[2];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid == 0) span[0] = lower_bound_i32(tile_block, num_tiles, b);
-  if (tid == 32) span[1] = lower_bound_i32(tile_block, num_tiles, b + 1);
-  for (int v = tid; v < v_blk; v += kThreads) acc[v] = C::neutral();
-  __syncthreads();
-  const int t_end = span[1];
-  const int per_chunk = kChunk / tile_elems;
-  for (int t0 = span[0]; t0 < t_end; t0 += per_chunk) {
-    const int nt = min(per_chunk, t_end - t0);
-    const int len = nt * tile_elems;
-    const long long base = (long long)t0 * tile_elems;
-    for (int p = tid; p < len; p += kThreads) buf0[padix(p)] = x[base + p];
-    __syncthreads();
-    int cur = 0;
-#pragma unroll
-    for (int s = 0; s < kMaxSteps; ++s) {
-      if (s < plan.n_steps) {
-        const I* ix = static_cast<const I*>(plan.idx[s]) + base;
-        const T* src = cur ? buf1 : buf0;
-        T* dst = cur ? buf0 : buf1;
-        const bool rel = plan.has_relayout[s] != 0;
-        for (int p = tid; p < len; p += kThreads) {
-          const int toff = p & ~(tile_elems - 1);
-          int a = ((p - toff) & ~(kLane - 1)) | (int)ix[p];
-          if (rel) a = relayout_src(plan.rel[s], a);
-          dst[padix(p)] = src[padix(toff + a)];
-        }
-        __syncthreads();
-        cur ^= 1;
-      }
-    }
-    const T* vals = cur ? buf1 : buf0;
-    // each thread: its contiguous slice, in order
-    const int per = (len + kThreads - 1) / kThreads;
-    const int lo = min(tid * per, len), hi = min(lo + per, len);
-    Runs<TAcc, OP> runs;
-    runs.init();
-    for (int p = lo; p < hi; ++p) {
-      const int k = (int)ranks[base + p];
-      if (k >= v_blk) continue;  // the sentinel: padding, carries nothing
-      runs.add(k, load_as<TAcc>(vals + padix(p)), acc);
-    }
-    runs.finish();
-    s_fk[tid] = runs.fk; s_fv[tid] = runs.fv;
-    s_lk[tid] = runs.lk; s_lv[tid] = runs.lv; s_n[tid] = runs.n;
-    __syncthreads();
-    if (tid < 32) {
-      Runs<TAcc, OP> lane_runs;
-      lane_runs.init();
-      constexpr int kPerLane = kThreads / 32;
-      for (int j = tid * kPerLane; j < (tid + 1) * kPerLane; ++j)
-        lane_runs.add_summary(s_fk[j], s_fv[j], s_lk[j], s_lv[j], s_n[j], acc);
-      lane_runs.finish();
-      Runs<TAcc, OP> all;
-      all.init();
-      for (int l = 0; l < 32; ++l) {
-        const int fk = __shfl_sync(0xffffffffu, lane_runs.fk, l);
-        const int lk = __shfl_sync(0xffffffffu, lane_runs.lk, l);
-        const int n = __shfl_sync(0xffffffffu, lane_runs.n, l);
-        const TAcc fv = __shfl_sync(0xffffffffu, lane_runs.fv, l);
-        const TAcc lv = __shfl_sync(0xffffffffu, lane_runs.lv, l);
-        if (tid == 0) all.add_summary(fk, fv, lk, lv, n, acc);
-      }
-      if (tid == 0) {
-        all.finish();
-        all.flush(acc);
-      }
-    }
-    __syncthreads();
+  if (a.n == 0) return b;
+  if (b.n == 0) return a;
+  Runs<TAcc, OP> r = {a.fk, b.lk, a.n + b.n, a.fv, b.lv};
+  if (a.lk == b.fk) {
+    const TAcc joined = C::apply(a.lv, b.fv);
+    r.n -= 1;
+    if (a.n == 1) r.fv = joined;
+    if (b.n == 1) r.lv = joined;
+    if (a.n > 1 && b.n > 1) out[a.lk] = C::apply(C::neutral(), joined);
+  } else {
+    if (a.n > 1) out[a.lk] = C::apply(C::neutral(), a.lv);
+    if (b.n > 1) out[b.fk] = C::apply(C::neutral(), b.fv);
   }
-  for (int v = tid; v < v_blk; v += kThreads) out[(long long)b * v_blk + v] = acc[v];
+  return r;
+}
+
+// Combine the summaries of lanes [0, width) of a warp in a fixed tree;
+// lane 0 returns the whole.  Every lane of the warp must call it.
+template <typename TAcc, int OP>
+__device__ Runs<TAcc, OP> warp_combine(Runs<TAcc, OP> s, int lane, int width,
+                                       TAcc* __restrict__ out) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    Runs<TAcc, OP> b;
+    b.fk = __shfl_down_sync(0xffffffffu, s.fk, off);
+    b.lk = __shfl_down_sync(0xffffffffu, s.lk, off);
+    b.n = __shfl_down_sync(0xffffffffu, s.n, off);
+    b.fv = __shfl_down_sync(0xffffffffu, s.fv, off);
+    b.lv = __shfl_down_sync(0xffffffffu, s.lv, off);
+    if ((lane & (2 * off - 1)) == 0 && lane + off < width) s = combine(s, b, out);
+  }
+  return s;
+}
+
+// The summary of chunk c in scratch: key[2c], key[2c + 1] (first and last
+// run), n[c] (runs; 0 = only sentinel slots), val[2c], val[2c + 1].
+template <typename TAcc>
+struct Parts {
+  int* key;
+  int* n;
+  TAcc* val;
+  __device__ __host__ Parts(void* scratch, int num_chunks)
+      : key(static_cast<int*>(scratch)),
+        n(static_cast<int*>(scratch) + 2 * num_chunks),
+        val(reinterpret_cast<TAcc*>(static_cast<int*>(scratch) + 3 * num_chunks)) {}
+};
+
+template <typename TAcc, int OP>
+__global__ void __launch_bounds__(kFillThreads)
+mx_fill_kernel(TAcc* __restrict__ out, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    out[i] = Combine<TAcc, OP>::neutral();
+}
+
+template <typename T, typename TAcc, int OP, typename I>
+__global__ void __launch_bounds__(kThreads, 2)
+mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ranks,
+                const int32_t* __restrict__ tile_block, int num_tiles, int tile_elems,
+                int v_blk, TAcc* __restrict__ out, void* scratch, int num_chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  __shared__ uint16_t lut[kMaxSteps * kLane];
+  __shared__ int w_fk[kWarps], w_lk[kWarps], w_n[kWarps];
+  __shared__ TAcc w_fv[kWarps], w_lv[kWarps];
+  const int c = blockIdx.x;
+  const int per_chunk = kChunk / tile_elems;
+  const int t0 = c * per_chunk;
+  const int len = min(per_chunk, num_tiles - t0) * tile_elems;
+  const long long base = (long long)t0 * tile_elems;
+  const int tid = threadIdx.x;
+  const int p0 = tid * kUnit;
+  const bool active = p0 < len;
+  const int toff = p0 & ~(tile_elems - 1);
+  const int row = (p0 - toff) & ~(kLane - 1);
+  tile_load_async(x + base, tile, len);
+  build_lane_luts<T>(plan, lut);
+  Idx16<I> q, rk;
+  int kbase = 0;
+  if (active) {
+    q.load(static_cast<const I*>(plan.idx[0]) + base + p0);
+    rk.load(ranks + base + p0);
+    kbase = tile_block[t0 + p0 / tile_elems] * v_blk;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  T v[kUnit];
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    if (s < plan.n_steps) {
+      if (active) step_read16(tile, step_base<T>(plan, s, toff, row), lut + s * kLane, q, v);
+      if (s + 1 < plan.n_steps) {
+        if (active) q.load(static_cast<const I*>(plan.idx[s + 1 < kMaxSteps ? s + 1 : s]) + base + p0);
+        __syncthreads();
+        if (active) store16_tile(tile, p0, v);
+        __syncthreads();
+      }
+    }
+  }
+  // the final layout's 16 values are in v: walk their runs in order
+  Runs<TAcc, OP> runs;
+  runs.init();
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < kUnit; ++j) {
+      const int k = rk[j];
+      if (k < v_blk) runs.add(kbase + k, static_cast<TAcc>(v[j]), out);
+    }
+  }
+  runs.finish();
+  const int lane = tid & 31, warp = tid >> 5;
+  const Runs<TAcc, OP> w = warp_combine(runs, lane, 32, out);
+  if (lane == 0) {
+    w_fk[warp] = w.fk; w_fv[warp] = w.fv;
+    w_lk[warp] = w.lk; w_lv[warp] = w.lv; w_n[warp] = w.n;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    Runs<TAcc, OP> s;
+    s.init();
+    if (lane < kWarps) s = {w_fk[lane], w_lk[lane], w_n[lane], w_fv[lane], w_lv[lane]};
+    const Runs<TAcc, OP> all = warp_combine(s, lane, kWarps, out);
+    if (lane == 0) {
+      Parts<TAcc> parts(scratch, num_chunks);
+      parts.n[c] = all.n;
+      parts.key[2 * c] = all.fk; parts.val[2 * c] = all.fv;
+      parts.key[2 * c + 1] = all.lk; parts.val[2 * c + 1] = all.lv;
+    }
+  }
+}
+
+// Fold the chain that starts with (key, v) in chunk c: while the run is
+// open, the first runs of the next non-empty chunks with the same key, in
+// chunk order; a chunk with more than one run closes it.
+template <typename TAcc, int OP>
+__device__ void fold_chain(const Parts<TAcc>& parts, int num_chunks, int c, int key, TAcc v,
+                           bool open, TAcc* __restrict__ out) {
+  using C = Combine<TAcc, OP>;
+  TAcc acc = C::apply(C::neutral(), v);
+  for (int d = c + 1; open && d < num_chunks; ++d) {
+    const int nd = parts.n[d];
+    if (nd == 0) continue;  // only sentinel slots
+    if (parts.key[2 * d] != key) break;
+    acc = C::apply(acc, parts.val[2 * d]);
+    open = nd == 1;
+  }
+  out[key] = acc;
+}
+
+template <typename TAcc, int OP>
+__global__ void __launch_bounds__(kFoldThreads)
+mx_fold_kernel(void* scratch, int num_chunks, TAcc* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= num_chunks) return;
+  const Parts<TAcc> parts(scratch, num_chunks);
+  const int n = parts.n[c];
+  if (n == 0) return;
+  const int fk = parts.key[2 * c];
+  int p = c - 1;
+  while (p >= 0 && parts.n[p] == 0) --p;
+  if (p < 0 || parts.key[2 * p + 1] != fk)
+    fold_chain<TAcc, OP>(parts, num_chunks, c, fk, parts.val[2 * c], n == 1, out);
+  if (n > 1)
+    fold_chain<TAcc, OP>(parts, num_chunks, c, parts.key[2 * c + 1], parts.val[2 * c + 1], true,
+                         out);
+}
+
+int num_chunks_of(int num_tiles, int tile_elems) {
+  const int per_chunk = kChunk / tile_elems;
+  return (num_tiles + per_chunk - 1) / per_chunk;
 }
 
 template <typename T, typename TAcc, int OP, typename I>
 int launch(const void* x, const StepPlan& plan, const void* ranks, const int32_t* tile_block,
-           int num_tiles, int tile_elems, int v_blk, int num_blocks, void* out,
+           int num_tiles, int tile_elems, int v_blk, int num_blocks, void* out, void* scratch,
            cudaStream_t stream) {
-  static size_t attr_smem = 48 * 1024;  // per instantiation: the largest opted in
-  const size_t smem = 2 * (size_t)kPadded * sizeof(T) + (size_t)v_blk * sizeof(TAcc) +
-                      2 * (size_t)kThreads * sizeof(TAcc) + 3 * (size_t)kThreads * sizeof(int);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > attr_smem) {
-    // the dynamic size alone: the kernel's static shared memory counts
-    // against the same per-block limit
-    const cudaError_t e = cudaFuncSetAttribute(
-        mxreduce_kernel<T, TAcc, OP, I>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_smem = smem;
-  }
-  mxreduce_kernel<T, TAcc, OP, I><<<num_blocks, kThreads, smem, stream>>>(
+  const int num_chunks = num_chunks_of(num_tiles, tile_elems);
+  TAcc* o = static_cast<TAcc*>(out);
+  const long long n_out = (long long)num_blocks * v_blk;
+  const long long fill_ctas = (n_out + kFillThreads - 1) / kFillThreads;
+  mx_fill_kernel<TAcc, OP><<<(unsigned)(fill_ctas < 1056 ? fill_ctas : 1056), kFillThreads, 0,
+                             stream>>>(o, n_out);
+  mx_chunk_kernel<T, TAcc, OP, I><<<num_chunks, kThreads, kChunk * sizeof(T), stream>>>(
       static_cast<const T*>(x), plan, static_cast<const I*>(ranks), tile_block, num_tiles,
-      tile_elems, v_blk, static_cast<TAcc*>(out));
+      tile_elems, v_blk, o, scratch, num_chunks);
+  mx_fold_kernel<TAcc, OP><<<(num_chunks + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
+                             stream>>>(scratch, num_chunks, o);
   return 0;
 }
 
-template <typename I>
-int dispatch(const void* x, int kind, int op, const StepPlan& plan, const void* ranks,
-             const int32_t* tile_block, int num_tiles, int tile_elems, int v_blk, int num_blocks,
-             void* out, cudaStream_t s) {
+template <typename T, typename TAcc, int OP, typename I>
+int occupancy(int* ctas_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, mx_chunk_kernel<T, TAcc, OP, I>, kThreads, kChunk * sizeof(T));
+}
+
+// The instantiation of (kind, op, I), handed to f as template arguments.
+template <typename I, typename F>
+int dispatch(int kind, int op, F&& f) {
   switch (kind * 3 + op) {
-    case LUX_F32 * 3 + LUX_SUM:
-      return launch<float, float, LUX_SUM, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    case LUX_F32 * 3 + LUX_MIN:
-      return launch<float, float, LUX_MIN, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    case LUX_F32 * 3 + LUX_MAX:
-      return launch<float, float, LUX_MAX, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    case LUX_I32 * 3 + LUX_SUM:
-      return launch<int32_t, uint32_t, LUX_SUM, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    case LUX_I32 * 3 + LUX_MIN:
-      return launch<int32_t, int32_t, LUX_MIN, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    case LUX_I32 * 3 + LUX_MAX:
-      return launch<int32_t, int32_t, LUX_MAX, I>(x, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case LUX_F32 * 3 + LUX_SUM: return f.template run<float, float, LUX_SUM, I>();
+    case LUX_F32 * 3 + LUX_MIN: return f.template run<float, float, LUX_MIN, I>();
+    case LUX_F32 * 3 + LUX_MAX: return f.template run<float, float, LUX_MAX, I>();
+    case LUX_I32 * 3 + LUX_SUM: return f.template run<int32_t, uint32_t, LUX_SUM, I>();
+    case LUX_I32 * 3 + LUX_MIN: return f.template run<int32_t, int32_t, LUX_MIN, I>();
+    case LUX_I32 * 3 + LUX_MAX: return f.template run<int32_t, int32_t, LUX_MAX, I>();
+    default: return (int)cudaErrorInvalidValue;
   }
 }
+
+template <typename F>
+int dispatch_index(int isize, int kind, int op, F&& f) {
+  if (isize == 1) return dispatch<uint8_t>(kind, op, f);
+  if (isize == 4) return dispatch<int32_t>(kind, op, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Launch {
+  const void* x;
+  const StepPlan* plan;
+  const void* ranks;
+  const int32_t* tile_block;
+  int num_tiles, tile_elems, v_blk, num_blocks;
+  void* out;
+  void* scratch;
+  cudaStream_t stream;
+  template <typename T, typename TAcc, int OP, typename I>
+  int run() const {
+    return launch<T, TAcc, OP, I>(x, *plan, ranks, tile_block, num_tiles, tile_elems, v_blk,
+                                  num_blocks, out, scratch, stream);
+  }
+};
+
+struct Occupancy {
+  int* ctas_per_sm;
+  template <typename T, typename TAcc, int OP, typename I>
+  int run() const { return occupancy<T, TAcc, OP, I>(ctas_per_sm); }
+};
 
 }  // namespace
 
@@ -216,28 +336,38 @@ int dispatch(const void* x, int kind, int op, const StepPlan& plan, const void* 
 // final layout (v_blk = sentinel), same element size as the index tiles
 // (isize 1 or 4); tile_block: (rows / block_rows,) nondecreasing output block
 // of each tile.  out: (num_blocks * v_blk,) f32 for float sums, else the
-// value type.  Returns cudaGetLastError() after the launch (0 = launched);
+// value type.  scratch: at least 20 * num_chunks bytes of device memory for
+// the chunk summaries, num_chunks = ceil(tiles / (8192 / (block_rows *
+// 128))) (ops/shuffle.mx_num_chunks).  Every array 16-byte aligned.
+// Returns cudaGetLastError() after the launches (0 = launched);
 // cudaErrorInvalidValue for a malformed call.
 extern "C" int lux_mxreduce_pass_gather(const void* x, int kind, const void* const* idx,
                                         int isize, const int32_t* desc, const void* ranks,
                                         int rsize, const int32_t* tile_block, long long rows,
                                         int block_rows, int v_blk, int num_blocks, int op,
-                                        void* out, void* stream) {
+                                        void* out, void* scratch, long long scratch_bytes,
+                                        void* stream) {
   StepPlan plan;
   const int tile_elems = block_rows * kLane;
   if (!parse_steps(desc, idx, &plan) || block_rows < 1 || rows < block_rows ||
       rows % block_rows != 0 || tile_elems > kChunk || (tile_elems & (tile_elems - 1)) != 0 ||
-      v_blk < 1 || v_blk > 255 || num_blocks < 1 || rsize != isize || rows / block_rows > INT32_MAX)
+      v_blk < 1 || v_blk > 255 || num_blocks < 1 || rsize != isize ||
+      rows / block_rows > INT32_MAX || (long long)num_blocks * v_blk > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int num_tiles = (int)(rows / block_rows);
-  int rc;
-  if (isize == 1)
-    rc = dispatch<uint8_t>(x, kind, op, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-  else if (isize == 4)
-    rc = dispatch<int32_t>(x, kind, op, plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out, s);
-  else
+  if (scratch_bytes < 20LL * num_chunks_of(num_tiles, tile_elems))
     return (int)cudaErrorInvalidValue;
+  const Launch l{x, &plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out,
+                 scratch, static_cast<cudaStream_t>(stream)};
+  const int rc = dispatch_index(isize, kind, op, l);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// CTAs of the chunk kernel (pass 1) for (kind, op, isize) that one SM holds
+// at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *ctas_per_sm.  Returns 0, or the CUDA error.
+extern "C" int lux_mxreduce_pass_gather_occupancy(int kind, int op, int isize,
+                                                  int* ctas_per_sm) {
+  return dispatch_index(isize, kind, op, Occupancy{ctas_per_sm});
 }

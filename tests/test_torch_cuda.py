@@ -183,6 +183,39 @@ def test_fused_pass_gather_kernel_matches_plain(cuda, n, max_block, dtype):
     assert torch.equal(out.cpu(), x[torch.from_numpy(perm)])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [1, 3, 400])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("idx_dtype", [torch.uint8, torch.int32])
+def test_fused_pass_gather_kernel_tile_counts(cuda, tiles, dtype, idx_dtype):
+    """A group at the main block size (128 rows, relayouts included) over
+    1, 3 and 400 tiles: 400 is more than three tiles for each of the
+    H100's 132 SMs, so the last wave of CTAs is uneven.  Random in-row
+    indices; bitwise against the plain version."""
+    _, pst, _ = _pf_route(1 << 14, 5, 1 << 14)
+    g = next(g for g in pst.groups if any(st.relayout is not None for st in g.steps))
+    assert g.block_rows == 128
+    rows = tiles * g.block_rows
+    g = dataclasses.replace(g, kshape=(rows, 128))
+    rng = np.random.default_rng(tiles)
+    x = torch.from_numpy(rng.integers(-2**30, 2**30, (rows, 128)).astype(np.int32))
+    x = x if dtype == torch.int32 else x.to(dtype)
+    idx = [torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(np.int32))
+           .to(idx_dtype).to(cuda) for _ in g.steps]
+    before = shuffle.fused_pass_gather.launches
+    got = shuffle.fused_pass_gather(x.to(cuda), idx, g)
+    assert shuffle.fused_pass_gather.launches == before + 1
+    assert torch.equal(got, shuffle.fused_pass_gather_plain(x.to(cuda), idx, g))
+
+
+@pytest.mark.gpu
+def test_chained_kernels_report_occupancy(cuda):
+    """Two CTAs of the chained kernels fit one SM (the design's overlap of
+    one CTA's loads with the other's steps)."""
+    assert shuffle.occupancy("fused_pass_gather", 4, 1, 128) >= 2
+    assert shuffle.occupancy("mxreduce_pass_gather", torch.float32, "sum", 1) >= 2
+
+
 def _mx_plan(seed, nv=3000, ne=40000, hub=True):
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, nv, ne)
@@ -221,6 +254,91 @@ def test_mxreduce_kernel_matches_plain(cuda, op, dtype):
         torch.testing.assert_close(got[:total], want[:total], rtol=1e-5, atol=0)
     else:
         assert torch.equal(got[:total], want[:total])
+
+
+_MX_V_BLK = 16
+
+
+def _mx_split_case(case):
+    """Tile blocks and a rank map on one edge of the mx kernel's split into
+    chunks of 8,192 elements (8 tiles of 8 rows): flat keys never decrease
+    along the layout, sentinels (rank v_blk) aside, as the planner
+    guarantees.  Returns (tiles, tile_block, ranks (tiles * 1024,),
+    num_blocks)."""
+    rng = np.random.default_rng(len(case))
+    v, tile = _MX_V_BLK, 1024
+    tiles = {"single_tile": 1, "ragged": 45}.get(case, 64)
+    tile_block = np.sort(rng.integers(0, 6, tiles))
+    num_blocks = 6
+    if case == "hub":
+        tile_block = np.where(np.arange(tiles) < 40, 0, 1 + np.arange(tiles) // 50)
+    elif case == "sentinel_chunk":
+        tile_block = np.where(np.arange(tiles) < 8, 0, 1 + (np.arange(tiles) >= 40))
+    elif case == "empty_block":
+        tile_block = np.array([0] * 10 + [1] * 20 + [3] * 20 + [5] * 14)
+        num_blocks = 7  # blocks 2, 4 and 6 own no tile; block 5 no real slot
+    ranks = np.empty(tiles * tile, np.int64)
+    for b in np.unique(tile_block):
+        span = np.flatnonzero(np.repeat(tile_block, tile) == b)
+        ranks[span] = np.sort(rng.integers(0, v, span.size))
+    ranks[rng.random(ranks.size) < 0.1] = v
+    if case == "hub":  # rank 3 of block 0 over positions 1000..35000: five chunks
+        ranks[:40 * tile] = np.sort(rng.integers(0, v, 40 * tile))
+        ranks[:1000] = np.minimum(ranks[:1000], 2)
+        ranks[1000:35000] = 3
+        ranks[35000:40 * tile] = np.maximum(ranks[35000:40 * tile], 4)
+        ranks[1000:35000:13] = v
+    elif case == "sentinel_chunk":  # block 1's rank 5 runs on past two empty chunks
+        ranks[8 * tile:8 * tile + 500] = 5
+        ranks[8 * tile + 500:24 * tile] = v
+        ranks[24 * tile:24 * tile + 300] = 5
+        ranks[24 * tile + 300:40 * tile] = np.maximum(ranks[24 * tile + 300:40 * tile], 6)
+        ranks[8 * tile:8 * tile + 500][::7] = v
+    elif case == "empty_block":
+        ranks[50 * tile:] = v
+    return tiles, tile_block.astype(np.int32), ranks, num_blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hub", "sentinel_chunk", "empty_block", "ragged",
+                                  "single_tile"])
+@pytest.mark.parametrize("idx_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.float32),
+                                      ("max", torch.float32), ("sum", torch.int32),
+                                      ("min", torch.int32), ("max", torch.int32)])
+def test_mxreduce_kernel_split_edges(cuda, case, idx_dtype, op, dtype):
+    """The mx kernel's chunk-and-fold split on its edges: one rank whose
+    run spans five chunks and crosses chunk boundaries mid-run (hub); a
+    run that continues past two chunks of sentinel slots only; output
+    blocks with no real slot (neutral out); 45 tiles, not a multiple of
+    the chunk's 8; one tile.  Two steps, the second behind a cross-row
+    relayout of the 1,024-element tile; the indices random."""
+    tiles, tile_block, ranks, num_blocks = _mx_split_case(case)
+    rows = tiles * 8
+    steps = (shuffle.StaticStep(relayout=None),
+             shuffle.StaticStep(relayout=((1, 8, 8, 16), (0, 2, 3, 1))))
+    mxg = shuffle.StaticMXGroup(view=(rows * 128,), perm_axes=(), kshape=(rows, 128),
+                                block_rows=8, steps=steps, v_blk=_MX_V_BLK,
+                                num_blocks=num_blocks, op=op)
+    rng = np.random.default_rng(31)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, 128), dtype=np.int64)
+                             .astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.random((rows, 128), dtype=np.float32) + 0.01)
+    idx = [torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(np.int32))
+           .to(idx_dtype).to(cuda) for _ in mxg.steps]
+    dst_rel = torch.from_numpy(ranks.reshape(rows, 128).astype(np.int32)).to(idx_dtype).to(cuda)
+    tb = torch.from_numpy(tile_block).to(cuda)
+    x = x.to(cuda)
+    before = shuffle.mxreduce_pass_gather.launches
+    got = shuffle.mxreduce_pass_gather(x, idx, dst_rel, tb, mxg)
+    assert shuffle.mxreduce_pass_gather.launches == before + 1
+    want = shuffle.mxreduce_pass_gather_plain(x, idx, dst_rel, tb, mxg)
+    if op == "sum" and dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -203,6 +203,34 @@ def test_relayout_desc_reproduces_the_transpose():
         np.testing.assert_array_equal(src, want)
 
 
+def test_relayout_splits_into_row_and_lane_parts():
+    """What lets the chained kernels tabulate a step's addresses per lane
+    (csrc/lux_shuffle.cuh, step_base): every relayout of a real plan is a
+    bit permutation, so the source of row | lane is src(row) | src(lane)
+    on disjoint bits, and the shared-memory swizzle of it (4- and 2-byte
+    elements) is swz(src(row)) ^ swz(src(lane))."""
+    _, r, _ = _route(1 << 15, seed=4)
+    st, arrs = shuffle.freeze_plan(shuffle.plan_route(r))
+    pst, _ = shuffle.pf_from_frozen(st, arrs, max_block=1 << 14)
+    steps = [(s, g.block_rows * 128) for g in pst.groups for s in g.steps
+             if s.relayout is not None]
+    assert steps
+    for s, tile in steps:
+        desc = shuffle._relayout_desc((s,))
+        trip = desc[3:3 + 3 * desc[2]].reshape(-1, 3)
+
+        def src(q):
+            return sum(((q >> sh) & mk) << ss for sh, mk, ss in trip)
+
+        q = np.arange(tile)
+        row, lane = src(q & ~127), src(q & 127)
+        assert (row & lane == 0).all() and (src(q) == row | lane).all()
+        for shift in (2, 3):
+            def swz(p):
+                return p ^ (((p >> (shift + 3)) & 7) << shift)
+            assert (swz(src(q)) == swz(row) ^ swz(lane)).all()
+
+
 def _mx_case(seed, m=700, nseg=37, ss=500, hub=True):
     rng = np.random.default_rng(seed)
     p = np.ones(nseg)
@@ -269,3 +297,62 @@ def test_mx_knobs_match_reference(monkeypatch):
     monkeypatch.setenv("LUX_MX_TILE_ROWS", "128")
     with pytest.raises(ValueError, match="LUX_MX_TILE_ROWS"):
         shuffle._mx_defaults()
+
+
+def test_mx_launch_shape_sizes_the_chunks_and_scratch():
+    """The mx kernel's grid: chunks of 8,192 elements of whole tiles (the
+    last one short), one 20-byte summary each, one fold thread each."""
+    main = shuffle.mx_launch_shape(1 << 18, 8)  # n2 = 2^25 in tiles of 8 rows
+    assert main == {"chunks": 4096, "tiles_per_chunk": 8, "threads": 512,
+                    "fold_ctas": 16, "scratch_bytes": 4096 * 20}
+    assert shuffle.mx_num_chunks(45 * 8, 8) == 6  # 45 tiles: a short last chunk
+    assert shuffle.mx_num_chunks(8, 8) == 1
+    assert shuffle.mx_num_chunks(1, 1) == 1
+    assert shuffle.mx_num_chunks(640, 64) == 10  # tiles of a whole chunk
+    assert shuffle.mx_launch_shape(3 * 64, 64)["tiles_per_chunk"] == 1
+    with pytest.raises(ValueError, match="at most 8192"):
+        shuffle.mx_num_chunks(256, 128)
+    with pytest.raises(ValueError, match="divides the rows"):
+        shuffle.mx_num_chunks(20, 8)
+
+
+def test_fused_launch_shape_holds_a_tile_per_cta():
+    """One CTA per tile; a thread owns at most two units of 16 positions;
+    the tile is one shared buffer (64 KB for f32 at 128 rows)."""
+    assert shuffle.fused_launch_shape(1 << 17, 128, 4) == {
+        "ctas": 1024, "threads": 512, "units_per_thread": 2, "smem_bytes": 65536}
+    assert shuffle.fused_launch_shape(1 << 17, 128, 2)["smem_bytes"] == 32768
+    assert shuffle.fused_launch_shape(2, 2, 4) == {
+        "ctas": 1, "threads": 16, "units_per_thread": 1, "smem_bytes": 1024}
+    assert shuffle.fused_launch_shape(12, 4, 4)["ctas"] == 3
+    with pytest.raises(ValueError, match="at most 16384"):
+        shuffle.fused_launch_shape(512, 256, 4)
+    with pytest.raises(ValueError, match="divides the rows"):
+        shuffle.fused_launch_shape(130, 128, 4)
+
+
+def test_chained_wrappers_refuse_misaligned_arrays():
+    """The chained kernels load and store 16 bytes at a time."""
+    flat = torch.zeros(2 * 128 + 4)
+    shuffle._check_aligned("k", flat[:256], torch.zeros(8, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shuffle._check_aligned("k", flat[1:257])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shuffle._check_aligned("k", flat[:256], torch.zeros(40, dtype=torch.uint8)[3:19])
+
+
+@pytest.mark.parametrize("hub", [True, False])
+def test_mx_flat_keys_never_decrease(hub):
+    """What lets the mx kernel cut the array at any tile boundary: along
+    the final layout the flat key tile_block * v_blk + rank never
+    decreases once sentinel slots are set aside."""
+    src, dst = _mx_case(21, m=3000, nseg=300, hub=hub)
+    st, arr = expand.plan_fused(src, dst, len(src), 500, 512, "sum", mx=True)
+    *_, mxa = expand.split_fused_arrays(st, arr, st.weighted)
+    k, mxg = len(st.mx.steps), st.mx
+    ranks = mxa[k].astype(np.int64).reshape(-1)
+    tile = np.arange(ranks.size) // (mxg.block_rows * 128)
+    keys = mxa[k + 1].astype(np.int64)[tile] * mxg.v_blk + ranks
+    real = ranks < mxg.v_blk
+    assert real.sum() == len(src)
+    assert (np.diff(keys[real]) >= 0).all()

@@ -93,20 +93,22 @@ fused_pass_kernel(const T* __restrict__ x, T* __restrict__ out, StepPlan plan, i
   }
 }
 
-// The launch of one tile size: threads per CTA and dynamic shared memory.
-template <typename T>
-void launch_shape(int tile_elems, int* threads, size_t* smem) {
-  const int units = tile_elems / kUnit;
-  *threads = units < kThreads ? units : kThreads;
-  *smem = (size_t)tile_elems * sizeof(T);
-}
-
+// The launch of one tile size: threads per CTA (a thread owns up to two
+// units) and dynamic shared memory (the tile), opted in where it needs to.
 template <typename T, typename I>
 cudaError_t prepare(int tile_elems, int* threads, size_t* smem) {
   static size_t opted = 48 * 1024;  // per instantiation: the largest opted in
-  launch_shape<T>(tile_elems, threads, smem);
+  const int units = tile_elems / kUnit;
+  *threads = units < kThreads ? units : kThreads;
+  *smem = (size_t)tile_elems * sizeof(T);
   if (*smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  return opt_in_smem(fused_pass_kernel<T, I>, *smem, &opted);
+  if (*smem <= opted) return cudaSuccess;
+  // above 48 KB the kernel must opt in (its static shared memory counts
+  // against the same per-block limit)
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_pass_kernel<T, I>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (e == cudaSuccess) opted = *smem;
+  return e;
 }
 
 template <typename T, typename I>

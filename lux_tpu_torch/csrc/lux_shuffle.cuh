@@ -233,15 +233,3 @@ __device__ __forceinline__ void step_read16(const T* tile, int base, const uint1
 #pragma unroll
   for (int j = 0; j < kUnit; ++j) v[j] = tile[base ^ lut[q[j]]];
 }
-
-// Let `kernel` take `bytes` of dynamic shared memory (above the default
-// 48 KB it must opt in; the kernel's static shared memory counts against the
-// same per-block limit).  `opted` caches the largest size granted so far.
-template <typename K>
-inline cudaError_t opt_in_smem(K kernel, size_t bytes, size_t* opted) {
-  if (bytes <= *opted) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) *opted = bytes;
-  return e;
-}

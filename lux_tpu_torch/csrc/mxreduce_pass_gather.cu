@@ -40,13 +40,11 @@
 //      then over the 16 warps; runs closed there are complete too.  The chunk's first and last
 //      runs may continue into its neighbours: they go to the summary (key
 //      and value of each, and the run count) in scratch;
-//   2. fold: one thread per chunk.  A chunk whose first run does not
-//      continue the previous non-empty chunk's last run starts a chain:
-//      it folds the first runs of the following chunks with the same key,
-//      in chunk order, while each of those chunks holds that one run only
-//      (a hub's key may span dozens of chunks), and writes out[key]; a
-//      chunk's last run (when it has two or more) starts a chain the same
-//      way.
+//   2. fold: one CTA combines the chunks' summaries in chunk order with the
+//      same combination, in a fixed tree: a key that spans many chunks (a
+//      hub's rank may span dozens) costs one combination a chunk, and the
+//      combination that joins two pieces of a run writes it once it is
+//      whole.
 // Every combination has a fixed order, so results are deterministic, with
 // no atomics.  Float sums accumulate in f32 (out f32); int32 sums wrap
 // through uint32; min/max keep the type (NaN propagates like
@@ -57,9 +55,9 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kChunk = kThreads * kUnit;  // 8192 = ops/shuffle.MX_CHUNK_ELEMS
+constexpr int kChunk = kThreads * kUnit;  // 8192 = ops/shuffle.MX_MAX_TILE_ELEMS
 constexpr int kWarps = kThreads / 32;
-constexpr int kFoldThreads = 256;
+constexpr int kFoldThreads = 1024;
 constexpr int kFillThreads = 256;
 
 // Runs of equal key seen in order: the first run (kept, it may continue a
@@ -130,7 +128,7 @@ struct Parts {
   int* key;
   int* n;
   TAcc* val;
-  __device__ __host__ Parts(void* scratch, int num_chunks)
+  __device__ Parts(void* scratch, int num_chunks)
       : key(static_cast<int*>(scratch)),
         n(static_cast<int*>(scratch) + 2 * num_chunks),
         val(reinterpret_cast<TAcc*>(static_cast<int*>(scratch) + 3 * num_chunks)) {}
@@ -220,40 +218,45 @@ mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ra
   }
 }
 
-// Fold the chain that starts with (key, v) in chunk c: while the run is
-// open, the first runs of the next non-empty chunks with the same key, in
-// chunk order; a chunk with more than one run closes it.
-template <typename TAcc, int OP>
-__device__ void fold_chain(const Parts<TAcc>& parts, int num_chunks, int c, int key, TAcc v,
-                           bool open, TAcc* __restrict__ out) {
-  using C = Combine<TAcc, OP>;
-  TAcc acc = C::apply(C::neutral(), v);
-  for (int d = c + 1; open && d < num_chunks; ++d) {
-    const int nd = parts.n[d];
-    if (nd == 0) continue;  // only sentinel slots
-    if (parts.key[2 * d] != key) break;
-    acc = C::apply(acc, parts.val[2 * d]);
-    open = nd == 1;
-  }
-  out[key] = acc;
-}
-
+// Fold the chunk summaries in chunk order, in one CTA: each thread
+// combines a contiguous range of chunks in order, then the threads'
+// summaries are combined in a fixed tree (warps, then the warps' results).
+// Every run that crosses a chunk boundary closes in some combination and is
+// written there; the whole array's first and last runs are written at the
+// end.
 template <typename TAcc, int OP>
 __global__ void __launch_bounds__(kFoldThreads)
 mx_fold_kernel(void* scratch, int num_chunks, TAcc* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= num_chunks) return;
+  using C = Combine<TAcc, OP>;
+  __shared__ int w_fk[32], w_lk[32], w_n[32];
+  __shared__ TAcc w_fv[32], w_lv[32];
   const Parts<TAcc> parts(scratch, num_chunks);
-  const int n = parts.n[c];
-  if (n == 0) return;
-  const int fk = parts.key[2 * c];
-  int p = c - 1;
-  while (p >= 0 && parts.n[p] == 0) --p;
-  if (p < 0 || parts.key[2 * p + 1] != fk)
-    fold_chain<TAcc, OP>(parts, num_chunks, c, fk, parts.val[2 * c], n == 1, out);
-  if (n > 1)
-    fold_chain<TAcc, OP>(parts, num_chunks, c, parts.key[2 * c + 1], parts.val[2 * c + 1], true,
-                         out);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (num_chunks + kFoldThreads - 1) / kFoldThreads;
+  const int lo = min(tid * per, num_chunks), hi = min(lo + per, num_chunks);
+  Runs<TAcc, OP> s;
+  s.init();
+  for (int c = lo; c < hi; ++c) {
+    const Runs<TAcc, OP> b = {parts.key[2 * c], parts.key[2 * c + 1], parts.n[c],
+                              parts.val[2 * c], parts.val[2 * c + 1]};
+    s = combine(s, b, out);
+  }
+  const Runs<TAcc, OP> w = warp_combine(s, lane, 32, out);
+  if (lane == 0) {
+    w_fk[warp] = w.fk; w_fv[warp] = w.fv;
+    w_lk[warp] = w.lk; w_lv[warp] = w.lv; w_n[warp] = w.n;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    Runs<TAcc, OP> t;
+    t.init();
+    if (lane < kFoldThreads / 32) t = {w_fk[lane], w_lk[lane], w_n[lane], w_fv[lane], w_lv[lane]};
+    const Runs<TAcc, OP> all = warp_combine(t, lane, kFoldThreads / 32, out);
+    if (lane == 0 && all.n > 0) {
+      out[all.fk] = C::apply(C::neutral(), all.fv);
+      if (all.n > 1) out[all.lk] = C::apply(C::neutral(), all.lv);
+    }
+  }
 }
 
 int num_chunks_of(int num_tiles, int tile_elems) {
@@ -274,8 +277,7 @@ int launch(const void* x, const StepPlan& plan, const void* ranks, const int32_t
   mx_chunk_kernel<T, TAcc, OP, I><<<num_chunks, kThreads, kChunk * sizeof(T), stream>>>(
       static_cast<const T*>(x), plan, static_cast<const I*>(ranks), tile_block, num_tiles,
       tile_elems, v_blk, o, scratch, num_chunks);
-  mx_fold_kernel<TAcc, OP><<<(num_chunks + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
-                             stream>>>(scratch, num_chunks, o);
+  mx_fold_kernel<TAcc, OP><<<1, kFoldThreads, 0, stream>>>(scratch, num_chunks, o);
   return 0;
 }
 

@@ -48,22 +48,16 @@ LANE = 128
 #: in-tile relayout (csrc/lux_shuffle.cuh kMaxSteps / kMaxDims)
 MAX_STEPS = 4
 MAX_DIMS = 8
-#: elements of one mx reduce tile the mx kernel can hold: a tile must
-#: fit one of its chunks (csrc/mxreduce_pass_gather.cu)
+#: the mx kernel's chunk, the unit of its grid: whole tiles one CTA of
+#: 512 threads reduces, 16 elements a thread; so also the largest mx
+#: reduce tile (csrc/mxreduce_pass_gather.cu)
 MX_MAX_TILE_ELEMS = 8192
-#: the mx kernel's chunk: the whole tiles one CTA of 512 threads reduces
-#: (16 elements a thread), and the unit of its balanced grid
-MX_CHUNK_ELEMS = 8192
 #: bytes of the mx kernel's summary of one chunk (two int32 keys, an int32
 #: run count, two 4-byte partial values)
 MX_PART_BYTES = 20
 #: the fused pass kernel's largest tile: 512 threads x 2 units of 16
 #: (csrc/fused_pass_gather.cu), above what the planner's budget gives
 FUSED_MAX_TILE_ELEMS = 16384
-#: threads of one CTA of the chained kernels, and positions a thread owns
-#: together (one 16-byte index load)
-CHAIN_THREADS = 512
-CHAIN_UNIT = 16
 
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _INDEX_DTYPES = (torch.uint8, torch.int32)
@@ -916,22 +910,6 @@ def _ptr_array(tensors):
     return (ctypes.c_void_p * MAX_STEPS)(*[t.data_ptr() for t in tensors])
 
 
-def fused_launch_shape(rows: int, block_rows: int, esize: int) -> dict:
-    """The fused kernel's launch for (rows, 128) elements of ``esize``
-    bytes in tiles of ``block_rows`` rows: one CTA per tile, threads per
-    CTA (a thread owns units of 16 positions, at most two), and the
-    tile's one shared buffer in bytes."""
-    tile = block_rows * LANE
-    if block_rows < 1 or rows % block_rows or tile > FUSED_MAX_TILE_ELEMS:
-        raise ValueError(f"fused_pass_gather: {rows} rows in tiles of "
-                         f"{block_rows} rows; a tile divides the rows and "
-                         f"holds at most {FUSED_MAX_TILE_ELEMS} elements")
-    units = tile // CHAIN_UNIT
-    threads = min(units, CHAIN_THREADS)
-    return {"ctas": rows // block_rows, "threads": threads,
-            "units_per_thread": units // threads, "smem_bytes": tile * esize}
-
-
 def occupancy(name: str, *args) -> int:
     """CTAs of chained kernel ``name`` one SM holds at once, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card.
@@ -963,7 +941,9 @@ def fused_pass_gather(x: torch.Tensor, idx, group: StaticGroup) -> torch.Tensor:
                        group.block_rows, group.kshape)
     if dev.type == "cpu":
         return fused_pass_gather_plain(x, idx, group)
-    fused_launch_shape(x.shape[0], group.block_rows, x.element_size())
+    if group.block_rows * LANE > FUSED_MAX_TILE_ELEMS:
+        raise ValueError(f"fused tile of {group.block_rows * LANE} elements; the "
+                         f"kernel holds at most {FUSED_MAX_TILE_ELEMS}")
     out = torch.empty_like(x)
     _check_aligned("fused_pass_gather", x, out, *idx)
     desc = _desc_of(group.steps)
@@ -979,25 +959,16 @@ fused_pass_gather.launches = 0
 
 def mx_num_chunks(rows: int, block_rows: int) -> int:
     """Chunks of the mx kernel's grid over (rows, 128) in tiles of
-    ``block_rows`` rows: MX_CHUNK_ELEMS elements of whole tiles each, the
-    last one short when the tiles do not fill it."""
+    ``block_rows`` rows: MX_MAX_TILE_ELEMS elements of whole tiles each,
+    the last one short when the tiles do not fill it.  The wrapper
+    allocates MX_PART_BYTES of summary for each."""
     tile = block_rows * LANE
-    if block_rows < 1 or rows % block_rows or tile > MX_CHUNK_ELEMS:
+    if block_rows < 1 or rows % block_rows or tile > MX_MAX_TILE_ELEMS:
         raise ValueError(f"mxreduce_pass_gather: {rows} rows in tiles of "
                          f"{block_rows} rows; a tile divides the rows and "
-                         f"holds at most {MX_CHUNK_ELEMS} elements")
-    per_chunk = MX_CHUNK_ELEMS // tile
+                         f"holds at most {MX_MAX_TILE_ELEMS} elements")
+    per_chunk = MX_MAX_TILE_ELEMS // tile
     return -(-(rows // block_rows) // per_chunk)
-
-
-def mx_launch_shape(rows: int, block_rows: int) -> dict:
-    """The mx kernel's three launches: the fill of the totals, one CTA
-    per chunk, one fold thread per chunk (256 a CTA); and the bytes of
-    the chunk summaries the wrapper allocates."""
-    chunks = mx_num_chunks(rows, block_rows)
-    return {"chunks": chunks, "tiles_per_chunk": MX_CHUNK_ELEMS // (block_rows * LANE),
-            "threads": CHAIN_THREADS, "fold_ctas": -(-chunks // 256),
-            "scratch_bytes": MX_PART_BYTES * chunks}
 
 
 def mx_out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
@@ -1072,12 +1043,12 @@ def mxreduce_pass_gather(x: torch.Tensor, idx, dst_rel: torch.Tensor,
                          f"kernel holds at most {MX_MAX_TILE_ELEMS}")
     if not (dst_rel.is_contiguous() and tile_block.is_contiguous()):
         raise ValueError("mxreduce_pass_gather needs contiguous inputs")
-    shape = mx_launch_shape(x.shape[0], group.block_rows)
     # the kernel fills every total with the neutral value itself (its
     # first launch), so keys no real slot touches come out neutral
     out = torch.empty(group.num_blocks * group.v_blk,
                       dtype=mx_out_dtype(group.op, x.dtype), device=dev)
-    scratch = torch.empty(shape["scratch_bytes"], dtype=torch.uint8, device=dev)
+    scratch = torch.empty(MX_PART_BYTES * mx_num_chunks(x.shape[0], group.block_rows),
+                          dtype=torch.uint8, device=dev)
     _check_aligned("mxreduce_pass_gather", x, dst_rel, out, scratch, *idx)
     desc = _desc_of(group.steps)
     _launch("mxreduce_pass_gather", dev, x.data_ptr(), _MX_KIND[x.dtype],

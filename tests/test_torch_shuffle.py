@@ -299,36 +299,19 @@ def test_mx_knobs_match_reference(monkeypatch):
         shuffle._mx_defaults()
 
 
-def test_mx_launch_shape_sizes_the_chunks_and_scratch():
-    """The mx kernel's grid: chunks of 8,192 elements of whole tiles (the
-    last one short), one 20-byte summary each, one fold thread each."""
-    main = shuffle.mx_launch_shape(1 << 18, 8)  # n2 = 2^25 in tiles of 8 rows
-    assert main == {"chunks": 4096, "tiles_per_chunk": 8, "threads": 512,
-                    "fold_ctas": 16, "scratch_bytes": 4096 * 20}
+def test_mx_num_chunks_sizes_the_grid():
+    """The mx kernel's grid: chunks of 8,192 elements of whole tiles, the
+    last one short; the wrapper's summary array holds 20 bytes a chunk."""
+    assert shuffle.mx_num_chunks(1 << 18, 8) == 4096  # n2 = 2^25 in tiles of 8 rows
     assert shuffle.mx_num_chunks(45 * 8, 8) == 6  # 45 tiles: a short last chunk
     assert shuffle.mx_num_chunks(8, 8) == 1
     assert shuffle.mx_num_chunks(1, 1) == 1
     assert shuffle.mx_num_chunks(640, 64) == 10  # tiles of a whole chunk
-    assert shuffle.mx_launch_shape(3 * 64, 64)["tiles_per_chunk"] == 1
+    assert shuffle.MX_PART_BYTES == 2 * 4 + 4 + 2 * 4
     with pytest.raises(ValueError, match="at most 8192"):
         shuffle.mx_num_chunks(256, 128)
     with pytest.raises(ValueError, match="divides the rows"):
         shuffle.mx_num_chunks(20, 8)
-
-
-def test_fused_launch_shape_holds_a_tile_per_cta():
-    """One CTA per tile; a thread owns at most two units of 16 positions;
-    the tile is one shared buffer (64 KB for f32 at 128 rows)."""
-    assert shuffle.fused_launch_shape(1 << 17, 128, 4) == {
-        "ctas": 1024, "threads": 512, "units_per_thread": 2, "smem_bytes": 65536}
-    assert shuffle.fused_launch_shape(1 << 17, 128, 2)["smem_bytes"] == 32768
-    assert shuffle.fused_launch_shape(2, 2, 4) == {
-        "ctas": 1, "threads": 16, "units_per_thread": 1, "smem_bytes": 1024}
-    assert shuffle.fused_launch_shape(12, 4, 4)["ctas"] == 3
-    with pytest.raises(ValueError, match="at most 16384"):
-        shuffle.fused_launch_shape(512, 256, 4)
-    with pytest.raises(ValueError, match="divides the rows"):
-        shuffle.fused_launch_shape(130, 128, 4)
 
 
 def test_chained_wrappers_refuse_misaligned_arrays():

@@ -395,10 +395,12 @@ def fused_cases(torch, np, shuffle, expand, plan_pf, dev, reps: int):
             y, i = got.reshape(-1), i + k
     mean = {k: sum(g[k] for g in groups) / len(groups)
             for k in ("kernel_ms", "plain_ms", "bound_ms")}
-    # one CTA per tile, and the CTAs one SM holds at each tile size
+    # the launch of each tile size (csrc/fused_pass_gather.cu): one CTA per
+    # tile, a thread per 16-element unit up to 512, the f32 tile in shared
+    # memory; __launch_bounds__(512, 2) holds two such CTAs on an SM
     launch = {f"block_rows={br}": {
-        "ctas": static.r1.n // 128 // br,
-        "ctas_per_sm": shuffle.occupancy("fused_pass_gather", 4, 1, br)}
+        "ctas": static.r1.n // 128 // br, "threads": min(br * 128 // 16, 512),
+        "smem_bytes": br * 128 * 4}
         for br in sorted({g["block_rows"] for g in groups})}
     return {"groups": groups, "launch": launch, "max_abs_err": 0.0, "library_ms": None, **mean}
 
@@ -483,11 +485,11 @@ def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
             "max_tiles_per_block": int(per_block.max()),
             "mean_tiles_per_block": float(per_block.float().mean()),
             "largest_block_share": float(per_block.max()) / tile_block.numel(),
-            # a CTA per chunk, then one CTA folds the chunks' summaries
+            # a CTA of 512 threads per chunk, its values in shared memory,
+            # then one CTA folds the chunks' summaries
             "launch": {"chunk_ctas": shuffle.mx_num_chunks(y.shape[0], mxg.block_rows),
-                       "fold_ctas": 1,
-                       "ctas_per_sm": shuffle.occupancy("mxreduce_pass_gather", torch.float32,
-                                                        "sum", idx[0].element_size())},
+                       "chunk_threads": 512, "chunk_smem_bytes": shuffle.MX_MAX_TILE_ELEMS * 4,
+                       "fold_ctas": 1},
             "traced_ms": passes, "fold_share": passes["fold"] / traced if traced else None,
             "hub": {"largest_block_share": 1.0, "max_abs_err": hub_err,
                     "kernel_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather(

@@ -41,7 +41,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kUnitsPerThread = 2;
 constexpr int kMaxTile = kThreads * kUnit * kUnitsPerThread;  // 16,384 elements
-constexpr int kMaxSmem = 232448;  // the H100's per-block shared memory
 
 template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -93,46 +92,27 @@ fused_pass_kernel(const T* __restrict__ x, T* __restrict__ out, StepPlan plan, i
   }
 }
 
-// The launch of one tile size: threads per CTA (a thread owns up to two
-// units) and dynamic shared memory (the tile), opted in where it needs to.
-template <typename T, typename I>
-cudaError_t prepare(int tile_elems, int* threads, size_t* smem) {
-  static size_t opted = 48 * 1024;  // per instantiation: the largest opted in
-  const int units = tile_elems / kUnit;
-  *threads = units < kThreads ? units : kThreads;
-  *smem = (size_t)tile_elems * sizeof(T);
-  if (*smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  if (*smem <= opted) return cudaSuccess;
-  // above 48 KB the kernel must opt in (its static shared memory counts
-  // against the same per-block limit)
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_pass_kernel<T, I>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  if (e == cudaSuccess) opted = *smem;
-  return e;
-}
-
 template <typename T, typename I>
 int launch(const void* x, const StepPlan& plan, long long rows, int block_rows, void* out,
            cudaStream_t stream) {
+  static size_t opted = 48 * 1024;  // per instantiation: the largest opted in
   const int tile_elems = block_rows * kLane;
-  int threads;
-  size_t smem;
-  const cudaError_t e = prepare<T, I>(tile_elems, &threads, &smem);
-  if (e != cudaSuccess) return (int)e;
+  // a thread owns up to two units; a small tile runs one thread a unit
+  const int units = tile_elems / kUnit;
+  const int threads = units < kThreads ? units : kThreads;
+  const size_t smem = (size_t)tile_elems * sizeof(T);
+  if (smem > opted) {
+    // above 48 KB the kernel must opt in (its static shared memory counts
+    // against the same per-block limit)
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_pass_kernel<T, I>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    opted = smem;
+  }
   const long long tiles = rows / block_rows;
   fused_pass_kernel<T, I><<<(unsigned)tiles, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), plan, tile_elems);
   return 0;
-}
-
-template <typename T, typename I>
-int occupancy(int block_rows, int* ctas_per_sm) {
-  int threads;
-  size_t smem;
-  const cudaError_t e = prepare<T, I>(block_rows * kLane, &threads, &smem);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, fused_pass_kernel<T, I>, threads, smem);
 }
 
 bool shape_ok(long long rows, int block_rows) {
@@ -165,17 +145,4 @@ extern "C" int lux_fused_pass_gather(const void* x, int esize, const void* const
   else return (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
-}
-
-// CTAs of the kernel for (esize, isize, block_rows) that one SM holds at
-// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *ctas_per_sm.
-// Returns 0, or the CUDA error.
-extern "C" int lux_fused_pass_gather_occupancy(int esize, int isize, int block_rows,
-                                               int* ctas_per_sm) {
-  if (!shape_ok(block_rows, block_rows)) return (int)cudaErrorInvalidValue;
-  if (esize == 4 && isize == 1) return occupancy<uint32_t, uint8_t>(block_rows, ctas_per_sm);
-  if (esize == 4 && isize == 4) return occupancy<uint32_t, int32_t>(block_rows, ctas_per_sm);
-  if (esize == 2 && isize == 1) return occupancy<uint16_t, uint8_t>(block_rows, ctas_per_sm);
-  if (esize == 2 && isize == 4) return occupancy<uint16_t, int32_t>(block_rows, ctas_per_sm);
-  return (int)cudaErrorInvalidValue;
 }

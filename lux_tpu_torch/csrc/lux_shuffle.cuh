@@ -207,15 +207,16 @@ __device__ __forceinline__ void store16_global(T* __restrict__ dst, const T (&v)
 // swz(toff | rel(row)) ^ swz(rel(lane)).  Each CTA tabulates the second
 // term for the 128 lanes of every step (lut[s * 128 + lane], in shared
 // memory); a unit computes the first once per step; an element costs one
-// table read and one XOR.
+// table read and one XOR.  The CTA's threads stride over the 128 lanes: a
+// small tile runs fewer than 128 threads, and every lane is read.
 template <typename T>
 __device__ __forceinline__ void build_lane_luts(const StepPlan& plan, uint16_t* lut) {
-  const int l = threadIdx.x;
 #pragma unroll
   for (int s = 0; s < kMaxSteps; ++s)
-    if (s < plan.n_steps && l < kLane)
-      lut[s * kLane + l] =
-          (uint16_t)Tile<T>::swz(plan.has_relayout[s] ? relayout_src(plan.rel[s], l) : l);
+    if (s < plan.n_steps)
+      for (int l = threadIdx.x; l < kLane; l += blockDim.x)
+        lut[s * kLane + l] =
+            (uint16_t)Tile<T>::swz(plan.has_relayout[s] ? relayout_src(plan.rel[s], l) : l);
 }
 
 // The swizzled source of the unit's row part in step s.

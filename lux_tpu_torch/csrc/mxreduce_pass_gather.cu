@@ -281,12 +281,6 @@ int launch(const void* x, const StepPlan& plan, const void* ranks, const int32_t
   return 0;
 }
 
-template <typename T, typename TAcc, int OP, typename I>
-int occupancy(int* ctas_per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, mx_chunk_kernel<T, TAcc, OP, I>, kThreads, kChunk * sizeof(T));
-}
-
 // The instantiation of (kind, op, I), handed to f as template arguments.
 template <typename I, typename F>
 int dispatch(int kind, int op, F&& f) {
@@ -324,12 +318,6 @@ struct Launch {
   }
 };
 
-struct Occupancy {
-  int* ctas_per_sm;
-  template <typename T, typename TAcc, int OP, typename I>
-  int run() const { return occupancy<T, TAcc, OP, I>(ctas_per_sm); }
-};
-
 }  // namespace
 
 // x: (rows, 128) values of `kind` (LUX_F32 or LUX_I32) in the group's entry
@@ -364,12 +352,4 @@ extern "C" int lux_mxreduce_pass_gather(const void* x, int kind, const void* con
   const int rc = dispatch_index(isize, kind, op, l);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
-}
-
-// CTAs of the chunk kernel (pass 1) for (kind, op, isize) that one SM holds
-// at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// *ctas_per_sm.  Returns 0, or the CUDA error.
-extern "C" int lux_mxreduce_pass_gather_occupancy(int kind, int op, int isize,
-                                                  int* ctas_per_sm) {
-  return dispatch_index(isize, kind, op, Occupancy{ctas_per_sm});
 }

@@ -55,9 +55,6 @@ MX_MAX_TILE_ELEMS = 8192
 #: bytes of the mx kernel's summary of one chunk (two int32 keys, an int32
 #: run count, two 4-byte partial values)
 MX_PART_BYTES = 20
-#: the fused pass kernel's largest tile: 512 threads x 2 units of 16
-#: (csrc/fused_pass_gather.cu), above what the planner's budget gives
-FUSED_MAX_TILE_ELEMS = 16384
 
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _INDEX_DTYPES = (torch.uint8, torch.int32)
@@ -82,25 +79,18 @@ _ARGTYPES = {
                              [_VP, _CI, _VP, _CI, _VP, _VP, _CI, _VP, _CLL,
                               _CI, _CI, _CI, _CI, _VP, _VP, _CLL, _VP]),
 }
-#: the chained kernels' occupancy queries (no stream), by kernel name
-_OCCUPANCY = {
-    "fused_pass_gather": ("lux_fused_pass_gather_occupancy", [_CI, _CI, _CI, _VP]),
-    "mxreduce_pass_gather": ("lux_mxreduce_pass_gather_occupancy",
-                             [_CI, _CI, _CI, _VP]),
-}
 
 
-def _fn(name: str, table=_ARGTYPES):
-    """The bound C entry point of kernel ``name`` in ``table`` (the
-    launches, or the occupancy queries), built on first use."""
+def _fn(name: str):
+    """The bound C entry point of kernel ``name`` (built on first use)."""
     lib = _bound.get(name)
     if lib is None:
-        lib = _bound[name] = cuda_build.load(name)
-    sym, argtypes = table[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+        lib = cuda_build.load(name)
+        sym, argtypes = _ARGTYPES[name]
+        getattr(lib, sym).argtypes = argtypes
+        getattr(lib, sym).restype = ctypes.c_int
+        _bound[name] = lib
+    return getattr(lib, _ARGTYPES[name][0])
 
 
 def _same_device(name: str, *tensors) -> torch.device:
@@ -910,21 +900,6 @@ def _ptr_array(tensors):
     return (ctypes.c_void_p * MAX_STEPS)(*[t.data_ptr() for t in tensors])
 
 
-def occupancy(name: str, *args) -> int:
-    """CTAs of chained kernel ``name`` one SM holds at once, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card.
-    fused_pass_gather takes (esize, isize, block_rows);
-    mxreduce_pass_gather (value dtype, op, isize) for its chunk pass."""
-    if name == "mxreduce_pass_gather":
-        dtype, op, isize = args
-        args = (_MX_KIND[dtype], _MX_OPS[op], isize)
-    n = ctypes.c_int(0)
-    rc = _fn(name, _OCCUPANCY)(*args, ctypes.byref(n))
-    if rc != 0:
-        raise RuntimeError(f"{name} occupancy query failed: CUDA error {rc}")
-    return n.value
-
-
 def fused_pass_gather_plain(x: torch.Tensor, idx, group: StaticGroup):
     """Plain PyTorch version of :func:`fused_pass_gather`."""
     return _steps_plain(x, group.steps, idx)
@@ -941,9 +916,6 @@ def fused_pass_gather(x: torch.Tensor, idx, group: StaticGroup) -> torch.Tensor:
                        group.block_rows, group.kshape)
     if dev.type == "cpu":
         return fused_pass_gather_plain(x, idx, group)
-    if group.block_rows * LANE > FUSED_MAX_TILE_ELEMS:
-        raise ValueError(f"fused tile of {group.block_rows * LANE} elements; the "
-                         f"kernel holds at most {FUSED_MAX_TILE_ELEMS}")
     out = torch.empty_like(x)
     _check_aligned("fused_pass_gather", x, out, *idx)
     desc = _desc_of(group.steps)

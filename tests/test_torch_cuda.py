@@ -163,11 +163,13 @@ def _pf_route(n, seed, max_block):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,max_block", [(1 << 14, 1 << 14), (1 << 15, 1 << 14),
-                                         (1 << 15, 1024), (1 << 11, 128)])
+                                         (1 << 15, 1024), (1 << 11, 128),
+                                         (1 << 8, 1 << 14), (1 << 10, 1 << 14)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_pass_gather_kernel_matches_plain(cuda, n, max_block, dtype):
     """Every group of a pass-fused route (relayouts across rows included),
-    then the whole replay against x[perm]."""
+    then the whole replay against x[perm].  n = 2^8 and 2^10 give tiles of
+    2 and 8 rows, whose CTAs run fewer threads than a row has lanes."""
     perm, pst, parr = _pf_route(n, 5, max_block)
     x = torch.from_numpy(np.random.default_rng(6).random(n, dtype=np.float32)).to(dtype)
     idx = expand.plan_to_device((pst, parr), cuda)[1]
@@ -206,14 +208,6 @@ def test_fused_pass_gather_kernel_tile_counts(cuda, tiles, dtype, idx_dtype):
     got = shuffle.fused_pass_gather(x.to(cuda), idx, g)
     assert shuffle.fused_pass_gather.launches == before + 1
     assert torch.equal(got, shuffle.fused_pass_gather_plain(x.to(cuda), idx, g))
-
-
-@pytest.mark.gpu
-def test_chained_kernels_report_occupancy(cuda):
-    """Two CTAs of the chained kernels fit one SM (the design's overlap of
-    one CTA's loads with the other's steps)."""
-    assert shuffle.occupancy("fused_pass_gather", 4, 1, 128) >= 2
-    assert shuffle.occupancy("mxreduce_pass_gather", torch.float32, "sum", 1) >= 2
 
 
 def _mx_plan(seed, nv=3000, ne=40000, hub=True):

@@ -22,7 +22,14 @@ Phases, each printing one JSON line with its seconds:
               sum for the SpMV).  min/max/int32 must be bitwise equal;
               f32 sums of positive values within rtol 1e-5 (the kernels
               associate the sum in another order than the plain
-              versions).
+              versions), and two calls bitwise equal.  Then each
+              kernel's stress case, timed: the SpMV on the main layout's
+              slot count with one vertex holding every slot, and the scan
+              at 2^24 elements with one segment (a head at 0 only); their
+              f32 sums within rtol 1e-5 of the same sums in float64 (the
+              plain f32 versions round a 17 M-term sum themselves), the
+              scan's min/max/int32 bitwise.  Each kernel's launches
+              (grid, threads, shared-memory bytes).
   4. plan     the routed plans of the main graph, each family built once
               and reused below: expand, its pass-fused form, the fused
               (group) plan and its pass-fused form, and fused-mx; for
@@ -36,9 +43,8 @@ Phases, each printing one JSON line with its seconds:
               expand-pf plan (with each tile size's launch and the CTAs
               an SM holds), mxreduce_pass_gather on the main fused-mx
               plan's reduce group (sum/min/max, f32 and int32; its
-              chunks, grid, the CTAs an SM holds, each of its three
-              launches' traced time and the fold's share) and, on the
-              same values, a rank map whose one output block holds every
+              chunks, grid and the CTAs an SM holds) and, on the same
+              values, a rank map whose one output block holds every
               tile.  Gathers and mx min/max/int32 bitwise, mx f32 sums
               within rtol 1e-5 of the same sums in float64 (the plain
               version's f32 index_add_ rounds a hub's sum in atomic
@@ -46,6 +52,11 @@ Phases, each printing one JSON line with its seconds:
               path-level yardsticks: the whole routed expand against
               index_select, and the fused-mx apply against index_select
               plus the mxscan segment sum (both held to float64 sums).
+              Then one torch.profiler session traces the three-launch
+              kernels' f32 sums at the main shapes and prints each
+              launch's device time: spmv_blockcsr (fill, spans, fold),
+              mxscan_segmented (tiles, carries, apply) and
+              mxreduce_pass_gather (fill, chunks, fold; the fold's share).
   6. main     `apps.pagerank`, 10 iterations with -check, for --method
               pallas, --method mxscan, and --route-gather expand, the bare
               flag (must resolve to expand-pf), fused, fused-pf and
@@ -68,6 +79,7 @@ non-zero before the verdict; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import multiprocessing
 import subprocess
@@ -188,10 +200,17 @@ def spmv_cases(torch, np, spmv, bc, dev, reps: int, timed: bool):
             return spmv.spmv_blockcsr_plain(vals, e_dst, cb, cf, op=op, v_blk=bc.v_blk,
                                             num_vblocks=bc.num_vblocks)
 
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
         exact = op != "sum"
-        err = compare(torch, got, want, exact)
+        got = kernel()
+        # sums: the same sums in float64; the plain version's f32 index_add_
+        # rounds a hub's ~7e4 values in atomic order, itself near rtol 1e-5
+        want = plain() if exact else torch.zeros(
+            nv_pad + 1, dtype=torch.float64, device=dev).index_add_(
+                0, flat_dst, vals.reshape(-1).double())[:nv_pad]
+        torch.cuda.synchronize()
+        what = f"spmv {op} {dtype}"
+        err = compare(torch, got, want, exact, what=what)
+        require(torch.equal(got, kernel()), f"{what}: two calls differ")
         row = {"op": op, "dtype": str(dtype).replace("torch.", ""),
                "shape": [C, T], "max_abs_err": err, "exact": exact}
         if timed:
@@ -237,7 +256,9 @@ def scan_cases(torch, np, scan, head, valid_end, invalid, values_f, dev,
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         exact = not (op == "sum" and dtype == torch.float32)
-        err = compare(torch, got, want, exact, mask)
+        what = f"scan {op} {dtype}"
+        err = compare(torch, got, want, exact, mask, what=what)
+        require(torch.equal(got, kernel()), f"{what}: two calls differ")
         row = {"op": op, "dtype": str(dtype).replace("torch.", ""), "n": n,
                "max_abs_err": err, "exact": exact}
         if timed:
@@ -247,6 +268,117 @@ def scan_cases(torch, np, scan, head, valid_end, invalid, values_f, dev,
                        library_ms=None, bound_ms=bound_ms(nbytes), bytes=nbytes)
         rows.append(row)
     return rows
+
+
+def timed(rows, op="sum", dtype="float32"):
+    """The timed row of ``op`` and ``dtype`` among a kernel's case rows."""
+    return next(r for r in rows if "kernel_ms" in r and r["op"] == op
+                and r["dtype"] == dtype)
+
+
+def traced_splits(torch, groups: dict, reps: int = 5) -> dict:
+    """Device milliseconds per call of each launch of several wrappers,
+    from ONE torch.profiler session (a later session in this process came
+    back with no device events).  ``groups`` maps a wrapper's label to
+    (fn, parts), ``parts`` a launch's label to a substring of its
+    kernel's name.  Each group's ``reps`` calls follow a marker kernel
+    (torch.cuda._sleep's), so a launch counts for the group whose marker
+    it follows, whatever names the groups share; None where the group's
+    window holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in groups.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn, _ in groups.values():
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    windows = []
+    for e in events:
+        if "spin_kernel" in e.name:
+            windows.append([])
+        elif windows:
+            windows[-1].append(e)
+    if len(windows) != len(groups):
+        windows = [[] for _ in groups]
+    return {label: {part: sum(e.time_range.elapsed_us() for e in win if sub in e.name)
+                    / 1e3 / reps if any(sub in e.name for e in win) else None
+                    for part, sub in parts.items()}
+            for (label, (_, parts)), win in zip(groups.items(), windows)}
+
+
+def spmv_hub_case(torch, np, spmv, bc, dev, reps: int, main_ms: float):
+    """spmv_blockcsr on the main layout's slot count with one vertex holding
+    every slot (chunk_block and e_dst_rel all 0): a run the old one-warp
+    design walked serially.  f32 sums against float64 sums (the plain
+    version's f32 index_add_ rounds a 17 M-term sum in atomic order and is
+    no yardstick there), then timed beside the main layout's time."""
+    C, T = bc.e_dst_rel.shape
+    rng = np.random.default_rng(19)
+    vals = torch.from_numpy(rng.random((C, T), dtype=np.float32) + 0.01).to(dev)
+    e_dst = torch.zeros((C, T), dtype=torch.int32, device=dev)
+    cb = torch.zeros(C, dtype=torch.int32, device=dev)
+    cf = torch.zeros(C, dtype=torch.int32, device=dev)
+    cf[0] = 1
+    kw = dict(op="sum", v_blk=bc.v_blk, num_vblocks=bc.num_vblocks)
+    got = spmv.spmv_blockcsr(vals, e_dst, cb, cf, **kw)
+    want = torch.zeros(got.shape, dtype=torch.float64, device=dev)
+    want[0] = vals.double().sum()
+    torch.cuda.synchronize()
+    err = compare(torch, got, want, exact=False, what="spmv, one vertex holding every slot")
+    require(torch.equal(got, spmv.spmv_blockcsr(vals, e_dst, cb, cf, **kw)),
+            "spmv, one vertex holding every slot: two calls differ")
+    kernel_ms = time_ms(torch, lambda: spmv.spmv_blockcsr(vals, e_dst, cb, cf, **kw), reps)
+    nbytes = C * T * 8 + got.numel() * 4
+    return {"shape": [C, T], "op": "sum", "dtype": "float32", "max_abs_err": err,
+            "rtol_vs_f64": SUM_RTOL, "kernel_ms": kernel_ms,
+            "plain_ms": time_ms(torch, lambda: spmv.spmv_blockcsr_plain(vals, e_dst, cb, cf, **kw),
+                                max(2, reps // 4)),
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes, "main_ms": main_ms,
+            "ratio_to_main": kernel_ms / main_ms}
+
+
+def scan_one_segment_case(torch, np, scan, dev, reps: int, main_ms: float, n: int = 1 << 24):
+    """mxscan_segmented at n = 2^24 elements with one segment (a head at 0
+    only), so every tile's carry runs through all the tiles before it.
+    min/max/int32 bitwise against the plain version; f32 sums of positive
+    values within rtol 1e-5 of float64 prefix sums (a 16.7 M-term prefix in
+    the plain f32 ladder is no yardstick); the f32 sum timed."""
+    rng = np.random.default_rng(12)
+    head = torch.zeros(n, dtype=torch.bool, device=dev)
+    head[0] = True
+    vals_f = torch.from_numpy(rng.random(n, dtype=np.float32) + 0.01).to(dev)
+    vals_i = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)).to(dev)
+    rows, timing = [], {}
+    for op, vals in (("sum", vals_f), ("min", vals_f), ("max", vals_f), ("sum", vals_i),
+                     ("min", vals_i), ("max", vals_i)):
+        exact = not (op == "sum" and vals.dtype == torch.float32)
+        got = scan.mxscan_segmented(vals, head, op=op)
+        want = (scan.mxscan_segmented_plain(vals, head, op=op) if exact
+                else torch.cumsum(vals.double(), 0))
+        torch.cuda.synchronize()
+        what = f"scan {op} {vals.dtype}, one segment over {n} elements"
+        err = compare(torch, got, want, exact, what=what)
+        require(torch.equal(got, scan.mxscan_segmented(vals, head, op=op)),
+                f"{what}: two calls differ")
+        del want
+        rows.append({"op": op, "dtype": str(vals.dtype).replace("torch.", ""),
+                     "max_abs_err": err, "exact": exact})
+        if not exact:
+            timing = {"kernel_ms": time_ms(torch, lambda: scan.mxscan_segmented(
+                vals_f, head, op="sum"), reps)}
+    nbytes = n * (4 + 1 + 4)
+    return {"n": n, "heads": 1, "cases": rows, "rtol_vs_f64": SUM_RTOL,
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "bound_ms": bound_ms(nbytes),
+            "bytes": nbytes, "main_ms": main_ms, **timing,
+            "ratio_to_main": timing["kernel_ms"] / main_ms}
 
 
 def ragged_graph(np, csc):
@@ -348,22 +480,6 @@ def sublane_cases(torch, np, shuffle, dev, reps: int):
     return out
 
 
-def device_ms_by_kernel(torch, fn, reps: int = 5) -> dict:
-    """Device milliseconds per call of ``fn`` by CUDA kernel name, from
-    torch.profiler over ``reps`` calls (after one untraced call)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / 1e3 / reps for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
-
-
 def fused_cases(torch, np, shuffle, expand, plan_pf, dev, reps: int):
     """fused_pass_gather on every group of the main expand-pf plan, in
     replay order (each group's input is the previous group's output);
@@ -420,7 +536,8 @@ def mx_sum_f64(torch, shuffle, y, idx, dst_rel, tile_block, g):
 
 def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
     """mxreduce_pass_gather on the main fused-mx plan's reduce group, for
-    every op and value type, against its plain version."""
+    every op and value type, against its plain version.  Returns the
+    record and the f32-sum call, to be traced."""
     static, arrays = plan_mx
     *_, mxa = expand.split_fused_arrays(static, arrays, static.weighted)
     mxg = static.mx
@@ -460,12 +577,6 @@ def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
     per_block = torch.bincount(tile_block.long(), minlength=mxg.num_blocks)
     g = dataclasses.replace(mxg, op="sum")
     y = shuffle._relayout(xf, g.view, g.perm_axes).reshape(g.kshape)
-    # the three launches (fill, chunks, fold): each one's device time
-    by_name = device_ms_by_kernel(torch, lambda: shuffle.mxreduce_pass_gather(
-        y, idx, dst_rel, tile_block, g))
-    passes = {p: sum(ms for key, ms in by_name.items() if f"mx_{p}_kernel" in key)
-              for p in ("fill", "chunk", "fold")}
-    traced = sum(passes.values())
     # a larger hub on the same values and steps: one output block holds
     # every tile, each of its v_blk ranks spans n2 / v_blk elements
     pos = torch.arange(n2, device=dev)
@@ -490,13 +601,13 @@ def mx_cases(torch, np, shuffle, expand, plan_mx, dev, reps: int):
             "launch": {"chunk_ctas": shuffle.mx_num_chunks(y.shape[0], mxg.block_rows),
                        "chunk_threads": 512, "chunk_smem_bytes": shuffle.MX_MAX_TILE_ELEMS * 4,
                        "fold_ctas": 1},
-            "traced_ms": passes, "fold_share": passes["fold"] / traced if traced else None,
             "hub": {"largest_block_share": 1.0, "max_abs_err": hub_err,
                     "kernel_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather(
                         y, idx, hub_rel, hub_tb, hub), reps),
                     "plain_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather_plain(
                         y, idx, hub_rel, hub_tb, hub), max(2, reps // 4))},
-            "library_ms": None, "bound_ms": bound_ms(nbytes), "bytes": nbytes, **timed}
+            "library_ms": None, "bound_ms": bound_ms(nbytes), "bytes": nbytes,
+            **timed}, functools.partial(shuffle.mxreduce_pass_gather, y, idx, dst_rel, tile_block, g)
 
 
 def path_yardsticks(torch, np, expand, segment, sh, plans, dev, reps: int):
@@ -699,14 +810,50 @@ def main() -> int:
                              + 0.01).to(dev)
     src_pos = torch.from_numpy(sh.arrays.src_pos[0]).to(dev).long()
     row_ptr = torch.from_numpy(sh.arrays.row_ptr[0]).to(dev)
-    rows_scan += scan_cases(
-        torch, np, scan, torch.from_numpy(sh.arrays.head_flag[0]).to(dev),
-        row_ptr[-1:], None, state[src_pos].contiguous(), dev, REPS, True)
+    main_head = torch.from_numpy(sh.arrays.head_flag[0]).to(dev)
+    main_vals = state[src_pos].contiguous()
+    rows_scan += scan_cases(torch, np, scan, main_head, row_ptr[-1:], None, main_vals, dev,
+                            REPS, True)
+    spmv_main, scan_main = timed(rows_spmv), timed(rows_scan)
+    spmv_hub = spmv_hub_case(torch, np, spmv, bc, dev, REPS, spmv_main["kernel_ms"])
+    scan_seg = scan_one_segment_case(torch, np, scan, dev, REPS, scan_main["kernel_ms"])
+    # the launches: grid, threads, shared-memory bytes (static: the
+    # combination trees' per-warp tables; no dynamic shared memory)
+    C, T = bc.e_dst_rel.shape
+    n_out = bc.num_vblocks * bc.v_blk
+    e_dst = torch.from_numpy(bc.e_dst_rel).to(dev)
+    cb = torch.from_numpy(bc.chunk_block).to(dev)
+    cf = torch.from_numpy(bc.chunk_first).to(dev)
+    spmv_vals = state[torch.from_numpy(bc.e_src_pos).to(dev).long()]
+    spmv_launch = {
+        "fill": {"ctas": min(-(-n_out // 256), 1056), "threads": 256, "smem_bytes": 0},
+        "spans": {"ctas": -(-C * T // spmv.SPAN_SLOTS), "threads": 512,
+                  "slots_per_cta": spmv.SPAN_SLOTS, "smem_bytes": 5 * 32 * 4},
+        "fold": {"ctas": 1, "threads": 1024, "smem_bytes": 5 * 32 * 4}}
+    n_scan = main_vals.numel()
+    tiles = -(-n_scan // 8192)
+    scan_launch = {
+        "tiles": {"ctas": tiles, "threads": 512, "elems_per_cta": 8192,
+                  "smem_bytes": 3 * 16 * 4},
+        "carries": {"ctas": 1, "threads": 1024, "smem_bytes": 2 * 32 * 4},
+        "apply": {"ctas": tiles - 1, "threads": 256, "smem_bytes": 0}}
+    # the main shapes' f32 sums, traced with the mx kernel in phase 5
+    to_trace = {
+        "spmv_blockcsr": (functools.partial(
+            spmv.spmv_blockcsr, spmv_vals, e_dst, cb, cf, op="sum", v_blk=bc.v_blk,
+            num_vblocks=bc.num_vblocks), {"fill": "runs_fill_kernel", "spans": "spmv_span_kernel",
+                                          "fold": "runs_fold_kernel"}),
+        "mxscan_segmented": (functools.partial(
+            scan.mxscan_segmented, main_vals, main_head, op="sum", valid_end=row_ptr[-1:]),
+            {"tiles": "scan_tiles", "carries": "scan_carries", "apply": "apply_carries"})}
     emit({"phase": "kernels", "kernels": ["spmv_blockcsr", "mxscan_segmented"],
           "spmv_blockcsr": rows_spmv, "mxscan_segmented": rows_scan,
-          "graph": {"scale": SCALE, "ef": EF, "nv": g.nv, "ne": g.ne},
+          "spmv_one_hub": spmv_hub, "scan_one_segment": scan_seg,
+          "spmv_launch": spmv_launch, "scan_launch": scan_launch,
+          "graph": {"scale": SCALE, "ef": EF, "nv": g.nv, "ne": g.ne,
+                    "chunks": C, "t_chunk": T, "vblocks": bc.num_vblocks},
           "seconds": time.perf_counter() - t0})
-    del bc, state, src_pos, row_ptr
+    del bc, state, src_pos, row_ptr, main_head, main_vals, spmv_vals, e_dst, cb, cf
 
     # 4. the routed plans, each family built once
     t0 = time.perf_counter()
@@ -731,11 +878,21 @@ def main() -> int:
     rows_sub = sublane_cases(torch, np, shuffle, dev, REPS)
     part = {m: (st, tuple(a[0] for a in arr)) for m, (st, arr) in on_dev.items()}
     rows_fused = fused_cases(torch, np, shuffle, expand, part["expand-pf"], dev, REPS)
-    rows_mx = mx_cases(torch, np, shuffle, expand, part["fused-mx"], dev, REPS)
+    rows_mx, mx_fn = mx_cases(torch, np, shuffle, expand, part["fused-mx"], dev, REPS)
+    to_trace["mxreduce_pass_gather"] = (mx_fn, {"fill": "runs_fill_kernel",
+                                                "chunks": "mx_chunk_kernel",
+                                                "fold": "runs_fold_kernel"})
     yard = path_yardsticks(torch, np, expand, segment, sh, on_dev, dev, REPS)
+    # each launch's traced device time, the three kernels in one session
+    traced = traced_splits(torch, to_trace)
+    del to_trace, mx_fn
     emit({"phase": "routed", "lane_gather": rows_lane, "sublane_gather": rows_sub,
           "fused_pass_gather": rows_fused, "mxreduce_pass_gather": rows_mx,
           "path": yard, "seconds": time.perf_counter() - t0})
+    mx_t = traced["mxreduce_pass_gather"]
+    mx_total = sum(ms for ms in mx_t.values() if ms)
+    emit({"phase": "traced", "traced_ms": traced,
+          "mx_fold_share": mx_t["fold"] / mx_total if mx_t["fold"] else None})
     del on_dev, part, r1a
     torch.cuda.empty_cache()
 
@@ -870,19 +1027,16 @@ def main() -> int:
         require(rel <= CF_RTOL, f"{name}: off the f64 oracle by {rel}")
         require(rmse < cf_model.init_rmse(g_cf), f"{name}: training did not lower the RMSE")
 
-    def timed(rows, op="sum", dtype="float32"):
-        return next(r for r in rows if "kernel_ms" in r and r["op"] == op
-                    and r["dtype"] == dtype)
-
     table = []
-    for name, rows, run, replaces in (
-            ("spmv_blockcsr", rows_spmv, "pallas", "lux_tpu/ops/pallas_spmv.py:273"),
-            ("mxscan_segmented", rows_scan, "mxscan", "lux_tpu/ops/pallas_scan.py:193")):
+    for name, rows, stress, run, replaces in (
+            ("spmv_blockcsr", rows_spmv, spmv_hub, "pallas", "lux_tpu/ops/pallas_spmv.py:273"),
+            ("mxscan_segmented", rows_scan, scan_seg, "mxscan",
+             "lux_tpu/ops/pallas_scan.py:193")):
         r = timed(rows)
         table.append({"name": name, "route": "cuda",
                       "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES[name]}",
                       "replaces": replaces, "launches": launches[run][name],
-                      "max_abs_err": max(x["max_abs_err"] for x in rows),
+                      "max_abs_err": max(x["max_abs_err"] for x in rows + [stress]),
                       "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": "bytes",
                       "library_ms": r["library_ms"]})

@@ -1,6 +1,7 @@
 // Shared device helpers for the lux_tpu_torch kernels: the three combiners
 // of the segmented reductions (sum / min / max), their neutral elements,
-// and typed loads that widen storage types to the accumulation type.
+// typed loads that widen storage types to the accumulation type (one
+// element, or sixteen with 16-byte loads), and the block-CSR span helpers.
 //
 // Conventions shared with the plain PyTorch versions (ops/spmv.py,
 // ops/scan.py):
@@ -13,6 +14,7 @@
 
 #include <cstdint>
 #include <climits>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -60,6 +62,68 @@ template <> __device__ __forceinline__ float load_as<float, __nv_bfloat16>(const
 template <> __device__ __forceinline__ int32_t load_as<int32_t, int32_t>(const int32_t* p) { return *p; }
 template <> __device__ __forceinline__ uint32_t load_as<uint32_t, int32_t>(const int32_t* p) {
   return static_cast<uint32_t>(*p);
+}
+
+// --- sixteen elements a thread ---------------------------------------------
+//
+// The kernels that walk an array in order give each thread kUnit
+// consecutive elements and load them with 16-byte loads from a 16-byte
+// aligned address (the element index a multiple of 16, the base aligned).
+
+constexpr int kUnit = 16;
+
+// Sixteen consecutive indices, ranks or flag bytes.
+template <typename I> struct Idx16;
+template <> struct Idx16<uint8_t> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ int operator[](int j) const {
+    const unsigned word = j < 4 ? w.x : j < 8 ? w.y : j < 12 ? w.z : w.w;
+    return (word >> (8 * (j & 3))) & 0xff;
+  }
+};
+template <> struct Idx16<int32_t> {
+  int4 w[4];
+  __device__ __forceinline__ void load(const int32_t* p) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) w[m] = __ldg(reinterpret_cast<const int4*>(p) + m);
+  }
+  __device__ __forceinline__ int operator[](int j) const {
+    const int4& v = w[j >> 2];
+    return (j & 3) == 0 ? v.x : (j & 3) == 1 ? v.y : (j & 3) == 2 ? v.z : v.w;
+  }
+};
+
+// Sixteen consecutive values widened to the accumulation type: four
+// 16-byte loads of f32 or int32, two of bf16 (a bf16 is the high half of
+// the f32 it widens to).
+template <typename TAcc, typename TIn>
+__device__ __forceinline__ void load16_as(const TIn* p, TAcc (&v)[kUnit]) {
+  if constexpr (sizeof(TIn) == 4) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + m);
+      const uint32_t b[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (std::is_floating_point<TAcc>::value) v[4 * m + e] = __uint_as_float(b[e]);
+        else v[4 * m + e] = static_cast<TAcc>(b[e]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + m);
+      const uint32_t b[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[8 * m + 2 * e] = __uint_as_float(b[e] << 16);
+        v[8 * m + 2 * e + 1] = __uint_as_float(b[e] & 0xffff0000u);
+      }
+    }
+  }
 }
 
 // The first index of the sorted a[0, n) whose value is >= key.

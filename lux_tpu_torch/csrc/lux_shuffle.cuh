@@ -19,6 +19,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lux_ops.cuh"  // kUnit, Idx16
+
 constexpr int kLane = 128;
 constexpr int kMaxSteps = 4;  // ops/shuffle.MAX_STEPS
 constexpr int kMaxDims = 8;   // ops/shuffle.MAX_DIMS
@@ -110,8 +112,6 @@ template <> struct Vec4<uint16_t> {
 // their 16-byte pieces to eight distinct bank groups, where the plain layout
 // would put them on two.  Reads go through the same map (Tile<T>::swz).
 
-constexpr int kUnit = 16;  // tile positions a thread owns together
-
 template <typename T> struct Tile {
   static constexpr int kShift = sizeof(T) == 4 ? 2 : 3;  // log2(elements a chunk)
   static constexpr int kPerChunk = 1 << kShift;
@@ -143,30 +143,6 @@ __device__ __forceinline__ void tile_load_async(const T* __restrict__ src, T* ti
   for (int c = threadIdx.x; c < chunks; c += blockDim.x)
     cp_async16(d + 16 * Tile<T>::chunk(c), s + 16LL * c);
 }
-
-// Sixteen consecutive indices (or ranks) starting at a multiple of 16.
-template <typename I> struct Idx16;
-template <> struct Idx16<uint8_t> {
-  uint4 w;
-  __device__ __forceinline__ void load(const uint8_t* p) {
-    w = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ int operator[](int j) const {
-    const unsigned word = j < 4 ? w.x : j < 8 ? w.y : j < 12 ? w.z : w.w;
-    return (word >> (8 * (j & 3))) & 0xff;
-  }
-};
-template <> struct Idx16<int32_t> {
-  int4 w[4];
-  __device__ __forceinline__ void load(const int32_t* p) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) w[m] = __ldg(reinterpret_cast<const int4*>(p) + m);
-  }
-  __device__ __forceinline__ int operator[](int j) const {
-    const int4& v = w[j >> 2];
-    return (j & 3) == 0 ? v.x : (j & 3) == 1 ? v.y : (j & 3) == 2 ? v.z : v.w;
-  }
-};
 
 __device__ __forceinline__ uint32_t bits32(uint32_t a) { return a; }
 __device__ __forceinline__ uint32_t bits32(int32_t a) { return static_cast<uint32_t>(a); }

@@ -22,7 +22,8 @@
 // lies in one output block, a block's tiles are contiguous, and ranks never
 // decrease within a block's span.  So the array can be cut at any tile
 // boundary, whatever the blocks' sizes (an RMAT hub block holds 27 % of the
-// tiles at scale 20).  Three launches on the caller's stream:
+// tiles at scale 20).  Three launches on the caller's stream, the first and
+// the last shared with spmv_blockcsr (lux_runs.cuh):
 //   0. fill: every total starts as the reduce's neutral value, so keys no
 //      real slot touches come out neutral;
 //   1. chunks: one CTA of 512 threads per chunk of kChunk = 8,192 elements
@@ -49,98 +50,13 @@
 // no atomics.  Float sums accumulate in f32 (out f32); int32 sums wrap
 // through uint32; min/max keep the type (NaN propagates like
 // torch.minimum/maximum).
-#include "lux_ops.cuh"
+#include "lux_runs.cuh"
 #include "lux_shuffle.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kChunk = kThreads * kUnit;  // 8192 = ops/shuffle.MX_MAX_TILE_ELEMS
-constexpr int kWarps = kThreads / 32;
-constexpr int kFoldThreads = 1024;
-constexpr int kFillThreads = 256;
-
-// Runs of equal key seen in order: the first run (kept, it may continue a
-// run that began before), the open last run, and every run in between,
-// which is complete when it closes and is written to out.  Once finished
-// (n == 1: first == last) it summarises a slice: its run count, its first
-// and its last run.
-template <typename TAcc, int OP>
-struct Runs {
-  int fk, lk, n;
-  TAcc fv, lv;
-  __device__ void init() { fk = -1; lk = -1; n = 0; fv = Combine<TAcc, OP>::neutral(); lv = fv; }
-  __device__ void add(int k, TAcc v, TAcc* out) {
-    if (n > 0 && k == lk) { lv = Combine<TAcc, OP>::apply(lv, v); return; }
-    if (n == 1) { fk = lk; fv = lv; }
-    else if (n > 1) out[lk] = Combine<TAcc, OP>::apply(Combine<TAcc, OP>::neutral(), lv);
-    lk = k; lv = v; ++n;
-  }
-  __device__ void finish() { if (n == 1) { fk = lk; fv = lv; } }
-};
-
-// The summary of slice a followed by slice b.  A run the two close — a's
-// last and b's first, joined or not, unless it is the result's first or
-// last run — is complete and is written to out.  Associative, so a fixed
-// tree of these combinations is deterministic.
-template <typename TAcc, int OP>
-__device__ Runs<TAcc, OP> combine(const Runs<TAcc, OP>& a, const Runs<TAcc, OP>& b,
-                                  TAcc* __restrict__ out) {
-  using C = Combine<TAcc, OP>;
-  if (a.n == 0) return b;
-  if (b.n == 0) return a;
-  Runs<TAcc, OP> r = {a.fk, b.lk, a.n + b.n, a.fv, b.lv};
-  if (a.lk == b.fk) {
-    const TAcc joined = C::apply(a.lv, b.fv);
-    r.n -= 1;
-    if (a.n == 1) r.fv = joined;
-    if (b.n == 1) r.lv = joined;
-    if (a.n > 1 && b.n > 1) out[a.lk] = C::apply(C::neutral(), joined);
-  } else {
-    if (a.n > 1) out[a.lk] = C::apply(C::neutral(), a.lv);
-    if (b.n > 1) out[b.fk] = C::apply(C::neutral(), b.fv);
-  }
-  return r;
-}
-
-// Combine the summaries of lanes [0, width) of a warp in a fixed tree;
-// lane 0 returns the whole.  Every lane of the warp must call it.
-template <typename TAcc, int OP>
-__device__ Runs<TAcc, OP> warp_combine(Runs<TAcc, OP> s, int lane, int width,
-                                       TAcc* __restrict__ out) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    Runs<TAcc, OP> b;
-    b.fk = __shfl_down_sync(0xffffffffu, s.fk, off);
-    b.lk = __shfl_down_sync(0xffffffffu, s.lk, off);
-    b.n = __shfl_down_sync(0xffffffffu, s.n, off);
-    b.fv = __shfl_down_sync(0xffffffffu, s.fv, off);
-    b.lv = __shfl_down_sync(0xffffffffu, s.lv, off);
-    if ((lane & (2 * off - 1)) == 0 && lane + off < width) s = combine(s, b, out);
-  }
-  return s;
-}
-
-// The summary of chunk c in scratch: key[2c], key[2c + 1] (first and last
-// run), n[c] (runs; 0 = only sentinel slots), val[2c], val[2c + 1].
-template <typename TAcc>
-struct Parts {
-  int* key;
-  int* n;
-  TAcc* val;
-  __device__ Parts(void* scratch, int num_chunks)
-      : key(static_cast<int*>(scratch)),
-        n(static_cast<int*>(scratch) + 2 * num_chunks),
-        val(reinterpret_cast<TAcc*>(static_cast<int*>(scratch) + 3 * num_chunks)) {}
-};
-
-template <typename TAcc, int OP>
-__global__ void __launch_bounds__(kFillThreads)
-mx_fill_kernel(TAcc* __restrict__ out, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    out[i] = Combine<TAcc, OP>::neutral();
-}
 
 template <typename T, typename TAcc, int OP, typename I>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -150,8 +66,6 @@ mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ra
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
   __shared__ uint16_t lut[kMaxSteps * kLane];
-  __shared__ int w_fk[kWarps], w_lk[kWarps], w_n[kWarps];
-  __shared__ TAcc w_fv[kWarps], w_lv[kWarps];
   const int c = blockIdx.x;
   const int per_chunk = kChunk / tile_elems;
   const int t0 = c * per_chunk;
@@ -197,66 +111,8 @@ mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ra
     }
   }
   runs.finish();
-  const int lane = tid & 31, warp = tid >> 5;
-  const Runs<TAcc, OP> w = warp_combine(runs, lane, 32, out);
-  if (lane == 0) {
-    w_fk[warp] = w.fk; w_fv[warp] = w.fv;
-    w_lk[warp] = w.lk; w_lv[warp] = w.lv; w_n[warp] = w.n;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Runs<TAcc, OP> s;
-    s.init();
-    if (lane < kWarps) s = {w_fk[lane], w_lk[lane], w_n[lane], w_fv[lane], w_lv[lane]};
-    const Runs<TAcc, OP> all = warp_combine(s, lane, kWarps, out);
-    if (lane == 0) {
-      Parts<TAcc> parts(scratch, num_chunks);
-      parts.n[c] = all.n;
-      parts.key[2 * c] = all.fk; parts.val[2 * c] = all.fv;
-      parts.key[2 * c + 1] = all.lk; parts.val[2 * c + 1] = all.lv;
-    }
-  }
-}
-
-// Fold the chunk summaries in chunk order, in one CTA: each thread
-// combines a contiguous range of chunks in order, then the threads'
-// summaries are combined in a fixed tree (warps, then the warps' results).
-// Every run that crosses a chunk boundary closes in some combination and is
-// written there; the whole array's first and last runs are written at the
-// end.
-template <typename TAcc, int OP>
-__global__ void __launch_bounds__(kFoldThreads)
-mx_fold_kernel(void* scratch, int num_chunks, TAcc* __restrict__ out) {
-  using C = Combine<TAcc, OP>;
-  __shared__ int w_fk[32], w_lk[32], w_n[32];
-  __shared__ TAcc w_fv[32], w_lv[32];
-  const Parts<TAcc> parts(scratch, num_chunks);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (num_chunks + kFoldThreads - 1) / kFoldThreads;
-  const int lo = min(tid * per, num_chunks), hi = min(lo + per, num_chunks);
-  Runs<TAcc, OP> s;
-  s.init();
-  for (int c = lo; c < hi; ++c) {
-    const Runs<TAcc, OP> b = {parts.key[2 * c], parts.key[2 * c + 1], parts.n[c],
-                              parts.val[2 * c], parts.val[2 * c + 1]};
-    s = combine(s, b, out);
-  }
-  const Runs<TAcc, OP> w = warp_combine(s, lane, 32, out);
-  if (lane == 0) {
-    w_fk[warp] = w.fk; w_fv[warp] = w.fv;
-    w_lk[warp] = w.lk; w_lv[warp] = w.lv; w_n[warp] = w.n;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Runs<TAcc, OP> t;
-    t.init();
-    if (lane < kFoldThreads / 32) t = {w_fk[lane], w_lk[lane], w_n[lane], w_fv[lane], w_lv[lane]};
-    const Runs<TAcc, OP> all = warp_combine(t, lane, kFoldThreads / 32, out);
-    if (lane == 0 && all.n > 0) {
-      out[all.fk] = C::apply(C::neutral(), all.fv);
-      if (all.n > 1) out[all.lk] = C::apply(C::neutral(), all.lv);
-    }
-  }
+  const Runs<TAcc, OP> all = cta_combine(runs, out);
+  if (tid == 0) Parts<TAcc>(scratch, num_chunks).put(c, all);
 }
 
 int num_chunks_of(int num_tiles, int tile_elems) {
@@ -270,14 +126,11 @@ int launch(const void* x, const StepPlan& plan, const void* ranks, const int32_t
            cudaStream_t stream) {
   const int num_chunks = num_chunks_of(num_tiles, tile_elems);
   TAcc* o = static_cast<TAcc*>(out);
-  const long long n_out = (long long)num_blocks * v_blk;
-  const long long fill_ctas = (n_out + kFillThreads - 1) / kFillThreads;
-  mx_fill_kernel<TAcc, OP><<<(unsigned)(fill_ctas < 1056 ? fill_ctas : 1056), kFillThreads, 0,
-                             stream>>>(o, n_out);
+  launch_fill<TAcc, OP>(o, (long long)num_blocks * v_blk, stream);
   mx_chunk_kernel<T, TAcc, OP, I><<<num_chunks, kThreads, kChunk * sizeof(T), stream>>>(
       static_cast<const T*>(x), plan, static_cast<const I*>(ranks), tile_block, num_tiles,
       tile_elems, v_blk, o, scratch, num_chunks);
-  mx_fold_kernel<TAcc, OP><<<1, kFoldThreads, 0, stream>>>(scratch, num_chunks, o);
+  runs_fold_kernel<TAcc, OP><<<1, kFoldThreads, 0, stream>>>(scratch, num_chunks, o);
   return 0;
 }
 
@@ -345,7 +198,7 @@ extern "C" int lux_mxreduce_pass_gather(const void* x, int kind, const void* con
       rows / block_rows > INT32_MAX || (long long)num_blocks * v_blk > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   const int num_tiles = (int)(rows / block_rows);
-  if (scratch_bytes < 20LL * num_chunks_of(num_tiles, tile_elems))
+  if (scratch_bytes < (long long)kPartBytes * num_chunks_of(num_tiles, tile_elems))
     return (int)cudaErrorInvalidValue;
   const Launch l{x, &plan, ranks, tile_block, num_tiles, tile_elems, v_blk, num_blocks, out,
                  scratch, static_cast<cudaStream_t>(stream)};

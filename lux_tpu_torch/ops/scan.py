@@ -7,10 +7,13 @@ the plain PyTorch version (a log-depth Hillis-Steele ladder over
 as the plain twin of the kernel (:func:`mxscan_segmented_plain`).
 
 :func:`mxscan_segmented` launches the hand-written CUDA kernel
-(``csrc/mxscan_segmented.cu``, three deterministic passes) on a CUDA
-tensor and runs the plain version on a CPU tensor.
-``mxscan_segmented.launches`` counts kernel launches (one per call, which
-runs the kernel's three passes).
+(``csrc/mxscan_segmented.cu``) on a CUDA tensor and runs the plain
+version on a CPU tensor.  The kernel is a blocked scan: each thread scans
+16 consecutive elements in registers and a CTA a tile of 8,192; then one
+CTA scans the tiles' carries and each tile folds its carry into the
+elements before its first head (three deterministic passes, one on an
+array of a single tile).  ``mxscan_segmented.launches`` counts kernel
+launches (one per call).
 """
 from __future__ import annotations
 

@@ -8,11 +8,14 @@ sentinel ``e_dst_rel == v_blk``.  :func:`spmv_blockcsr` reduces the
 per-edge values of each block into its vertices; :func:`spmv_blockcsr_2d`
 sums K-wide per-edge rows (collaborative filtering's accumulation).
 
-On a CUDA tensor each launches its hand-written kernel
-(``csrc/spmv_blockcsr.cu``, ``csrc/spmv_blockcsr_2d.cu``, one CTA per
-vertex block); on a CPU tensor it runs its plain PyTorch version
-(``*_plain``).  ``spmv_blockcsr.launches`` and
-``spmv_blockcsr_2d.launches`` count kernel launches.
+On a CUDA tensor each launches its hand-written kernel; on a CPU tensor
+it runs its plain PyTorch version (``*_plain``).
+``csrc/spmv_blockcsr.cu`` is one sorted-key segmented reduce over all the
+slots, balanced over the card whatever the degrees: a CTA per span of
+``SPAN_SLOTS`` slots, then one CTA folds the spans' summaries (which the
+wrapper allocates, ``PART_BYTES`` a span).  ``csrc/spmv_blockcsr_2d.cu``
+runs one CTA per vertex block.  ``spmv_blockcsr.launches`` and
+``spmv_blockcsr_2d.launches`` count kernel launches (one per call).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from lux_tpu_torch.ops import cuda_build
 
 V_BLK = 512  # output vertex block
 T_CHUNK = 512  # edges per chunk
+SPAN_SLOTS = 8192  # slots a CTA of the spmv_blockcsr kernel reduces
+PART_BYTES = 20  # its summary of each span, in scratch
 
 #: dtype -> the kernel's value-kind code (csrc/lux_ops.cuh LuxKind)
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -176,8 +181,8 @@ def _lib():
     global _lib_bound
     if _lib_bound is None:
         lib = cuda_build.load("spmv_blockcsr")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lux_spmv_blockcsr.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.lux_spmv_blockcsr.argtypes = [vp, ci, vp, vp, cl, ci, ci, ci, ci, vp, vp, cl, vp]
         lib.lux_spmv_blockcsr.restype = ci
         _lib_bound = lib
     return _lib_bound
@@ -229,12 +234,14 @@ def spmv_blockcsr(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
         raise ValueError("spmv_blockcsr needs contiguous inputs")
     out = torch.empty(num_vblocks * v_blk, dtype=_out_dtype(op, edge_vals.dtype),
                       device=edge_vals.device)
+    scratch = torch.empty(PART_BYTES * -(-edge_vals.numel() // SPAN_SLOTS),
+                          dtype=torch.uint8, device=edge_vals.device)
     with torch.cuda.device(edge_vals.device):
         rc = _lib().lux_spmv_blockcsr(
             edge_vals.data_ptr(), _KIND[edge_vals.dtype], e_dst_rel.data_ptr(),
             chunk_block.data_ptr(), edge_vals.shape[0], edge_vals.shape[1],
-            v_blk, num_vblocks, _OPS[op], out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            v_blk, num_vblocks, _OPS[op], out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spmv_blockcsr kernel launch failed: CUDA error {rc}")
     spmv_blockcsr.launches += 1

@@ -27,51 +27,128 @@ def cuda():
     return torch.device("cuda")
 
 
-def _corner_layout(v_blk):
-    """Ragged last block, a hub spanning several chunks, empty vertex
-    blocks, and an all-padding tail block."""
-    rng = np.random.default_rng(21)
-    nv = 1000
-    dst = np.concatenate([rng.integers(0, 200, 900), np.full(400, 150),
-                          rng.integers(700, 760, 100)])
+def _graph_layout(dst, nv, v_blk, t_chunk, seed):
+    rng = np.random.default_rng(seed)
     g = csc.from_edge_list(rng.integers(0, nv, dst.shape[0]), dst, nv)
-    return g, spmv.build_blockcsr(g, v_blk=v_blk, t_chunk=128)
+    return g.nv, spmv.build_blockcsr(g, v_blk=v_blk, t_chunk=t_chunk)
+
+
+def _spmv_layout(name, v_blk):
+    """(nv, BlockCSR, offset) of one case of the span kernel:
+    corner: a ragged last block, a hub spanning several chunks, empty
+      vertex blocks and an all-padding tail block;
+    unaligned: the same, with values one element off a 16-byte boundary
+      (offset 1: the kernel's scalar loads);
+    hub: one vertex holding every slot of 70 chunks of 128 (chunk_block
+      and e_dst_rel all 0: more than one span of 8,192 slots), and two
+      vertex blocks that own no chunk;
+    t_chunk_40: chunks of 40 slots, so a thread's 16 slots cross chunks
+      and C * T is neither a multiple of 16 nor of the span;
+    empty_blocks: 20 vertex blocks, edges into two of them only."""
+    rng = np.random.default_rng(21)
+    if name in ("corner", "unaligned"):
+        dst = np.concatenate([rng.integers(0, 200, 900), np.full(400, 150),
+                              rng.integers(700, 760, 100)])
+        nv, bc = _graph_layout(dst, 1000, v_blk, 128, 21)
+        return nv, bc, int(name == "unaligned")
+    if name == "t_chunk_40":
+        dst = np.concatenate([rng.integers(0, 1500, 20000), np.full(3000, 2100),
+                              rng.integers(4000, 5000, 700)])
+        return (*_graph_layout(dst, 5000, v_blk, 40, 22), 0)
+    if name == "empty_blocks":
+        nv = 20 * v_blk
+        dst = np.concatenate([rng.integers(3 * v_blk, 4 * v_blk, 3000),
+                              rng.integers(11 * v_blk, 12 * v_blk, 500)])
+        return (*_graph_layout(dst, nv, v_blk, 128, 23), 0)
+    assert name == "hub"
+    C, T = 70, 128
+    zeros = np.zeros((C, T), np.int32)
+    first = np.zeros(C, np.int32)
+    first[0] = 1
+    bc = spmv.BlockCSR(nv=3 * v_blk, num_vblocks=3, num_chunks=C,
+                       e_src_pos=rng.integers(0, 3 * v_blk, (C, T)).astype(np.int32),
+                       e_dst_rel=zeros, e_weight=None, chunk_block=np.zeros(C, np.int32),
+                       chunk_first=first, v_blk=v_blk, t_chunk=T)
+    return bc.nv, bc, 0
+
+
+def _spmv_sum_f64(vals, e_dst, cb, v_blk, num_vblocks):
+    """The block-CSR sums in float64, the yardstick of the kernel's f32
+    sums (the plain version's f32 index_add_ rounds in atomic order)."""
+    n = num_vblocks * v_blk
+    flat = torch.where(e_dst < v_blk, cb.long()[:, None] * v_blk + e_dst, n).reshape(-1)
+    out = torch.zeros(n + 1, dtype=torch.float64, device=vals.device)
+    return out.index_add_(0, flat, vals.reshape(-1).double())[:n]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["corner", "unaligned", "hub", "t_chunk_40",
+                                    "empty_blocks"])
 @pytest.mark.parametrize("v_blk", [128, 512])
 @pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("sum", torch.bfloat16),
                                       ("min", torch.float32), ("max", torch.float32),
                                       ("min", torch.int32), ("max", torch.int32)])
-def test_spmv_kernel_matches_plain(cuda, v_blk, op, dtype):
-    g, bc = _corner_layout(v_blk)
+def test_spmv_kernel_matches_plain(cuda, layout, v_blk, op, dtype):
+    """min/max bitwise against the plain version; sums within rtol 1e-5 of
+    float64 sums; two calls bitwise equal."""
+    nv, bc, offset = _spmv_layout(layout, v_blk)
     rng = np.random.default_rng(28)
     if dtype == torch.int32:
-        state = torch.from_numpy(rng.integers(-1000, 1000, g.nv).astype(np.int32))
+        state = torch.from_numpy(rng.integers(-1000, 1000, nv).astype(np.int32))
     else:
-        state = torch.from_numpy(rng.random(g.nv).astype(np.float32) + 0.01).to(dtype)
-    vals = state[torch.from_numpy(bc.e_src_pos).long()].to(cuda)
+        state = torch.from_numpy(rng.random(nv).astype(np.float32) + 0.01).to(dtype)
+    g = state[torch.from_numpy(bc.e_src_pos).long()]
+    buf = torch.empty(g.numel() + offset, dtype=dtype, device=cuda)
+    vals = buf[offset:].view(g.shape)
+    vals.copy_(g)
     args = (torch.from_numpy(bc.e_dst_rel).to(cuda), torch.from_numpy(bc.chunk_block).to(cuda),
             torch.from_numpy(bc.chunk_first).to(cuda))
     kw = dict(op=op, v_blk=bc.v_blk, num_vblocks=bc.num_vblocks)
     before = spmv.spmv_blockcsr.launches
     got = spmv.spmv_blockcsr(vals, *args, **kw)
-    want = spmv.spmv_blockcsr_plain(vals, *args, **kw)
     assert spmv.spmv_blockcsr.launches == before + 1
     if op == "sum":
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        want = _spmv_sum_f64(vals, args[0], args[1], bc.v_blk, bc.num_vblocks)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
     else:
-        assert torch.equal(got, want)
+        assert torch.equal(got, spmv.spmv_blockcsr_plain(vals, *args, **kw))
+    assert torch.equal(got, spmv.spmv_blockcsr(vals, *args, **kw))
+
+
+def _scan_heads(kind, n, rng):
+    """sparse: 1 % heads; none: no head at all; all: every element a head;
+    one_segment: a head at 0 only, one segment across every tile."""
+    if kind == "sparse":
+        return rng.random(n) < 0.01
+    head = np.full(n, kind == "all")
+    if kind == "one_segment":
+        head[0] = True
+    return head
+
+
+def _seg_scan_sum_f64(vals, head, k):
+    """The segmented prefix sums of vals[:k] in float64 (a cumulative
+    sum's differences back to each element's last head)."""
+    v = vals[:k].double()
+    cs = torch.cumsum(v, 0)
+    idx = torch.arange(k, device=vals.device)
+    last = torch.cummax(torch.where(head[:k], idx, -1), 0).values
+    before = torch.where(last > 0, cs[(last - 1).clamp_min(0)], torch.zeros_like(cs))
+    return cs - before
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", ["sparse", "none", "all", "one_segment"])
 @pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("max", torch.float32),
                                       ("sum", torch.int32), ("min", torch.int32)])
 @pytest.mark.parametrize("n", [1, 2047, 2049, 70001])
-def test_scan_kernel_matches_plain(cuda, op, dtype, n):
-    """Across the kernel's 2048-element tile boundaries."""
+def test_scan_kernel_matches_plain(cuda, heads, op, dtype, n):
+    """Under one 8,192-element tile and across tiles, at lengths that are
+    not multiples of a thread's 16 elements.  min/max/int32 bitwise
+    against the plain version; f32 sums within rtol 1e-5 of float64
+    segmented sums; two calls bitwise equal."""
     rng = np.random.default_rng(38)
-    head = torch.from_numpy(rng.random(n) < 0.01).to(cuda)
+    head = torch.from_numpy(_scan_heads(heads, n, rng)).to(cuda)
     if dtype == torch.int32:
         vals = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64)
                                 .astype(np.int32)).to(cuda)
@@ -79,26 +156,32 @@ def test_scan_kernel_matches_plain(cuda, op, dtype, n):
         vals = torch.from_numpy(rng.random(n).astype(np.float32) + 0.01).to(cuda)
     end = torch.tensor([max(1, n - 5)], dtype=torch.int32, device=cuda)
     got = scan.mxscan_segmented(vals, head, op=op, valid_end=end)
-    want = scan.mxscan_segmented_plain(vals, head, op=op, valid_end=end)
     k = int(end.item())
     if op == "sum" and dtype == torch.float32:
-        torch.testing.assert_close(got[:k], want[:k], rtol=1e-5, atol=0)
+        want = _seg_scan_sum_f64(vals, head, k)
+        torch.testing.assert_close(got[:k].double(), want, rtol=1e-5, atol=0)
     else:
+        want = scan.mxscan_segmented_plain(vals, head, op=op, valid_end=end)
         assert torch.equal(got[:k], want[:k])
+    assert torch.equal(got, scan.mxscan_segmented(vals, head, op=op, valid_end=end))
 
 
 @pytest.mark.gpu
-def test_scan_invalid_mask_on_card(cuda):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_scan_invalid_mask_on_card(cuda, offset):
+    """NaN in the invalid slots never reaches a valid output.  offset 1
+    puts every array one element off a 16-byte boundary (the kernel's
+    scalar loads and stores)."""
     rng = np.random.default_rng(39)
-    n = 5000
-    vals = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
-    invalid = torch.zeros(n, dtype=torch.bool, device=cuda)
-    invalid[4000:] = True
-    vals[4000:] = float("nan")
-    head = torch.from_numpy(rng.random(n) < 0.05).to(cuda)
+    n = 20000
+    vals = torch.from_numpy(rng.random(n + offset).astype(np.float32)).to(cuda)[offset:]
+    invalid = torch.zeros(n + offset, dtype=torch.bool, device=cuda)[offset:]
+    invalid[16000:] = True
+    vals[16000:] = float("nan")
+    head = torch.from_numpy(rng.random(n + offset) < 0.05).to(cuda)[offset:]
     got = scan.mxscan_segmented(vals, head, invalid, op="min")
     want = scan.mxscan_segmented_plain(vals, head, invalid, op="min")
-    assert torch.equal(got[:4000], want[:4000])
+    assert torch.equal(got[:16000], want[:16000])
 
 
 @pytest.mark.gpu
@@ -357,7 +440,7 @@ def test_routed_pagerank_on_card(cuda, mode):
 def test_spmv_2d_kernel_matches_plain(cuda, v_blk, k, dtype, aligned):
     """Every K and value type on the corner layout; ``aligned=False`` puts
     the values 4 bytes off a 16-byte boundary, so the scalar path runs."""
-    _, bc = _corner_layout(v_blk)
+    _, bc, _ = _spmv_layout("corner", v_blk)
     shape = bc.e_dst_rel.shape + (k,)
     n = int(np.prod(shape))
     rng = np.random.default_rng(40 + k)

@@ -107,6 +107,25 @@ def test_plain_matches_reference_bf16_sum(layout):
     np.testing.assert_allclose(got[: g.nv], _oracle(g, state, "sum"), rtol=2e-2)
 
 
+def test_plain_matches_reference_one_hub():
+    """One vertex holding every slot of 10 chunks (chunk_block and
+    e_dst_rel all 0), the CUDA kernel's stress layout; the block's other
+    vertices come out neutral."""
+    C = 10
+    vals = np.random.default_rng(30).random((C, T_CHUNK)).astype(np.float32) + 0.01
+    zeros = np.zeros((C, T_CHUNK), np.int32)
+    cb = np.zeros(C, np.int32)
+    cf = np.zeros(C, np.int32)
+    cf[0] = 1
+    bc = spmv.BlockCSR(nv=V_BLK, num_vblocks=1, num_chunks=C, e_src_pos=zeros,
+                       e_dst_rel=zeros, e_weight=None, chunk_block=cb, chunk_first=cf,
+                       v_blk=V_BLK, t_chunk=T_CHUNK)
+    ref, got = _run_both(bc, vals, "sum")
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    np.testing.assert_allclose(got[0], vals.astype(np.float64).sum(), rtol=1e-5)
+    assert (got[1:] == 0).all()
+
+
 def test_rmat_default_tiles_sum():
     """The main path's tiles (512 x 512) on an RMAT graph."""
     g = generate.rmat(10, 8, seed=25)
@@ -114,6 +133,85 @@ def test_rmat_default_tiles_sum():
     state = np.random.default_rng(26).random(g.nv).astype(np.float32)
     ref, got = _run_both(bc, state[bc.e_src_pos], "sum")
     np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+# --- the layout facts the CUDA kernel relies on -------------------------------
+#
+# csrc/spmv_blockcsr.cu reduces the flat (C * T) slot array as one
+# sorted-key segmented reduce, cut into spans of 8,192 slots wherever they
+# fall.  That is right only if build_blockcsr's layouts hold the three
+# facts below, checked here on real layouts: an RMAT graph and the ragged
+# graph of chip_smoke.py (a hub over several chunks, empty vertex blocks,
+# an all-padding tail), at the main path's t_chunk, the tests' 128, and
+# 40, which is not a multiple of a thread's 16 slots.
+
+
+def _smoke_ragged_graph():
+    """chip_smoke.ragged_graph, the same seed and shape."""
+    rng = np.random.default_rng(5)
+    nv = 5000
+    dst = np.concatenate([rng.integers(0, 1500, 20000), np.full(3000, 2100),
+                          rng.integers(4000, nv, 700)])
+    src = rng.integers(0, nv, dst.shape[0])
+    return csc.from_edge_list(src, dst, nv)
+
+
+_LAYOUT_GRAPHS = {"rmat": lambda: generate.rmat(12, 8, seed=29), "ragged": _smoke_ragged_graph}
+
+
+def _real_layout(graph, t_chunk):
+    g = _LAYOUT_GRAPHS[graph]()
+    return g, spmv.build_blockcsr(g, t_chunk=t_chunk)
+
+
+@pytest.mark.parametrize("t_chunk", [128, 512, 40])
+@pytest.mark.parametrize("graph", ["rmat", "ragged"])
+def test_layout_flat_keys_never_decrease(graph, t_chunk):
+    """Along the flat slot array the key chunk_block[slot // T] * v_blk +
+    e_dst_rel never decreases once padding slots are set aside, and every
+    edge has exactly one real slot."""
+    g, bc = _real_layout(graph, t_chunk)
+    d = bc.e_dst_rel.astype(np.int64)
+    keys = (bc.chunk_block.astype(np.int64)[:, None] * bc.v_blk + d).reshape(-1)
+    real = (d < bc.v_blk).reshape(-1)
+    assert real.sum() == g.ne
+    assert (d >= 0).all() and (d <= bc.v_blk).all()
+    assert (np.diff(keys[real]) >= 0).all()
+    assert (keys[real] < g.nv).all()
+
+
+@pytest.mark.parametrize("t_chunk", [128, 512, 40])
+@pytest.mark.parametrize("graph", ["rmat", "ragged"])
+def test_layout_padding_only_at_block_tails(graph, t_chunk):
+    """Within each vertex block's chunks, padding is a suffix that lies in
+    the block's last chunk: fewer than t_chunk slots, or exactly one chunk
+    for a block with no edge."""
+    g, bc = _real_layout(graph, t_chunk)
+    assert (np.diff(bc.chunk_block) >= 0).all()
+    pad = bc.e_dst_rel == bc.v_blk
+    starts = np.flatnonzero(bc.chunk_first)
+    ends = np.append(starts[1:], bc.num_chunks)
+    for lo, hi in zip(starts, ends):
+        block_pad = pad[lo:hi].reshape(-1)
+        n_real = int((~block_pad).sum())
+        assert not block_pad[:n_real].any() and block_pad[n_real:].all()
+        assert block_pad.size - n_real < t_chunk or (n_real == 0 and hi - lo == 1)
+
+
+@pytest.mark.parametrize("t_chunk", [128, 512, 40])
+@pytest.mark.parametrize("graph", ["rmat", "ragged"])
+def test_layout_every_block_has_a_chunk(graph, t_chunk):
+    """Every vertex block owns at least one chunk, contiguous and in order,
+    and chunk_first marks the first of each."""
+    g, bc = _real_layout(graph, t_chunk)
+    assert bc.num_vblocks == -(-g.nv // bc.v_blk)
+    blocks, first = np.unique(bc.chunk_block, return_index=True)
+    np.testing.assert_array_equal(blocks, np.arange(bc.num_vblocks))
+    np.testing.assert_array_equal(np.flatnonzero(bc.chunk_first), first)
+    in_degree = np.bincount(g.dst_of_edges(), minlength=bc.num_vblocks * bc.v_blk)
+    per_block = in_degree.reshape(bc.num_vblocks, bc.v_blk).sum(1)
+    np.testing.assert_array_equal(np.bincount(bc.chunk_block, minlength=bc.num_vblocks),
+                                  np.maximum(1, -(-per_block // t_chunk)))
 
 
 def test_wrapper_rejects_bad_inputs(layout):

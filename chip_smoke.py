@@ -67,11 +67,34 @@ Phases, each printing one JSON line with its seconds:
               its kernel >= the iteration count (every counter is set to
               0 just before the run).  The expand modes' ranks must equal
               the direct mxscan run's bit for bit, fused-pf's fused's.
+  7-8. cf_kernel, cf_plan, cf_main, cf_accuracy: collaborative
+              filtering's kernel against its plain version, its routed
+              plans, the app's runs and the libraries against a float64
+              oracle.
+  9. push_main `apps.sssp` at RMAT 20 / ef 16 from the vertex with the
+              largest out-degree, with -check, under --method mxscan, scan
+              and scatter and --route-gather expand-pf and expand (mxscan
+              beside them; the plans of phase 4, not planned again).  Each
+              run: GTEPS on the traversed edges, ms, iterations, dense
+              rounds, traversed edges; its kernels launched at least once
+              per dense round.  The five distance arrays bitwise equal,
+              with equal iterations and traversed edges, and equal to a
+              BFS of scipy.sparse.csgraph from the same start, computed in
+              the spawned pool.
+  10. cc_main `apps.components` under the same five modes, and the pull
+              form (models/components.connected_components, mxscan) once;
+              every label array bitwise equal, and equal to the max-label
+              fixpoint that the pool iterates with np.maximum.at.  Then
+              push_race: one dense round of each app (gather, relax,
+              segmented min/max, apply) under scan, scatter and mxscan,
+              timed on the converged state: the cuda winners of min/max.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
 per 4 bytes moved, so its operation time is far below it).
-Then the kernel table as one JSON line, the smoke's seconds, the
+Then the kernel table as one JSON line (each row's launches on the
+PageRank main path, and beside them on the push paths: one SSSP and one
+components run of the mode that runs that kernel), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -106,7 +129,22 @@ CF_RUN_KERNEL = {"pallas": "spmv_blockcsr_2d", "expand-pf": "fused_pass_gather",
                  "expand": "lane_gather"}
 
 
-#: the process pool of the f64 CF oracle, stopped on every exit path
+#: the push apps' runs: (label, the app's extra flags, the phase-4 plan)
+PUSH_RUNS = (("mxscan", ["--method", "mxscan"], None), ("scan", ["--method", "scan"], None),
+             ("scatter", ["--method", "scatter"], None),
+             ("expand-pf", ["--route-gather", "expand-pf", "--method", "mxscan"], "expand-pf"),
+             ("expand", ["--route-gather", "expand", "--method", "mxscan"], "expand"))
+#: the kernels each push run must launch, at least once per dense round
+PUSH_RUN_KERNELS = {"mxscan": ("mxscan_segmented",),
+                    "expand-pf": ("fused_pass_gather", "mxscan_segmented"),
+                    "expand": ("lane_gather", "mxscan_segmented")}
+#: the push run whose launches the kernel table gives for each kernel
+PUSH_KERNEL_RUN = {"mxscan_segmented": "mxscan", "fused_pass_gather": "expand-pf",
+                   "lane_gather": "expand"}
+RACE = ("scan", "scatter", "mxscan")  # the dense round's segment-reduce methods
+
+
+#: the process pool of the host oracles, stopped on every exit path
 _POOL = None
 
 
@@ -681,6 +719,89 @@ def cf_oracle_f64(scale: int):
     return v, cf.rmse(g, v), time.perf_counter() - t0
 
 
+def push_oracles(scale: int):
+    """The push apps' host oracles on the main graph: (the vertex with the
+    largest out-degree, its unweighted BFS distances from
+    scipy.sparse.csgraph with INF == nv, the max-label fixpoint of
+    models/components.fixpoint_labels, seconds).  Runs in a spawned
+    process while the card works."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.components import fixpoint_labels
+
+    g = generate.rmat(scale, EF, seed=0)
+    t0 = time.perf_counter()
+    start = int(np.argmax(g.out_degrees()))
+    adj = csr_matrix((np.ones(g.ne), (g.col_idx, g.dst_of_edges())), shape=(g.nv, g.nv))
+    d = shortest_path(adj, directed=True, unweighted=True, indices=start)
+    dist = np.where(np.isinf(d), g.nv, d).astype(np.int32)
+    return start, dist, fixpoint_labels(g), time.perf_counter() - t0
+
+
+def push_runs(np, app, phase: str, g, extra_argv: list, plans: dict, kernels: dict,
+              smi: str, device: str = "cuda"):
+    """One push app through its CLI body under each of PUSH_RUNS on the
+    main graph ``g``, with -check; every launch counter set to 0 just before
+    each run and read just after.  Requires -check to pass, each run's
+    kernels to launch at least once per dense round, and every run's
+    state, iterations and traversed edges to equal the mxscan run's.
+    Returns ({label: result}, {label: launch counts})."""
+    results, launches = {}, {}
+    for label, extra, mode in PUSH_RUNS:
+        argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "-check",
+                "--device", device] + extra_argv + extra
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = app.run(argv, route=plans.get(mode), graph=g)
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        results[label], launches[label] = res, counts
+        emit({"phase": phase, "run": label, "argv": extra_argv + extra, "rc": res.rc,
+              "method": res.method, "route_gather": res.route_gather, "iters": res.iters,
+              "dense_rounds": res.dense_rounds, "traversed_edges": res.traversed,
+              "gteps": res.gteps, "ms": res.seconds * 1e3,
+              "wall_seconds": time.perf_counter() - t0, "launches": counts,
+              "nv": g.nv, "ne": g.ne, "device": smi})
+        require(res.rc == 0, f"{phase} {label}: -check failed")
+        for name in PUSH_RUN_KERNELS.get(label, ()):
+            require(counts[name] >= max(res.dense_rounds, 1),
+                    f"{phase} {label}: {name} launched {counts[name]} times in "
+                    f"{res.dense_rounds} dense rounds")
+        first = results["mxscan"]
+        require(np.array_equal(res.state, first.state),
+                f"{phase} {label}: state differs from the mxscan run")
+        require((res.iters, res.traversed) == (first.iters, first.traversed),
+                f"{phase} {label}: (iterations, traversed) {(res.iters, res.traversed)} "
+                f"differ from the mxscan run's {(first.iters, first.traversed)}")
+    return results, launches
+
+
+def push_race(torch, push, sh, apps, dev, reps: int) -> dict:
+    """Milliseconds of one dense round (engine/push.dense_part_step: the
+    gather, relax, segmented min/max and apply of every edge) per RACE
+    method, for each (name, program, converged global state) of ``apps``
+    on the pull layout ``sh``; the methods' outputs must be bitwise
+    equal.  Returns {name: {method: ms}}."""
+    from lux_tpu_torch.graph.shards import to_device
+
+    arr = to_device(sh.arrays, dev).part(0)
+    out = {}
+    for name, prog, state in apps:
+        full = prog.init_state(arr.global_vid, arr.degree, arr.vtx_mask)
+        full[: state.shape[0]] = torch.from_numpy(state).to(dev)
+        rounds = {m: push.dense_part_step(prog, arr, full, full, m) for m in RACE}
+        for m in RACE:
+            require(torch.equal(rounds[m], rounds["scan"]),
+                    f"race {name}: the {m} dense round differs from scan's")
+        out[name] = {m: time_ms(torch, functools.partial(push.dense_part_step, prog, arr,
+                                                         full, full, m), reps)
+                     for m in RACE}
+    return out
+
+
 def spmv_2d_cases(torch, np, spmv, bc, dev, ks, reps: int, timed: bool):
     """spmv_blockcsr_2d against its plain version on one block-CSR layout,
     for each K in ``ks``, f32 and bf16 values (positive, so rtol holds);
@@ -746,19 +867,25 @@ def main() -> int:
     from lux_tpu_torch import native
     from lux_tpu_torch.apps import colfilter as cf_app
     from lux_tpu_torch.apps import common
+    from lux_tpu_torch.apps import components as cc_app
     from lux_tpu_torch.apps import pagerank as app
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.engine import push
     from lux_tpu_torch.graph import csc, generate
     from lux_tpu_torch.graph.shards import build_pull_shards
     from lux_tpu_torch.models import colfilter as cf_model
+    from lux_tpu_torch.models import components as cc_model
+    from lux_tpu_torch.models import sssp as sssp_model
     from lux_tpu_torch.models.pagerank import pagerank_reference
     from lux_tpu_torch.ops import cuda_build, expand, scan, segment, shuffle, spmv
     from lux_tpu_torch.ops import route as route_mod
     from lux_tpu_torch.utils.config import parse_args
 
-    # the f64 CF oracle takes minutes on the host: start it now, beside the card
+    # the host oracles take minutes: start them now, beside the card
     global _POOL
-    _POOL = multiprocessing.get_context("spawn").Pool(1)
+    _POOL = multiprocessing.get_context("spawn").Pool(2)
     cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
+    push_oracle = _POOL.apply_async(push_oracles, (SCALE,))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -938,7 +1065,9 @@ def main() -> int:
             require(mode == "expand-pf", f"the bare --route-gather ran {mode}")
     require(np.array_equal(ranks["fused-pf"], ranks["fused"]),
             "fused-pf ranks differ from fused")
-    del plans, ranks, ref, res, sh, g, small, small_bc
+    # the push phases reuse the main graph, its pull layout and its expand plans
+    push_plans = {m: plans[m] for m in ("expand", "expand-pf")}
+    del plans, ranks, ref, res, small, small_bc
     torch.cuda.empty_cache()
 
     # 7. collaborative filtering's kernel against its plain version
@@ -1027,6 +1156,48 @@ def main() -> int:
         require(rel <= CF_RTOL, f"{name}: off the f64 oracle by {rel}")
         require(rmse < cf_model.init_rmse(g_cf), f"{name}: training did not lower the RMSE")
 
+    del g_cf, got
+    torch.cuda.empty_cache()
+
+    # 9. SSSP through the app from the vertex with the largest out-degree
+    t0 = time.perf_counter()
+    start = int(np.argmax(g.out_degrees()))
+    sssp_runs, sssp_launches = push_runs(np, sssp_app, "push_main", g, ["-start", str(start)],
+                                         push_plans, kernels, smi)
+    o_start, o_dist, o_labels, oracle_s = push_oracle.get(timeout=900)
+    require(o_start == start, f"the oracle's start {o_start} is not {start}")
+    require(np.array_equal(sssp_runs["mxscan"].state, o_dist),
+            "SSSP distances differ from the scipy BFS oracle")
+    emit({"phase": "push_main", "start": start, "oracle": "scipy.sparse.csgraph BFS",
+          "oracle_seconds": oracle_s, "reached": int((o_dist < g.nv).sum()),
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # 10. connected components: the push form under the five modes, the pull form once
+    t0 = time.perf_counter()
+    cc_runs, cc_launches = push_runs(np, cc_app, "cc_main", g, [], push_plans, kernels, smi)
+    for fn in kernels.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    pull_labels = cc_model.connected_components(g, method="mxscan", device=dev)
+    pull_s = time.perf_counter() - t1
+    pull_counts = {name: fn.launches for name, fn in kernels.items()}
+    require(pull_counts["mxscan_segmented"] > 0, "the pull form launched no mxscan")
+    require(np.array_equal(pull_labels, cc_runs["mxscan"].state),
+            "the pull form's labels differ from the push form's")
+    require(np.array_equal(cc_runs["mxscan"].state, o_labels),
+            "labels differ from the max-label fixpoint oracle")
+    emit({"phase": "cc_main", "run": "pull", "method": "mxscan", "wall_seconds": pull_s,
+          "launches": pull_counts, "distinct_labels": int(len(np.unique(o_labels))),
+          "oracle": "max-label fixpoint (np.maximum.at)", "seconds": time.perf_counter() - t0})
+    race = push_race(torch, push, sh, (
+        ("sssp", sssp_model.SSSPProgram(nv=g.nv, start=start), sssp_runs["mxscan"].state),
+        ("components", cc_model.MaxLabelProgram(), cc_runs["mxscan"].state)), dev, REPS)
+    emit({"phase": "push_race", "ms_per_dense_round": race,
+          "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
+    del push_plans, sssp_runs, cc_runs, sh, g
+    torch.cuda.empty_cache()
+
     table = []
     for name, rows, stress, run, replaces in (
             ("spmv_blockcsr", rows_spmv, spmv_hub, "pallas", "lux_tpu/ops/pallas_spmv.py:273"),
@@ -1060,6 +1231,10 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": "bytes", "library_ms": r["library_ms"]})
+    for row in table:
+        run = PUSH_KERNEL_RUN.get(row["name"])
+        row["launches_push"] = {"sssp": sssp_launches[run][row["name"]] if run else 0,
+                                "components": cc_launches[run][row["name"]] if run else 0}
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)

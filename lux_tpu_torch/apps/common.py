@@ -160,6 +160,17 @@ def build_pull_route(cfg: RunConfig, shards, prog):
     return expand.plan_expand_shards(shards, pf=pf)
 
 
+def build_push_route(cfg: RunConfig, shards):
+    """The push apps' --route-gather plan (host set-up, outside the timed
+    window): the expand plan of the push shards' embedded pull layout,
+    pass-fused for 'expand-pf'; '' = None.  The dense rounds route their
+    gather only, so there is no fused form."""
+    if not cfg.route_gather:
+        return None
+    resolve_route_auto(cfg)
+    return expand.plan_expand_shards(shards.pull, pf=route_is_pf(cfg.route_gather))
+
+
 def route_mode_of(plan) -> str:
     """The --route-gather mode a built plan replays."""
     static = plan[0]

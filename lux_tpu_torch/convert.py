@@ -11,6 +11,10 @@ For the routed pull the "weights" are the plan: :func:`route_plan_from_numpy`
 takes a plan the reference built (its frozen static, read field by field,
 and its arrays as numpy) and returns this package's static dataclasses and
 tensors, so a test can replay exactly the reference's coloring.
+
+For the push engine :func:`push_shards_from_numpy` takes the reference's
+``PushShards`` read field by field (its pull spec, arrays and cuts, its
+push spec and push arrays) and returns this package's ``PushShards``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from lux_tpu_torch.graph.shards import ShardArrays
+from lux_tpu_torch.graph.push_shards import PushArrays, PushShards, PushSpec
+from lux_tpu_torch.graph.shards import PullShards, ShardArrays, ShardSpec
 from lux_tpu_torch.utils.device import resolve_device
 
 
@@ -91,3 +96,23 @@ def route_plan_from_numpy(static, arrays, device="cuda"):
     dev = resolve_device(device)
     port = _port_static(static, _route_static_types())
     return port, tuple(array_to_tensor(np.asarray(a), dev) for a in arrays)
+
+
+def _host(a) -> np.ndarray:
+    a = np.ascontiguousarray(np.asarray(a))
+    return a if a.flags.writeable else a.copy()
+
+
+def push_shards_from_numpy(spec: Mapping, arrays: Mapping, cuts,
+                           pspec: Mapping, parrays: Mapping) -> PushShards:
+    """The reference's push layout -> this package's ``PushShards`` (host
+    numpy arrays, as :func:`lux_tpu_torch.graph.push_shards
+    .build_push_shards` returns them; the engine moves them to its
+    device).  ``spec``/``pspec`` are the reference's ShardSpec/PushSpec
+    fields (e.g. ``dataclasses.asdict``), ``arrays``/``parrays`` its
+    ShardArrays/PushArrays fields as arrays (e.g. ``_asdict()``)."""
+    pull = PullShards(spec=ShardSpec(**spec),
+                      arrays=ShardArrays(*(_host(arrays[f]) for f in ShardArrays._fields)),
+                      cuts=_host(cuts))
+    return PushShards(pull=pull, pspec=PushSpec(**pspec),
+                      parrays=PushArrays(*(_host(parrays[f]) for f in PushArrays._fields)))

@@ -2,11 +2,11 @@
 
 Counterpart of ``lux_tpu.engine.methods``.  ``method="auto"`` resolves
 once at driver entry from the platform and a table of MEASURED winners.
-The port has measured none yet: ``WINNERS`` gains a ("cuda", reduce) row
-only from an H100 measurement, so until then every platform resolves to
-``FALLBACK`` — the portable choice, as the reference does for a platform
-it has no row for.  The reference's TPU rows and its winners overlay
-file are never read here.
+``WINNERS`` gains a ("cuda", reduce) row only from an H100 measurement;
+a (platform, reduce) without a row resolves to ``FALLBACK`` — the
+portable choice, as the reference does for a platform it has no row
+for.  The reference's TPU rows and its winners overlay file are never
+read here.
 
 Environment knobs:
   LUX_SUM_MODE         scan | mxsum | mxscan — under ``auto``, forces the
@@ -18,6 +18,8 @@ Environment knobs:
                        fused-pf (default group).
   LUX_CF_ERR_DOT       vpu | mxu — the collaborative-filtering error-dot
                        (default vpu).
+  LUX_MERGE_MODE       bulk | tree — the push engine's cross-part merge of
+                       sparse rounds (default bulk).
 """
 from __future__ import annotations
 
@@ -27,9 +29,14 @@ import os
 #: block-CSR layout and is chosen by the app, never by resolution)
 CONCRETE = ("scan", "cumsum", "mxsum", "mxscan", "scatter")
 
-#: (platform, reduce) -> measured winner; empty until a chip measurement
-#: of the port lands here
-WINNERS: dict[tuple[str, str], str] = {}
+#: (platform, reduce) -> measured winner.  min/max: chip_smoke.py phase
+#: push_race, one dense round of SSSP (min) and components (max) at RMAT
+#: 20 on an H100: mxscan 0.314 / 0.332 ms, scatter 0.874 / 0.766, scan
+#: 5.06 / 4.99.  No sum row yet: PageRank and CF resolve to FALLBACK.
+WINNERS: dict[tuple[str, str], str] = {
+    ("cuda", "min"): "mxscan",
+    ("cuda", "max"): "mxscan",
+}
 
 #: platform without a measured row: the portable choice
 FALLBACK = "scan"
@@ -140,3 +147,23 @@ def cf_err_dot_mode() -> str:
                 f"LUX_CF_ERR_DOT must be one of {CF_DOT_MODES}, got {env!r}")
         return env
     return "vpu"
+
+
+#: cross-part merge of the push engine's sparse rounds: "bulk" scatters
+#: the whole concatenated frontier into each part at once, "tree" gives
+#: each source part its own partial and combines them up a static tree
+#: (ops/merge_tree.py).  Bitwise equal for the min/max push programs.
+MERGE_MODES = ("bulk", "tree")
+
+
+def merge_mode() -> str:
+    """The merge flavor the push engine runs when none is named:
+    LUX_MERGE_MODE when set (validated), else "bulk".  The reference's
+    chip-measured overlay entry is never read here."""
+    env = os.environ.get("LUX_MERGE_MODE")
+    if env:
+        if env not in MERGE_MODES:
+            raise ValueError(
+                f"LUX_MERGE_MODE must be one of {MERGE_MODES}, got {env!r}")
+        return env
+    return "bulk"

@@ -1,0 +1,409 @@
+"""The push (frontier) execution engine with direction optimization, on
+one device.
+
+Counterpart of the single-device half of ``lux_tpu.engine.push``:
+
+  * State per part: the vertex values (distances or labels) and a sparse
+    frontier QUEUE of (vertex id, value) pairs with static capacity
+    ``f_cap``.
+  * Direction switch per iteration: a frontier of more than nv/16
+    vertices runs a DENSE (pull) round, the segmented reduce over every
+    in-edge of the concatenated state; otherwise a SPARSE (push) round
+    compacts the frontier's out-edges into a fixed ``e_sp`` buffer and
+    scatter-combines them into each part's slice.  An overflowing queue
+    or edge buffer forces a dense round.
+  * Two sparse tiers: a round whose frontier out-edges fit ``e_sp_small``
+    walks that many slots instead of ``e_sp``.
+  * Cross-part merge of sparse rounds: ``bulk`` (one scatter of the whole
+    concatenated frontier) or ``tree`` (ops/merge_tree.py), bitwise equal
+    for the min/max programs.
+  * Convergence when no vertex changed.
+
+Where the reference decides direction, tier and stop on the device
+(``lax.cond`` and ``lax.while_loop``), this engine reads the three values
+on the host with ONE copy per iteration (``_push_prep``) and branches in
+Python.  Parts run one after another in a Python loop, as in the pull
+engine.  Queues are exact compactions in ascending local index, so the
+results, the iteration count and the traversed-edge count are bitwise the
+reference's.
+
+Not ported here: the mutation overlay (``overlay``/``del_val``), the
+flight-recorder ``telemetry`` loop, carry donation, and the per-part
+load counter ``sp_work`` of the repartition policy; the distributed and
+ring push wait for the multi-GPU port.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Protocol
+
+import torch
+
+from lux_tpu_torch.engine import methods, pull
+from lux_tpu_torch.graph import push_shards as ps
+from lux_tpu_torch.graph.push_shards import SRC_SENTINEL, PushArrays, PushShards, PushSpec
+from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec, to_device
+from lux_tpu_torch.ops import expand, merge_tree, segment
+from lux_tpu_torch.utils.device import resolve_device
+
+
+class PushProgram(Protocol):
+    """Frontier vertex program (the SSSP/CC app contract)."""
+
+    #: "min" | "max": the combiner AND the monotone direction of the state.
+    reduce: str
+
+    def init_state(self, global_vid, degree, vtx_mask) -> torch.Tensor: ...
+
+    def init_frontier(self, global_vid, state, vtx_mask) -> torch.Tensor:
+        """Initial active mask (e.g. the single source, or everyone)."""
+        ...
+
+    def relax(self, src_val, weight) -> torch.Tensor:
+        """Candidate value pushed along an edge from a source holding
+        ``src_val`` (e.g. src_val + 1 for BFS-SSSP)."""
+        ...
+
+
+def _op(prog):
+    return torch.minimum if prog.reduce == "min" else torch.maximum
+
+
+def _seg_reduce(prog):
+    return segment.segment_min_csc if prog.reduce == "min" else segment.segment_max_csc
+
+
+def _scatter_reduce(prog) -> str:
+    return "amin" if prog.reduce == "min" else "amax"
+
+
+def dense_part_step(prog, arr: ShardArrays, full_state, local, method="scan",
+                    route=None):
+    """Pull-mode relaxation of ONE part over all its in-edges:
+    new[v] = op(old[v], op over in-edges relax(state[src])).  ``route`` =
+    (ExpandStatic, this part's arrays) replaces the gather with the routed
+    expand (ops/expand.py), bitwise equal; a pass-fused plan replays
+    through the fused kernel."""
+    if route is not None:
+        src = expand.apply_expand(full_state, route[0], route[1])
+    else:
+        src = full_state.index_select(0, arr.src_pos)
+    vals = prog.relax(src, arr.weights)
+    acc = _seg_reduce(prog)(vals, arr.row_ptr, arr.head_flag, arr.dst_local,
+                            method=method)
+    new = _op(prog)(local, acc)
+    return torch.where(arr.vtx_mask, new, local)
+
+
+def sparse_prep(parr: PushArrays, q_vids):
+    """One part's plan of the frontier walk: each queue entry's row (binary
+    search over the part's unique sources), its out-edge count into this
+    part, their inclusive prefix sum, and the total.  Returns (rows,
+    counts, incl, total)."""
+    u = parr.uniq_src.shape[0]
+    idx = torch.searchsorted(parr.uniq_src, q_vids)
+    idx_c = idx.clamp(0, u - 1)
+    found = parr.uniq_src[idx_c] == q_vids
+    starts = parr.csr_row_ptr[idx_c]
+    ends = parr.csr_row_ptr[(idx + 1).clamp(0, u)]
+    counts = torch.where(found, ends - starts, torch.zeros_like(starts))
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    return idx_c, counts, incl, incl[-1]
+
+
+def _sparse_walk(prog, pspec: PushSpec, parr: PushArrays, nv_pad, q_vids,
+                 q_vals, rows, incl, cap: Optional[int]):
+    """The compacted out-edge walk both merge modes share: each slot of a
+    ``cap``-sized buffer maps to a (queue entry, edge of that entry) pair
+    and gathers (dst, candidate).  Returns (dst, cand, entry); invalid
+    slots carry ``dst == nv_pad``, the drop slot."""
+    j = torch.arange(cap or pspec.e_sp, dtype=torch.int32, device=q_vids.device)
+    entry = torch.searchsorted(incl, j, right=True).clamp(0, q_vids.shape[0] - 1)
+    prev = torch.where(entry > 0, incl[(entry - 1).clamp(min=0)], 0)
+    within = j - prev
+    e_max = parr.csr_dst_local.shape[0] - 1
+    edge = (parr.csr_row_ptr[rows[entry]] + within).clamp(0, e_max)
+    valid = j < incl[-1]
+    dst = torch.where(valid, parr.csr_dst_local[edge], nv_pad)
+    cand = prog.relax(q_vals[entry], parr.csr_weight[edge])
+    return dst, cand, entry
+
+
+def sparse_part_step(prog, pspec: PushSpec, parr: PushArrays, nv_pad, q_vids,
+                     q_vals, rows, incl, local, cap: Optional[int] = None):
+    """Push-mode BULK merge for ONE part: walk the frontier's out-edges
+    into this part (a ``cap``-slot buffer, default the full e_sp tier) and
+    scatter-combine them into the local slice in one pass.  The slice gets
+    a spare slot at ``nv_pad`` that takes the invalid slots' writes."""
+    dst, cand, _ = _sparse_walk(prog, pspec, parr, nv_pad, q_vids, q_vals,
+                                rows, incl, cap)
+    out = torch.cat([local, local.new_full(
+        (1,), merge_tree.neutral(prog.reduce, local.dtype))])
+    out.scatter_reduce_(0, dst.long(), cand.to(local.dtype),
+                        reduce=_scatter_reduce(prog), include_self=True)
+    return out[:nv_pad]
+
+
+def sparse_part_step_tree(prog, pspec: PushSpec, parr: PushArrays, nv_pad,
+                          q_vids, q_vals, rows, incl, local,
+                          cap: Optional[int] = None):
+    """Push-mode TREE merge for ONE part (ops/merge_tree.py): the same
+    walk, but each SOURCE part's candidates scatter into their own
+    neutral-initialized partial; the partials combine pairwise up the
+    static tree and the root combines with the local slice.  Bitwise the
+    bulk merge for min/max at any arity."""
+    dst, cand, entry = _sparse_walk(prog, pspec, parr, nv_pad, q_vids,
+                                    q_vals, rows, incl, cap)
+    # the queue is P consecutive f_cap runs, one per source part
+    blk = entry // pspec.f_cap
+    num_blocks = q_vids.shape[0] // pspec.f_cap
+    width = nv_pad + 1  # the spare slot again
+    partials = torch.full((num_blocks, width),
+                          merge_tree.neutral(prog.reduce, local.dtype),
+                          dtype=local.dtype, device=local.device)
+    partials.view(-1).scatter_reduce_(0, blk * width + dst.long(),
+                                      cand.to(local.dtype),
+                                      reduce=_scatter_reduce(prog),
+                                      include_self=True)
+    op = _op(prog)
+    return op(local, merge_tree.tree_combine(partials[:, :nv_pad], op))
+
+
+def _resolve_merge(merge: Optional[str]) -> str:
+    """None reads engine/methods.merge_mode (LUX_MERGE_MODE, else bulk)."""
+    m = methods.merge_mode() if merge is None else merge
+    if m not in methods.MERGE_MODES:
+        raise ValueError(f"merge must be one of {methods.MERGE_MODES}, got {m!r}")
+    return m
+
+
+def build_queue(pspec: PushSpec, global_vid, changed, values):
+    """Exact compaction of ONE part's changed vertices into a (vid, value)
+    queue of ``f_cap`` slots, in ascending local index.  Returns (q_vid,
+    q_val, count); ``count`` may exceed f_cap (overflow: the queue keeps
+    the first f_cap vertices and the next round must be dense).  The
+    compaction is a prefix sum and a scatter (no host sync); vertices past
+    f_cap write a spare slot that is dropped."""
+    f_cap, dev = pspec.f_cap, changed.device
+    changed_i = changed.to(torch.int32)
+    count = changed_i.sum(dtype=torch.int32)
+    pos = torch.cumsum(changed_i, 0, dtype=torch.int32) - 1
+    slot = torch.where(changed & (pos < f_cap), pos, f_cap).long()
+    loc = torch.zeros(f_cap + 1, dtype=torch.long, device=dev)
+    loc.scatter_(0, slot, torch.arange(changed.shape[0], device=dev))
+    loc = loc[:f_cap]
+    in_q = torch.arange(f_cap, dtype=torch.int32, device=dev) < count
+    q_vid = torch.where(in_q, global_vid[loc], SRC_SENTINEL)
+    q_val = torch.where(in_q, values[loc], torch.zeros((), dtype=values.dtype,
+                                                       device=dev))
+    return q_vid, q_val, count
+
+
+class PushCarry(NamedTuple):
+    """The loop state.  Device tensors: ``state`` (P, V), the queues
+    ``q_vid``/``q_val`` (P, f_cap), ``count`` (P,) and ``active`` (the
+    changed-vertex total of the last round, 1 before the first).  Host
+    ints: ``it``; ``edges``, the exact count of edges traversed (dense
+    rounds walk every real edge, sparse rounds the frontier's out-edges);
+    ``dense_rounds``."""
+
+    state: Any
+    q_vid: Any
+    q_val: Any
+    count: Any
+    it: int
+    active: Any
+    edges: int
+    dense_rounds: int
+
+
+class PushPlan(NamedTuple):
+    """One iteration's LOAD phase: the flattened queues, each part's walk
+    plan (P, P*f_cap), and the host's reading of the round: ``active``
+    (the carry's), ``dense`` (direction), ``small`` (the small sparse tier
+    fits), ``sparse_edges`` (the round's frontier out-edges)."""
+
+    q_vids: Any
+    q_vals: Any
+    rows: Any
+    incl: Any
+    active: int
+    dense: bool
+    small: bool
+    sparse_edges: int
+
+
+def edges_total(edges) -> int:
+    """The exact traversed-edge count as a Python int (the carry keeps it
+    on the host already)."""
+    return int(edges)
+
+
+def _init_carry(prog, pspec: PushSpec, arrays: ShardArrays) -> PushCarry:
+    """Initial state + frontier queues (stacked (P, ...) layout)."""
+    state0 = pull.init_state(prog, arrays)
+    queues = [
+        build_queue(pspec, arrays.global_vid[p],
+                    prog.init_frontier(arrays.global_vid[p], state0[p],
+                                       arrays.vtx_mask[p]) & arrays.vtx_mask[p],
+                    state0[p])
+        for p in range(state0.shape[0])
+    ]
+    q_vid, q_val, cnt = (torch.stack(x) for x in zip(*queues))
+    one = torch.ones((), dtype=torch.int32, device=state0.device)
+    return PushCarry(state0, q_vid, q_val, cnt, 0, one, 0, 0)
+
+
+def _push_prep(pspec: PushSpec, spec: ShardSpec, parrays: PushArrays,
+               c: PushCarry) -> PushPlan:
+    """LOAD phase: flatten the queues, plan each part's sparse walk, and
+    decide the round — direction, tier, whether anything is active — with
+    ONE device-to-host copy."""
+    P = spec.num_parts
+    q_vids = c.q_vid.reshape(P * pspec.f_cap)
+    q_vals = c.q_val.reshape(P * pspec.f_cap)
+    preps = [sparse_prep(parrays.part(p), q_vids) for p in range(P)]
+    rows = torch.stack([x[0] for x in preps])
+    incl = torch.stack([x[2] for x in preps])
+    totals = torch.stack([x[3] for x in preps])
+    widest = totals.max()
+    use_dense = ((c.count.sum(dtype=torch.int64) > spec.nv // pspec.pull_threshold_den)
+                 | (c.count > pspec.f_cap).any() | (widest > pspec.e_sp))
+    small = (widest <= pspec.e_sp_small) if pspec.e_sp_small else torch.zeros_like(use_dense)
+    flags = torch.stack([c.active.to(torch.int64), use_dense.to(torch.int64),
+                         small.to(torch.int64), totals.sum(dtype=torch.int64)])
+    active, dense, fits, sparse_edges = flags.tolist()  # the one host sync
+    return PushPlan(q_vids, q_vals, rows, incl, active, bool(dense), bool(fits),
+                    sparse_edges)
+
+
+def _push_relax(prog, pspec: PushSpec, spec: ShardSpec, method, arrays,
+                parrays, c: PushCarry, plan: PushPlan, routes=None,
+                merge: str = "bulk"):
+    """COMP phase: the dense round (pull over all in-edges) or the sparse
+    round (scatter the frontier's out-edges), part by part -> the new
+    stacked state.  ``routes`` is one (static, arrays) expand plan per
+    part for the dense rounds, or None."""
+    V = spec.nv_pad
+    full = c.state.reshape(spec.gathered_size)
+    if plan.dense:
+        return torch.stack([
+            dense_part_step(prog, arrays.part(p), full, c.state[p], method,
+                            None if routes is None else routes[p])
+            for p in range(spec.num_parts)
+        ])
+    step = sparse_part_step if merge == "bulk" else sparse_part_step_tree
+    cap = pspec.e_sp_small if plan.small else pspec.e_sp
+    return torch.stack([
+        torch.where(arrays.vtx_mask[p],
+                    step(prog, pspec, parrays.part(p), V, plan.q_vids,
+                         plan.q_vals, plan.rows[p], plan.incl[p], c.state[p], cap),
+                    c.state[p])
+        for p in range(spec.num_parts)
+    ])
+
+
+def _push_requeue(prog, pspec: PushSpec, spec: ShardSpec, arrays,
+                  c: PushCarry, new, plan: PushPlan) -> PushCarry:
+    """UPDATE phase: rebuild the queues from the changed vertices and
+    account the traversed edges."""
+    changed = (new != c.state) & arrays.vtx_mask
+    queues = [build_queue(pspec, arrays.global_vid[p], changed[p], new[p])
+              for p in range(spec.num_parts)]
+    q_vid, q_val, cnt = (torch.stack(x) for x in zip(*queues))
+    edges = c.edges + (spec.ne if plan.dense else plan.sparse_edges)
+    return PushCarry(new, q_vid, q_val, cnt, c.it + 1, cnt.sum(dtype=torch.int32),
+                     edges, c.dense_rounds + int(plan.dense))
+
+
+def _push_iteration(prog, pspec, spec, method, arrays, parrays, c: PushCarry,
+                    plan: PushPlan, routes=None, merge="bulk") -> PushCarry:
+    new = _push_relax(prog, pspec, spec, method, arrays, parrays, c, plan,
+                      routes, merge)
+    return _push_requeue(prog, pspec, spec, arrays, c, new, plan)
+
+
+def _route_parts(route, device, num_parts: int):
+    if route is not None and not isinstance(route[0], expand.ExpandStatic):
+        raise ValueError(
+            "the push engine's dense rounds route their gather only: pass "
+            "an expand plan (ops/expand.plan_expand_shards, pf or not), "
+            f"not a {type(route[0]).__name__}")
+    return pull._route_parts(route, device, num_parts)
+
+
+def _resolve(prog, method, device) -> str:
+    return methods.resolve_sum(method, prog.reduce, methods.default_platform(device))
+
+
+def run_push_chunk(prog, pspec: PushSpec, spec: ShardSpec, arrays, parrays,
+                   carry: PushCarry, it_stop: int, method: str = "auto",
+                   route=None, merge: Optional[str] = None) -> PushCarry:
+    """Iterate from ``carry`` until nothing is active or ``it_stop``
+    iterations have run in all (the reference's compiled chunk loop).
+    ``arrays``/``parrays`` are tensors on the carry's device
+    (:func:`push_init`); ``carry`` is left untouched, so one initial carry
+    serves several runs.  One host sync per iteration."""
+    dev = carry.state.device
+    method = _resolve(prog, method, dev)
+    merge = _resolve_merge(merge)
+    routes = _route_parts(route, dev, spec.num_parts)
+    c = carry
+    while c.it < it_stop:
+        plan = _push_prep(pspec, spec, parrays, c)
+        if plan.active == 0:
+            break
+        c = _push_iteration(prog, pspec, spec, method, arrays, parrays, c,
+                            plan, routes, merge)
+    return c
+
+
+def push_phases(prog, pspec: PushSpec, spec: ShardSpec, method: str = "auto",
+                merge: Optional[str] = None, device="cuda"):
+    """One push iteration as THREE callables for the ``-verbose`` phase
+    breakdown (the reference's loadTime/compTime/updateTime, its
+    compile_push_phases):
+
+      load(parrays, carry)                 -> plan (reads the round's flags)
+      comp(arrays, parrays, carry, plan)   -> new stacked state
+      update(arrays, carry, new, plan)     -> next PushCarry
+
+    The caller fences between them; :func:`run_push_chunk` is the fast
+    path."""
+    method = _resolve(prog, method, resolve_device(device))
+    merge = _resolve_merge(merge)
+
+    def load(parrays, carry):
+        return _push_prep(pspec, spec, parrays, carry)
+
+    def comp(arrays, parrays, carry, plan):
+        return _push_relax(prog, pspec, spec, method, arrays, parrays, carry,
+                           plan, merge=merge)
+
+    def update(arrays, carry, new, plan):
+        return _push_requeue(prog, pspec, spec, arrays, carry, new, plan)
+
+    return load, comp, update
+
+
+def push_init(prog, shards: PushShards, device="cuda"):
+    """(arrays, parrays, carry0) on ``device`` for step-wise driving."""
+    dev = resolve_device(device)
+    arrays = to_device(shards.arrays, dev)
+    parrays = ps.to_device(shards.parrays, dev)
+    return arrays, parrays, _init_carry(prog, shards.pspec, arrays)
+
+
+def run_push(prog: PushProgram, shards: PushShards, max_iters: int = 10_000,
+             method: str = "auto", route=None, merge: Optional[str] = None,
+             device="cuda"):
+    """Single-device driver: the direction-optimized loop to convergence
+    (or ``max_iters``) on ``device``.  ``route`` (ops/expand
+    .plan_expand_shards on the PULL layout, unfused or pass-fused, both
+    bitwise equal) runs the dense rounds' gather through the routed
+    expand.  ``merge`` ("bulk" | "tree", None = engine/methods.merge_mode)
+    selects the sparse rounds' cross-part merge.  Returns (final stacked
+    state tensor, iterations, traversed edges as an int)."""
+    arrays, parrays, carry0 = push_init(prog, shards, device)
+    out = run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays,
+                         carry0, max_iters, method, route, merge)
+    return out.state, out.it, out.edges

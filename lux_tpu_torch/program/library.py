@@ -3,8 +3,10 @@ config.
 
 A copy of ``lux_tpu.program.library``: spec strings are data, so the same
 text evaluates through :mod:`lux_tpu_torch.program.expr` with torch.
-Only PAGERANK and PPR run on this package's engines today; the others are
-kept verbatim so the registry stays one table for both packages.
+PAGERANK, PPR and COLFILTER run on this package's pull engine, SSSP,
+SSSP_WEIGHTED and COMPONENTS on its push engine (COMPONENTS on the pull
+engine too); the others are kept verbatim so the registry stays one table
+for both packages.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """VertexProgramSpec — the declarative vertex program — and its compiled
 pull form.
 
-Counterpart of ``lux_tpu.program.spec`` (pull contract only).  A spec is
+Counterpart of ``lux_tpu.program.spec`` (the pull and push contracts; the
+serve tier's Q-axis lift is not ported).  A spec is
 the whole app contract as data: per-vertex state initialization, the
 per-edge message, a combiner from the :mod:`lux_tpu_torch.ops.segment`
 monoid set, the apply/update rule and the convergence rule.  Every field
@@ -13,6 +14,7 @@ Environment names a spec may use (beyond its own parameters):
   init:   vid, degree, vtx_mask              -> per-vertex state
   edge:   src, weight, dst                   -> per-edge message
   apply:  old, acc, vid, degree, vtx_mask    -> new per-vertex state
+  frontier: vid, state, vtx_mask             -> initial active mask (push)
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ def active_changed(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
 
 
 class SpecBacked:
-    """Pull-engine protocol methods evaluated from a declarative spec.
+    """Pull- and push-engine protocol methods evaluated from a declarative
+    spec.
 
     Subclasses provide ``spec`` (a :class:`VertexProgramSpec`) and
     ``_env()`` (the parameter bindings)."""
@@ -104,6 +107,24 @@ class SpecBacked:
         return self._eval(self.spec.apply, old=old_local, acc=acc,
                           vid=arrays.global_vid, degree=arrays.degree,
                           vtx_mask=arrays.vtx_mask)
+
+    # --- push engine contract -------------------------------------------
+    def init_frontier(self, global_vid, state, vtx_mask):
+        if not self.spec.frontier:
+            raise ValueError(
+                f"spec {self.spec.name!r} declares no frontier rule; "
+                "it lowers onto the pull engine only")
+        return self._eval(self.spec.frontier, vid=global_vid, state=state,
+                          vtx_mask=vtx_mask)
+
+    def relax(self, src_val, weight):
+        if self.spec.needs_dst_state:
+            raise ValueError(
+                f"spec {self.spec.name!r} reads the destination state "
+                "per edge; the push (scatter) lowering has no dst read "
+                "— run it on the pull engine")
+        return self._eval(self.spec.edge, src=src_val, weight=weight,
+                          dst=None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,11 @@
 """Command-line configuration of the apps.
 
 The flags are the reference CLI's (``lux_tpu.utils.config``) restricted to
-what this package runs, plus ``--device``.  Every other reference flag is
-rejected with a message that it is not ported yet, never silently
-ignored.
+what this package runs, plus ``--device``.  The push apps (``push=True``:
+SSSP and components) add ``-verbose/-v`` and ``--max-iters``, and SSSP
+(``sssp=True``) ``-start`` and ``--weighted``, as the reference's flag sets
+do.  Every other reference flag is rejected with a message that it is not
+ported yet, never silently ignored.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
 
 #: --route-gather modes (the reference's); the bare flag means "auto"
 ROUTE_GATHER = ("auto", "expand", "expand-pf", "fused", "fused-pf", "fused-mx")
+#: the push apps route their dense rounds' gather only
+PUSH_ROUTE_GATHER = ("auto", "expand", "expand-pf")
 
 
 @dataclasses.dataclass
@@ -68,21 +72,35 @@ class RunConfig:
     rmat_ef: int = 8
     seed: int = 0
     device: str = "cuda"
+    start: int = 0  # -start: SSSP's source vertex
+    verbose: bool = False  # -verbose: per-iteration phase times (push apps)
+    max_iters: int = 10_000  # --max-iters: the push apps' iteration cap
+    weighted: bool = False  # --weighted: SSSP relaxes with edge weights
 
 
-def parse_args(argv=None, description: str = "") -> RunConfig:
+def parse_args(argv=None, description: str = "", push: bool = False,
+               sssp: bool = False) -> RunConfig:
+    """The apps' flags; ``push`` adds the frontier apps' flag set and
+    ``sssp`` SSSP's own (the reference's ``push=``/``sssp=``)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("-file", help=".lux graph file (default: synthetic RMAT)")
     ap.add_argument("-ng", "--num-parts", type=int, default=1,
                     help="number of graph parts (only 1 is ported)")
     ap.add_argument("-ni", "--num-iters", type=int, default=10)
+    if sssp:
+        ap.add_argument("-start", type=int, default=0, help="source vertex")
+    if push:
+        ap.add_argument("-verbose", "-v", action="store_true",
+                        help="per-iteration active count and load/comp/update "
+                             "times (device-fenced phases)")
+        ap.add_argument("--max-iters", type=int, default=10_000)
     ap.add_argument("-check", "-c", action="store_true")
     ap.add_argument("--method", default="auto", choices=METHODS,
                     help="segment-reduction strategy; auto = the measured "
                          "per-platform winner (engine.methods); pallas = "
                          "the block-CSR SpMV kernel")
     ap.add_argument("--route-gather", nargs="?", const="auto", default="",
-                    choices=ROUTE_GATHER,
+                    choices=PUSH_ROUTE_GATHER if push else ROUTE_GATHER,
                     help="Benes-routed pull (ops/expand.py): 'expand' "
                          "replaces the per-edge state gather with lane "
                          "shuffles (bitwise-identical); 'fused' also "
@@ -93,14 +111,20 @@ def parse_args(argv=None, description: str = "") -> RunConfig:
                          "last kernel; 'fused-pf' follows LUX_REDUCE_MODE "
                          "(default group).  The bare flag means 'auto': "
                          "expand-pf, or expand under "
-                         "LUX_ROUTE_MODE=routed.  Not with --method pallas")
-    ap.add_argument("--dtype", default="float32",
-                    choices=["float32", "bfloat16"], help="state storage dtype")
+                         "LUX_ROUTE_MODE=routed.  Not with --method pallas"
+                         + ("; the push apps route their dense rounds' "
+                            "gather (expand modes only)" if push else ""))
+    if not push:  # the frontier apps' state is int32
+        ap.add_argument("--dtype", default="float32",
+                        choices=["float32", "bfloat16"], help="state storage dtype")
     ap.add_argument("--rmat-scale", type=int, default=16)
     ap.add_argument("--rmat-ef", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (no fallback: cuda without a card fails)")
+    if sssp:
+        ap.add_argument("--weighted", action="store_true",
+                        help="relax with integer edge weights")
     ns, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -119,10 +143,14 @@ def parse_args(argv=None, description: str = "") -> RunConfig:
         num_iters=ns.num_iters,
         check=ns.check,
         method=ns.method,
-        dtype=ns.dtype,
+        dtype=getattr(ns, "dtype", "float32"),
         route_gather=ns.route_gather,
         rmat_scale=ns.rmat_scale,
         rmat_ef=ns.rmat_ef,
         seed=ns.seed,
         device=ns.device,
+        start=getattr(ns, "start", 0),
+        verbose=getattr(ns, "verbose", False),
+        max_iters=getattr(ns, "max_iters", 10_000),
+        weighted=getattr(ns, "weighted", False),
     )

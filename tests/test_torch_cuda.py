@@ -487,3 +487,44 @@ def test_colfilter_library_on_card_moves_state(cuda, runner):
     want = cf.colfilter_reference(g, 10, gamma=1e-3)
     np.testing.assert_allclose(got, want, rtol=3e-5, atol=1e-7)
     assert cf.rmse(g, got) < cf.init_rmse(g)
+
+
+# --- the push engine (engine/push.py): SSSP and connected components ---------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("app", ["sssp", "components"])
+def test_push_apps_on_card_match_plain_scan(cuda, app):
+    """SSSP (from the largest out-degree) and CC on the card under mxscan,
+    scatter and the routed dense rounds (expand, expand-pf) are bitwise the
+    plain scan run's, and the plain CPU run's: states, iterations and
+    traversed edges.  Each kernel of the path launched."""
+    from lux_tpu_torch.engine import push
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.models import components as cc
+    from lux_tpu_torch.models import sssp
+
+    g = generate.rmat(14, 8, seed=3)
+    sh = build_push_shards(g, 1)
+    if app == "sssp":
+        prog = sssp.SSSPProgram(nv=g.nv, start=int(np.argmax(g.out_degrees())))
+    else:
+        prog = cc.MaxLabelProgram()
+    plan = expand.plan_expand_shards(sh.pull)
+    want = push.run_push(prog, sh, method="scan", device=cuda)
+    cpu = push.run_push(prog, sh, method="scan", device="cpu")
+    np.testing.assert_array_equal(want[0].cpu().numpy(), cpu[0].numpy())
+    assert want[1:] == cpu[1:]
+    kernels = {"mxscan": scan.mxscan_segmented, "expand": shuffle.KERNELS["lane_gather"],
+               "expand-pf": shuffle.KERNELS["fused_pass_gather"]}
+    for label, method, route in (("mxscan", "mxscan", None), ("scatter", "scatter", None),
+                                 ("expand", "mxscan", plan),
+                                 ("expand-pf", "mxscan", expand.to_pf(plan))):
+        for fn in kernels.values():
+            fn.launches = 0
+        got = push.run_push(prog, sh, method=method, route=route, device=cuda)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+        assert got[1:] == want[1:], label
+        if label in kernels:
+            assert kernels[label].launches > 0, label

@@ -33,6 +33,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
     assert res["libs"] == []
     assert res["native"] is False
     for name in ("ops.scan", "apps.pagerank", "native", "ops.route", "ops.shuffle",
-                 "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter"):
+                 "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter",
+                 "graph.push_shards", "ops.merge_tree", "engine.push", "engine.validate",
+                 "models.sssp", "models.components", "apps.sssp", "apps.components"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
-    assert len(res["modules"]) >= 26
+    assert len(res["modules"]) >= 43

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of lux_tpu_torch: build, check and time the CUDA
-kernels, then drive single-GPU PageRank (direct and routed) and
-collaborative filtering through the apps.
+kernels, then drive single-GPU PageRank (direct and routed), collaborative
+filtering, SSSP, connected components and the spec workloads (bfs, kcore,
+labelprop, triangles) through the apps.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -88,13 +89,41 @@ Phases, each printing one JSON line with its seconds:
               push_race: one dense round of each app (gather, relax,
               segmented min/max, apply) under scan, scatter and mxscan,
               timed on the converged state: the cuda winners of min/max.
+  11. spec_main the spec workloads through `apps.run`, each run with
+              -check, its launches, GTEPS, the memory estimate it printed
+              and the card's peak memory: bfs on the main graph from the
+              four largest out-degrees under mxscan, scatter, scan and
+              --route-gather expand-pf (phase 4's plan), bitwise equal in
+              distances, iterations, traversed edges and dense rounds, and
+              equal to scipy's shortest paths; --engine pull once, equal.
+              kcore on the symmetrized main graph under mxscan and scatter,
+              bitwise equal, equal to a host peel; at RMAT 16 direct,
+              fused-mx and expand-pf (plans built once here), bitwise
+              equal.  labelprop (8 labels, seed stride 16, 10 iterations)
+              under auto and scatter, within rtol 2e-4, atol 1e-6 of a
+              float64 oracle.  triangles on the symmetrized weighted RMAT
+              15 graph (nv = 2^15, 1,024 bitset words) under mxscan and
+              scatter, within check_triangles' tolerance of a bitset
+              oracle.  The oracles run in the spawned pool.  Then
+              spec_kernels: the slice's new kernel callers against their
+              plain versions, timed: the scan kernel's int32 sum over
+              k-core's layout (31.4 M slots) and its f32 sum over triangle
+              phase 2's weighted, destination-dependent values; the mx
+              kernel's int32 sum on the RMAT 16 fused-mx plan.
+  12. sum_race one segmented sum of one pull iteration at RMAT 20 per
+              method (scan, scatter, mxscan, mxsum): the PageRank f32 sum
+              and the k-core int32 sum; integer sums bitwise equal, f32
+              sums' error against float64 recorded (only methods within
+              rtol 1e-5 may win).  The f32 winner is the cuda sum row of
+              engine/methods.WINNERS, printed beside it.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
 per 4 bytes moved, so its operation time is far below it).
 Then the kernel table as one JSON line (each row's launches on the
 PageRank main path, and beside them on the push paths: one SSSP and one
-components run of the mode that runs that kernel), the smoke's seconds, the
+components run of the mode that runs that kernel, and on the spec paths
+one bfs, one kcore and one triangles run), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -142,6 +171,25 @@ PUSH_RUN_KERNELS = {"mxscan": ("mxscan_segmented",),
 PUSH_KERNEL_RUN = {"mxscan_segmented": "mxscan", "fused_pass_gather": "expand-pf",
                    "lane_gather": "expand"}
 RACE = ("scan", "scatter", "mxscan")  # the dense round's segment-reduce methods
+SUM_RACE = ("scan", "scatter", "mxscan", "mxsum")  # the sum's methods
+SPEC_SOURCES = 4  # bfs: the largest out-degrees
+#: bfs runs (label, the app's flags, whether it replays the phase-4 expand-pf plan)
+BFS_RUNS = (("mxscan", ["--method", "mxscan"], False),
+            ("scatter", ["--method", "scatter"], False),
+            ("scan", ["--method", "scan"], False),
+            ("expand-pf", ["--route-gather", "expand-pf", "--method", "mxscan"], True))
+KCORE_ROUTED_SCALE = 16  # routed k-core: plans at RMAT 20 take minutes a family
+KCORE_ROUTED = ("fused-mx", "expand-pf")
+LP_LABELS, LP_STRIDE = 8, 16  # labelprop: the reference's defaults
+LP_RTOL, LP_ATOL = 2e-4, 1e-6  # against the float64 oracle (tests/test_program.py:503)
+TRI_SCALE = 15  # triangles: nv = TRIANGLES_MAX_NV, the reference's ceiling
+#: per program, the run whose launches the kernel table gives for each kernel
+SPEC_KERNEL_RUN = {
+    "bfs": {"mxscan_segmented": "bfs-mxscan", "fused_pass_gather": "bfs-expand-pf",
+            "lane_gather": "bfs-expand-pf"},
+    "kcore": {"mxscan_segmented": "kcore-mxscan", "mxreduce_pass_gather": "kcore16-fused-mx",
+              "fused_pass_gather": "kcore16-fused-mx", "lane_gather": "kcore16-expand-pf"},
+    "triangles": {"mxscan_segmented": "triangles-mxscan"}}
 
 
 #: the process pool of the host oracles, stopped on every exit path
@@ -802,6 +850,188 @@ def push_race(torch, push, sh, apps, dev, reps: int) -> dict:
     return out
 
 
+def bfs_sources(np, g) -> list:
+    """bfs's sources: the SPEC_SOURCES largest out-degrees (bench.py:747's choice)."""
+    deg = np.bincount(g.col_idx, minlength=g.nv)
+    return [int(v) for v in np.argsort(deg)[::-1][:SPEC_SOURCES]]
+
+
+def spec_oracles_bfs_labelprop(scale: int):
+    """The bfs and labelprop host oracles on the main graph (scipy: the
+    unweighted shortest paths from each source, minimum over them; the
+    float64 labelprop recurrence as CSR products) and their seconds.
+    Runs in a spawned process while the card works."""
+    import numpy as np
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.program import workloads as wl
+
+    g = generate.rmat(scale, EF, seed=0)
+    t0 = time.perf_counter()
+    dist = wl.bfs_reference_fast(g, bfs_sources(np, g))
+    t1 = time.perf_counter()
+    probs = wl.labelprop_reference_fast(g, LP_LABELS, LP_STRIDE, ITERS)
+    return dist, probs, {"bfs": t1 - t0, "labelprop": time.perf_counter() - t1}
+
+
+def spec_oracles_kcore_triangles(scale: int, tri_scale: int):
+    """The k-core host oracle on the symmetrized main graph (the peel by
+    removed vertices' out-edges) and the triangle oracle on the
+    symmetrized weighted graph of ``tri_scale`` (bitsets, per-edge set
+    bits of the intersection), with their seconds.  Runs in a spawned
+    process while the card works."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.program import workloads as wl
+
+    gs = wl.symmetrize(generate.rmat(scale, EF, seed=0))
+    t0 = time.perf_counter()
+    core = wl.kcore_reference_fast(gs)
+    t1 = time.perf_counter()
+    gt = wl.symmetrize(generate.rmat(tri_scale, EF, seed=0, weighted=True))
+    t2 = time.perf_counter()
+    inc = wl.triangles_reference_fast(gt)
+    return core, inc, {"kcore": t1 - t0, "triangles": time.perf_counter() - t2}
+
+
+def spec_run(torch, run_app, phase: str, label: str, argv: list, kernels: dict,
+             smi: str, graph, route=None):
+    """One program through apps/run.py with its launch counters set to 0
+    just before and read just after, and the card's peak memory of the
+    run; emits its line and requires -check to pass.  Returns (result,
+    launch counts)."""
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_app.run(argv, route=route, graph=graph)
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": phase, "run": label, "argv": argv, "rc": res.rc, "method": res.method,
+          "route_gather": res.route_gather, "iters": res.iters, "gteps": res.gteps,
+          "ms": res.seconds * 1e3, "wall_seconds": time.perf_counter() - t0,
+          "stats": res.stats, "launches": counts, "estimate_bytes": res.estimate_bytes,
+          "max_memory_allocated": peak, "nv": res.graph.nv, "ne": res.graph.ne,
+          "device": smi})
+    require(res.rc == 0, f"{phase} {label}: -check failed")
+    return res, counts
+
+
+def spec_scan_case(torch, scan, case: str, vals, head, valid_end, exact: bool, reps: int):
+    """The scan kernel's segmented sum of ``vals`` against its plain
+    version on the valid slots (bitwise for int32, rtol 1e-5 for f32),
+    timed beside its bound."""
+    n = vals.shape[0]
+    kernel = functools.partial(scan.mxscan_segmented, vals, head, op="sum", valid_end=valid_end)
+    plain = functools.partial(scan.mxscan_segmented_plain, vals, head, op="sum",
+                              valid_end=valid_end)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    mask = torch.arange(n, device=vals.device) < valid_end
+    err = compare(torch, got, want, exact, mask, what=f"scan, {case}")
+    nbytes = n * (2 * vals.element_size() + 1)
+    return {"kernel": "mxscan_segmented", "case": case, "n": n,
+            "dtype": str(vals.dtype).replace("torch.", ""), "exact": exact,
+            "max_abs_err": err, "kernel_ms": time_ms(torch, kernel, reps),
+            "plain_ms": time_ms(torch, plain, max(2, reps // 4)), "library_ms": None,
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+
+
+def spec_kernel_cases(torch, np, scan, shuffle, expand, pull, wl, library, bind,
+                      kcore_res, g_tri, plan_mx, dev, reps: int) -> list:
+    """The slice's new callers of the kernels, at its shapes, against their
+    plain versions: the scan kernel's int32 sum over k-core's symmetrized
+    layout (the alive flags of level 2, gathered per edge), its f32 sum
+    over triangle phase 2's weighted, destination-dependent edge values,
+    and the mx kernel's int32 sum on routed k-core's fused-mx plan (0/1
+    values in its group space)."""
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+
+    rows = []
+    gs = kcore_res.graph
+    sh = build_pull_shards(gs, 1)
+    a = to_device(sh.arrays, dev).part(0)
+    core = torch.from_numpy(kcore_res.state).to(dev)
+    alive = torch.cat([(core >= 2).to(torch.int32), torch.zeros(
+        sh.spec.nv_pad - gs.nv, dtype=torch.int32, device=dev)])
+    rows.append(spec_scan_case(torch, scan, "kcore int32 sum", alive.index_select(0, a.src_pos),
+                               a.head_flag, a.row_ptr[-1:], True, reps))
+    del a, alive
+    sht = wl.on_device(build_pull_shards(g_tri, 1), dev)
+    at = sht.arrays
+    words = (g_tri.nv + 31) // 32
+    phase1 = wl.BitPatterns(bind(library.TRI_NEIGHBORS, w=words, width=words))
+    bits = pull.run_pull_fixed(phase1, sht.spec, at, pull.init_state(phase1, at), 1, "scatter")
+    phase2 = bind(library.TRI_COUNT)
+    load, _, _ = pull.compile_pull_phases(phase2, sht.spec, "mxscan")
+    src, dst = load(at, bits)[0]
+    tvals = phase2.edge_value(src, at.weights[0], dst).contiguous()
+    del src, dst, bits
+    rows.append(spec_scan_case(torch, scan, "triangles phase 2 f32 sum", tvals, at.head_flag[0],
+                               at.row_ptr[0][-1:], False, reps))
+    del tvals, sht, at
+    torch.cuda.empty_cache()
+    static, arrays = expand.plan_to_device(plan_mx, dev)
+    *_, mxa = expand.split_fused_arrays(static, tuple(x[0] for x in arrays), static.weighted)
+    g = dataclasses.replace(static.mx, op="sum")
+    k = len(g.steps)
+    idx, dst_rel, tile_block = mxa[:k], mxa[k], mxa[k + 1]
+    x = torch.from_numpy(np.random.default_rng(23).integers(0, 2, static.n2)
+                         .astype(np.int32)).to(dev)
+    y = shuffle._relayout(x, g.view, g.perm_axes).reshape(g.kshape)
+    kernel = functools.partial(shuffle.mxreduce_pass_gather, y, idx, dst_rel, tile_block, g)
+    plain = functools.partial(shuffle.mxreduce_pass_gather_plain, y, idx, dst_rel, tile_block, g)
+    total = sum(c for _, c, _ in static.groups)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = compare(torch, got[:total], want[:total], True, what="mx, kcore int32 sum")
+    nbytes = (static.n2 * (4 + k * idx[0].element_size() + dst_rel.element_size())
+              + g.num_blocks * g.v_blk * 4)
+    rows.append({"kernel": "mxreduce_pass_gather", "case": "kcore int32 sum", "n2": static.n2,
+                 "dtype": "int32", "exact": True, "max_abs_err": err,
+                 "kernel_ms": time_ms(torch, kernel, reps),
+                 "plain_ms": time_ms(torch, plain, max(2, reps // 4)), "library_ms": None,
+                 "bound_ms": bound_ms(nbytes), "bytes": nbytes})
+    return rows
+
+
+def sum_race(torch, segment, layouts: dict, dev, reps: int) -> dict:
+    """Milliseconds of one per-destination sum (ops/segment.segment_sum_csc,
+    the reduce of one pull iteration) per SUM_RACE method on each layout
+    of ``layouts``: {name: (values, row_ptr, head_flag, dst_local)}.  Integer
+    sums must be bitwise equal across the methods (mxsum downgrades them
+    to scan).  An f32 sum's largest error relative to the same sums in
+    float64 is recorded: the prefix-difference method (mxsum) loses the
+    global prefix's digits, so only methods within rtol 1e-5 may win.
+    Returns {name: {"ms": {method: ms}, "max_rel_err": {method: err},
+    "winner": method}}."""
+    out = {}
+    for name, (vals, row_ptr, head, dst) in layouts.items():
+        fns = {m: functools.partial(segment.segment_sum_csc, vals, row_ptr, head, dst,
+                                    method=m) for m in SUM_RACE}
+        exact = vals.dtype != torch.float32
+        if exact:
+            want = fns["scan"]()
+        else:
+            want = torch.zeros(row_ptr.shape[0], dtype=torch.float64, device=dev)
+            want.index_add_(0, dst.long(), vals.double())
+            want = want[:-1]
+        errs = {}
+        for m, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if exact:
+                compare(torch, got, want, True, what=f"race {name} {m}")
+                errs[m] = 0.0
+            else:
+                rel = (got.double() - want).abs() / want.abs().clamp_min(1e-300)
+                errs[m] = float(torch.where(want != 0, rel, (got != 0).double()).max())
+        ms = {m: time_ms(torch, fn, reps) for m, fn in fns.items()}
+        ok = [m for m in SUM_RACE if errs[m] <= SUM_RTOL]
+        out[name] = {"ms": ms, "max_rel_err": errs, "winner": min(ok, key=ms.get)}
+    return out
+
+
 def spmv_2d_cases(torch, np, spmv, bc, dev, ks, reps: int, timed: bool):
     """spmv_blockcsr_2d against its plain version on one block-CSR layout,
     for each K in ``ks``, f32 and bf16 values (positive, so rtol holds);
@@ -855,6 +1085,172 @@ def spmv_2d_cases(torch, np, spmv, bc, dev, ks, reps: int, timed: bool):
     return rows
 
 
+def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev,
+                spec_oracle_a, spec_oracle_b) -> dict:
+    """Phases 11-12 on the main graph ``g`` (its pull layout ``sh`` and the
+    phase-4 expand plans ``push_plans``): spec_main, spec_kernels and
+    sum_race; the oracles are the pool's pending results.  Returns the
+    launch counts of every spec run."""
+    from lux_tpu_torch.apps import run as run_app
+    from lux_tpu_torch.engine import methods, pull
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+    from lux_tpu_torch.ops import expand, scan, segment, shuffle
+    from lux_tpu_torch.program import library
+    from lux_tpu_torch.program import workloads as wl
+    from lux_tpu_torch.program.spec import bind
+
+    # 11. the spec workloads through apps/run.py
+    t0 = time.perf_counter()
+    spec_launches = {}
+    srcs = bfs_sources(np, g)
+    main_argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
+                 "--device", dev.type]
+    bfs_argv = ["bfs"] + main_argv + ["-check", "--sources", ",".join(map(str, srcs))]
+    bfs = {}
+    for label, extra, replay in BFS_RUNS:
+        res, spec_launches[f"bfs-{label}"] = spec_run(
+            torch, run_app, "spec_main", f"bfs-{label}", bfs_argv + extra, kernels, smi, g,
+            push_plans["expand-pf"] if replay else None)
+        bfs[label] = res
+        first = bfs["mxscan"]
+        require(np.array_equal(res.state, first.state) and res.iters == first.iters
+                and res.stats == first.stats,
+                f"bfs {label}: (distances, iterations, traversed, dense rounds) differ "
+                "from the mxscan run's")
+        for name in PUSH_RUN_KERNELS.get(label, ()):
+            require(spec_launches[f"bfs-{label}"][name] >= res.stats["dense_rounds"],
+                    f"bfs {label}: {name} launched too few times")
+    res, spec_launches["bfs-pull"] = spec_run(torch, run_app, "spec_main", "bfs-pull",
+                                              bfs_argv + ["--engine", "pull"], kernels, smi, g)
+    require(np.array_equal(res.state, bfs["mxscan"].state), "bfs pull: distances differ")
+    require(spec_launches["bfs-pull"]["mxscan_segmented"] >= res.iters,
+            "bfs pull: the scan kernel launched too few times")
+    o_dist, o_probs, o_secs = spec_oracle_a.get(timeout=900)
+    require(np.array_equal(bfs["mxscan"].state, o_dist), "bfs distances differ from scipy's")
+    emit({"phase": "spec_main", "program": "bfs", "sources": srcs,
+          "oracle": "scipy.sparse.csgraph shortest_path, min over the sources",
+          "oracle_seconds": o_secs["bfs"], "reached": int((o_dist < g.nv).sum()),
+          "oracle_equal": True})
+
+    # k-core on the symmetrized main graph, its int32 sums through the scan kernel
+    kc = {}
+    for label in ("mxscan", "scatter"):
+        res, spec_launches[f"kcore-{label}"] = spec_run(
+            torch, run_app, "spec_main", f"kcore-{label}",
+            ["kcore"] + main_argv + ["-check", "--method", label], kernels, smi, g)
+        kc[label] = res
+        require(np.array_equal(res.state, kc["mxscan"].state)
+                and (res.iters, res.stats) == (kc["mxscan"].iters, kc["mxscan"].stats),
+                f"kcore {label}: (coreness, rounds, k_max) differ from the mxscan run's")
+    require(spec_launches["kcore-mxscan"]["mxscan_segmented"] >= kc["mxscan"].iters,
+            "kcore mxscan: the scan kernel launched fewer times than the rounds")
+    o_core, o_inc, o2_secs = spec_oracle_b.get(timeout=900)
+    require(np.array_equal(kc["mxscan"].state, o_core), "coreness differs from the host peel")
+    gs = kc["mxscan"].graph
+    emit({"phase": "spec_main", "program": "kcore", "ne_symmetrized": gs.ne,
+          "max_degree": int(gs.in_degrees().max()), "k_max": kc["mxscan"].stats["k_max"],
+          "rounds": kc["mxscan"].iters, "oracle": "host peel by removed out-edges",
+          "oracle_seconds": o2_secs["kcore"], "oracle_equal": True})
+
+    # routed k-core at KCORE_ROUTED_SCALE: the plans built once, handed to the app
+    g16 = generate.rmat(KCORE_ROUTED_SCALE, EF, seed=0)
+    sh16 = build_pull_shards(wl.symmetrize(g16), 1)
+    t1 = time.perf_counter()
+    plans16 = {"fused-mx": expand.plan_fused_shards(sh16, "sum", pf=True, mx=True)}
+    t2 = time.perf_counter()
+    plans16["expand-pf"] = expand.plan_expand_shards(sh16, pf=True)
+    emit({"phase": "spec_main", "program": "kcore", "plan_scale": KCORE_ROUTED_SCALE,
+          "plan_seconds": {"fused-mx": t2 - t1, "expand-pf": time.perf_counter() - t2}})
+    argv16 = ["kcore", "--rmat-scale", str(KCORE_ROUTED_SCALE), "--rmat-ef", str(EF),
+              "--seed", "0", "--device", dev.type, "-check", "--method", "mxscan"]
+    k16, spec_launches["kcore16-mxscan"] = spec_run(torch, run_app, "spec_main",
+                                                    "kcore16-mxscan", argv16, kernels, smi, g16)
+    for mode in KCORE_ROUTED:
+        res, spec_launches[f"kcore16-{mode}"] = spec_run(
+            torch, run_app, "spec_main", f"kcore16-{mode}", argv16 + ["--route-gather", mode],
+            kernels, smi, g16, plans16[mode])
+        require(np.array_equal(res.state, k16.state)
+                and (res.iters, res.stats) == (k16.iters, k16.stats),
+                f"kcore {mode}: (coreness, rounds, k_max) differ from the direct run's")
+        name = RUN_KERNEL[mode]
+        require(spec_launches[f"kcore16-{mode}"][name] >= res.iters,
+                f"kcore {mode}: {name} launched fewer times than the rounds")
+
+    # label propagation: wide (V, 8) state
+    lp = {}
+    for label, extra in (("auto", []), ("scatter", ["--method", "scatter"])):
+        res, spec_launches[f"labelprop-{label}"] = spec_run(
+            torch, run_app, "spec_main", f"labelprop-{label}",
+            ["labelprop"] + main_argv + ["-check", "-ni", str(ITERS), "--labels",
+                                         str(LP_LABELS), "--seed-stride", str(LP_STRIDE)]
+            + extra, kernels, smi, g)
+        lp[label] = res
+        err = float(np.max(np.abs(res.state - o_probs)))
+        require(res.state.shape == (g.nv, LP_LABELS) and bool(np.isfinite(res.state).all()),
+                f"labelprop {label}: probabilities not finite or misshaped")
+        require(np.allclose(res.state, o_probs, rtol=LP_RTOL, atol=LP_ATOL),
+                f"labelprop {label}: off the float64 oracle by {err}")
+        emit({"phase": "spec_main", "program": "labelprop", "run": label,
+              "max_abs_err_vs_f64": err, "rtol": LP_RTOL, "atol": LP_ATOL,
+              "oracle": "float64 recurrence as scipy CSR products",
+              "oracle_seconds": o_secs["labelprop"]})
+
+    # triangles on the symmetrized weighted TRI_SCALE graph
+    g15 = generate.rmat(TRI_SCALE, EF, seed=0, weighted=True)
+    tri = {}
+    for label, extra in (("mxscan", ["--method", "mxscan", "-check"]),
+                         ("scatter", ["--method", "scatter"])):
+        res, spec_launches[f"triangles-{label}"] = spec_run(
+            torch, run_app, "spec_main", f"triangles-{label}",
+            ["triangles", "--rmat-scale", str(TRI_SCALE), "--rmat-ef", str(EF), "--seed", "0",
+             "--device", dev.type] + extra, kernels, smi, g15)
+        tri[label] = res
+        ref = o_inc.astype(np.float64)
+        bad = int(np.sum(~np.isfinite(res.state)
+                         | (np.abs(res.state - ref) > 1e-5 * np.maximum(np.abs(ref), 1.0))))
+        require(res.state.shape == (g15.nv,) and bad == 0,
+                f"triangles {label}: {bad} vertices off the bitset oracle")
+        emit({"phase": "spec_main", "program": "triangles", "run": label, "bad_vertices": bad,
+              "total_weighted_incidence": res.stats["total_weighted_incidence"],
+              "bitset_words": res.stats["bitset_words"], "ne_symmetrized": res.graph.ne,
+              "oracle": "numpy bitsets, per-edge set bits of the intersection",
+              "oracle_seconds": o2_secs["triangles"]})
+    require(spec_launches["triangles-mxscan"]["mxscan_segmented"] >= 1,
+            "triangles mxscan: phase 2 launched no scan kernel")
+    emit({"phase": "spec_main", "seconds": time.perf_counter() - t0, "device": smi})
+
+    # the slice's new kernel callers against their plain versions
+    t0 = time.perf_counter()
+    spec_rows = spec_kernel_cases(torch, np, scan, shuffle, expand, pull, wl, library, bind,
+                                  kc["mxscan"], tri["mxscan"].graph, plans16["fused-mx"],
+                                  dev, REPS)
+    emit({"phase": "spec_kernels", "cases": spec_rows, "seconds": time.perf_counter() - t0,
+          "device": smi})
+    del plans16, sh16, g16, g15, bfs, lp, tri
+    torch.cuda.empty_cache()
+
+    # 12. the sum race: one reduce of one iteration, per method
+    t0 = time.perf_counter()
+    shk = build_pull_shards(gs, 1)
+    core = torch.from_numpy(kc["mxscan"].state).to(dev)
+    layouts = {}
+    for name, shx, full in (
+            ("pagerank_f32", sh, torch.from_numpy(
+                np.random.default_rng(21).random(sh.spec.gathered_size, dtype=np.float32)
+                + 0.01).to(dev)),
+            ("kcore_int32", shk, torch.cat([(core >= 2).to(torch.int32), torch.zeros(
+                shk.spec.gathered_size - gs.nv, dtype=torch.int32, device=dev)]))):
+        a = to_device(shx.arrays, dev).part(0)
+        layouts[name] = (full.index_select(0, a.src_pos), a.row_ptr, a.head_flag, a.dst_local)
+    race_sum = sum_race(torch, segment, layouts, dev, REPS)
+    emit({"phase": "sum_race", "race": race_sum,
+          "winners_row": methods.WINNERS.get(("cuda", "sum")),
+          "graph": {"pagerank_f32": [g.nv, g.ne], "kcore_int32": [gs.nv, gs.ne]},
+          "seconds": time.perf_counter() - t0, "device": smi})
+    return spec_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -883,9 +1279,11 @@ def main() -> int:
 
     # the host oracles take minutes: start them now, beside the card
     global _POOL
-    _POOL = multiprocessing.get_context("spawn").Pool(2)
+    _POOL = multiprocessing.get_context("spawn").Pool(4)
     cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
     push_oracle = _POOL.apply_async(push_oracles, (SCALE,))
+    spec_oracle_a = _POOL.apply_async(spec_oracles_bfs_labelprop, (SCALE,))
+    spec_oracle_b = _POOL.apply_async(spec_oracles_kcore_triangles, (SCALE, TRI_SCALE))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -897,7 +1295,7 @@ def main() -> int:
     # 1. device
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "numpy": np.__version__})
 
     # 2. build
     t0 = time.perf_counter()
@@ -1195,7 +1593,13 @@ def main() -> int:
         ("components", cc_model.MaxLabelProgram(), cc_runs["mxscan"].state)), dev, REPS)
     emit({"phase": "push_race", "ms_per_dense_round": race,
           "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
-    del push_plans, sssp_runs, cc_runs, sh, g
+    del sssp_runs, cc_runs
+    torch.cuda.empty_cache()
+
+    # 11-12. the spec workloads, their kernel callers, the sum race
+    spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
+                                spec_oracle_a, spec_oracle_b)
+    del push_plans, sh, g
     torch.cuda.empty_cache()
 
     table = []
@@ -1235,6 +1639,9 @@ def main() -> int:
         run = PUSH_KERNEL_RUN.get(row["name"])
         row["launches_push"] = {"sssp": sssp_launches[run][row["name"]] if run else 0,
                                 "components": cc_launches[run][row["name"]] if run else 0}
+        row["launches_spec"] = {
+            prog: spec_launches[runs[row["name"]]][row["name"]] if row["name"] in runs else 0
+            for prog, runs in SPEC_KERNEL_RUN.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -42,7 +42,8 @@ def prepare(cfg, g, dev, route=None):
     returns (iterate, state, read), ``read(state)`` bringing the (nv, K)
     latents to the host."""
     prog = cf_model.CFProgram(dtype=cfg.dtype, err_dot=cf_model._resolve_err_dot(None))
-    return common.prepare(cfg, g, dev, prog, cf_model.make_pallas_runner, route)
+    return common.prepare(cfg, g, dev, prog, cf_model.make_pallas_runner, route,
+                          state_width=cf_model.K)
 
 
 def run(argv=None, route=None) -> RunResult:

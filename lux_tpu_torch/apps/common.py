@@ -1,5 +1,6 @@
-"""Shared app-driver scaffolding: load graph, pull-engine set-up,
-routed-pull planning, the timed window, report, check verdict."""
+"""Shared app-driver scaffolding: load graph, the method checks and the
+memory preflight, pull-engine set-up, routed-pull planning, the timed
+window, report, check verdict."""
 from __future__ import annotations
 
 import logging
@@ -11,8 +12,9 @@ from lux_tpu_torch.graph import generate
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.format import read_lux
 from lux_tpu_torch.graph.shards import build_pull_shards, to_device
-from lux_tpu_torch.ops import cuda_build, expand
+from lux_tpu_torch.ops import cuda_build, expand, spmv
 from lux_tpu_torch.ops import shuffle as shuf
+from lux_tpu_torch.utils import preflight
 from lux_tpu_torch.utils.config import RunConfig
 from lux_tpu_torch.utils.timing import Timer
 
@@ -46,7 +48,65 @@ def load_graph(cfg: RunConfig, weighted: bool = False,
     return g
 
 
-def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None):
+def validate_exchange(cfg: RunConfig, prog, dev) -> None:
+    """Resolve ``--method auto`` to the measured winner for ``prog``'s
+    reduce on ``dev`` (engine/methods.resolve_sum) and refuse, with a CLI
+    message before any set-up, the methods that cannot reduce it: the
+    prefix-difference strategies and ``pallas`` are sum-only.  The
+    exchange, edge-shard and layout checks of the reference come with
+    multi-GPU."""
+    cfg.method = methods.resolve_sum(cfg.method, prog.reduce,
+                                     methods.default_platform(dev))
+    if cfg.method in ("cumsum", "mxsum") and prog.reduce != "sum":
+        raise SystemExit(
+            f"--method {cfg.method} is a prefix-diff strategy: sum-reduce "
+            f"programs only (this app reduces with {prog.reduce})")
+    if cfg.method == "pallas" and prog.reduce != "sum":
+        raise SystemExit(
+            "--method pallas: sum-reduce programs only; min/max apps "
+            "use scan/scatter")
+
+
+def estimate_exchange(shards, cfg: RunConfig, state_width: int = 1,
+                      dst_state: bool = False) -> preflight.MemoryEstimate:
+    """The memory estimate of a pull run of ``shards`` on one device: one
+    part's arrays, state and per-edge gather (``dst_state``: the program
+    reads the destination too), every part resident, plus the routed
+    plan of ``cfg.route_gather`` from the geometry (before it is
+    built)."""
+    sbytes = 2 if cfg.dtype == "bfloat16" else 4
+    est = preflight.estimate_pull(shards.spec, state_width, sbytes,
+                                  dst_state=dst_state, method=cfg.method)
+    est = preflight.scale_residency(est, shards.spec.num_parts)
+    if cfg.route_gather:
+        resolve_route_auto(cfg)
+        est = preflight.add_routed_bytes(
+            est, shards.spec.num_parts * preflight.routed_plan_bytes_analytic(
+                shards.spec, cfg.route_gather, wide=state_width > 1))
+    return est
+
+
+def estimate_blockcsr(bc, state_width: int = 1, dtype: str = "float32"):
+    """The memory estimate of a block-CSR runner (``--method pallas``)
+    over the layout ``bc``: PageRank's (``state_width`` 1: out-degrees)
+    or CF's (wide: slot weights and destination rows)."""
+    wide = state_width > 1
+    return preflight.estimate_pallas_pull(
+        bc.num_chunks, bc.e_src_pos.shape[1], bc.num_vblocks * bc.v_blk,
+        state_width, weighted=wide, degree=not wide, dst_state=wide,
+        state_dtype_bytes=2 if dtype == "bfloat16" else 4)
+
+
+def report_preflight(est, dev) -> bool:
+    """Print the estimate and warn when it exceeds the memory of ``dev``
+    (apps print it before set-up, outside any timed window).  The
+    reference's --edge-shards hint comes with --edge-shards."""
+    print(est)
+    return preflight.check_fits(est, device=dev)
+
+
+def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None,
+            state_width: int = 1):
     """An app's set-up for a ``-ni`` run on ``dev``: ``--method pallas``
     builds ``pallas_runner(g, dtype=, device=)`` (the model's block-CSR
     kernel path), any other method the pull engine running ``prog``.
@@ -55,13 +115,22 @@ def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None):
     ...) state to the host as float32.  With ``cfg.route_gather`` the
     routed plan is built here (set-up, like the kernel build), unless the
     caller hands in ``route``, a plan it built for the same graph with
-    ops/expand or :func:`build_pull_route`."""
-    if dev.type == "cuda":
-        cuda_build.load_all()  # building and loading are set-up, not iterations
+    ops/expand or :func:`build_pull_route`.  The memory estimate of the
+    layout (``state_width`` columns) is printed before anything lands on
+    the device."""
+    validate_exchange(cfg, prog, dev)
     if cfg.method == "pallas":
-        run, state = pallas_runner(g, dtype=cfg.dtype, device=dev)
+        bc = spmv.build_blockcsr(g)
+        report_preflight(estimate_blockcsr(bc, state_width, cfg.dtype), dev)
+        if dev.type == "cuda":
+            cuda_build.load_all()  # building and loading are set-up, not iterations
+        run, state = pallas_runner(g, dtype=cfg.dtype, device=dev, bc=bc)
         return run, state, lambda s: s[: g.nv].float().cpu().numpy()
     shards = build_pull_shards(g, cfg.num_parts)
+    report_preflight(estimate_exchange(shards, cfg, state_width,
+                                       dst_state=prog.needs_dst_state), dev)
+    if dev.type == "cuda":
+        cuda_build.load_all()
     arrays = to_device(shards.arrays, dev)
     if route is None and cfg.route_gather:
         route = build_pull_route(cfg, shards, prog)

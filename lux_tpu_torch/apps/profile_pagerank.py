@@ -1,13 +1,15 @@
-"""Device-time breakdown of PageRank, collaborative-filtering, SSSP or
-connected-components runs on the card.
+"""Device-time breakdown of PageRank, collaborative-filtering, SSSP,
+connected-components or k-core runs on the card.
 
     python -m lux_tpu_torch.apps.profile_pagerank --rmat-scale 20 --rmat-ef 16 \\
         -ni 10 --method pallas [--app colfilter]
     python -m lux_tpu_torch.apps.profile_pagerank --app sssp --rmat-scale 20 \\
         --rmat-ef 16 --method mxscan [--route-gather expand-pf]
+    python -m lux_tpu_torch.apps.profile_pagerank --app kcore --rmat-scale 20 \
+        --rmat-ef 16 --method mxscan
 
 Takes the app's flags (``--route-gather`` included: its plan is built in
-set-up, before any window) and ``--app pagerank|colfilter|sssp|components``
+set-up, before any window) and ``--app pagerank|colfilter|sssp|components|kcore``
 (default pagerank).  PageRank and CF: times ``-ni`` iterations as the
 apps do (``apps.common.timed_iterations``), then runs ``-ni`` more under
 ``torch.profiler``.  SSSP (from ``-start``, else the vertex with the
@@ -15,7 +17,9 @@ largest out-degree) and components: times one run to convergence after an
 untimed one, as the apps do, counts the host syncs of one more run (CUDA
 sync-debug warnings), traces one more under ``torch.profiler``, and runs
 the ``-verbose`` phase split once (load, dense and sparse comp, update:
-each phase fenced, so their sum exceeds the wall time).  Prints one JSON
+each phase fenced, so their sum exceeds the wall time).  k-core (the
+symmetrized view unless ``--directed``): the same for one whole peel,
+without the phase split.  Prints one JSON
 line: the app's ms per iteration (for the push apps also the run's ms,
 iterations, dense rounds, traversed edges and GTEPS), the CUDA kernel time
 per iteration from the trace, the device's idle share (1 - traced kernel
@@ -48,6 +52,8 @@ from lux_tpu_torch.utils.timing import Timer
 #: --app -> (its set-up, whether its graph is the weighted rating graph)
 APPS = {"pagerank": (pagerank.prepare, False), "colfilter": (colfilter.prepare, True)}
 PUSH_APPS = ("sssp", "components")
+#: the spec workloads this breakdown runs (apps/run.py's flags)
+SPEC_APPS = ("kcore",)
 
 
 def _trace(fn, dev):
@@ -127,10 +133,52 @@ def profile_push(app: str, rest: list, dev) -> dict:
     }
 
 
+def profile_kcore(rest: list, dev) -> dict:
+    """k-core's breakdown: one whole peel, timed after an untimed one."""
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.program import library, workloads
+    from lux_tpu_torch.program.spec import bind
+
+    cfg = parse_args(rest, description=__doc__, program=True, prog="kcore")
+    g = common.load_graph(cfg)
+    g = g if cfg.directed else workloads.symmetrize(g)
+    cfg.method = methods.resolve_sum(cfg.method, bind(library.KCORE, kk=1).reduce, "cuda")
+    cuda_build.load_all()
+    shards = workloads.on_device(build_pull_shards(g, cfg.num_parts), dev)
+
+    def peel():
+        return workloads.kcore(shards, kmax=cfg.kmax, max_iters=cfg.max_iters,
+                               method=cfg.method, device=dev)
+
+    peel()
+    timer = Timer(dev)
+    _, k_max, rounds = peel()
+    wall_ms = timer.stop() * 1e3
+    syncs = _host_syncs(peel)
+    kernels = _trace(peel, dev)
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    return {
+        "app": "kcore", "method": cfg.method, "k_max": k_max, "rounds": rounds,
+        "nv": g.nv, "ne": g.ne, "device": torch.cuda.get_device_name(dev),
+        "ms": wall_ms, "gteps": rounds * g.ne / wall_ms / 1e6,
+        "ms_per_round": wall_ms / rounds, "kernel_ms_per_round": busy_ms / rounds,
+        "idle_ms_per_round": (wall_ms - busy_ms) / rounds,
+        "idle_share": 1.0 - busy_ms / wall_ms, "host_syncs_per_round": syncs / rounds,
+        "kernels": _top(kernels, rounds),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(add_help=False)
-    ap.add_argument("--app", default="pagerank", choices=sorted(APPS) + list(PUSH_APPS))
+    ap.add_argument("--app", default="pagerank",
+                    choices=sorted(APPS) + list(PUSH_APPS) + list(SPEC_APPS))
     ns, rest = ap.parse_known_args(argv)
+    if ns.app in SPEC_APPS:
+        dev = resolve_device(parse_args(rest, program=True).device)
+        if dev.type != "cuda":
+            raise SystemExit("profile_pagerank measures the card; --device cuda")
+        print(json.dumps(profile_kcore(rest, dev)), flush=True)
+        return 0
     if ns.app in PUSH_APPS:
         dev = resolve_device(parse_args(rest, push=True, sssp=ns.app == "sssp").device)
         if dev.type != "cuda":

@@ -27,6 +27,7 @@ from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.push_shards import PushShards, build_push_shards
 from lux_tpu_torch.models import sssp as sssp_model
 from lux_tpu_torch.ops import cuda_build, expand
+from lux_tpu_torch.utils import preflight
 from lux_tpu_torch.utils.config import RunConfig, parse_args
 from lux_tpu_torch.utils.device import resolve_device
 from lux_tpu_torch.utils.timing import Timer, report_elapsed
@@ -47,6 +48,7 @@ class PushRunResult:
     #: -verbose only: seconds summed per phase, the comp phase split by
     #: direction (load, dense, sparse, update)
     phases: Optional[dict] = None
+    estimate_bytes: int = 0  # the memory estimate printed before set-up
 
 
 def build_push_app_shards(g: HostGraph, cfg: RunConfig) -> PushShards:
@@ -91,8 +93,9 @@ def run_push_verbose(prog, shards: PushShards, cfg: RunConfig, arrays, parrays,
 
 def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
                         g: HostGraph, route=None) -> PushRunResult:
-    """The frontier apps' shared driver (SSSP and components): method and
-    route resolution with the reference's refusals, the routed plan
+    """The frontier apps' shared driver (SSSP, components and bfs): method
+    and route resolution with the reference's refusals, the memory
+    estimate, the routed plan
     (set-up; ``route`` is one already built for the same layout), an
     untimed run to convergence, then the timed one.  Returns the result
     with rc 0 (the caller checks)."""
@@ -108,6 +111,13 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
         raise SystemExit(
             f"--method {cfg.method} is a prefix-diff strategy: sum-reduce "
             f"programs only (this app reduces with {prog.reduce})")
+    est = preflight.scale_residency(
+        preflight.estimate_push(shards.spec, shards.pspec), shards.spec.num_parts)
+    if cfg.route_gather:
+        # the dense rounds' routed plan is a real per-part slice
+        est = preflight.add_routed_bytes(est, shards.spec.num_parts * (
+            preflight.routed_plan_bytes_analytic(shards.spec, "expand")))
+    common.report_preflight(est, dev)
     if dev.type == "cuda":
         cuda_build.load_all()  # building and loading are set-up
     if route is None:
@@ -139,7 +149,8 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
           f"({out.dense_rounds} dense rounds)")
     gteps = report_elapsed(elapsed, shards.spec.ne, out.it, traversed=out.edges)
     return PushRunResult(0, g, state, out.it, out.edges, out.dense_rounds,
-                         elapsed, gteps, cfg.method, cfg.route_gather, phases)
+                         elapsed, gteps, cfg.method, cfg.route_gather, phases,
+                         est.total_bytes)
 
 
 def run(argv=None, route=None, graph: Optional[HostGraph] = None) -> PushRunResult:

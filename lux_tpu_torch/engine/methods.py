@@ -32,10 +32,18 @@ CONCRETE = ("scan", "cumsum", "mxsum", "mxscan", "scatter")
 #: (platform, reduce) -> measured winner.  min/max: chip_smoke.py phase
 #: push_race, one dense round of SSSP (min) and components (max) at RMAT
 #: 20 on an H100: mxscan 0.314 / 0.332 ms, scatter 0.874 / 0.766, scan
-#: 5.06 / 4.99.  No sum row yet: PageRank and CF resolve to FALLBACK.
+#: 5.06 / 4.99.  sum (one row, keyed as the reference keys its float-sum
+#: winner): chip_smoke.py phase sum_race, one segmented sum of one pull
+#: iteration at RMAT 20 on an NVIDIA H100 80GB HBM3 at 700.00 W: the
+#: PageRank f32 sum mxscan 0.220 ms, scatter 0.579, scan 4.84, mxsum 4.97
+#: (and off the float64 sums by up to 45x its value: the global prefix's
+#: digits are lost); the k-core int32 sum on the symmetrized graph mxscan
+#: 0.180, scatter 0.944, scan 9.24, mxsum (= scan for integers) 9.25.
+#: Wide (E, K) sums downgrade mxscan to the plain scan (ops/segment).
 WINNERS: dict[tuple[str, str], str] = {
     ("cuda", "min"): "mxscan",
     ("cuda", "max"): "mxscan",
+    ("cuda", "sum"): "mxscan",
 }
 
 #: platform without a measured row: the portable choice
@@ -79,9 +87,12 @@ def resolve(method: str, reduce: str = "sum", platform: str | None = None) -> st
 
 
 def resolve_sum(method: str, reduce: str = "sum", platform: str | None = None) -> str:
-    """``resolve`` plus the scan-family refinement: under ``auto``, a float
-    sum that resolves to "scan" follows LUX_SUM_MODE.  Explicit methods
-    and min/max pass through."""
+    """``resolve`` plus the scan-family refinement: under ``auto``, a sum
+    follows LUX_SUM_MODE when it is set (an explicit choice, on every
+    platform, as in the reference), else a sum that resolves to "scan"
+    follows sum_mode().  Explicit methods and min/max pass through."""
+    if method == "auto" and reduce == "sum" and os.environ.get("LUX_SUM_MODE"):
+        return sum_mode()
     resolved = resolve(method, reduce, platform)
     if method == "auto" and reduce == "sum" and resolved == "scan":
         return sum_mode()

@@ -168,6 +168,42 @@ def _pull_iteration(prog, spec: ShardSpec, method, arrays, state,
     ])
 
 
+def compile_pull_phases(prog: PullProgram, spec: ShardSpec, method: str = "auto"):
+    """One pull iteration as THREE separately callable phases (the
+    reference's load/comp/update split, ``lux_tpu.engine.pull
+    .compile_pull_phases``):
+
+      load(arrays, state)         -> per-part gathered (src, dst) states,
+                                     the destination read only when
+                                     ``prog.needs_dst_state``
+      comp(arrays, gathered)      -> (P, V, ...) reduced accumulators
+                                     (edge_value + segmented reduction)
+      update(arrays, state, acc)  -> the new (P, V, ...) state (apply)
+
+    ``arrays`` are the stacked device tensors; ``method`` resolves per
+    engine.methods on the arrays' device.  A reduce-only phase (a spec
+    with no apply rule) runs load and comp alone.  Returns (load, comp,
+    update)."""
+
+    def load(arrays: ShardArrays, state: torch.Tensor) -> list:
+        full = state.reshape((spec.gathered_size,) + tuple(state.shape[2:]))
+        return [pull_gather_part(arrays.part(p), full, state[p],
+                                 prog.needs_dst_state)
+                for p in range(spec.num_parts)]
+
+    def comp(arrays: ShardArrays, gathered: list) -> torch.Tensor:
+        m = _resolve(prog, method, arrays)
+        return torch.stack([pull_reduce_part(prog, arrays.part(p), gathered[p], m)
+                            for p in range(spec.num_parts)])
+
+    def update(arrays: ShardArrays, state: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+        return torch.stack([prog.apply(state[p], acc[p], arrays.part(p))
+                            for p in range(spec.num_parts)])
+
+    return load, comp, update
+
+
 def _route_parts(route, device, num_parts: int) -> Optional[list]:
     """A stacked (static, (P, ...) arrays) plan as one (static, arrays)
     plan per part, its arrays as tensors on ``device``."""

@@ -62,6 +62,17 @@ class HostGraph:
     def in_degrees(self) -> np.ndarray:
         return np.diff(self.row_ptr).astype(np.int32)
 
+    def to_csr(self):
+        """The out-edge (CSR) view: (csr_row_ptr, csr_dst, csr_perm), by a
+        stable sort of the sources.  ``csr_perm`` maps each CSR slot back
+        to its CSC edge index (for weights)."""
+        dst_of_edge = self.dst_of_edges()
+        perm = np.argsort(self.col_idx, kind="stable")
+        csr_dst = dst_of_edge[perm]
+        csr_row_ptr = np.zeros(self.nv + 1, dtype=np.int64)
+        np.cumsum(np.bincount(self.col_idx, minlength=self.nv), out=csr_row_ptr[1:])
+        return csr_row_ptr, csr_dst, perm
+
     def dst_of_edges(self) -> np.ndarray:
         """(ne,) int32 destination id of each CSC edge slot."""
         return np.repeat(

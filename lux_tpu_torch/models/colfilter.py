@@ -95,8 +95,9 @@ def colfilter(g: HostGraph | PullShards, num_iters: int = 10, num_parts: int = 1
 def make_pallas_runner(g: HostGraph, k: int = K, lam: float = LAMBDA,
                        gamma: float = GAMMA, v_blk: int | None = None,
                        t_chunk: int | None = None, dtype: str = "float32",
-                       err_dot_mode: str | None = None, device="cuda"):
-    """Build the block-CSR layout once; return (run, state0) where
+                       err_dot_mode: str | None = None, device="cuda", bc=None):
+    """Build the block-CSR layout once (or take ``bc``, one already built
+    for ``g``); return (run, state0) where
     run(state, num_iters) iterates, in place on ``state``: gather
     ``s[e_src]`` and ``s[dst]`` (torch ``index_select``) -> err_dot ->
     ``err * src_vec`` -> the 2-D block-CSR SpMV kernel -> update.  State
@@ -107,8 +108,9 @@ def make_pallas_runner(g: HostGraph, k: int = K, lam: float = LAMBDA,
         raise ValueError("CF requires a weighted graph")
     dev = resolve_device(device)
     ed_mode = _resolve_err_dot(err_dot_mode)
-    bc = spmv.build_blockcsr(g, v_blk=v_blk or spmv.V_BLK,
-                             t_chunk=t_chunk or spmv.T_CHUNK)
+    if bc is None:
+        bc = spmv.build_blockcsr(g, v_blk=v_blk or spmv.V_BLK,
+                                 t_chunk=t_chunk or spmv.T_CHUNK)
     nvp = bc.num_vblocks * bc.v_blk
     shape = bc.e_src_pos.shape
     state0 = np.zeros((nvp, k), np.float32)

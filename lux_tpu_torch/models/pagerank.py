@@ -90,15 +90,17 @@ def pagerank(g: HostGraph | PullShards, num_iters: int = 10,
 
 def make_pallas_runner(g: HostGraph, v_blk: int | None = None,
                        t_chunk: int | None = None, dtype: str = "float32",
-                       device="cuda"):
-    """Build the block-CSR layout once; return (run, state0) where
+                       device="cuda", bc=None):
+    """Build the block-CSR layout once (or take ``bc``, one already built
+    for ``g``); return (run, state0) where
     run(state, num_iters) iterates gather ``s[e_src]`` (torch) -> the
     block-CSR SpMV kernel -> apply, in place on ``state``.  State lives
     on ``num_vblocks * v_blk`` slots; only ``[:nv]`` is meaningful.  (The
     name is the reference's: its block-CSR path is a Pallas kernel.)"""
     dev = resolve_device(device)
-    bc = spmv.build_blockcsr(g, v_blk=v_blk or spmv.V_BLK,
-                             t_chunk=t_chunk or spmv.T_CHUNK)
+    if bc is None:
+        bc = spmv.build_blockcsr(g, v_blk=v_blk or spmv.V_BLK,
+                                 t_chunk=t_chunk or spmv.T_CHUNK)
     nvp = bc.num_vblocks * bc.v_blk
     deg = g.out_degrees()
     degree = np.zeros(nvp, np.int32)

@@ -15,6 +15,13 @@ reference does), and a numpy scalar meeting a tensor — in an operator or
 a builtin — becomes a 0-d tensor of its own dtype on the tensor's device,
 so mixed expressions always return tensors with the reference's dtype.
 
+uint32: PyTorch's CUDA build has no arithmetic, bitwise, shift or
+``where`` kernel for ``torch.uint32`` (only copies, casts, comparisons
+for equality and gathers).  So an operation whose tensor operands are
+all uint32 runs on their int64 widening and narrows back modulo 2^32:
+the same bits as uint32 arithmetic, on either device.  ``popcount``
+counts 32-bit words with five SWAR steps on their int32 bit pattern.
+
 Vocabulary (beyond ``+ - * / // % ** << >> & | ^ ~ -x`` and single
 comparisons): where, maximum, minimum, abs, sqrt, f32, i32, u32,
 cast(x, dtype_name), lane(x), row(x), arange(n) (int32), onehot(x, n),
@@ -82,11 +89,30 @@ def _lift(args):
             for a in args]
 
 
+_U32_MASK = 0xFFFFFFFF
+
+
+def _u32_call(fn, args):
+    """``fn(*args)`` with uint32 tensors widened to int64; when every
+    tensor operand was uint32, an int64 result narrows back to uint32
+    (modulo 2^32, as uint32 arithmetic wraps).  Other calls pass
+    through."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not tensors or not any(t.dtype == torch.uint32 for t in tensors):
+        return fn(*args)
+    wide = [a.to(torch.int64) if isinstance(a, torch.Tensor)
+            and a.dtype == torch.uint32 else a for a in args]
+    out = fn(*wide)
+    if all(t.dtype == torch.uint32 for t in tensors) and out.dtype == torch.int64:
+        return (out & _U32_MASK).to(torch.uint32)
+    return out
+
+
 def _tensor_op(fn):
     """Wrap a binary/ternary op so numpy scalars meet tensors as 0-d
-    tensors; scalar-only calls stay numpy."""
+    tensors; scalar-only calls stay numpy; uint32 operands widen."""
     def call(*args):
-        return fn(*_lift(args))
+        return _u32_call(fn, _lift(args))
     return call
 
 
@@ -116,17 +142,17 @@ def _where(c, a, b):
     if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
         # both branches scalar: keep their numpy dtype (i32 stays int32)
         a, b = _as_tensor(a, [c]), _as_tensor(b, [c])
-    return torch.where(c, a, b)
+    return _u32_call(lambda x, y: torch.where(c, x, y), [a, b])
 
 
 def _maximum(a, b):
     a, b = _lift([a, b])
-    return torch.maximum(_as_tensor(a, [b]), _as_tensor(b, [a]))
+    return _u32_call(torch.maximum, [_as_tensor(a, [b]), _as_tensor(b, [a])])
 
 
 def _minimum(a, b):
     a, b = _lift([a, b])
-    return torch.minimum(_as_tensor(a, [b]), _as_tensor(b, [a]))
+    return _u32_call(torch.minimum, [_as_tensor(a, [b]), _as_tensor(b, [a])])
 
 
 def _isin(x, vals):
@@ -140,12 +166,23 @@ def _isin(x, vals):
 
 
 def _popcount(x):
-    bits = x.to(torch.int64) & 0xFFFFFFFF
-    count = torch.zeros_like(bits)
-    for _ in range(32):
-        count += bits & 1
-        bits = bits >> 1
-    return count.to(x.dtype)
+    """Set bits of each 32-bit word (int32 or uint32), in ``x.dtype``.
+    Five SWAR steps on the int32 bit pattern; an int32 right shift
+    sign-extends, so every shifted term is masked before it is used."""
+    if x.dtype not in (torch.int32, torch.uint32):
+        raise TypeError(f"popcount counts 32-bit words, got {x.dtype}")
+    v = x.view(torch.int32)
+    y = v - ((v >> 1) & 0x55555555)
+    t = (y >> 2) & 0x33333333
+    y &= 0x33333333
+    y += t
+    del t
+    y += y >> 4
+    y &= 0x0F0F0F0F
+    y *= 0x01010101
+    y >>= 24
+    y &= 0x3F
+    return y if x.dtype == torch.int32 else y.to(torch.uint32)
 
 
 def dot_lanes(a, b, mode):
@@ -200,7 +237,9 @@ def _builtins(device=None) -> Dict[str, Callable]:
 
 
 def _lnot(x):
-    return ~x if not _is_scalar(x) else np.logical_not(x)
+    if _is_scalar(x):
+        return np.logical_not(x)
+    return _u32_call(operator.invert, [x])
 
 
 _BINOPS = {

@@ -2,9 +2,11 @@
 
 The flags are the reference CLI's (``lux_tpu.utils.config``) restricted to
 what this package runs, plus ``--device``.  The push apps (``push=True``:
-SSSP and components) add ``-verbose/-v`` and ``--max-iters``, and SSSP
-(``sssp=True``) ``-start`` and ``--weighted``, as the reference's flag sets
-do.  Every other reference flag is rejected with a message that it is not
+SSSP, components and bfs) add ``-verbose/-v`` and ``--max-iters``, SSSP
+(``sssp=True``) ``-start`` and ``--weighted``, and the generic program
+driver (``program=True``, ``python -m lux_tpu_torch.apps.run``) its
+workload knobs and ``--max-iters``, as the reference's flag sets do.
+Every other reference flag is rejected with a message that it is not
 ported yet, never silently ignored.
 """
 from __future__ import annotations
@@ -43,8 +45,7 @@ NOT_PORTED = (
     "--feat-shards", "--sort-segments", "--compact-gather",
     "--repartition-every", "--repartition-threshold", "--weighted", "--delta",
     "--serve", "--serve-queries", "--serve-sources", "--serve-buckets",
-    "--serve-wait-ms", "--serve-timeout-ms", "--serve-max-queue", "--sources",
-    "--labels", "--seed-stride", "--kmax", "--engine", "--directed",
+    "--serve-wait-ms", "--serve-timeout-ms", "--serve-max-queue",
     "--stream-hbm-gib",
 )
 
@@ -76,13 +77,25 @@ class RunConfig:
     verbose: bool = False  # -verbose: per-iteration phase times (push apps)
     max_iters: int = 10_000  # --max-iters: the push apps' iteration cap
     weighted: bool = False  # --weighted: SSSP relaxes with edge weights
+    # --- generic program driver (python -m lux_tpu_torch.apps.run) --------
+    sources: str = "0"  # bfs: comma-separated seed vertices
+    labels: int = 8  # labelprop: number of classes
+    seed_stride: int = 16  # labelprop: every Nth vertex is a seed
+    kmax: int = 0  # kcore: peel ceiling (0 = until the core empties)
+    prog_engine: str = "auto"  # workload surface override (push/pull)
+    directed: bool = False  # kcore/triangles: skip the symmetrized view
 
 
 def parse_args(argv=None, description: str = "", push: bool = False,
-               sssp: bool = False) -> RunConfig:
-    """The apps' flags; ``push`` adds the frontier apps' flag set and
-    ``sssp`` SSSP's own (the reference's ``push=``/``sssp=``)."""
-    ap = argparse.ArgumentParser(description=description)
+               sssp: bool = False, program: bool = False,
+               prog: str = "") -> RunConfig:
+    """The apps' flags; ``push`` adds the frontier apps' flag set,
+    ``sssp`` SSSP's own, and ``program`` the generic program driver's
+    workload knobs (``prog`` names the workload in the usage line), as
+    the reference's ``push=``/``sssp=``/``program=`` do."""
+    ap = argparse.ArgumentParser(
+        description=description,
+        prog=f"python -m lux_tpu_torch.apps.run {prog}" if prog else None)
     ap.add_argument("-file", help=".lux graph file (default: synthetic RMAT)")
     ap.add_argument("-ng", "--num-parts", type=int, default=1,
                     help="number of graph parts (only 1 is ported)")
@@ -93,6 +106,7 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         ap.add_argument("-verbose", "-v", action="store_true",
                         help="per-iteration active count and load/comp/update "
                              "times (device-fenced phases)")
+    if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
     ap.add_argument("-check", "-c", action="store_true")
     ap.add_argument("--method", default="auto", choices=METHODS,
@@ -125,6 +139,29 @@ def parse_args(argv=None, description: str = "", push: bool = False,
     if sssp:
         ap.add_argument("--weighted", action="store_true",
                         help="relax with integer edge weights")
+    if program:
+        pg = ap.add_argument_group(
+            "program (generic spec-workload driver, lux_tpu_torch.apps.run)")
+        pg.add_argument("--sources", default="0",
+                        help="bfs: comma-separated seed vertices "
+                             "(distance = hops to the nearest)")
+        pg.add_argument("--labels", type=int, default=8,
+                        help="labelprop: number of label classes (the "
+                             "wide-state trailing dim)")
+        pg.add_argument("--seed-stride", type=int, default=16,
+                        help="labelprop: every Nth vertex is a pinned "
+                             "seed of class vid %% labels")
+        pg.add_argument("--kmax", type=int, default=0,
+                        help="kcore: peel ceiling (0 = peel until the "
+                             "core empties)")
+        pg.add_argument("--engine", dest="prog_engine", default="auto",
+                        choices=["auto", "push", "pull"],
+                        help="execution surface override for workloads "
+                             "that lower onto both (bfs)")
+        pg.add_argument("--directed", action="store_true",
+                        help="kcore/triangles: run on the directed "
+                             "in-neighborhoods as-is instead of the "
+                             "symmetrized simple view")
     ns, rest = ap.parse_known_args(argv)
     for arg in rest:
         flag = arg.split("=", 1)[0]
@@ -153,4 +190,10 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         verbose=getattr(ns, "verbose", False),
         max_iters=getattr(ns, "max_iters", 10_000),
         weighted=getattr(ns, "weighted", False),
+        sources=getattr(ns, "sources", "0"),
+        labels=getattr(ns, "labels", 8),
+        seed_stride=getattr(ns, "seed_stride", 16),
+        kmax=getattr(ns, "kmax", 0),
+        prog_engine=getattr(ns, "prog_engine", "auto"),
+        directed=getattr(ns, "directed", False),
     )

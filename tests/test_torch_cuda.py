@@ -528,3 +528,33 @@ def test_push_apps_on_card_match_plain_scan(cuda, app):
         assert got[1:] == want[1:], label
         if label in kernels:
             assert kernels[label].launches > 0, label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["mxscan", "scatter"])
+def test_spec_workloads_on_card_match_cpu(cuda, method):
+    """k-core (direct and fused-mx) and triangles at scale 9 on the card
+    equal the CPU runs: coreness, k_max and rounds bitwise; the triangle
+    incidence bitwise (unit-weight sums below 2^24 are exact in f32).
+    The triangles run carries its bitsets as int32 bit patterns through
+    the card's gather and sum (PyTorch has no CUDA uint32 arithmetic)."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.program import workloads
+
+    gs = workloads.symmetrize(generate.rmat(9, 8, seed=7))
+    want = workloads.kcore(gs, method="scan", device="cpu")
+    scan.mxscan_segmented.launches = 0
+    got = workloads.kcore(gs, method=method, device=cuda)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert (scan.mxscan_segmented.launches > 0) == (method == "mxscan")
+    plan = expand.plan_fused_shards(shards.build_pull_shards(gs, 1), "sum", pf=True, mx=True)
+    shuffle.KERNELS["mxreduce_pass_gather"].launches = 0
+    got = workloads.kcore(gs, method=method, route=plan, device=cuda)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert shuffle.KERNELS["mxreduce_pass_gather"].launches >= got[2]
+    inc_cpu, stats_cpu = workloads.triangles(gs, method="scan", device="cpu")
+    inc, stats = workloads.triangles(gs, method=method, device=cuda)
+    np.testing.assert_array_equal(inc, inc_cpu)
+    assert stats == stats_cpu

@@ -35,6 +35,7 @@ def test_port_imports_no_jax_and_no_lux_tpu():
     for name in ("ops.scan", "apps.pagerank", "native", "ops.route", "ops.shuffle",
                  "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter",
                  "graph.push_shards", "ops.merge_tree", "engine.push", "engine.validate",
-                 "models.sssp", "models.components", "apps.sssp", "apps.components"):
+                 "models.sssp", "models.components", "apps.sssp", "apps.components",
+                 "program.workloads", "utils.preflight", "apps.run"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
-    assert len(res["modules"]) >= 43
+    assert len(res["modules"]) >= 46

@@ -130,14 +130,13 @@ def test_check_ranks_agrees_with_reference(graphs):
 
 def test_auto_resolves_to_scan_until_measured(monkeypatch):
     """auto runs scan wherever no winner was measured: every reduce on the
-    CPU and the sum on the card; the card's min/max winner (mxscan) was
-    measured on an H100 (chip_smoke.py phase push_race)."""
+    CPU; the card's winners were measured on an H100 (chip_smoke.py
+    phases push_race for min/max and sum_race for sum): mxscan."""
     monkeypatch.delenv("LUX_SUM_MODE", raising=False)
     monkeypatch.delenv("LUX_METHOD_PLATFORM", raising=False)
     for red in ("sum", "min", "max"):
         assert methods.resolve_sum("auto", red, "cpu") == "scan"
-    assert methods.resolve_sum("auto", "sum", "cuda") == "scan"
-    for red in ("min", "max"):
+    for red in ("sum", "min", "max"):
         assert methods.resolve_sum("auto", red, "cuda") == "mxscan"
     assert methods.resolve_sum("scatter", "sum", "cuda") == "scatter"
     assert methods.resolve_sum("scatter", "min", "cuda") == "scatter"

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke test of lux_tpu_torch: build, check and time the CUDA
 kernels, then drive single-GPU PageRank (direct and routed), collaborative
-filtering, SSSP, connected components and the spec workloads (bfs, kcore,
-labelprop, triangles) through the apps.
+filtering, SSSP, connected components, the spec workloads (bfs, kcore,
+labelprop, triangles) and the long and out-of-core runs (delta-stepping,
+adaptive repartitioning, host-offload streaming, checkpoint/resume)
+through the apps.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -107,23 +109,56 @@ Phases, each printing one JSON line with its seconds:
               oracle.  The oracles run in the spawned pool.  Then
               spec_kernels: the slice's new kernel callers against their
               plain versions, timed: the scan kernel's int32 sum over
-              k-core's layout (31.4 M slots) and its f32 sum over triangle
-              phase 2's weighted, destination-dependent values; the mx
-              kernel's int32 sum on the RMAT 16 fused-mx plan.
+              k-core's layout (31.4 M slots, bitwise) and its f32 sum over
+              triangle phase 2's weighted, destination-dependent values
+              (against the same sum in float64); the mx kernel's int32 sum
+              on the RMAT 16 fused-mx plan.
   12. sum_race one segmented sum of one pull iteration at RMAT 20 per
               method (scan, scatter, mxscan, mxsum): the PageRank f32 sum
               and the k-core int32 sum; integer sums bitwise equal, f32
               sums' error against float64 recorded (only methods within
               rtol 1e-5 may win).  The f32 winner is the cuda sum row of
               engine/methods.WINNERS, printed beside it.
+  13. delta_main weighted SSSP (the main graph's edges, integer weights
+              1..100) from its largest out-degree through `apps.sssp`:
+              chaotic, --delta 25 and 100, and --delta 100 with
+              --route-gather expand-pf (phase 4's plan); all bitwise equal
+              and equal to scipy's Dijkstra (the pool).  Rounds, traversed
+              edges, ms, GTEPS, launches; the scan kernel's int32 min at
+              one dense round of the weighted layout against its plain
+              version.
+  14. repart_main SSSP (from the lowest-numbered vertex of out-degree 1:
+              a BFS with a sparse start) and components with -ng 4 on the
+              card, static and --repartition-every 2 (threshold 1.05), and
+              SSSP with --repartition-every 1, which must recut:
+              equal to each other and to phase 9-10's oracles; each
+              recut's window imbalance and that window's work under the
+              new cuts; ms against the static run.
+  15. stream_main PageRank (10 iterations) and components on RMAT 22
+              through --stream-hbm-gib 0.3: PageRank within rtol 1e-4 of
+              its float64 oracle (the pool), components bitwise the
+              resident pull run, prefetch on and off bitwise; chunks a
+              part, bytes an iteration, ms an iteration with prefetch on
+              and off, the rate of a plain pinned copy of the same bytes
+              and the link bound it gives, peak memory (at most the
+              budget) beside the estimate; the scan kernel on one chunk whose first
+              segment began in an earlier chunk (f32 sum against float64,
+              int32 max bitwise).
+  16. ckpt_main  runs cut and resumed from their checkpoints, bitwise the
+              uninterrupted runs: PageRank --ckpt-every 5 (5, then 10),
+              SSSP --delta 25 --ckpt-every 2 and components --ckpt-every
+              2, each cut at half its rounds; the seconds a save takes and
+              its bytes on disk.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
 per 4 bytes moved, so its operation time is far below it).
 Then the kernel table as one JSON line (each row's launches on the
 PageRank main path, and beside them on the push paths: one SSSP and one
-components run of the mode that runs that kernel, and on the spec paths
-one bfs, one kcore and one triangles run), the smoke's seconds, the
+components run of the mode that runs that kernel, on the spec paths
+one bfs, one kcore and one triangles run, and on the long runs one delta,
+one adaptive SSSP, one streamed PageRank and one resumed PageRank run),
+the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -134,8 +169,11 @@ import dataclasses
 import functools
 import json
 import multiprocessing
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 SCALE, EF, ITERS = 20, 16, 10  # the main path: RMAT 20 / ef 16, 10 iterations
@@ -192,8 +230,30 @@ SPEC_KERNEL_RUN = {
     "triangles": {"mxscan_segmented": "triangles-mxscan"}}
 
 
-#: the process pool of the host oracles, stopped on every exit path
+#: the long and out-of-core runs (phases 13-16)
+DELTA_WIDTHS = (25, 100)  # --delta widths: a quarter of the weight ceiling, and all of it
+DELTA_ROUTED = 100  # the routed delta run's width
+#: -ng, --repartition-every, and a tight --repartition-threshold, so that the
+#: recut path runs at this size
+REPART_PARTS, REPART_EVERY, REPART_THRESHOLD = 4, 2, 1.05
+#: the streamed runs: RMAT 22 through a 0.3 GiB budget (the vertex side
+#: alone takes 0.24 GiB of it, so the edges move in ~35 chunks)
+STREAM_SCALE, STREAM_GIB = 22, 0.3
+STREAM_MIN_CHUNKS = 4  # every part must stream in at least this many chunks
+CKPT_PR_EVERY, CKPT_DELTA_EVERY, CKPT_CC_EVERY = 5, 2, 2  # --ckpt-every
+#: per kernel, the long runs whose launches the kernel table gives
+LONG_KERNEL_RUN = {
+    "mxscan_segmented": {"delta": ("delta", f"delta-{DELTA_ROUTED}"),
+                         "repart": ("repart", "sssp"), "stream": ("stream", "pagerank"),
+                         "ckpt": ("ckpt", "pagerank")},
+    "fused_pass_gather": {"delta": ("delta", f"delta-{DELTA_ROUTED}-expand-pf")},
+    "lane_gather": {"delta": ("delta", f"delta-{DELTA_ROUTED}-expand-pf")}}
+
+
+#: the process pool of the host oracles and the scratch directory of the
+#: generated graphs and checkpoints, removed on every exit path
 _POOL = None
+_TMP = None
 
 
 class PhaseFailure(Exception):
@@ -767,12 +827,19 @@ def cf_oracle_f64(scale: int):
     return v, cf.rmse(g, v), time.perf_counter() - t0
 
 
+def tail_start(np, g) -> int:
+    """repart_main's SSSP source: the lowest-numbered vertex of out-degree
+    1, whose BFS starts with tiny frontiers (sparse windows whose work is
+    uneven across parts, so the recut runs)."""
+    return int(np.flatnonzero(g.out_degrees() == 1)[0])
+
+
 def push_oracles(scale: int):
     """The push apps' host oracles on the main graph: (the vertex with the
     largest out-degree, its unweighted BFS distances from
     scipy.sparse.csgraph with INF == nv, the max-label fixpoint of
-    models/components.fixpoint_labels, seconds).  Runs in a spawned
-    process while the card works."""
+    models/components.fixpoint_labels, seconds, and the BFS distances from
+    ``tail_start``).  Runs in a spawned process while the card works."""
     import numpy as np
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import shortest_path
@@ -784,9 +851,9 @@ def push_oracles(scale: int):
     t0 = time.perf_counter()
     start = int(np.argmax(g.out_degrees()))
     adj = csr_matrix((np.ones(g.ne), (g.col_idx, g.dst_of_edges())), shape=(g.nv, g.nv))
-    d = shortest_path(adj, directed=True, unweighted=True, indices=start)
+    d = shortest_path(adj, directed=True, unweighted=True, indices=[start, tail_start(np, g)])
     dist = np.where(np.isinf(d), g.nv, d).astype(np.int32)
-    return start, dist, fixpoint_labels(g), time.perf_counter() - t0
+    return start, dist[0], fixpoint_labels(g), time.perf_counter() - t0, dist[1]
 
 
 def push_runs(np, app, phase: str, g, extra_argv: list, plans: dict, kernels: dict,
@@ -917,26 +984,6 @@ def spec_run(torch, run_app, phase: str, label: str, argv: list, kernels: dict,
     return res, counts
 
 
-def spec_scan_case(torch, scan, case: str, vals, head, valid_end, exact: bool, reps: int):
-    """The scan kernel's segmented sum of ``vals`` against its plain
-    version on the valid slots (bitwise for int32, rtol 1e-5 for f32),
-    timed beside its bound."""
-    n = vals.shape[0]
-    kernel = functools.partial(scan.mxscan_segmented, vals, head, op="sum", valid_end=valid_end)
-    plain = functools.partial(scan.mxscan_segmented_plain, vals, head, op="sum",
-                              valid_end=valid_end)
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    mask = torch.arange(n, device=vals.device) < valid_end
-    err = compare(torch, got, want, exact, mask, what=f"scan, {case}")
-    nbytes = n * (2 * vals.element_size() + 1)
-    return {"kernel": "mxscan_segmented", "case": case, "n": n,
-            "dtype": str(vals.dtype).replace("torch.", ""), "exact": exact,
-            "max_abs_err": err, "kernel_ms": time_ms(torch, kernel, reps),
-            "plain_ms": time_ms(torch, plain, max(2, reps // 4)), "library_ms": None,
-            "bound_ms": bound_ms(nbytes), "bytes": nbytes}
-
-
 def spec_kernel_cases(torch, np, scan, shuffle, expand, pull, wl, library, bind,
                       kcore_res, g_tri, plan_mx, dev, reps: int) -> list:
     """The slice's new callers of the kernels, at its shapes, against their
@@ -954,8 +1001,8 @@ def spec_kernel_cases(torch, np, scan, shuffle, expand, pull, wl, library, bind,
     core = torch.from_numpy(kcore_res.state).to(dev)
     alive = torch.cat([(core >= 2).to(torch.int32), torch.zeros(
         sh.spec.nv_pad - gs.nv, dtype=torch.int32, device=dev)])
-    rows.append(spec_scan_case(torch, scan, "kcore int32 sum", alive.index_select(0, a.src_pos),
-                               a.head_flag, a.row_ptr[-1:], True, reps))
+    rows.append(scan_case(torch, scan, "kcore int32 sum", alive.index_select(0, a.src_pos),
+                          a.head_flag, a.row_ptr[-1:], "sum", reps))
     del a, alive
     sht = wl.on_device(build_pull_shards(g_tri, 1), dev)
     at = sht.arrays
@@ -967,8 +1014,8 @@ def spec_kernel_cases(torch, np, scan, shuffle, expand, pull, wl, library, bind,
     src, dst = load(at, bits)[0]
     tvals = phase2.edge_value(src, at.weights[0], dst).contiguous()
     del src, dst, bits
-    rows.append(spec_scan_case(torch, scan, "triangles phase 2 f32 sum", tvals, at.head_flag[0],
-                               at.row_ptr[0][-1:], False, reps))
+    rows.append(scan_case(torch, scan, "triangles phase 2 f32 sum", tvals, at.head_flag[0],
+                          at.row_ptr[0][-1:], "sum", reps))
     del tvals, sht, at
     torch.cuda.empty_cache()
     static, arrays = expand.plan_to_device(plan_mx, dev)
@@ -1251,6 +1298,415 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
     return spec_launches
 
 
+def save_graph(np, tmp: str, name: str, g) -> None:
+    """A HostGraph's arrays as .npy files under ``tmp`` (the pool's
+    hand-off of a generated graph to the card's process)."""
+    for f in ("row_ptr", "col_idx", "weights"):
+        if getattr(g, f) is not None:
+            np.save(os.path.join(tmp, f"{name}_{f}.npy"), getattr(g, f))
+
+
+def load_saved_graph(np, csc, tmp: str, name: str):
+    arrs = {f: np.load(os.path.join(tmp, f"{name}_{f}.npy"))
+            for f in ("row_ptr", "col_idx", "weights")
+            if os.path.exists(os.path.join(tmp, f"{name}_{f}.npy"))}
+    return csc.HostGraph(nv=arrs["row_ptr"].shape[0] - 1, ne=arrs["col_idx"].shape[0],
+                         row_ptr=arrs["row_ptr"], col_idx=arrs["col_idx"],
+                         weights=arrs.get("weights"))
+
+
+def long_weighted_graph(tmp: str, scale: int):
+    """The weighted main graph (RMAT ``scale`` / EF / seed 0, integer
+    weights 1..100: the unweighted graph's edges, so its hub is the same
+    vertex), saved under ``tmp``, and scipy's Dijkstra distances from that
+    hub (the lightest of parallel edges; INF == 1 << 30).  Returns (hub,
+    distances, seconds).  Runs in a spawned process while the card works."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from lux_tpu_torch.graph import generate
+
+    t0 = time.perf_counter()
+    g = generate.rmat(scale, EF, seed=0, weighted=True)
+    save_graph(np, tmp, "weighted", g)
+    hub = int(np.argmax(g.out_degrees()))
+    dst = g.dst_of_edges()
+    order = np.lexsort((g.weights, g.col_idx, dst))
+    s, d, w = g.col_idx[order], dst[order], g.weights[order]
+    first = np.ones(g.ne, bool)
+    first[1:] = (s[1:] != s[:-1]) | (d[1:] != d[:-1])
+    adj = csr_matrix((w[first].astype(np.float64), (s[first], d[first])), shape=(g.nv, g.nv))
+    dist = dijkstra(adj, directed=True, indices=hub)
+    return hub, np.where(np.isfinite(dist), dist, 1 << 30).astype(np.int32), \
+        time.perf_counter() - t0
+
+
+def long_stream_graph(tmp: str, scale: int):
+    """The streamed runs' graph (RMAT ``scale`` / EF / seed 0) saved under
+    ``tmp``, and its float64 PageRank oracle of ITERS iterations.
+    Returns (oracle, seconds).  Runs in a spawned process."""
+    import numpy as np
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.pagerank import pagerank_reference
+
+    t0 = time.perf_counter()
+    g = generate.rmat(scale, EF, seed=0)
+    save_graph(np, tmp, "stream", g)
+    return pagerank_reference(g, ITERS), time.perf_counter() - t0
+
+
+def scan_case(torch, scan, case: str, vals, head, valid_end, op: str, reps: int):
+    """The scan kernel's segmented ``op`` of ``vals`` on one caller's
+    shape against its plain version on the valid slots: int32 and min/max
+    bitwise, an f32 sum within rtol 1e-5 of the same sum in float64; two
+    calls bitwise; timed beside its bound."""
+    n = vals.shape[0]
+    kernel = functools.partial(scan.mxscan_segmented, vals, head, op=op, valid_end=valid_end)
+    plain = functools.partial(scan.mxscan_segmented_plain, vals, head, op=op,
+                              valid_end=valid_end)
+    exact = not (op == "sum" and vals.dtype == torch.float32)
+    got = kernel()
+    want = plain() if exact else scan.segmented_scan(vals.double(), head, torch.add)
+    torch.cuda.synchronize()
+    mask = torch.arange(n, device=vals.device) < valid_end
+    what = f"scan, {case}"
+    err = compare(torch, got, want, exact, mask, what=what)
+    require(torch.equal(got, kernel()), f"{what}: two calls differ")
+    nbytes = n * (2 * vals.element_size() + 1)
+    return {"kernel": "mxscan_segmented", "case": case, "op": op, "n": n,
+            "dtype": str(vals.dtype).replace("torch.", ""), "exact": exact,
+            "valid": int(valid_end.item()), "max_abs_err": err,
+            "kernel_ms": time_ms(torch, kernel, reps),
+            "plain_ms": time_ms(torch, plain, max(2, reps // 4)), "library_ms": None,
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+
+
+def counted(kernels: dict, fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch counter set to 0 just before
+    and read just after: (result, {kernel: launches}, wall seconds)."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn(*args, **kw)
+    return res, {name: k.launches for name, k in kernels.items()}, time.perf_counter() - t0
+
+
+def delta_main(torch, np, kernels, smi, dev, tmp, long_w, plan_pf, hub, reps):
+    """Phase 13: weighted SSSP from the hub through apps.sssp: chaotic,
+    --delta at DELTA_WIDTHS, and --delta DELTA_ROUTED with --route-gather
+    expand-pf (phase 4's plan: the weighted graph has the main graph's
+    edges); all equal to each other and to scipy's Dijkstra.  Then the
+    scan kernel's int32 min at one dense round of the weighted layout.
+    Returns (the weighted graph, {run: result}, {run: launches}, the
+    kernel row)."""
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+    from lux_tpu_torch.models import sssp as sssp_model
+    from lux_tpu_torch.ops import scan
+
+    t0 = time.perf_counter()
+    w_hub, w_dist, w_secs = long_w.get(timeout=900)
+    require(w_hub == hub, f"the weighted graph's hub {w_hub} is not the main graph's {hub}")
+    gw = load_saved_graph(np, csc, tmp, "weighted")
+    base = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "--weighted",
+            "-start", str(hub), "-check", "--device", "cuda", "--method", "mxscan"]
+    routed = f"delta-{DELTA_ROUTED}-expand-pf"
+    cases = ([("chaotic", [], None)]
+             + [(f"delta-{d}", ["--delta", str(d)], None) for d in DELTA_WIDTHS]
+             + [(routed, ["--delta", str(DELTA_ROUTED), "--route-gather", "expand-pf"],
+                 plan_pf)])
+    runs, launches = {}, {}
+    for label, extra, plan in cases:
+        res, counts, wall = counted(kernels, sssp_app.run, base + extra, route=plan, graph=gw)
+        runs[label], launches[label] = res, counts
+        emit({"phase": "delta_main", "run": label, "argv": extra, "rc": res.rc,
+              "rounds": res.iters, "dense_rounds": res.dense_rounds,
+              "traversed_edges": res.traversed, "ms": res.seconds * 1e3, "gteps": res.gteps,
+              "launches": counts, "wall_seconds": wall, "device": smi})
+        require(res.rc == 0, f"delta_main {label}: -check failed")
+        require(np.array_equal(res.state, w_dist),
+                f"delta_main {label}: distances differ from scipy's Dijkstra")
+        require(counts["mxscan_segmented"] >= res.dense_rounds,
+                f"delta_main {label}: mxscan launched {counts['mxscan_segmented']} times in "
+                f"{res.dense_rounds} dense rounds")
+    plain = runs[f"delta-{DELTA_ROUTED}"]
+    require((runs[routed].iters, runs[routed].traversed) == (plain.iters, plain.traversed),
+            "delta_main: the routed run's rounds or edges differ from the direct one's")
+    require(runs[routed].dense_rounds > 0, "delta_main: the routed run had no dense round")
+    for name in ("fused_pass_gather", "lane_gather"):
+        require(launches[routed][name] > 0, f"delta_main: the routed run launched no {name}")
+    sh = build_pull_shards(gw, 1)
+    a = to_device(sh.arrays, dev).part(0)
+    prog = sssp_model.WeightedSSSPProgram(nv=gw.nv, start=hub)
+    full = prog.init_state(a.global_vid, a.degree, a.vtx_mask)
+    full[: gw.nv] = torch.from_numpy(runs["delta-%d" % DELTA_WIDTHS[0]].state).to(dev)
+    vals = prog.relax(full.index_select(0, a.src_pos), a.weights).contiguous()
+    row = scan_case(torch, scan, "delta dense round int32 min", vals, a.head_flag,
+                         a.row_ptr[-1:], "min", reps)
+    emit({"phase": "delta_main", "oracle": "scipy.sparse.csgraph.dijkstra",
+          "oracle_seconds": w_secs, "hub": hub, "reached": int((w_dist < (1 << 30)).sum()),
+          "kernel": row, "seconds": time.perf_counter() - t0, "device": smi})
+    del a, full, vals, sh
+    return gw, runs, launches, row
+
+
+def repart_main(np, kernels, smi, g, o_tail, o_labels):
+    """Phase 14: -ng REPART_PARTS on the card through apps.sssp (from
+    ``tail_start``, whose BFS distances ``o_tail`` the pool computed) and
+    apps.components, static and with --repartition-every REPART_EVERY
+    (threshold REPART_THRESHOLD), and SSSP again with windows of one
+    iteration, whose first window (one vertex's out-edges) must recut;
+    equal to each other and to the oracles.  Each recut's window
+    imbalance, and the same window's work under the new cuts.  Returns
+    {app: launches of the REPART_EVERY run}."""
+    from lux_tpu_torch.apps import components as cc_app
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.engine import repartition
+
+    t0 = time.perf_counter()
+    launches = {}
+    for name, mod, extra, oracle, every in (
+            ("sssp", sssp_app, ["-start", str(tail_start(np, g))], o_tail, REPART_EVERY),
+            ("sssp", sssp_app, ["-start", str(tail_start(np, g))], o_tail, 1),
+            ("components", cc_app, [], o_labels, REPART_EVERY)):
+        base = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
+                "-ng", str(REPART_PARTS), "--method", "mxscan", "-check",
+                "--device", "cuda"] + extra
+        if every == REPART_EVERY:
+            static, _, _ = counted(kernels, mod.run, base, graph=g)
+        res, counts, wall = counted(kernels, mod.run,
+                                    base + ["--repartition-every", str(every),
+                                            "--repartition-threshold", str(REPART_THRESHOLD)],
+                                    graph=g)
+        launches.setdefault(name, counts)
+        recuts = []
+        for it, old, new, work in res.recuts:
+            old, new, work = np.asarray(old), np.asarray(new), np.asarray(work)
+            cum = np.concatenate([[0.0], np.cumsum(
+                repartition.vertex_weights(work, old, g.row_ptr))])
+            recuts.append({"it": it, "old_cuts": old.tolist(), "new_cuts": new.tolist(),
+                           "imbalance_before": repartition.imbalance(work),
+                           "imbalance_after_estimate": repartition.imbalance(
+                               cum[new[1:]] - cum[new[:-1]]),
+                           "max_boundary_move": int(np.abs(new - old).max())})
+        emit({"phase": "repart_main", "app": name, "argv": extra, "parts": REPART_PARTS,
+              "every": every, "threshold": REPART_THRESHOLD, "rc": res.rc, "recuts": recuts,
+              "iters": res.iters, "dense_rounds": res.dense_rounds,
+              "traversed_edges": res.traversed, "ms": res.seconds * 1e3, "gteps": res.gteps,
+              "static_ms": static.seconds * 1e3, "static_gteps": static.gteps,
+              "launches": counts, "wall_seconds": wall, "device": smi})
+        require(res.rc == 0 and static.rc == 0, f"repart_main {name}: -check failed")
+        require(np.array_equal(res.state, static.state),
+                f"repart_main {name}: the adaptive state differs from the static one")
+        require(np.array_equal(res.state, oracle), f"repart_main {name}: state off the oracle")
+        require((res.iters, res.traversed) == (static.iters, static.traversed),
+                f"repart_main {name}: iterations or edges differ from the static run")
+        require(counts["mxscan_segmented"] >= res.dense_rounds,
+                f"repart_main {name}: mxscan launched {counts['mxscan_segmented']} times")
+        if every == 1:  # a one-vertex first window: its uneven work must recut
+            require(recuts, "repart_main sssp: --repartition-every 1 made no recut")
+    emit({"phase": "repart_main", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def stream_main(torch, np, kernels, smi, dev, tmp, long_s, reps):
+    """Phase 15: PageRank (ITERS iterations) and components on RMAT
+    STREAM_SCALE through the apps with --stream-hbm-gib STREAM_GIB:
+    PageRank within rtol 1e-4 of its float64 oracle, components bitwise
+    the resident pull run, prefetch on and off bitwise; the geometry, the
+    bytes an iteration moves, ms an iteration with prefetch on and off,
+    the rate of a plain pinned copy of the same bytes, the link bound,
+    and the peak memory beside the budget and the estimate.  Then the
+    scan kernel on one chunk whose first segment began in an earlier
+    chunk.  Returns (launches {app: counts}, kernel rows)."""
+    from lux_tpu_torch.apps import components as cc_app
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.engine import pull, stream
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.graph.shards import to_device
+    from lux_tpu_torch.models import components as cc_model
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+    from lux_tpu_torch.ops import scan
+    from lux_tpu_torch.utils.timing import Timer
+
+    t0 = time.perf_counter()
+    pr64, oracle_s = long_s.get(timeout=1100)
+    gs = load_saved_graph(np, csc, tmp, "stream")
+    argv = ["--rmat-scale", str(STREAM_SCALE), "--rmat-ef", str(EF), "--seed", "0",
+            "--device", "cuda", "--method", "mxscan", "--stream-hbm-gib", str(STREAM_GIB)]
+    launches, rows = {}, []
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(kernels, pr_app.run, argv + ["-ni", str(ITERS)], graph=gs)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    launches["pagerank"] = counts
+    st = res.streamed
+    ssh = st.layout
+    rel = float(np.max(np.abs(res.ranks.astype(np.float64) - pr64)
+                       / np.abs(pr64.astype(np.float64))))
+    moved = ssh.packed.numel()  # every chunk row crosses the link once an iteration
+    prog = PageRankProgram(nv=gs.nv)
+    s0 = pull.init_state(prog, to_device(ssh.varrays, dev))
+    on_off = {}
+    for prefetch in (True, False):
+        timer = Timer(dev)
+        out = stream.run_pull_fixed_streamed(prog, ssh, s0, ITERS, "mxscan", prefetch)
+        on_off[prefetch] = (timer.stop() * 1e3 / ITERS, out)
+    require(torch.equal(on_off[True][1], on_off[False][1]),
+            "stream_main: prefetch on and off differ")
+    # the plain pinned copy of the same bytes, chunk by chunk into one buffer
+    buf = torch.empty(ssh.packed.shape[2], dtype=torch.uint8, device=dev)
+    rows_host = ssh.packed.reshape(-1, ssh.packed.shape[2])
+
+    def copy_all():
+        for r in range(rows_host.shape[0]):
+            buf.copy_(rows_host[r], non_blocking=True)
+
+    copy_ms = time_ms(torch, copy_all, 3, warmup=1)
+    rate = moved / (copy_ms * 1e-3)
+    # the scan kernel on one chunk whose first segment began in an earlier chunk
+    rp = ssh.row_ptrs[0]
+    c = next(c for c, ch in enumerate(ssh.chunks[0])
+             if c and int(ch.dst_local[0]) < ssh.spec.nv_pad
+             and rp[int(ch.dst_local[0])] < ch.lo)
+    ch = ssh.chunks[0][c]
+    xfer = stream._Transfer(ssh, dev)
+    xfer.put(0, 0, c, after=0)
+    chunk = xfer.take(0, 0, c)
+    full = on_off[True][1].reshape(-1)
+    vals = full.index_select(0, chunk.src_pos).contiguous()
+    rows.append(scan_case(torch, scan, "streamed chunk f32 sum", vals, chunk.head_flag,
+                               chunk.row_ptr[-1:], "sum", reps))
+    labels = chunk.src_pos.clone()  # max-label values: the sources' positions
+    rows.append(scan_case(torch, scan, "streamed chunk int32 max", labels,
+                               chunk.head_flag, chunk.row_ptr[-1:], "max", reps))
+    emit({"phase": "stream_main", "app": "pagerank", "scale": STREAM_SCALE,
+          "nv": gs.nv, "ne": gs.ne, "rc": res.rc, "max_rel_err_vs_f64": rel,
+          "chunks_per_part": st.n_chunks, "chunk_edges": st.chunk_e, "parts": 1,
+          "bytes_per_iter": moved, "ms_per_iter": res.seconds * 1e3 / ITERS,
+          "gteps": res.gteps, "ms_per_iter_prefetch_on": on_off[True][0],
+          "ms_per_iter_prefetch_off": on_off[False][0],
+          "pinned_copy_gb_per_s": rate / 1e9, "link_bound_ms_per_iter": copy_ms,
+          "peak_bytes": peak, "budget_bytes": st.budget_bytes,
+          "estimate_bytes": st.resident_bytes, "edge_bytes_resident_engine": st.edge_bytes,
+          "kernel_chunk": c, "kernel": rows, "launches": counts, "wall_seconds": wall,
+          "oracle_seconds": oracle_s, "device": smi})
+    require(res.rc == 0, "stream_main pagerank: failed")
+    require(bool(np.isfinite(res.ranks).all()) and res.ranks.shape == (gs.nv,),
+            "stream_main pagerank: ranks not finite or misshaped")
+    require(rel <= RANK_RTOL, f"stream_main pagerank: ranks off the f64 oracle by {rel}")
+    require(st.n_chunks >= STREAM_MIN_CHUNKS,
+            f"stream_main: {st.n_chunks} chunks a part, fewer than {STREAM_MIN_CHUNKS}")
+    require(peak <= st.budget_bytes,
+            f"stream_main pagerank: peak {peak} bytes over the budget {st.budget_bytes}")
+    require(counts["mxscan_segmented"] >= ITERS * st.n_chunks,
+            f"stream_main: mxscan launched {counts['mxscan_segmented']} times")
+    del res, st, ssh, s0, on_off, buf, rows_host, xfer, chunk, full, vals, labels
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, wall = counted(kernels, cc_app.run, argv + ["-check"], graph=gs)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    launches["components"] = counts
+    st = res.streamed
+    off, _ = stream.run_pull_until_streamed(
+        cc_model.MaxLabelProgram(), st.layout,
+        pull.init_state(cc_model.MaxLabelProgram(), to_device(st.layout.varrays, dev)),
+        10_000, cc_model.active_count, "mxscan", prefetch=False)
+    off = st.layout.scatter_to_global(off.cpu().numpy())
+    st.layout = None
+    torch.cuda.empty_cache()
+    resident = cc_model.connected_components(gs, method="mxscan", device=dev)
+    emit({"phase": "stream_main", "app": "components", "rc": res.rc, "iters": res.iters,
+          "chunks_per_part": st.n_chunks, "chunk_edges": st.chunk_e,
+          "ms_per_iter": res.seconds * 1e3 / res.iters, "peak_bytes": peak,
+          "budget_bytes": st.budget_bytes, "estimate_bytes": st.resident_bytes,
+          "launches": counts, "wall_seconds": wall,
+          "seconds": time.perf_counter() - t0, "device": smi})
+    require(res.rc == 0, "stream_main components: -check failed")
+    require(peak <= st.budget_bytes,
+            f"stream_main components: peak {peak} bytes over the budget {st.budget_bytes}")
+    require(np.array_equal(res.state, resident),
+            "stream_main components: labels differ from the resident run")
+    require(np.array_equal(off, res.state), "stream_main components: prefetch off differs")
+    return launches, rows
+
+
+def ckpt_main(np, kernels, smi, tmp, g, gw, hub, pr_ranks, delta_whole, cc_whole):
+    """Phase 16: runs cut and resumed from their checkpoints, bitwise the
+    uninterrupted runs: PageRank --ckpt-every CKPT_PR_EVERY, run to
+    ITERS/2 then resumed to ITERS (against phase 6's mxscan run); SSSP
+    --delta DELTA_WIDTHS[0] --ckpt-every CKPT_DELTA_EVERY, cut at half its
+    rounds (against phase 13's run); components --ckpt-every
+    CKPT_CC_EVERY, cut at half its iterations (against phase 10's mxscan
+    run).  The seconds a save takes and its bytes on disk.  Returns
+    {app: launches of the resumed run}."""
+    from lux_tpu_torch.apps import components as cc_app
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    launches = {}
+    common = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
+              "--method", "mxscan", "--device", "cuda"]
+    d_pr, d_d, d_cc, d_t = (os.path.join(tmp, n) for n in ("ck_pr", "ck_delta", "ck_cc", "ck_t"))
+    half = ITERS // 2
+    ck = ["--ckpt-dir", d_pr, "--ckpt-every", str(CKPT_PR_EVERY)]
+    cut, _, _ = counted(kernels, pr_app.run, common + ["-ni", str(half)] + ck, graph=g)
+    res, counts, wall = counted(kernels, pr_app.run, common + ["-ni", str(ITERS)] + ck, graph=g)
+    launches["pagerank"] = counts
+    require(cut.iters == half and res.iters == ITERS - half,
+            f"ckpt_main pagerank: ran {cut.iters} + {res.iters} iterations")
+    require(np.array_equal(res.ranks, pr_ranks),
+            "ckpt_main pagerank: the resumed ranks differ from the uninterrupted run's")
+    t1 = time.perf_counter()
+    path = checkpoint.save_iteration(d_t, ITERS, res.ranks, "pagerank")
+    saves = {"pagerank": {"seconds": time.perf_counter() - t1,
+                          "bytes": os.path.getsize(path)}}
+    emit({"phase": "ckpt_main", "app": "pagerank", "every": CKPT_PR_EVERY,
+          "cut_at": half, "resumed_iters": res.iters, "ms": res.seconds * 1e3,
+          "files": sorted(os.listdir(d_pr)), "launches": counts, "wall_seconds": wall,
+          "save": saves["pagerank"], "device": smi})
+    wbase = ["--weighted", "-start", str(hub), "--delta", str(DELTA_WIDTHS[0]),
+             "--ckpt-dir", d_d, "--ckpt-every", str(CKPT_DELTA_EVERY)]
+    for name, mod, graph, extra, whole, d in (
+            ("sssp-delta", sssp_app, gw, wbase, delta_whole, d_d),
+            ("components", cc_app, g,
+             ["--ckpt-dir", d_cc, "--ckpt-every", str(CKPT_CC_EVERY)], cc_whole, d_cc)):
+        stop = max(whole.iters // 2, 1)
+        cut, _, _ = counted(kernels, mod.run, common + extra + ["--max-iters", str(stop)],
+                            graph=graph)
+        res, counts, wall = counted(kernels, mod.run, common + extra + ["-check"],
+                                    graph=graph)
+        launches[name] = counts
+        files = sorted(os.listdir(d), key=lambda f: int(f[5:-4]))
+        t1 = time.perf_counter()
+        if name == "sssp-delta":
+            path = checkpoint.save_delta(d_t, 1, res.state, res.state < (1 << 30),
+                                         res.traversed, 0, "sssp")
+        else:
+            path = checkpoint.save_frontier(d_t, 1, res.state, np.ones(g.nv, bool),
+                                            res.traversed, name)
+        saves[name] = {"seconds": time.perf_counter() - t1, "bytes": os.path.getsize(path)}
+        emit({"phase": "ckpt_main", "app": name, "cut_at": cut.iters,
+              "iters": res.iters, "traversed_edges": res.traversed,
+              "ms": res.seconds * 1e3, "checkpoints": len(files), "last": files[-1],
+              "launches": counts, "wall_seconds": wall, "save": saves[name], "device": smi})
+        require(cut.iters == stop, f"ckpt_main {name}: the cut run stopped at {cut.iters}")
+        require(res.rc == 0, f"ckpt_main {name}: -check failed")
+        require(np.array_equal(res.state, whole.state),
+                f"ckpt_main {name}: the resumed state differs from the uninterrupted run's")
+        require((res.iters, res.traversed) == (whole.iters, whole.traversed),
+                f"ckpt_main {name}: iterations or edges differ from the uninterrupted run")
+    emit({"phase": "ckpt_main", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1278,12 +1734,15 @@ def main() -> int:
     from lux_tpu_torch.utils.config import parse_args
 
     # the host oracles take minutes: start them now, beside the card
-    global _POOL
+    global _POOL, _TMP
+    _TMP = tempfile.mkdtemp(prefix="lux_smoke_")
     _POOL = multiprocessing.get_context("spawn").Pool(4)
     cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
     push_oracle = _POOL.apply_async(push_oracles, (SCALE,))
     spec_oracle_a = _POOL.apply_async(spec_oracles_bfs_labelprop, (SCALE,))
     spec_oracle_b = _POOL.apply_async(spec_oracles_kcore_triangles, (SCALE, TRI_SCALE))
+    long_w = _POOL.apply_async(long_weighted_graph, (_TMP, SCALE))
+    long_s = _POOL.apply_async(long_stream_graph, (_TMP, STREAM_SCALE))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1435,7 +1894,7 @@ def main() -> int:
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = app.run(argv_app, route=route)
+        res = app.run(argv_app, route=route, graph=g)
         counts = {name: fn.launches for name, fn in kernels.items()}
         mode = res.route_gather or label
         launches[mode] = counts
@@ -1465,6 +1924,7 @@ def main() -> int:
             "fused-pf ranks differ from fused")
     # the push phases reuse the main graph, its pull layout and its expand plans
     push_plans = {m: plans[m] for m in ("expand", "expand-pf")}
+    pr_ranks = ranks["mxscan"]  # phase 16's uninterrupted run
     del plans, ranks, ref, res, small, small_bc
     torch.cuda.empty_cache()
 
@@ -1496,7 +1956,7 @@ def main() -> int:
           "expand_seconds": t1 - t0, "to_pf_seconds": time.perf_counter() - t1,
           "arrays": len(plan_e[1]), "pf_arrays": len(plan_pf[1]),
           "colorer_calls": dict(route_mod.COLOR_STATS)})
-    del g_r, sh_r
+    del sh_r
     states = {}
     for scale, label, extra, route in (
             (SCALE, "pallas", ["--method", "pallas"], None),
@@ -1508,7 +1968,8 @@ def main() -> int:
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res = cf_app.run(cf_argv(scale) + extra, route=route)
+        res = cf_app.run(cf_argv(scale) + extra, route=route,
+                         graph=g_cf if scale == SCALE else g_r)
         counts = {name: fn.launches for name, fn in kernels.items()}
         launches[f"cf-{label}"] = counts
         states[label] = res.state
@@ -1529,7 +1990,7 @@ def main() -> int:
             require(np.array_equal(res.state, states["direct"]),
                     f"cf {label}: state differs from the direct run at scale {scale}")
         del res
-    del plan_e, plan_pf, states
+    del plan_e, plan_pf, states, g_r
     torch.cuda.empty_cache()
 
     # the libraries at gamma = CF_GAMMA against the f64 oracle
@@ -1562,7 +2023,7 @@ def main() -> int:
     start = int(np.argmax(g.out_degrees()))
     sssp_runs, sssp_launches = push_runs(np, sssp_app, "push_main", g, ["-start", str(start)],
                                          push_plans, kernels, smi)
-    o_start, o_dist, o_labels, oracle_s = push_oracle.get(timeout=900)
+    o_start, o_dist, o_labels, oracle_s, o_tail = push_oracle.get(timeout=900)
     require(o_start == start, f"the oracle's start {o_start} is not {start}")
     require(np.array_equal(sssp_runs["mxscan"].state, o_dist),
             "SSSP distances differ from the scipy BFS oracle")
@@ -1593,13 +2054,31 @@ def main() -> int:
         ("components", cc_model.MaxLabelProgram(), cc_runs["mxscan"].state)), dev, REPS)
     emit({"phase": "push_race", "ms_per_dense_round": race,
           "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
+    cc_whole = cc_runs["mxscan"]  # phase 16's uninterrupted run
     del sssp_runs, cc_runs
     torch.cuda.empty_cache()
 
     # 11-12. the spec workloads, their kernel callers, the sum race
     spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
                                 spec_oracle_a, spec_oracle_b)
-    del push_plans, sh, g
+    del sh
+    torch.cuda.empty_cache()
+
+    # 13-16. the long and out-of-core runs
+    long_launches = {}
+    gw, delta_runs, long_launches["delta"], delta_row = delta_main(
+        torch, np, kernels, smi, dev, _TMP, long_w, push_plans["expand-pf"], start, REPS)
+    del push_plans
+    torch.cuda.empty_cache()
+    long_launches["repart"] = repart_main(np, kernels, smi, g, o_tail, o_labels)
+    torch.cuda.empty_cache()
+    long_launches["stream"], stream_rows = stream_main(torch, np, kernels, smi, dev, _TMP,
+                                                       long_s, REPS)
+    torch.cuda.empty_cache()
+    long_launches["ckpt"] = ckpt_main(np, kernels, smi, _TMP, g, gw, start, pr_ranks,
+                                      delta_runs[f"delta-{DELTA_WIDTHS[0]}"], cc_whole)
+    long_rows = [delta_row] + stream_rows
+    del g, gw, delta_runs, cc_whole, pr_ranks
     torch.cuda.empty_cache()
 
     table = []
@@ -1608,10 +2087,11 @@ def main() -> int:
             ("mxscan_segmented", rows_scan, scan_seg, "mxscan",
              "lux_tpu/ops/pallas_scan.py:193")):
         r = timed(rows)
+        extra = long_rows if name == "mxscan_segmented" else []
         table.append({"name": name, "route": "cuda",
                       "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES[name]}",
                       "replaces": replaces, "launches": launches[run][name],
-                      "max_abs_err": max(x["max_abs_err"] for x in rows + [stress]),
+                      "max_abs_err": max(x["max_abs_err"] for x in rows + [stress] + extra),
                       "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": "bytes",
                       "library_ms": r["library_ms"]})
@@ -1642,6 +2122,9 @@ def main() -> int:
         row["launches_spec"] = {
             prog: spec_launches[runs[row["name"]]][row["name"]] if row["name"] in runs else 0
             for prog, runs in SPEC_KERNEL_RUN.items()}
+        row["launches_long"] = {
+            kind: long_launches[phase][run][row["name"]]
+            for kind, (phase, run) in LONG_KERNEL_RUN.get(row["name"], {}).items()}
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)
@@ -1660,3 +2143,5 @@ if __name__ == "__main__":
         if _POOL is not None:
             _POOL.terminate()
             _POOL.join()
+        if _TMP is not None:
+            shutil.rmtree(_TMP, ignore_errors=True)

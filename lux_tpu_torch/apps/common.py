@@ -1,11 +1,15 @@
 """Shared app-driver scaffolding: load graph, the method checks and the
 memory preflight, pull-engine set-up, routed-pull planning, the timed
-window, report, check verdict."""
+window, the step-wise and checkpointed pull loop, the streamed runner,
+report, check verdict."""
 from __future__ import annotations
 
+import dataclasses
 import logging
+from typing import Optional
 
 import numpy as np
+import torch
 
 from lux_tpu_torch.engine import methods, pull
 from lux_tpu_torch.graph import generate
@@ -14,9 +18,13 @@ from lux_tpu_torch.graph.format import read_lux
 from lux_tpu_torch.graph.shards import build_pull_shards, to_device
 from lux_tpu_torch.ops import cuda_build, expand, spmv
 from lux_tpu_torch.ops import shuffle as shuf
-from lux_tpu_torch.utils import preflight
+from lux_tpu_torch.utils import checkpoint, preflight
 from lux_tpu_torch.utils.config import RunConfig
-from lux_tpu_torch.utils.timing import Timer
+from lux_tpu_torch.utils.timing import IterStats, Timer
+
+_ROUTE_VERBOSE_ERR = (
+    "-verbose 3-phase fencing is a direct-gather observability mode; "
+    "drop --route-gather or -verbose")
 
 log = logging.getLogger("lux_tpu_torch")
 
@@ -126,6 +134,36 @@ def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None,
             cuda_build.load_all()  # building and loading are set-up, not iterations
         run, state = pallas_runner(g, dtype=cfg.dtype, device=dev, bc=bc)
         return run, state, lambda s: s[: g.nv].float().cpu().numpy()
+    pl = setup_pull(cfg, g, dev, prog, route, state_width)
+    return pl.iterate, pull.init_state(prog, pl.arrays), pl.read
+
+
+@dataclasses.dataclass
+class PullSetup:
+    """The pull engine's layout on the device: host shards, device
+    arrays, the routed plan on the device (or None)."""
+
+    prog: object
+    shards: object
+    arrays: object
+    route: object
+    method: str
+
+    def iterate(self, state, n: int) -> None:
+        """n iterations in place on ``state``."""
+        pull.run_pull_fixed(self.prog, self.shards.spec, self.arrays, state, n,
+                            self.method, route=self.route, donate=True)
+
+    def read(self, state) -> np.ndarray:
+        """The (nv, ...) global state on the host, float32."""
+        return self.shards.scatter_to_global(state.float().cpu().numpy())
+
+
+def setup_pull(cfg: RunConfig, g: HostGraph, dev, prog, route=None,
+               state_width: int = 1) -> PullSetup:
+    """The pull engine's part of :func:`prepare` (``cfg.method`` already
+    resolved): the shards, the printed estimate, the kernel build, the
+    device arrays and the routed plan."""
     shards = build_pull_shards(g, cfg.num_parts)
     report_preflight(estimate_exchange(shards, cfg, state_width,
                                        dst_state=prog.needs_dst_state), dev)
@@ -137,13 +175,167 @@ def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None,
     if route is not None:
         check_route_mode(cfg, route)
         route = expand.plan_to_device(route, dev)
+    return PullSetup(prog, shards, arrays, route, cfg.method)
 
-    def iterate(state, n):
-        pull.run_pull_fixed(prog, shards.spec, arrays, state, n, cfg.method,
-                            route=route, donate=True)
 
-    return (iterate, pull.init_state(prog, arrays),
-            lambda s: shards.scatter_to_global(s.float().cpu().numpy()))
+def run_pull_app(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, app: str,
+                 route=None, state_width: int = 1):
+    """A fixed-iteration pull app's run (PageRank, CF): set-up, then the
+    timed ``-ni`` iterations, or with ``-verbose``/``--ckpt-every`` the
+    step-wise loop, from the latest checkpoint of ``--ckpt-dir`` when it
+    holds one.  Returns (the (nv, ...) float32 state on the host, the
+    timed seconds, the iterations this run executed)."""
+    stepwise = cfg.verbose or cfg.ckpt_every
+    if cfg.method == "pallas" and (stepwise or cfg.ckpt_dir):
+        raise SystemExit(
+            "--method pallas: -verbose/checkpointing are not wired to the "
+            "kernel path; use --method scan, scatter or mxscan for those")
+    if cfg.verbose and (cfg.route_gather or route is not None):
+        raise SystemExit(_ROUTE_VERBOSE_ERR)
+    if cfg.method == "pallas" or not (stepwise or cfg.ckpt_dir):
+        iterate, state, read = prepare(cfg, g, dev, prog, pallas_runner, route,
+                                       state_width)
+        elapsed = timed_iterations(iterate, state, cfg.num_iters, dev)
+        return read(state), elapsed, cfg.num_iters
+    validate_exchange(cfg, prog, dev)
+    pl = setup_pull(cfg, g, dev, prog, route, state_width)
+    state, start_it = resume_or_init(cfg, app, pl.shards, pull.init_state(prog, pl.arrays),
+                                     g.nv)
+    n = max(cfg.num_iters - start_it, 0)
+    if not stepwise:
+        elapsed = timed_iterations(pl.iterate, state, n, dev)
+        return pl.read(state), elapsed, n
+
+    def on_iter(it, st):
+        if cfg.ckpt_every and (it + 1) % cfg.ckpt_every == 0:
+            save_global(cfg, app, pl.shards, it + 1, st)
+
+    pl.iterate(state.clone(), n)  # untimed, as timed_iterations does
+    state, stats = run_pull_stepwise(pl, state, start_it, cfg.num_iters, cfg, g.nv,
+                                     dev, on_iter)
+    return pl.read(state), stats.seconds, n
+
+
+def run_pull_stepwise(pl: PullSetup, state, start_it: int, num_iters: int,
+                      cfg: RunConfig, nv: int, dev, on_iter=None):
+    """Step-wise pull loop for -verbose / --ckpt-every runs.  Verbose mode
+    fences each iteration into load/comp/update sub-steps
+    (engine/pull.compile_pull_phases, the reference's per-phase timers);
+    otherwise each iteration runs as one fenced step (through the routed
+    plan when there is one).  ``on_iter(it, state)`` runs after each
+    iteration, outside the recorded times (checkpoint I/O is not engine
+    time).  Returns (final state, IterStats)."""
+    stats = IterStats(verbose=cfg.verbose)
+    if cfg.verbose:
+        if pl.route is not None:
+            raise SystemExit(_ROUTE_VERBOSE_ERR)
+        load, comp, update = pull.compile_pull_phases(pl.prog, pl.shards.spec, pl.method)
+    for it in range(start_it, num_iters):
+        if cfg.verbose:
+            t = Timer(dev)
+            gath = load(pl.arrays, state)
+            lt = t.stop()
+            t = Timer(dev)
+            acc = comp(pl.arrays, gath)
+            ct = t.stop()
+            t = Timer(dev)
+            state = update(pl.arrays, state, acc)
+            stats.record_phases(it, nv, lt, ct, t.stop())
+        else:
+            t = Timer(dev)
+            pl.iterate(state, 1)
+            stats.record(it, nv, t.stop())
+        if on_iter is not None:
+            on_iter(it, state)
+    return state, stats
+
+
+def resume_or_init(cfg: RunConfig, app: str, shards, state, nv: int):
+    """Elastic resume: restack the latest global checkpoint of
+    ``--ckpt-dir`` (any previous -ng) onto THIS run's layout, cast to this
+    run's state dtype; returns (state, start_iteration)."""
+    if not cfg.ckpt_dir:
+        return state, 0
+    saved, start_it, prev = checkpoint.load_resume(cfg.ckpt_dir, app, nv)
+    if saved is None:
+        return state, 0
+    if isinstance(saved, torch.Tensor):  # bfloat16: restack its f32 widening
+        saved = saved.float().numpy()
+    stacked = shards.global_to_stacked(np.asarray(saved))
+    print(f"resumed from {prev} at iteration {start_it}")
+    return torch.from_numpy(stacked).to(device=state.device, dtype=state.dtype), start_it
+
+
+def save_global(cfg: RunConfig, app: str, shards, iteration: int, state) -> str:
+    """Checkpoint the stacked device state as the layout-independent
+    global vector (elastic: any later -ng can resume it)."""
+    host = state.cpu()
+    if host.dtype == torch.bfloat16:
+        glob = torch.from_numpy(shards.scatter_to_global(host.float().numpy()))
+        glob = glob.to(torch.bfloat16)
+    else:
+        glob = shards.scatter_to_global(host.numpy())
+    return checkpoint.save_iteration(cfg.ckpt_dir, iteration, glob, app)
+
+
+@dataclasses.dataclass
+class StreamedRun:
+    state: np.ndarray  # (nv, ...) global final state, float32 or int32
+    seconds: float  # the timed run, device-fenced
+    iters: int
+    chunk_e: int  # edges a chunk
+    n_chunks: int  # chunks a part
+    resident_bytes: int  # engine/stream.streamed_hbm_bytes of the run
+    budget_bytes: int
+    edge_bytes: int  # the resident engine's edge arrays (what streaming avoids)
+    layout: object = None  # the engine/stream.StreamedPullShards that ran
+
+
+def run_streamed(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1,
+                 active_fn=None) -> StreamedRun:
+    """The pull apps' --stream-hbm-gib runner: host-resident edges streamed
+    through a device-byte budget (engine/stream.py).  Validates the
+    combination, builds and prints the streamed geometry, runs once
+    untimed and once timed (the fixed-iteration driver, or with
+    ``active_fn`` the convergence driver of components)."""
+    from lux_tpu_torch.engine import stream as stream_eng
+
+    if (cfg.method == "pallas" or cfg.verbose or cfg.ckpt_every or cfg.ckpt_dir
+            or cfg.repartition_every or cfg.route_gather):
+        raise SystemExit(
+            "--stream-hbm-gib is the single-process host-offload mode; it "
+            "does not combine with --method pallas/-verbose/checkpointing/"
+            "--repartition-every/--route-gather")
+    validate_exchange(cfg, prog, dev)
+    sbytes = 2 if cfg.dtype == "bfloat16" else 4
+    shards = build_pull_shards(g, cfg.num_parts)
+    budget = int(cfg.stream_hbm_gib * (1 << 30))
+    chunk_e = stream_eng.chunk_edges_for_budget(shards.spec, budget, sbytes, state_width)
+    resident = stream_eng.streamed_hbm_bytes(shards.spec, chunk_e, sbytes, state_width)
+    total = stream_eng.edge_bytes_total(shards.spec)
+    ssh = stream_eng.build_streamed_pull(shards, chunk_e, pin_memory=dev.type == "cuda")
+    n_chunks = len(ssh.chunks[0])
+    print(f"streamed: {n_chunks} chunk(s) of {chunk_e} edges/part; resident "
+          f"{resident/(1<<30):.3f} GiB <= budget {budget/(1<<30):.3f} GiB "
+          f"(monolithic edge arrays {total/(1<<30):.3f} GiB)")
+    if dev.type == "cuda":
+        cuda_build.load_all()
+    state0 = pull.init_state(prog, to_device(ssh.varrays, dev))
+
+    def go():
+        if active_fn is not None:
+            return stream_eng.run_pull_until_streamed(prog, ssh, state0, cfg.max_iters,
+                                                      active_fn, method=cfg.method)
+        return (stream_eng.run_pull_fixed_streamed(prog, ssh, state0, cfg.num_iters,
+                                                   method=cfg.method), cfg.num_iters)
+
+    go()
+    timer = Timer(dev)
+    out, iters = go()
+    elapsed = timer.stop()
+    host = out.float() if out.dtype == torch.bfloat16 else out
+    return StreamedRun(ssh.scatter_to_global(host.cpu().numpy()), elapsed, iters, chunk_e,
+                       n_chunks, resident, budget, total, ssh)
 
 
 def timed_iterations(iterate, state, n: int, dev) -> float:

@@ -15,6 +15,12 @@ tensors, so a test can replay exactly the reference's coloring.
 For the push engine :func:`push_shards_from_numpy` takes the reference's
 ``PushShards`` read field by field (its pull spec, arrays and cuts, its
 push spec and push arrays) and returns this package's ``PushShards``.
+
+For a run in flight the "weights" are the loop carry:
+:func:`push_carry_from_numpy` and :func:`delta_carry_from_numpy` take the
+reference's ``PushCarry`` (with its ``sp_work`` load counter) and
+``DeltaCarry`` field by field as numpy and return this package's, so a
+test can start both packages from the same mid-run state.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from lux_tpu_torch.engine.delta import DeltaCarry
+from lux_tpu_torch.engine.push import PushCarry
 from lux_tpu_torch.graph.push_shards import PushArrays, PushShards, PushSpec
 from lux_tpu_torch.graph.shards import PullShards, ShardArrays, ShardSpec
+from lux_tpu_torch.utils.checkpoint import edges_int
 from lux_tpu_torch.utils.device import resolve_device
 
 
@@ -34,7 +43,7 @@ def array_to_tensor(a: np.ndarray, device) -> torch.Tensor:
     (int32 stays int32, bool stays bool; a bfloat16 array — the
     ml_dtypes type numpy holds for a bf16 jax array — becomes a torch
     bfloat16 tensor bit for bit)."""
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))  # 0-d stays 0-d
     if not a.flags.writeable:  # jax hands out read-only views
         a = a.copy()
     if a.dtype.name == "bfloat16":
@@ -116,3 +125,29 @@ def push_shards_from_numpy(spec: Mapping, arrays: Mapping, cuts,
                       cuts=_host(cuts))
     return PushShards(pull=pull, pspec=PushSpec(**pspec),
                       parrays=PushArrays(*(_host(parrays[f]) for f in PushArrays._fields)))
+
+
+def push_carry_from_numpy(d: Mapping, device="cuda") -> PushCarry:
+    """The reference's ``PushCarry`` (fields as numpy, e.g.
+    ``{k: np.asarray(v) for k, v in carry._asdict().items()}``) -> this
+    package's: state, queues, counts and active as tensors on ``device``;
+    ``it``, the [hi, lo] ``edges`` pair, the (P,) uint32 ``sp_work`` and
+    ``dense_rounds`` as host ints."""
+    dev = resolve_device(device)
+    t = {k: array_to_tensor(np.asarray(d[k]), dev)
+         for k in ("state", "q_vid", "q_val", "count", "active")}
+    return PushCarry(t["state"], t["q_vid"], t["q_val"], t["count"], int(d["it"]),
+                     t["active"], edges_int(d["edges"]),
+                     tuple(int(x) for x in np.asarray(d["sp_work"])),
+                     int(d["dense_rounds"]))
+
+
+def delta_carry_from_numpy(d: Mapping, device="cuda") -> DeltaCarry:
+    """The reference's ``DeltaCarry`` (fields as numpy) -> this package's:
+    state, pending, thr and active as tensors on ``device``; ``it`` and
+    the [hi, lo] ``edges`` pair as host ints."""
+    dev = resolve_device(device)
+    t = {k: array_to_tensor(np.asarray(d[k]), dev)
+         for k in ("state", "pending", "thr", "active")}
+    return DeltaCarry(t["state"], t["pending"], t["thr"], int(d["it"]), t["active"],
+                      edges_int(d["edges"]))

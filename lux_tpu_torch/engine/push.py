@@ -27,10 +27,14 @@ engine.  Queues are exact compactions in ascending local index, so the
 results, the iteration count and the traversed-edge count are bitwise the
 reference's.
 
+The per-part load counter of the repartition policy, ``sp_work`` (the
+sparse-round out-edges walked per part, saturating at 2^32 - 1 as the
+reference's uint32 does), is summed on the host from the per-part totals
+that the one read of ``_push_prep`` already brings.
+
 Not ported here: the mutation overlay (``overlay``/``del_val``), the
-flight-recorder ``telemetry`` loop, carry donation, and the per-part
-load counter ``sp_work`` of the repartition policy; the distributed and
-ring push wait for the multi-GPU port.
+flight-recorder ``telemetry`` loop and carry donation; the distributed
+and ring push wait for the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -198,12 +202,20 @@ def build_queue(pspec: PushSpec, global_vid, changed, values):
     return q_vid, q_val, count
 
 
+#: sp_work's ceiling: the reference's saturating uint32
+SP_WORK_MAX = 0xFFFFFFFF
+
+
 class PushCarry(NamedTuple):
     """The loop state.  Device tensors: ``state`` (P, V), the queues
     ``q_vid``/``q_val`` (P, f_cap), ``count`` (P,) and ``active`` (the
     changed-vertex total of the last round, 1 before the first).  Host
-    ints: ``it``; ``edges``, the exact count of edges traversed (dense
+    values: ``it``; ``edges``, the exact count of edges traversed (dense
     rounds walk every real edge, sparse rounds the frontier's out-edges);
+    ``sp_work``, a tuple of P ints: the sparse-round out-edges walked per
+    part since the driver last reset it, saturating at SP_WORK_MAX (the
+    repartition policy's load signal; a dense round's work per part is
+    ``dense_rounds`` times the part's edge count, derived from the cuts);
     ``dense_rounds``."""
 
     state: Any
@@ -213,6 +225,7 @@ class PushCarry(NamedTuple):
     it: int
     active: Any
     edges: int
+    sp_work: tuple
     dense_rounds: int
 
 
@@ -220,7 +233,8 @@ class PushPlan(NamedTuple):
     """One iteration's LOAD phase: the flattened queues, each part's walk
     plan (P, P*f_cap), and the host's reading of the round: ``active``
     (the carry's), ``dense`` (direction), ``small`` (the small sparse tier
-    fits), ``sparse_edges`` (the round's frontier out-edges)."""
+    fits), ``totals`` (each part's frontier out-edges, a tuple of ints) and
+    ``sparse_edges`` (their sum)."""
 
     q_vids: Any
     q_vals: Any
@@ -229,6 +243,7 @@ class PushPlan(NamedTuple):
     active: int
     dense: bool
     small: bool
+    totals: tuple
     sparse_edges: int
 
 
@@ -238,19 +253,39 @@ def edges_total(edges) -> int:
     return int(edges)
 
 
+def _acc_load(sp_work: tuple, totals: tuple, dense: bool) -> tuple:
+    """The window load stats' update: a sparse round adds each part's
+    walked out-edges, saturating at SP_WORK_MAX (a wrapped counter would
+    make the hottest part read cold and invert the recut); a dense round
+    adds nothing here (its work derives from the cuts)."""
+    if dense:
+        return sp_work
+    return tuple(min(w + t, SP_WORK_MAX) for w, t in zip(sp_work, totals))
+
+
+def queues_of(pspec: PushSpec, arrays: ShardArrays, changed, values):
+    """Every part's queue from a stacked changed mask: (q_vid, q_val,
+    count), stacked (P, ...)."""
+    queues = [build_queue(pspec, arrays.global_vid[p], changed[p], values[p])
+              for p in range(values.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*queues))
+
+
 def _init_carry(prog, pspec: PushSpec, arrays: ShardArrays) -> PushCarry:
     """Initial state + frontier queues (stacked (P, ...) layout)."""
     state0 = pull.init_state(prog, arrays)
-    queues = [
-        build_queue(pspec, arrays.global_vid[p],
-                    prog.init_frontier(arrays.global_vid[p], state0[p],
-                                       arrays.vtx_mask[p]) & arrays.vtx_mask[p],
-                    state0[p])
-        for p in range(state0.shape[0])
-    ]
-    q_vid, q_val, cnt = (torch.stack(x) for x in zip(*queues))
+    q_vid, q_val, cnt = queues_of(pspec, arrays, init_frontier(prog, arrays, state0),
+                                  state0)
     one = torch.ones((), dtype=torch.int32, device=state0.device)
-    return PushCarry(state0, q_vid, q_val, cnt, 0, one, 0, 0)
+    return PushCarry(state0, q_vid, q_val, cnt, 0, one, 0,
+                     (0,) * state0.shape[0], 0)
+
+
+def init_frontier(prog, arrays: ShardArrays, state0):
+    """The program's stacked initial active mask, real vertices only."""
+    return torch.stack([
+        prog.init_frontier(arrays.global_vid[p], state0[p], arrays.vtx_mask[p])
+        & arrays.vtx_mask[p] for p in range(state0.shape[0])])
 
 
 def _push_prep(pspec: PushSpec, spec: ShardSpec, parrays: PushArrays,
@@ -269,11 +304,11 @@ def _push_prep(pspec: PushSpec, spec: ShardSpec, parrays: PushArrays,
     use_dense = ((c.count.sum(dtype=torch.int64) > spec.nv // pspec.pull_threshold_den)
                  | (c.count > pspec.f_cap).any() | (widest > pspec.e_sp))
     small = (widest <= pspec.e_sp_small) if pspec.e_sp_small else torch.zeros_like(use_dense)
-    flags = torch.stack([c.active.to(torch.int64), use_dense.to(torch.int64),
-                         small.to(torch.int64), totals.sum(dtype=torch.int64)])
-    active, dense, fits, sparse_edges = flags.tolist()  # the one host sync
+    flags = torch.cat([torch.stack([c.active.to(torch.int64), use_dense.to(torch.int64),
+                                    small.to(torch.int64)]), totals.to(torch.int64)])
+    active, dense, fits, *parts = flags.tolist()  # the one host sync
     return PushPlan(q_vids, q_vals, rows, incl, active, bool(dense), bool(fits),
-                    sparse_edges)
+                    tuple(parts), sum(parts))
 
 
 def _push_relax(prog, pspec: PushSpec, spec: ShardSpec, method, arrays,
@@ -307,12 +342,17 @@ def _push_requeue(prog, pspec: PushSpec, spec: ShardSpec, arrays,
     """UPDATE phase: rebuild the queues from the changed vertices and
     account the traversed edges."""
     changed = (new != c.state) & arrays.vtx_mask
-    queues = [build_queue(pspec, arrays.global_vid[p], changed[p], new[p])
-              for p in range(spec.num_parts)]
-    q_vid, q_val, cnt = (torch.stack(x) for x in zip(*queues))
-    edges = c.edges + (spec.ne if plan.dense else plan.sparse_edges)
+    q_vid, q_val, cnt = queues_of(pspec, arrays, changed, new)
     return PushCarry(new, q_vid, q_val, cnt, c.it + 1, cnt.sum(dtype=torch.int32),
-                     edges, c.dense_rounds + int(plan.dense))
+                     _acc_edges(c.edges, spec.ne, plan),
+                     _acc_load(c.sp_work, plan.totals, plan.dense),
+                     c.dense_rounds + int(plan.dense))
+
+
+def _acc_edges(edges: int, dense_ne: int, plan: PushPlan) -> int:
+    """The exact traversed-edge count after one round: a dense round walks
+    every real edge, a sparse one the frontier's out-edges."""
+    return edges + (dense_ne if plan.dense else plan.sparse_edges)
 
 
 def _push_iteration(prog, pspec, spec, method, arrays, parrays, c: PushCarry,
@@ -385,11 +425,15 @@ def push_phases(prog, pspec: PushSpec, spec: ShardSpec, method: str = "auto",
     return load, comp, update
 
 
+def place(shards: PushShards, device="cuda"):
+    """The layout's (arrays, parrays) as tensors on ``device``."""
+    dev = resolve_device(device)
+    return to_device(shards.arrays, dev), ps.to_device(shards.parrays, dev)
+
+
 def push_init(prog, shards: PushShards, device="cuda"):
     """(arrays, parrays, carry0) on ``device`` for step-wise driving."""
-    dev = resolve_device(device)
-    arrays = to_device(shards.arrays, dev)
-    parrays = ps.to_device(shards.parrays, dev)
+    arrays, parrays = place(shards, device)
     return arrays, parrays, _init_carry(prog, shards.pspec, arrays)
 
 

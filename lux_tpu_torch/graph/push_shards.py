@@ -87,12 +87,15 @@ def build_push_shards(
     num_parts: int,
     f_cap: Optional[int] = None,
     e_sp: Optional[int] = None,
+    cuts: Optional[np.ndarray] = None,
 ) -> PushShards:
     """Partition ``g`` as the pull shards do, and build each part's CSR
     over its own destinations.  ``f_cap``/``e_sp`` default to the
     reference's sizing: nv_pad/16 + 128 queue slots, e_pad/4 + 128
-    edge-buffer slots (rounded to 128), and a small tier of e_sp/16."""
-    pull = build_pull_shards(g, num_parts)
+    edge-buffer slots (rounded to 128), and a small tier of e_sp/16.
+    ``cuts``: (P+1,) contiguous vertex bounds instead of the
+    edge-balanced ones (a recut rebuilds from them)."""
+    pull = build_pull_shards(g, num_parts, cuts=cuts)
     spec = pull.spec
     P, e_pad, nv_pad = num_parts, spec.e_pad, spec.nv_pad
     cuts = pull.cuts

@@ -96,6 +96,22 @@ class PullShards:
         """Collapse a (P, nv_pad, ...) stacked state to (nv, ...) order."""
         return stacked_to_global(self.cuts, stacked)
 
+    def global_to_stacked(self, full: np.ndarray) -> np.ndarray:
+        """Split a (nv, ...) global state into (P, nv_pad, ...) stacks."""
+        return global_to_stacked(self.cuts, self.spec.nv_pad, full)
+
+
+def global_to_stacked(cuts: np.ndarray, nv_pad: int, full: np.ndarray) -> np.ndarray:
+    """Split a (nv, ...) global state into (P, nv_pad, ...) zero-padded
+    stacks under ``cuts``, the inverse of :func:`stacked_to_global` (an
+    elastic checkpoint restacks onto any layout through it)."""
+    P = cuts.shape[0] - 1
+    out = np.zeros((P, nv_pad) + full.shape[1:], dtype=full.dtype)
+    for p in range(P):
+        lo, hi = int(cuts[p]), int(cuts[p + 1])
+        out[p, : hi - lo] = full[lo:hi]
+    return out
+
 
 def stacked_to_global(cuts: np.ndarray, stacked: np.ndarray) -> np.ndarray:
     """De-pad a (P, nv_pad, ...) stacked state into (nv, ...) global order."""
@@ -106,10 +122,14 @@ def stacked_to_global(cuts: np.ndarray, stacked: np.ndarray) -> np.ndarray:
     return np.concatenate(out, axis=0)
 
 
-def shard_geometry(row_ptr_global: np.ndarray, num_parts: int):
-    """(cuts, nv_pad, e_pad) for edge-balanced padded shards, with the
-    int32-range guards."""
-    cuts = edge_balanced_cuts(row_ptr_global, num_parts)
+def shard_geometry(row_ptr_global: np.ndarray, num_parts: int,
+                   cuts: Optional[np.ndarray] = None):
+    """(cuts, nv_pad, e_pad) for padded shards, with the int32-range
+    guards.  ``cuts`` overrides the static edge-balanced sweep with
+    caller-chosen contiguous bounds (the adaptive repartitioning feeds
+    partition.weighted_cuts here)."""
+    if cuts is None:
+        cuts = edge_balanced_cuts(row_ptr_global, num_parts)
     nv_counts = np.diff(cuts)
     e_counts = row_ptr_global[cuts[1:]] - row_ptr_global[cuts[:-1]]
     nv_pad = max(LANE, _round_up(int(nv_counts.max()), LANE))
@@ -184,10 +204,12 @@ def build_pull_shards(
     g: HostGraph,
     num_parts: int,
     degrees: Optional[np.ndarray] = None,
+    cuts: Optional[np.ndarray] = None,
 ) -> PullShards:
     """Partition + pad a HostGraph into pull-model shards (numpy arrays;
-    :func:`to_device` moves them)."""
-    cuts, nv_pad, e_pad = shard_geometry(g.row_ptr, num_parts)
+    :func:`to_device` moves them).  ``cuts``: (P+1,) contiguous vertex
+    bounds instead of the edge-balanced ones."""
+    cuts, nv_pad, e_pad = shard_geometry(g.row_ptr, num_parts, cuts)
     if degrees is None:
         degrees = g.out_degrees()
     arrays = alloc_arrays(num_parts, nv_pad, e_pad)

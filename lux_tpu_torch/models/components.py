@@ -67,14 +67,16 @@ def connected_components_push(g: HostGraph | PushShards, max_iters: int = 10_000
                               num_parts: int = 1, method: str = "auto",
                               route=None, merge=None, device="cuda", mesh=None,
                               exchange: str = "allgather",
-                              repartition_every: int = 0) -> np.ndarray:
+                              repartition_every: int = 0,
+                              repartition_threshold: float = 1.25) -> np.ndarray:
     """CC on the push engine (direction-optimized; what the reference's app
     runs); returns (nv,) int32 labels.  ``route``: an expand plan of the
-    push shards' pull layout for the dense rounds."""
-    refuse_unported(mesh, exchange, repartition_every)
+    push shards' pull layout for the dense rounds; ``repartition_every >
+    0`` enables the adaptive repartitioning (``g`` a HostGraph)."""
+    refuse_unported(mesh, exchange)
     shards = g if isinstance(g, PushShards) else build_push_shards(g, num_parts)
-    return push_run(MaxLabelProgram(), shards, max_iters, method, route, merge,
-                    device)
+    return push_run(MaxLabelProgram(), g, shards, max_iters, method, route, merge,
+                    device, repartition_every, repartition_threshold)
 
 
 def check_labels(g: HostGraph, labels: np.ndarray) -> int:

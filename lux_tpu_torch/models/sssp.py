@@ -8,8 +8,10 @@ Counterpart of ``lux_tpu.models.sssp`` on one device:
   * the ``-check`` invariant dist[dst] <= dist[src] + 1 on every edge.
 
 ``WeightedSSSPProgram`` relaxes with integer edge costs (an extension
-beyond Lux, as in the reference).  The distributed, ring, repartitioning
-and delta-stepping drivers are not ported: their arguments raise.
+beyond Lux, as in the reference); ``delta=`` runs it by delta-stepping
+(engine/delta.py) and ``repartition_every=`` rebalances the parts' cuts
+from their measured load (engine/repartition.py).  The distributed and
+ring drivers are not ported: their arguments raise.
 """
 from __future__ import annotations
 
@@ -61,23 +63,35 @@ class WeightedSSSPProgram(SSSPProgram):
         return 1 << 30
 
 
-def refuse_unported(mesh=None, exchange="allgather", repartition_every=0,
-                    delta=0) -> None:
+def refuse_unported(mesh=None, exchange="allgather") -> None:
     """Raise for a driver option of the reference that is not ported (a
     silently ignored option would misreport what ran)."""
-    for name, val, default in (("mesh", mesh, None), ("exchange", exchange, "allgather"),
-                               ("repartition_every", repartition_every, 0),
-                               ("delta", delta, 0)):
+    for name, val, default in (("mesh", mesh, None), ("exchange", exchange, "allgather")):
         if val != default:
             raise NotImplementedError(
-                f"{name}={val!r}: the distributed, ring, repartitioning and "
-                "delta-stepping push drivers are not ported to lux_tpu_torch "
-                "yet (single device only)")
+                f"{name}={val!r}: the distributed and ring push drivers are not "
+                "ported to lux_tpu_torch yet (ROADMAP Queue 1 item 5; -ng parts "
+                "stack on one device)")
 
 
-def push_run(prog, shards: PushShards, max_iters, method, route, merge,
-             device) -> np.ndarray:
-    """Run ``prog`` on the push engine; (nv,) int32 global state."""
+def push_run(prog, g, shards: PushShards, max_iters, method, route, merge, device,
+             repartition_every: int = 0, repartition_threshold: float = 1.25
+             ) -> np.ndarray:
+    """Run ``prog`` on the push engine, or with ``repartition_every > 0``
+    on the adaptive repartitioning driver (which needs the HostGraph
+    ``g`` for its rebuilds); (nv,) int32 global state."""
+    if repartition_every > 0:
+        if route is not None:
+            raise ValueError("route= is a non-adaptive driver option; the "
+                             "repartitioning push runs the direct gather")
+        if not isinstance(g, HostGraph):
+            raise ValueError("repartition_every needs the HostGraph (shard rebuilds)")
+        from lux_tpu_torch.engine import repartition
+
+        return repartition.run_push_adaptive(
+            prog, g, shards.spec.num_parts, chunk=repartition_every,
+            threshold=repartition_threshold, max_iters=max_iters, method=method,
+            shards=shards, device=device).state
     final, _, _ = push.run_push(prog, shards, max_iters, method=method,
                                 route=route, merge=merge, device=device)
     return shards.scatter_to_global(final.cpu().numpy())
@@ -87,11 +101,15 @@ def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
          max_iters: int = 10_000, weighted: bool = False, method: str = "auto",
          route=None, merge=None, device="cuda", mesh=None,
          exchange: str = "allgather", repartition_every: int = 0,
-         delta: int = 0) -> np.ndarray:
+         repartition_threshold: float = 1.25, delta: int = 0) -> np.ndarray:
     """Run SSSP from ``start`` on ``device``; returns (nv,) int32
     distances, INF == nv (1 << 30 weighted).  ``route``: an expand plan of
-    the push shards' pull layout for the dense rounds."""
-    refuse_unported(mesh, exchange, repartition_every, delta)
+    the push shards' pull layout for the dense rounds.
+    ``repartition_every > 0`` rebalances the vertex cuts from the
+    measured per-part load every N iterations; ``delta > 0`` selects the
+    delta-stepping driver (weighted runs): the same distances, far fewer
+    relaxed edges than chaotic relaxation."""
+    refuse_unported(mesh, exchange)
     shards = g if isinstance(g, PushShards) else build_push_shards(g, num_parts)
     if not 0 <= start < shards.spec.nv:
         raise ValueError(f"start vertex {start} out of range [0, {shards.spec.nv})")
@@ -103,7 +121,23 @@ def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
                              + str(g.weights.dtype))
     cls = WeightedSSSPProgram if weighted else SSSPProgram
     prog = cls(nv=shards.spec.nv, start=start)
-    return push_run(prog, shards, max_iters, method, route, merge, device)
+    if delta > 0:
+        if not weighted:
+            raise ValueError("delta-stepping orders WEIGHTED distances; "
+                             "unweighted BFS buckets are the iterations")
+        if repartition_every:
+            raise ValueError("delta-stepping does not combine with repartition_every")
+        # the SHARDS' weights (covers pre-built PushShards too): bucket
+        # order finalizes too early under negative costs
+        if float(np.asarray(shards.arrays.weights).min()) < 0:
+            raise ValueError("delta-stepping needs non-negative weights")
+        from lux_tpu_torch.engine import delta as delta_mod
+
+        final, _, _ = delta_mod.run_push_delta(prog, shards, delta, max_iters,
+                                               method=method, route=route, device=device)
+        return shards.scatter_to_global(final.cpu().numpy())
+    return push_run(prog, g, shards, max_iters, method, route, merge, device,
+                    repartition_every, repartition_threshold)
 
 
 def inf_value(nv: int, weighted: bool = False) -> int:

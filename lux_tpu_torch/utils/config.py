@@ -1,13 +1,19 @@
 """Command-line configuration of the apps.
 
 The flags are the reference CLI's (``lux_tpu.utils.config``) restricted to
-what this package runs, plus ``--device``.  The push apps (``push=True``:
-SSSP, components and bfs) add ``-verbose/-v`` and ``--max-iters``, SSSP
-(``sssp=True``) ``-start`` and ``--weighted``, and the generic program
-driver (``program=True``, ``python -m lux_tpu_torch.apps.run``) its
-workload knobs and ``--max-iters``, as the reference's flag sets do.
-Every other reference flag is rejected with a message that it is not
-ported yet, never silently ignored.
+what this package runs, plus ``--device``.  ``-ng`` stacks that many parts
+on the one device (``--method pallas`` runs one).  The pull apps
+(``pull=True``: PageRank, collaborative filtering) add ``-verbose/-v``
+and the checkpoint flags; the push apps (``push=True``:
+SSSP, components and bfs) ``-verbose/-v``, ``--max-iters``, the checkpoint
+flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
+``--weighted`` and ``--delta``; the apps with a streamed driver
+(``stream=True``) ``--stream-hbm-gib``; and the generic program driver
+(``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
+knobs and ``--max-iters``, as the reference's flag sets do.  The
+reference flags of the multi-GPU, serving and layout features
+(``NOT_PORTED``) are rejected with a message that they are not ported
+yet, never silently ignored.
 """
 from __future__ import annotations
 
@@ -38,15 +44,14 @@ def env_int(name: str, default: Optional[int] = None, *,
     return val
 
 
-#: reference flags this package does not run yet
+#: reference flags this package does not run yet (and, as before the push
+#: apps took them, the push flags on the apps that do not take them)
 NOT_PORTED = (
-    "-start", "-verbose", "-v", "--max-iters", "--distributed", "--ckpt-dir",
-    "--ckpt-every", "--profile-dir", "--exchange", "--edge-shards",
-    "--feat-shards", "--sort-segments", "--compact-gather",
-    "--repartition-every", "--repartition-threshold", "--weighted", "--delta",
-    "--serve", "--serve-queries", "--serve-sources", "--serve-buckets",
+    "-start", "-verbose", "-v", "--max-iters", "--distributed",
+    "--profile-dir", "--exchange", "--edge-shards", "--feat-shards",
+    "--sort-segments", "--compact-gather", "--weighted", "--serve",
+    "--serve-queries", "--serve-sources", "--serve-buckets",
     "--serve-wait-ms", "--serve-timeout-ms", "--serve-max-queue",
-    "--stream-hbm-gib",
 )
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
@@ -60,7 +65,7 @@ PUSH_ROUTE_GATHER = ("auto", "expand", "expand-pf")
 @dataclasses.dataclass
 class RunConfig:
     file: Optional[str] = None  # .lux path; None => synthetic RMAT
-    num_parts: int = 1  # -ng: graph parts (1 on this package)
+    num_parts: int = 1  # -ng: graph parts, stacked on the one device
     num_iters: int = 10  # -ni
     check: bool = False  # -check/-c: run the validator
     #: segment-reduction strategy; "auto" resolves per engine.methods,
@@ -74,9 +79,21 @@ class RunConfig:
     seed: int = 0
     device: str = "cuda"
     start: int = 0  # -start: SSSP's source vertex
-    verbose: bool = False  # -verbose: per-iteration phase times (push apps)
+    verbose: bool = False  # -verbose: per-iteration phase times
     max_iters: int = 10_000  # --max-iters: the push apps' iteration cap
     weighted: bool = False  # --weighted: SSSP relaxes with edge weights
+    ckpt_dir: Optional[str] = None  # checkpoint/resume directory
+    ckpt_every: int = 0  # save every N iterations (0 = off)
+    #: >0 = delta-stepping bucket width for weighted SSSP (engine/delta.py)
+    delta: int = 0
+    #: >0 = host-offload streaming under this device-byte budget in GiB
+    #: (engine/stream.py; pagerank/colfilter fixed, components until)
+    stream_hbm_gib: float = 0.0
+    #: >0 = adaptive repartitioning (push apps): every N iterations
+    #: rebalance the vertex cuts from the measured per-part load
+    repartition_every: int = 0
+    #: recut when the window's max/mean per-part load exceeds this
+    repartition_threshold: float = 1.25
     # --- generic program driver (python -m lux_tpu_torch.apps.run) --------
     sources: str = "0"  # bfs: comma-separated seed vertices
     labels: int = 8  # labelprop: number of classes
@@ -87,27 +104,40 @@ class RunConfig:
 
 
 def parse_args(argv=None, description: str = "", push: bool = False,
-               sssp: bool = False, program: bool = False,
-               prog: str = "") -> RunConfig:
-    """The apps' flags; ``push`` adds the frontier apps' flag set,
-    ``sssp`` SSSP's own, and ``program`` the generic program driver's
+               sssp: bool = False, program: bool = False, prog: str = "",
+               pull: bool = False, stream: bool = False) -> RunConfig:
+    """The apps' flags; ``pull`` adds the pull apps' flag set, ``push``
+    the frontier apps', ``sssp`` SSSP's own, ``stream`` the streamed
+    driver's budget, and ``program`` the generic program driver's
     workload knobs (``prog`` names the workload in the usage line), as
-    the reference's ``push=``/``sssp=``/``program=`` do."""
+    the reference's ``pull=``/``push=``/``sssp=``/``stream=``/
+    ``program=`` do."""
     ap = argparse.ArgumentParser(
         description=description,
         prog=f"python -m lux_tpu_torch.apps.run {prog}" if prog else None)
     ap.add_argument("-file", help=".lux graph file (default: synthetic RMAT)")
     ap.add_argument("-ng", "--num-parts", type=int, default=1,
-                    help="number of graph parts (only 1 is ported)")
+                    help="number of graph parts, stacked on the one device "
+                         "(--method pallas runs one)")
     ap.add_argument("-ni", "--num-iters", type=int, default=10)
     if sssp:
         ap.add_argument("-start", type=int, default=0, help="source vertex")
-    if push:
+    if push or pull:
         ap.add_argument("-verbose", "-v", action="store_true",
                         help="per-iteration active count and load/comp/update "
                              "times (device-fenced phases)")
+        ap.add_argument("--ckpt-dir", help="checkpoint directory (resume if present)")
+        ap.add_argument("--ckpt-every", type=int, default=0,
+                        help="save state every N iterations")
     if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
+    if push:
+        ap.add_argument("--repartition-every", type=int, default=0,
+                        help="rebalance vertex cuts from measured per-part "
+                             "load every N iterations (0 = static cuts)")
+        ap.add_argument("--repartition-threshold", type=float, default=1.25,
+                        help="recut when the window's max/mean per-part "
+                             "load exceeds this ratio")
     ap.add_argument("-check", "-c", action="store_true")
     ap.add_argument("--method", default="auto", choices=METHODS,
                     help="segment-reduction strategy; auto = the measured "
@@ -139,6 +169,19 @@ def parse_args(argv=None, description: str = "", push: bool = False,
     if sssp:
         ap.add_argument("--weighted", action="store_true",
                         help="relax with integer edge weights")
+        ap.add_argument("--delta", type=int, default=0,
+                        help="delta-stepping bucket width (weighted, one "
+                             "device): expand only pending vertices with "
+                             "dist < the current bucket's bound — "
+                             "near-Dijkstra edge counts (0 = chaotic "
+                             "relaxation)")
+    if stream:
+        ap.add_argument("--stream-hbm-gib", type=float, default=0.0,
+                        help="host-offload streaming: keep the edge arrays "
+                             "in pinned host memory and stream double-"
+                             "buffered chunks through this device-byte "
+                             "budget every iteration (graphs whose edges "
+                             "exceed the card's memory)")
     if program:
         pg = ap.add_argument_group(
             "program (generic spec-workload driver, lux_tpu_torch.apps.run)")
@@ -169,8 +212,14 @@ def parse_args(argv=None, description: str = "", push: bool = False,
             ap.error(f"{flag} is not ported to lux_tpu_torch yet")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if ns.num_parts != 1:
-        ap.error("-ng: only one part (-ng 1) is ported to lux_tpu_torch yet")
+    if ns.num_parts < 1:
+        ap.error(f"-ng must be positive, got {ns.num_parts}")
+    if ns.num_parts != 1 and ns.method == "pallas":
+        ap.error("-ng: --method pallas runs one part (-ng 1) on one device; "
+                 "its multi-part form is distributed, which is not ported "
+                 "to lux_tpu_torch yet")
+    if getattr(ns, "ckpt_every", 0) and not ns.ckpt_dir:
+        ap.error("--ckpt-every requires --ckpt-dir")
     if ns.route_gather and ns.method == "pallas":
         ap.error("--route-gather does not combine with --method pallas: the "
                  "block-CSR runner has its own gather and no routed form")
@@ -190,6 +239,12 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         verbose=getattr(ns, "verbose", False),
         max_iters=getattr(ns, "max_iters", 10_000),
         weighted=getattr(ns, "weighted", False),
+        ckpt_dir=getattr(ns, "ckpt_dir", None),
+        ckpt_every=getattr(ns, "ckpt_every", 0),
+        delta=getattr(ns, "delta", 0),
+        stream_hbm_gib=getattr(ns, "stream_hbm_gib", 0.0),
+        repartition_every=getattr(ns, "repartition_every", 0),
+        repartition_threshold=getattr(ns, "repartition_threshold", 1.25),
         sources=getattr(ns, "sources", "0"),
         labels=getattr(ns, "labels", 8),
         seed_stride=getattr(ns, "seed_stride", 16),

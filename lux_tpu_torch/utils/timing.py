@@ -1,8 +1,10 @@
-"""Wall-clock timer with a device fence, and the end-of-run summary."""
+"""Wall-clock timer with a device fence, per-iteration stats, and the
+end-of-run summary."""
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -26,6 +28,47 @@ class Timer:
         self._fence()
         self.elapsed = time.perf_counter() - self.t0
         return self.elapsed
+
+
+@dataclasses.dataclass
+class IterStat:
+    it: int
+    active: int
+    seconds: float
+    #: per-phase wall times (s) when the driver fences the iteration into
+    #: load/comp/update sub-steps; None on whole-iteration records
+    load_s: Optional[float] = None
+    comp_s: Optional[float] = None
+    update_s: Optional[float] = None
+
+
+class IterStats:
+    """Collects the per-iteration stats, and prints them in verbose mode
+    (the reference's activeNodes/loadTime/compTime/updateTime lines)."""
+
+    def __init__(self, verbose: bool = False):
+        self.verbose = verbose
+        self.stats: List[IterStat] = []
+
+    def record(self, it: int, active: int, seconds: float):
+        self.stats.append(IterStat(it, active, seconds))
+        if self.verbose:
+            print(f"iter {it:4d}: activeNodes({active}) time({seconds*1e3:.3f} ms)")
+
+    def record_phases(self, it: int, active: int, load_s: float, comp_s: float,
+                      update_s: float):
+        total = load_s + comp_s + update_s
+        self.stats.append(IterStat(it, active, total, load_s, comp_s, update_s))
+        if self.verbose:
+            print(f"iter {it:4d}: activeNodes({active}) "
+                  f"loadTime({load_s*1e3:.3f} ms) "
+                  f"compTime({comp_s*1e3:.3f} ms) "
+                  f"updateTime({update_s*1e3:.3f} ms)")
+
+    @property
+    def seconds(self) -> float:
+        """The recorded iterations' seconds, summed."""
+        return sum(s.seconds for s in self.stats)
 
 
 def report_elapsed(seconds: float, ne: int, iters: int,

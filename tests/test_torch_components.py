@@ -87,9 +87,14 @@ def test_active_counts():
 
 
 def test_unported_arguments_raise(graphs):
-    for kw in ({"mesh": object()}, {"exchange": "ring"}, {"repartition_every": 2}):
+    for kw in ({"mesh": object()}, {"exchange": "ring"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             cc.connected_components_push(graphs[0], device="cpu", **kw)
+    # ported since: the adaptive driver gives the static labels
+    np.testing.assert_array_equal(
+        cc.connected_components_push(graphs[0], device="cpu", num_parts=3,
+                                     repartition_every=2),
+        cc.connected_components_push(graphs[0], device="cpu"))
 
 
 def _states(app_name, g, rg, parts):

@@ -558,3 +558,65 @@ def test_spec_workloads_on_card_match_cpu(cuda, method):
     inc, stats = workloads.triangles(gs, method=method, device=cuda)
     np.testing.assert_array_equal(inc, inc_cpu)
     assert stats == stats_cpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["mxscan", "scatter"])
+def test_long_run_engines_on_card_match_cpu(cuda, method):
+    """The long and out-of-core engines on the card equal their CPU runs:
+    delta-stepping (plain and expand-pf routed) and the adaptive
+    repartitioning of SSSP bitwise in state, rounds and traversed edges;
+    the streamed components bitwise and the streamed PageRank within
+    rtol 1e-5 of the CPU run, through the pinned double buffer (several
+    chunks a part), prefetch on and off bitwise equal (within rtol 1e-5
+    for scatter's f32 sum, whose atomic adds are not deterministic)."""
+    from lux_tpu_torch.engine import delta, pull, repartition, stream
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.models import components as cc
+    from lux_tpu_torch.models import sssp
+
+    g = generate.rmat(14, 8, seed=3, weighted=True)
+    sh = build_push_shards(g, 3)
+    hub = int(np.argmax(g.out_degrees()))
+    prog = sssp.WeightedSSSPProgram(nv=g.nv, start=hub)
+    plan = expand.plan_expand_shards(sh.pull, pf=True)
+    want = delta.run_push_delta(prog, sh, 8, method="scan", device="cpu")
+    for route in (None, plan):
+        got = delta.run_push_delta(prog, sh, 8, method=method, route=route, device=cuda)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+        assert got[1:] == want[1:]
+    bfs = sssp.SSSPProgram(nv=g.nv, start=0)
+    want = repartition.run_push_adaptive(bfs, g, 4, chunk=2, threshold=1.01,
+                                         method="scan", device="cpu")
+    got = repartition.run_push_adaptive(bfs, g, 4, chunk=2, threshold=1.01,
+                                        method=method, device=cuda)
+    np.testing.assert_array_equal(got.state, want.state)
+    assert (got.iters, got.edges, got.reparts) == (want.iters, want.edges, want.reparts)
+    np.testing.assert_array_equal(got.shards.cuts, want.shards.cuts)
+    pshards = shards.build_pull_shards(g, 2)
+    ssh = stream.build_streamed_pull(pshards, 1 << 14, pin_memory=True)
+    assert len(ssh.chunks[0]) >= 4 and ssh.packed.is_pinned()
+    for prog, kw in ((cc.MaxLabelProgram(), {"active_fn": cc.active_count}),
+                     (pr.PageRankProgram(nv=g.nv), {})):
+        runs = {}
+        for dev in ("cpu", cuda):
+            s0 = pull.init_state(prog, shards.to_device(ssh.varrays, dev))
+            for prefetch in (True, False):
+                if kw:
+                    out = stream.run_pull_until_streamed(prog, ssh, s0, 100, kw["active_fn"],
+                                                         method=method, prefetch=prefetch)[0]
+                else:
+                    out = stream.run_pull_fixed_streamed(prog, ssh, s0, 5, method=method,
+                                                         prefetch=prefetch)
+                runs[str(dev), prefetch] = out.cpu()
+        if kw or method == "mxscan":
+            assert torch.equal(runs["cuda", True], runs["cuda", False])
+        else:  # index_add_ on the card adds f32 in atomic order: not bitwise run to run
+            np.testing.assert_allclose(runs["cuda", True].numpy(), runs["cuda", False].numpy(),
+                                       rtol=1e-5, atol=1e-9)
+        if kw:
+            assert torch.equal(runs["cuda", True], runs["cpu", True])
+        else:
+            np.testing.assert_allclose(runs["cuda", True].numpy(), runs["cpu", True].numpy(),
+                                       rtol=1e-5, atol=1e-9)

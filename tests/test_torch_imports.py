@@ -36,6 +36,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter",
                  "graph.push_shards", "ops.merge_tree", "engine.push", "engine.validate",
                  "models.sssp", "models.components", "apps.sssp", "apps.components",
-                 "program.workloads", "utils.preflight", "apps.run"):
+                 "program.workloads", "utils.preflight", "apps.run",
+                 "utils.checkpoint", "engine.delta", "engine.repartition",
+                 "engine.stream", "utils.timing"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
-    assert len(res["modules"]) >= 46
+    assert len(res["modules"]) >= 50

@@ -171,8 +171,8 @@ def test_app_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["-verbose"], "not ported"), (["--distributed"], "not ported"),
-    (["--exchange", "ring"], "not ported"), (["-ng", "2"], "-ng"),
+    (["--edge-shards", "2"], "not ported"), (["--distributed"], "not ported"),
+    (["--exchange", "ring"], "not ported"), (["-ng", "2", "--method", "pallas"], "-ng"),
     (["--frobnicate"], "unrecognized")])
 def test_app_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):

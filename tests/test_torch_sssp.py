@@ -86,10 +86,16 @@ def test_argument_errors(graphs):
         sssp.sssp(g, start=g.nv, device="cpu")
     with pytest.raises(ValueError, match="edge-weighted"):
         sssp.sssp(g, weighted=True, device="cpu")
-    for kw in ({"mesh": object()}, {"exchange": "ring"}, {"repartition_every": 4},
-               {"delta": 3}):
+    for kw in ({"mesh": object()}, {"exchange": "ring"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             sssp.sssp(g, device="cpu", **kw)
+    # ported since: the adaptive driver gives the static distances, and
+    # delta-stepping refuses unweighted runs as the reference does
+    np.testing.assert_array_equal(
+        sssp.sssp(g, device="cpu", num_parts=3, repartition_every=4),
+        sssp.sssp(g, device="cpu"))
+    with pytest.raises(ValueError, match="WEIGHTED"):
+        sssp.sssp(g, device="cpu", delta=3)
 
 
 def test_check_distances_matches_reference(graphs):
@@ -154,7 +160,7 @@ def test_app_cuda_without_card_raises():
     (["-verbose", "--route-gather", "expand"], "cannot combine with -verbose"),
     (["--route-gather", "fused"], "invalid choice"),
     (["-start", "100000"], "out of range"),
-    (["--exchange", "ring"], "not ported"), (["--delta", "4"], "not ported"),
+    (["--exchange", "ring"], "not ported"), (["--delta", "4"], "add --weighted"),
     (["--dtype", "bfloat16"], "unrecognized")])
 def test_app_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:

@@ -2,9 +2,9 @@
 """On-card smoke test of lux_tpu_torch: build, check and time the CUDA
 kernels, then drive single-GPU PageRank (direct and routed), collaborative
 filtering, SSSP, connected components, the spec workloads (bfs, kcore,
-labelprop, triangles) and the long and out-of-core runs (delta-stepping,
-adaptive repartitioning, host-offload streaming, checkpoint/resume)
-through the apps.
+labelprop, triangles), the long and out-of-core runs (delta-stepping,
+adaptive repartitioning, host-offload streaming, checkpoint/resume) and
+the batched query service (--serve) through the apps.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -149,6 +149,20 @@ Phases, each printing one JSON line with its seconds:
               SSSP --delta 25 --ckpt-every 2 and components --ckpt-every
               2, each cut at half its rounds; the seconds a save takes and
               its bytes on disk.
+  17. serve_main the batched query service on the main graph: `apps.sssp
+              --serve --serve-queries 64 --serve-buckets 1,8,64 -check` and
+              `apps.pagerank --serve -ni 10 --serve-queries 64 -check`
+              (QPS, latency p50/p95/p99, batch occupancy, warm hit ratio,
+              the estimate and the peak memory); every SSSP answer 0 at its
+              source with no triangle-inequality violation, the first 8
+              bitwise a scipy BFS from the same source and the first 4 PPR
+              answers within rtol 1e-4 of the float64 oracle (both in the
+              pool); then serve/benchmarks.measure_serving (SSSP, Q = 64,
+              4 sequential Q = 1 queries, one batch: bench.py's serving
+              row) under auto and scatter, and one batched iteration's
+              gather, edge, reduce and apply timed under the plain scan and
+              scatter.  No kernel lies on this path: auto's mxscan falls
+              back to the plain scan on (E, Q) values.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -157,8 +171,8 @@ Then the kernel table as one JSON line (each row's launches on the
 PageRank main path, and beside them on the push paths: one SSSP and one
 components run of the mode that runs that kernel, on the spec paths
 one bfs, one kcore and one triangles run, and on the long runs one delta,
-one adaptive SSSP, one streamed PageRank and one resumed PageRank run),
-the smoke's seconds, the
+one adaptive SSSP, one streamed PageRank and one resumed PageRank run,
+and on the serving path the whole of phase 17), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -241,6 +255,12 @@ REPART_PARTS, REPART_EVERY, REPART_THRESHOLD = 4, 2, 1.05
 STREAM_SCALE, STREAM_GIB = 22, 0.3
 STREAM_MIN_CHUNKS = 4  # every part must stream in at least this many chunks
 CKPT_PR_EVERY, CKPT_DELTA_EVERY, CKPT_CC_EVERY = 5, 2, 2  # --ckpt-every
+SERVE_Q = 64  # the serving row's batch (bench.py:918-921): Q = 64, one part
+SERVE_BUCKETS = "1,8,64"  # the warm Q buckets of the SSSP service
+SERVE_BFS = 8  # SSSP answers held to scipy's BFS
+SERVE_PPR = 4  # PPR answers held to the float64 oracle
+SERVE_METHODS = ("auto", "scatter")  # measure_serving's runs
+F32_TINY = 1.1754944e-38  # below the smallest normal f32: subnormal rounding
 #: per kernel, the long runs whose launches the kernel table gives
 LONG_KERNEL_RUN = {
     "mxscan_segmented": {"delta": ("delta", f"delta-{DELTA_ROUTED}"),
@@ -1707,6 +1727,155 @@ def ckpt_main(np, kernels, smi, tmp, g, gw, hub, pr_ranks, delta_whole, cc_whole
     return launches
 
 
+def serve_oracles(scale: int):
+    """The serving phase's host oracles on the main graph: the query
+    vertices the --serve driver draws (serve/benchmarks.pick_sources,
+    seed 0), scipy's BFS distances (INF == nv) from the first SERVE_BFS
+    and the float64 personalized PageRank (models/pagerank.ppr_reference,
+    ITERS iterations) of the first SERVE_PPR, and seconds.  Runs in a
+    spawned process while the card works."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.pagerank import ppr_reference
+    from lux_tpu_torch.serve.benchmarks import pick_sources
+
+    g = generate.rmat(scale, EF, seed=0)
+    t0 = time.perf_counter()
+    src = pick_sources(g, SERVE_Q, seed=0)
+    adj = csr_matrix((np.ones(g.ne), (g.col_idx, g.dst_of_edges())), shape=(g.nv, g.nv))
+    d = shortest_path(adj, directed=True, unweighted=True, indices=src[:SERVE_BFS])
+    dist = np.where(np.isinf(d), g.nv, d).astype(np.int32)
+    ppr = [ppr_reference(g, int(v), ITERS) for v in src[:SERVE_PPR]]
+    return src, dist, ppr, time.perf_counter() - t0
+
+
+def serve_split(torch, np, g, sh, dev, sources, reps: int = 3) -> dict:
+    """Milliseconds of one batched SSSP iteration's steps at Q = SERVE_Q
+    on the main layout (serve/batched._batched_part: the (E, Q) gather,
+    the edge function, the segmented min of every lane, the apply), per
+    reduce method of SERVE_METHODS' resolution (the plain scan that
+    mxscan falls back to on (E, Q) values, and scatter), from the
+    initial state of ``sources``; CUDA events, ``reps`` launches each
+    after warm-up.  The methods' minima must be bitwise equal."""
+    from lux_tpu_torch.graph.shards import to_device
+    from lux_tpu_torch.ops import segment
+    from lux_tpu_torch.serve import batched
+
+    prog = batched.make_program("sssp", g.nv)
+    arr = to_device(sh.arrays, dev).part(0)
+    q = torch.from_numpy(np.asarray(sources, np.int32)).to(dev)
+    loc = prog.init_part(arr.global_vid, arr.degree, arr.vtx_mask, q)
+    src = loc.index_select(0, arr.src_pos)
+    vals = prog.edge_value(src, arr.weights)
+    out, accs = {}, {}
+    for method in ("scan", "scatter"):
+        def reduce(m=method):
+            return segment.segment_min_csc(vals, arr.row_ptr, arr.head_flag, arr.dst_local,
+                                           method=m)
+        accs[method] = reduce()
+        out[method] = {
+            "gather": time_ms(torch, lambda: loc.index_select(0, arr.src_pos), reps, 1),
+            "edge": time_ms(torch, lambda: prog.edge_value(src, arr.weights), reps, 1),
+            "reduce": time_ms(torch, reduce, reps, 1),
+            "apply": time_ms(torch, lambda: prog.apply(loc, accs["scan"], arr, q), reps, 1)}
+    require(torch.equal(accs["scan"], accs["scatter"]),
+            "serve_split: the scan's and scatter's lane minima differ")
+    return out
+
+
+def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
+    """Phase 17: the batched query service on the main graph, through the
+    apps' library entry with the graph built above: `apps.sssp --serve
+    --serve-queries SERVE_Q --serve-buckets SERVE_BUCKETS -check` and
+    `apps.pagerank --serve -ni ITERS --serve-queries SERVE_Q -check`, each
+    summary (QPS, latency percentiles, batch occupancy, warm hit ratio)
+    with the estimate and the peak memory; every SSSP answer 0 at its
+    source with no triangle-inequality violation (the driver's -check),
+    the first SERVE_BFS bitwise scipy's BFS and the first SERVE_PPR within
+    rtol 1e-4 of the float64 oracle (the pool).  Then
+    serve/benchmarks.measure_serving with bench.py's serving-row
+    arguments under each of SERVE_METHODS, and one batched iteration's
+    steps timed (serve_split).  Every launch counter is set to 0 at the
+    phase's start and read at its end: returns them."""
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.serve.benchmarks import measure_serving
+
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    base = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
+            "--device", "cuda", "--serve", "--serve-queries", str(SERVE_Q), "-check"]
+    runs = {}
+    for app, mod, extra in (("sssp", sssp_app, ["--serve-buckets", SERVE_BUCKETS]),
+                            ("ppr", pr_app, ["-ni", str(ITERS)])):
+        t1 = time.perf_counter()
+        res = mod.run(base + extra, graph=g)
+        runs[app] = res
+        s = res.summary
+        emit({"phase": "serve_main", "app": app, "argv": extra, "rc": res.rc,
+              "method": res.method, "qps": s["qps"], "latency_ms": s["latency_ms"],
+              "queue_wait_ms": s["queue_wait_ms"], "batches": s["batches"],
+              "batch_occupancy": s["batch_occupancy"],
+              "warm_hit_ratio": s["engine_cache"]["warm_hit_ratio"],
+              "warm_seconds": s["engine_cache"]["warm_seconds"],
+              "completed": s["completed"], "traversed_edges": s["traversed_edges"],
+              "gteps_aggregate": s["gteps_aggregate"], "estimate_bytes": res.estimate_bytes,
+              "peak_bytes": res.peak_bytes, "wall_seconds": time.perf_counter() - t1,
+              "device": smi})
+        require(res.rc == 0, f"serve_main {app}: -check failed")
+        require(s["completed"] == SERVE_Q and s["timeouts"] == 0,
+                f"serve_main {app}: {s['completed']} of {SERVE_Q} answered")
+        require(all(a is not None and a.shape == (g.nv,) for a in res.answers),
+                f"serve_main {app}: an answer is missing or misshaped")
+    ss, pp = runs["sssp"], runs["ppr"]
+    for i, (v, a) in enumerate(zip(ss.sources, ss.answers)):
+        require(a[int(v)] == 0, f"serve_main sssp: answer {i} is not 0 at its source {v}")
+    require(all(np.isfinite(a).all() for a in pp.answers), "serve_main ppr: ranks not finite")
+    o_src, o_dist, o_ppr, oracle_s = serve_oracle.get(timeout=900)
+    require(np.array_equal(o_src, ss.sources) and np.array_equal(o_src, pp.sources),
+            "serve_main: the oracle's query vertices differ from the driver's")
+    for i in range(SERVE_BFS):
+        require(np.array_equal(ss.answers[i], o_dist[i]),
+                f"serve_main sssp: answer {i} (source {o_src[i]}) differs from scipy's BFS")
+    ppr_err = []
+    for i in range(SERVE_PPR):
+        got, want = pp.answers[i].astype(np.float64), o_ppr[i].astype(np.float64)
+        diff = np.abs(got - want)
+        bad = int((diff > RANK_RTOL * np.abs(want) + F32_TINY).sum())
+        ppr_err.append(float((diff / np.maximum(np.abs(want), F32_TINY)).max()))
+        require(bad == 0, f"serve_main ppr: answer {i} (seed {o_src[i]}) off the float64 "
+                          f"oracle at {bad} vertices (rtol {RANK_RTOL})")
+    emit({"phase": "serve_main", "oracle": "scipy.sparse.csgraph BFS, float64 PPR",
+          "bfs_checked": SERVE_BFS, "ppr_checked": SERVE_PPR, "ppr_max_rel_err": ppr_err,
+          "sssp_max_dist": int(max(int(a[a < g.nv].max()) for a in ss.answers)),
+          "oracle_seconds": oracle_s})
+    del runs, ss, pp
+    torch.cuda.empty_cache()
+    for method in SERVE_METHODS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        res = measure_serving(g, sh, app="sssp", q=SERVE_Q, num_seq=4, batched_reps=1,
+                              method=method, device=dev)
+        emit({"phase": "serve_main", "measure_serving": method,
+              "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
+              "wall_seconds": time.perf_counter() - t1, "device": smi, **res})
+        require(res["scheduler"]["completed"] == SERVE_Q and res["scheduler"]["timeouts"] == 0,
+                f"serve_main measure_serving {method}: the burst was not fully answered")
+        require(res["qps_batched"] > 0 and res["qps_q1_sequential"] > 0,
+                f"serve_main measure_serving {method}: no throughput")
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_main", "q": SERVE_Q, "split_ms": serve_split(
+        torch, np, g, sh, dev, o_src), "device": smi})
+    torch.cuda.empty_cache()
+    counts = {name: k.launches for name, k in kernels.items()}
+    emit({"phase": "serve_main", "launches": counts, "seconds": time.perf_counter() - t0})
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1743,6 +1912,7 @@ def main() -> int:
     spec_oracle_b = _POOL.apply_async(spec_oracles_kcore_triangles, (SCALE, TRI_SCALE))
     long_w = _POOL.apply_async(long_weighted_graph, (_TMP, SCALE))
     long_s = _POOL.apply_async(long_stream_graph, (_TMP, STREAM_SCALE))
+    serve_oracle = _POOL.apply_async(serve_oracles, (SCALE,))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2061,7 +2231,6 @@ def main() -> int:
     # 11-12. the spec workloads, their kernel callers, the sum race
     spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
                                 spec_oracle_a, spec_oracle_b)
-    del sh
     torch.cuda.empty_cache()
 
     # 13-16. the long and out-of-core runs
@@ -2078,7 +2247,12 @@ def main() -> int:
     long_launches["ckpt"] = ckpt_main(np, kernels, smi, _TMP, g, gw, start, pr_ranks,
                                       delta_runs[f"delta-{DELTA_WIDTHS[0]}"], cc_whole)
     long_rows = [delta_row] + stream_rows
-    del g, gw, delta_runs, cc_whole, pr_ranks
+    del gw, delta_runs, cc_whole, pr_ranks
+    torch.cuda.empty_cache()
+
+    # 17. the batched query service
+    serve_launches = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
+    del g, sh
     torch.cuda.empty_cache()
 
     table = []
@@ -2125,6 +2299,7 @@ def main() -> int:
         row["launches_long"] = {
             kind: long_launches[phase][run][row["name"]]
             for kind, (phase, run) in LONG_KERNEL_RUN.get(row["name"], {}).items()}
+        row["launches_serve"] = serve_launches[row["name"]]
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)

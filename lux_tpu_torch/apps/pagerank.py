@@ -9,7 +9,10 @@ kernel path (one part); the other methods run the pull engine
 ``--ckpt-dir``/``--ckpt-every`` save the global state every N iterations
 and resume from the latest checkpoint; ``--stream-hbm-gib`` keeps the
 edge arrays in pinned host memory and streams them through that device
-budget (engine/stream.py).  Runs on the card unless ``--device cpu``.
+budget (engine/stream.py); ``--serve`` answers a burst of
+personalized-PageRank queries through the batched query service instead
+(serve/driver.py; ``-ni`` is each query's iteration count).  Runs on the
+card unless ``--device cpu``.
 The elapsed time covers the iterations only: graph load, layout build,
 the routed plan's construction, the host-to-device copy and an untimed
 warm-up run of the same iterations on a copy of the state come before
@@ -53,13 +56,19 @@ def prepare(cfg, g, dev, route=None):
                           make_pallas_runner, route)
 
 
-def run(argv=None, route=None, graph: Optional[HostGraph] = None) -> RunResult:
+def run(argv=None, route=None, graph: Optional[HostGraph] = None):
     """The app's body: parse, load, iterate, report, check.  ``route``:
     an already built routed plan for the same graph, as ``prepare``
     takes it; ``graph``: the graph the flags name, already loaded
-    (library callers reuse one graph and one plan across runs)."""
-    cfg = parse_args(argv, description=__doc__, pull=True, stream=True)
+    (library callers reuse one graph and one plan across runs).  Returns
+    a RunResult, or under ``--serve`` the service's
+    serve.driver.ServeRunResult."""
+    cfg = parse_args(argv, description=__doc__, pull=True, stream=True, serve=True)
     dev = resolve_device(cfg.device)
+    if cfg.serve:
+        from lux_tpu_torch.serve import driver
+
+        return driver.run_serve_cli(cfg, graph, "ppr", route)
     common.resolve_route_auto(cfg)
     g = graph if graph is not None else common.load_graph(cfg)
     prog = PageRankProgram(nv=g.nv, dtype=cfg.dtype)

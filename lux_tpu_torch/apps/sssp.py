@@ -10,8 +10,9 @@ delta-stepping with bucket width N (engine/delta.py).
 ``--ckpt-dir``/``--ckpt-every`` run in windows with an elastic frontier
 (or delta) checkpoint between them and resume from the latest;
 ``--repartition-every`` rebalances the parts' vertex cuts from their
-measured load (engine/repartition.py).  Runs on the card unless
-``--device cpu``.
+measured load (engine/repartition.py); ``--serve`` answers a burst of
+queries through the batched query service instead (serve/driver.py).
+Runs on the card unless ``--device cpu``.
 
 The elapsed time is one run to convergence from the initial (or resumed)
 carry; an untimed run from the same carry comes first (first launches,
@@ -353,13 +354,18 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
                          est.total_bytes, recuts, shards)
 
 
-def run(argv=None, route=None, graph: Optional[HostGraph] = None) -> PushRunResult:
+def run(argv=None, route=None, graph: Optional[HostGraph] = None):
     """The app's body: parse, load, converge, report, check.  ``route``:
     an already built expand plan of the same graph's pull layout;
     ``graph``: the graph the flags name, already loaded (library callers
-    reuse one graph and one plan across runs)."""
-    cfg = parse_args(argv, description=__doc__, push=True, sssp=True)
+    reuse one graph and one plan across runs).  Returns a PushRunResult,
+    or under ``--serve`` the service's serve.driver.ServeRunResult."""
+    cfg = parse_args(argv, description=__doc__, push=True, sssp=True, serve=True)
     resolve_device(cfg.device)
+    if cfg.serve:
+        from lux_tpu_torch.serve import driver
+
+        return driver.run_serve_cli(cfg, graph, "sssp", route)
     g = graph if graph is not None else common.load_graph(cfg, weighted=cfg.weighted)
     if cfg.weighted and not np.issubdtype(g.weights.dtype, np.integer):
         raise SystemExit("weighted SSSP uses integer edge costs; got dtype "

@@ -155,6 +155,23 @@ def pagerank_reference(g: HostGraph, num_iters: int) -> np.ndarray:
     return state.astype(np.float32)
 
 
+def ppr_reference(g: HostGraph, seed: int, num_iters: int) -> np.ndarray:
+    """NumPy float64 oracle of the personalized recurrence: the teleport
+    mass is a one-hot at ``seed``.  The per-destination sums are one
+    ``np.bincount`` an iteration (float64; the reference adds with
+    ``np.add.at``, same sums in another order)."""
+    deg = g.out_degrees().astype(np.float64)
+    mass = np.zeros(g.nv, np.float64)
+    mass[seed] = 1.0
+    state = np.where(deg > 0, mass / np.maximum(deg, 1.0), mass)
+    dst = g.dst_of_edges()
+    for _ in range(num_iters):
+        acc = np.bincount(dst, weights=state[g.col_idx], minlength=g.nv)
+        pr = (1.0 - ALPHA) * mass + ALPHA * acc
+        state = np.where(deg > 0, pr / np.maximum(deg, 1.0), pr)
+    return state.astype(np.float32)
+
+
 def check_ranks(g: HostGraph, stored: np.ndarray, num_iters: int | None = None,
                 dtype: str = "float32") -> int:
     """Fixed-point validation for `-check`: re-applies one exact host

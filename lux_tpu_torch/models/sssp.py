@@ -140,6 +140,28 @@ def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
                     repartition_every, repartition_threshold)
 
 
+def sssp_batched(g: HostGraph | PushShards, sources, num_parts: int = 1,
+                 method: str = "auto", max_iters: int = 10_000,
+                 device="cuda") -> np.ndarray:
+    """Answer ``len(sources)`` BFS-SSSP queries in ONE batched engine run
+    (serve/batched: the serving hot path as a library call); returns
+    (Q, nv) int32 distances, nv == INF.  Each row is bitwise
+    ``sssp(g, start=sources[q])``."""
+    from lux_tpu_torch.graph.shards import PullShards, build_pull_shards
+    from lux_tpu_torch.serve.batched import BatchedEngine
+
+    if isinstance(g, PushShards):
+        shards = g.pull
+    elif isinstance(g, PullShards):
+        shards = g
+    else:
+        shards = build_pull_shards(g, num_parts)
+    sources = np.asarray(sources, np.int32)
+    eng = BatchedEngine(shards, "sssp", len(sources), method=method,
+                        max_iters=max_iters, device=device)
+    return eng.run(sources).state
+
+
 def inf_value(nv: int, weighted: bool = False) -> int:
     """The unreached-distance sentinel sssp() returns."""
     return WeightedSSSPProgram(nv=nv).inf if weighted else SSSPProgram(nv=nv).inf

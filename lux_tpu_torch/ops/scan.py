@@ -37,16 +37,24 @@ def segmented_scan(vals: torch.Tensor, head_flag: torch.Tensor,
     """Inclusive segmented scan along axis 0: accumulation restarts at
     every ``head_flag`` slot.  ``head_flag`` broadcasts against ``vals``
     ((E,) flags for (E, K) values).  The combine of an earlier a and a
-    later b is ``b`` where b starts a segment, else ``op(a, b)``."""
-    flag = head_flag.reshape(head_flag.shape + (1,) * (vals.dim() - 1))
-    v = vals
-    f = flag.expand_as(vals)
+    later b is ``b`` where b starts a segment, else ``op(a, b)``.  The
+    ladder runs in place on one copy of ``vals``: a level holds that copy
+    and one temporary of its combined tail, and the flags keep their (E,)
+    shape, so a wide (E, K) scan never holds a fresh set of values and
+    flags a level."""
     n = vals.shape[0]
+    if n <= 1:
+        return vals
+    f = head_flag.reshape(head_flag.shape + (1,) * (vals.dim() - 1))
+    v = vals.clone()
     d = 1
     while d < n:
-        later_v, later_f = v[d:], f[d:]
-        v = torch.cat([v[:d], torch.where(later_f, later_v, op(v[:-d], later_v))])
-        f = torch.cat([f[:d], later_f | f[:-d]])
+        tail, f_tail = v[d:], f[d:]
+        t = op(v[:-d], tail)
+        torch.where(f_tail, tail, t, out=t)  # every read of the old tail is done
+        tail.copy_(t)
+        del t
+        f = torch.cat([f[:d], f_tail | f[:-d]])
         d *= 2
     return v
 

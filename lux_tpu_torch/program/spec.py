@@ -1,8 +1,8 @@
 """VertexProgramSpec — the declarative vertex program — and its compiled
 pull form.
 
-Counterpart of ``lux_tpu.program.spec`` (the pull and push contracts; the
-serve tier's Q-axis lift is not ported).  A spec is
+Counterpart of ``lux_tpu.program.spec``: the pull and push contracts and
+the serve tier's Q-axis lift (:class:`BatchedSpecBacked`).  A spec is
 the whole app contract as data: per-vertex state initialization, the
 per-edge message, a combiner from the :mod:`lux_tpu_torch.ops.segment`
 monoid set, the apply/update rule and the convergence rule.  Every field
@@ -152,3 +152,63 @@ class SpecProgram(SpecBacked):
 def bind(spec: VertexProgramSpec, width: int = 0, **params) -> SpecProgram:
     """Sugar: ``bind(library.PAGERANK, nv=..., alpha=0.15, dtype="float32")``."""
     return SpecProgram(spec, tuple(sorted(params.items())), width)
+
+
+class BatchedSpecBacked:
+    """The serve Q-axis lift of a spec (serve/batched.QueryProgram
+    contract): state carries a TRAILING query axis, the spec's declared
+    ``query_param`` binds to the (Q,) query vector as a leading (1, Q)
+    row, and every per-vertex name binds as a trailing (V, 1) lane, so
+    the SAME init/edge/apply text lowers to the (V, Q) batched step,
+    column for column the single-query program's operations."""
+
+    def _env(self) -> dict:
+        return {}
+
+    @property
+    def reduce(self) -> str:
+        return self.spec.reduce
+
+    @property
+    def fixpoint(self) -> bool:
+        return self.spec.convergence == "quiescent"
+
+    def _qenv(self, global_vid, degree, vtx_mask, queries) -> dict:
+        qp = self.spec.query_param
+        if not qp:
+            raise ValueError(
+                f"spec {self.spec.name!r} declares no query_param; it "
+                "has no Q-axis serve lowering")
+        return {**self._env(), "vid": global_vid[:, None],
+                "degree": degree[:, None], "vtx_mask": vtx_mask[:, None],
+                qp: queries[None, :]}
+
+    def init_part(self, global_vid, degree, vtx_mask, queries):
+        return expr.run(self.spec.init,
+                        self._qenv(global_vid, degree, vtx_mask, queries))
+
+    def edge_value(self, src_state, weights):
+        return expr.run(self.spec.edge,
+                        {**self._env(), "src": src_state,
+                         "weight": weights[:, None], "dst": None})
+
+    def apply(self, old_local, acc, arr, queries):
+        env = self._qenv(arr.global_vid, arr.degree, arr.vtx_mask, queries)
+        env.update(old=old_local, acc=acc)
+        return expr.run(self.spec.apply, env)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedSpecProgram(BatchedSpecBacked):
+    """Generic Q-lifted program (the serve registry's named classes are
+    spec-backed dataclasses over the same machinery)."""
+
+    spec: VertexProgramSpec
+    args: Tuple[Tuple[str, Any], ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "args", tuple(sorted(self.args)))
+        hash(self.args)
+
+    def _env(self) -> dict:
+        return dict(self.args)

@@ -10,8 +10,9 @@ flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
 ``--weighted`` and ``--delta``; the apps with a streamed driver
 (``stream=True``) ``--stream-hbm-gib``; and the generic program driver
 (``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
-knobs and ``--max-iters``, as the reference's flag sets do.  The
-reference flags of the multi-GPU, serving and layout features
+knobs and ``--max-iters``; SSSP and PageRank (``serve=True``) the
+``--serve`` group of the batched query service, as the reference's flag
+sets do.  The reference flags of the multi-GPU and layout features
 (``NOT_PORTED``) are rejected with a message that they are not ported
 yet, never silently ignored.
 """
@@ -49,9 +50,7 @@ def env_int(name: str, default: Optional[int] = None, *,
 NOT_PORTED = (
     "-start", "-verbose", "-v", "--max-iters", "--distributed",
     "--profile-dir", "--exchange", "--edge-shards", "--feat-shards",
-    "--sort-segments", "--compact-gather", "--weighted", "--serve",
-    "--serve-queries", "--serve-sources", "--serve-buckets",
-    "--serve-wait-ms", "--serve-timeout-ms", "--serve-max-queue",
+    "--sort-segments", "--compact-gather", "--weighted",
 )
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
@@ -94,6 +93,16 @@ class RunConfig:
     repartition_every: int = 0
     #: recut when the window's max/mean per-part load exceeds this
     repartition_threshold: float = 1.25
+    #: --serve: run the app as a batched query service (serve/): warm
+    #: Q-bucket engines + the micro-batching scheduler instead of one
+    #: whole-graph run
+    serve: bool = False
+    serve_queries: int = 64  # random query count when no explicit list
+    serve_sources: str = ""  # comma-separated query vertices (overrides)
+    serve_buckets: str = "1,8,64"  # warm Q buckets, warmed at start
+    serve_wait_ms: float = 5.0  # micro-batch coalescing window
+    serve_timeout_ms: float = 0.0  # per-request deadline (0 = none)
+    serve_max_queue: int = 256  # admission bound (backpressure past it)
     # --- generic program driver (python -m lux_tpu_torch.apps.run) --------
     sources: str = "0"  # bfs: comma-separated seed vertices
     labels: int = 8  # labelprop: number of classes
@@ -105,13 +114,14 @@ class RunConfig:
 
 def parse_args(argv=None, description: str = "", push: bool = False,
                sssp: bool = False, program: bool = False, prog: str = "",
-               pull: bool = False, stream: bool = False) -> RunConfig:
+               pull: bool = False, stream: bool = False,
+               serve: bool = False) -> RunConfig:
     """The apps' flags; ``pull`` adds the pull apps' flag set, ``push``
     the frontier apps', ``sssp`` SSSP's own, ``stream`` the streamed
-    driver's budget, and ``program`` the generic program driver's
-    workload knobs (``prog`` names the workload in the usage line), as
-    the reference's ``pull=``/``push=``/``sssp=``/``stream=``/
-    ``program=`` do."""
+    driver's budget, ``serve`` the query service's, and ``program`` the
+    generic program driver's workload knobs (``prog`` names the workload
+    in the usage line), as the reference's ``pull=``/``push=``/
+    ``sssp=``/``stream=``/``serve=``/``program=`` do."""
     ap = argparse.ArgumentParser(
         description=description,
         prog=f"python -m lux_tpu_torch.apps.run {prog}" if prog else None)
@@ -182,6 +192,26 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                              "buffered chunks through this device-byte "
                              "budget every iteration (graphs whose edges "
                              "exceed the card's memory)")
+    if serve:
+        sg = ap.add_argument_group(
+            "serving (lux_tpu_torch.serve: batched multi-source query service)")
+        sg.add_argument("--serve", action="store_true",
+                        help="serve a burst of queries through warm batched "
+                             "engines + the micro-batching scheduler instead "
+                             "of one whole-graph run")
+        sg.add_argument("--serve-queries", type=int, default=64,
+                        help="number of random query vertices to serve")
+        sg.add_argument("--serve-sources", default="",
+                        help="comma-separated query vertices (overrides "
+                             "--serve-queries)")
+        sg.add_argument("--serve-buckets", default="1,8,64",
+                        help="Q buckets warmed at service start")
+        sg.add_argument("--serve-wait-ms", type=float, default=5.0,
+                        help="micro-batch coalescing window")
+        sg.add_argument("--serve-timeout-ms", type=float, default=0.0,
+                        help="per-request deadline (0 = none)")
+        sg.add_argument("--serve-max-queue", type=int, default=256,
+                        help="admission-queue bound (rejects past it)")
     if program:
         pg = ap.add_argument_group(
             "program (generic spec-workload driver, lux_tpu_torch.apps.run)")
@@ -245,6 +275,13 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         stream_hbm_gib=getattr(ns, "stream_hbm_gib", 0.0),
         repartition_every=getattr(ns, "repartition_every", 0),
         repartition_threshold=getattr(ns, "repartition_threshold", 1.25),
+        serve=getattr(ns, "serve", False),
+        serve_queries=getattr(ns, "serve_queries", 64),
+        serve_sources=getattr(ns, "serve_sources", ""),
+        serve_buckets=getattr(ns, "serve_buckets", "1,8,64"),
+        serve_wait_ms=getattr(ns, "serve_wait_ms", 5.0),
+        serve_timeout_ms=getattr(ns, "serve_timeout_ms", 0.0),
+        serve_max_queue=getattr(ns, "serve_max_queue", 256),
         sources=getattr(ns, "sources", "0"),
         labels=getattr(ns, "labels", 8),
         seed_stride=getattr(ns, "seed_stride", 16),

@@ -1,8 +1,9 @@
-"""Wall-clock timer with a device fence, per-iteration stats, and the
-end-of-run summary."""
+"""Wall-clock timer with a device fence, per-iteration stats, the serving
+path's latency percentiles, and the end-of-run summary."""
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 from typing import List, Optional
 
@@ -69,6 +70,49 @@ class IterStats:
     def seconds(self) -> float:
         """The recorded iterations' seconds, summed."""
         return sum(s.seconds for s in self.stats)
+
+
+def percentiles(values, ps=(50, 95, 99)) -> dict:
+    """{"p50": ..., ...} over ``values``: nearest rank on the sorted
+    sample (p99 of 100 samples is the 99th largest, never an
+    interpolated value that no request actually experienced).  Empty
+    input yields an empty dict."""
+    vals = sorted(float(v) for v in values)
+    if not vals:
+        return {}
+    out = {}
+    for p in ps:
+        rank = max(int((p / 100.0) * len(vals) + 0.999999) - 1, 0)
+        out[f"p{p}"] = vals[min(rank, len(vals) - 1)]
+    return out
+
+
+class LatencyHistogram:
+    """Per-request latency recorder of the serving path: record seconds,
+    summarize as millisecond percentiles.  Bounded: past ``max_samples``
+    it reservoir-samples (uniform over the whole stream, fixed seed), so
+    a long-lived service keeps O(max_samples) memory."""
+
+    def __init__(self, max_samples: int = 65_536):
+        self.samples: List[float] = []
+        self.count = 0
+        self.max_samples = max_samples
+        self._rng = random.Random(0x1c3)
+
+    def record(self, seconds: float):
+        self.count += 1
+        if len(self.samples) < self.max_samples:
+            self.samples.append(float(seconds))
+        else:
+            j = self._rng.randrange(self.count)
+            if j < self.max_samples:
+                self.samples[j] = float(seconds)
+
+    def __len__(self) -> int:
+        return self.count
+
+    def summary_ms(self, ps=(50, 95, 99)) -> dict:
+        return {k: round(v * 1e3, 3) for k, v in percentiles(self.samples, ps).items()}
 
 
 def report_elapsed(seconds: float, ne: int, iters: int,

@@ -38,6 +38,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "models.sssp", "models.components", "apps.sssp", "apps.components",
                  "program.workloads", "utils.preflight", "apps.run",
                  "utils.checkpoint", "engine.delta", "engine.repartition",
-                 "engine.stream", "utils.timing"):
+                 "engine.stream", "utils.timing", "serve", "serve.batched", "serve.warm",
+                 "serve.scheduler", "serve.metrics", "serve.benchmarks", "serve.driver",
+                 "utils.roofline"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 50

@@ -4,7 +4,8 @@ kernels, then drive single-GPU PageRank (direct and routed), collaborative
 filtering, SSSP, connected components, the spec workloads (bfs, kcore,
 labelprop, triangles), the long and out-of-core runs (delta-stepping,
 adaptive repartitioning, host-offload streaming, checkpoint/resume) and
-the batched query service (--serve) through the apps.
+the batched query service (--serve) through the apps, and dynamic graphs
+(lux_tpu_torch.mutate: churn, warm refresh, compaction, the plan cache).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -163,6 +164,37 @@ Phases, each printing one JSON line with its seconds:
               gather, edge, reduce and apply timed under the plain scan and
               scatter.  No kernel lies on this path: auto's mxscan falls
               back to the plain scan on (E, Q) values.
+  18. mutate_main dynamic graphs (the reference's refresh row,
+              bench.py:1130-1330) on the main graph at 8 parts stacked on
+              the card: priors (PageRank's exact fixpoint, SSSP from the
+              largest out-degree, components), a one-edge warm-up batch
+              refreshed, the 1 % churn (k = ne / 200 deletes, then k
+              inserts, default_rng(0)) applied as two batches; the three
+              warm refreshes timed best of two (two runs bitwise equal);
+              batched SSSP serving (Q = 64, scatter) through a
+              WarmEngineCache holding the overlay and the scheduler;
+              compaction (snapshot + plan-cache invalidation report);
+              the cold legs (read_lux, the shard builds with the same
+              cuts, the expand-pf plan through the cached planner built
+              on an empty cache and loaded again, the cold runs).  Warm
+              SSSP and components bitwise the cold ones, scipy's BFS and
+              the max-label fixpoint of the merged graph (the pool builds
+              it by position, independently of the delta-log); PageRank
+              warm and cold within rtol 1e-4 of the float64 fixpoint, their
+              ulp distance printed; the served answers bitwise the
+              compacted graph's engine, the first 8 scipy's BFS.  Then a
+              churn confined to one part (invalidated fraction 1/8, the
+              warm cache rebuilds that part alone) and the routed refresh
+              on the one-part layout with phase 4's expand-pf, fused-pf
+              and fused-mx plans (expand-pf bitwise the direct refresh,
+              the fused ones within 1e-6; three max-label overlay
+              iterations under each bitwise the cold merged-graph step;
+              each kernel's launches in one iteration equal with the
+              overlay and without).  Last, the four kernels of the path on
+              the overlay's inputs against their plain versions: the scan
+              on tombstone-masked values, the mx kernel with tombstoned
+              ranks in the middle of tiles (timed), and every tombstoned
+              routed replay bitwise its run on the plain versions.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -172,7 +204,8 @@ PageRank main path, and beside them on the push paths: one SSSP and one
 components run of the mode that runs that kernel, on the spec paths
 one bfs, one kcore and one triangles run, and on the long runs one delta,
 one adaptive SSSP, one streamed PageRank and one resumed PageRank run,
-and on the serving path the whole of phase 17), the smoke's seconds, the
+on the serving path the whole of phase 17, and on the dynamic-graph path
+phase 18 up to the kernels' comparisons), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -1876,6 +1909,567 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     return counts
 
 
+MUTATE_PARTS = 8  # the reference's refresh row runs 8 parts (bench.py:1155)
+MUTATE_CONFINED = 256  # the confined churn: deletes (and as many inserts) in one part
+MUTATE_PART = 3  # ... that part's destination range
+MUTATE_ATOL = 1e-6  # fused-pf / fused-mx refresh against the direct one (test_mutate.py)
+
+
+def edge_sha(np, g) -> str:
+    """A fingerprint of a graph's edge multiset, whatever the order of
+    equal edges within a destination."""
+    import hashlib
+
+    key = g.dst_of_edges().astype(np.int64) * g.nv + np.asarray(g.col_idx, np.int64)
+    return hashlib.sha1(np.sort(key).tobytes()).hexdigest()
+
+
+def mutate_churn(np, g, cur):
+    """The 1 % churn of the reference's refresh row (bench.py:1162,
+    1180-1190) against ``cur``, the graph after its one-edge warm-up
+    batch: k = ne // 200 distinct edges of ``cur`` deleted, then k inserts
+    with uniform endpoints, drawn with default_rng(0).  Returns the two
+    deleted positions in ``cur``, the two batches' (src, dst) and k."""
+    k = g.ne // 200
+    rng = np.random.default_rng(0)
+    dele = rng.choice(cur.ne, size=k, replace=False)
+    deletes = (np.asarray(cur.col_idx)[dele], cur.dst_of_edges()[dele])
+    inserts = (rng.integers(0, g.nv, k), rng.integers(0, g.nv, k))
+    return dele, deletes, inserts, k
+
+
+def mutate_oracles(scale: int):
+    """The dynamic-graph phase's host oracles, built independently of the
+    delta-log: the main graph plus the warm-up edge (0, 1), the churn's
+    deletes removed BY POSITION and its inserts appended, through
+    from_edge_list.  Returns the merged graph's edge fingerprint, scipy's
+    BFS distances (INF == nv) from the largest out-degree and from the
+    first SERVE_BFS serving sources, the max-label fixpoint, the float64
+    PageRank fixpoint (60 iterations of an alpha = 0.15 contraction) and
+    seconds.  Runs in a spawned process while the card works."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.csc import from_edge_list
+    from lux_tpu_torch.models.components import fixpoint_labels
+    from lux_tpu_torch.models.pagerank import _host_iteration
+    from lux_tpu_torch.serve.benchmarks import pick_sources
+
+    g = generate.rmat(scale, EF, seed=0)
+    t0 = time.perf_counter()
+    cur = from_edge_list(np.append(np.asarray(g.col_idx, np.int64), 0),
+                         np.append(g.dst_of_edges().astype(np.int64), 1), g.nv)
+    dele, _, inserts, _ = mutate_churn(np, g, cur)
+    keep = np.ones(cur.ne, bool)
+    keep[dele] = False
+    merged = from_edge_list(
+        np.concatenate([np.asarray(cur.col_idx, np.int64)[keep], inserts[0]]),
+        np.concatenate([cur.dst_of_edges().astype(np.int64)[keep], inserts[1]]), g.nv)
+    start = int(np.argmax(np.bincount(g.col_idx, minlength=g.nv)))
+    sources = pick_sources(g, SERVE_Q, seed=0)[:SERVE_BFS]
+    adj = csr_matrix((np.ones(merged.ne), (merged.col_idx, merged.dst_of_edges())),
+                     shape=(g.nv, g.nv))
+    d = shortest_path(adj, directed=True, unweighted=True,
+                      indices=[start] + [int(v) for v in sources])
+    dist = np.where(np.isinf(d), g.nv, d).astype(np.int32)
+    labels = fixpoint_labels(merged)
+    deg = merged.out_degrees().astype(np.float64)
+    pr = np.where(deg > 0, (1.0 / g.nv) / np.maximum(deg, 1.0), 1.0 / g.nv)
+    for _ in range(60):
+        pr = _host_iteration(merged, pr, deg)
+    return {"sha": edge_sha(np, merged), "start": start, "sources": sources,
+            "dist": dist, "labels": labels, "pr": pr, "ne": merged.ne,
+            "seconds": time.perf_counter() - t0}
+
+
+def ulp_diff(np, a, b) -> int:
+    """The largest distance in units in the last place between two f32
+    arrays of non-negative values."""
+    ai = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    bi = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(ai - bi).max()) if ai.size else 0
+
+
+def rel_err(np, got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), F32_TINY)))
+
+
+def best_of2(torch, fn):
+    """(best wall seconds of two calls, both results): each call ends
+    with a synchronize."""
+    best, outs = float("inf"), []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        outs.append(out)
+    return best, outs
+
+
+def max_plan(plan):
+    """A sum plan of a fused family relabelled for the max reduce: the
+    routes, group layout and rank tiles do not depend on the reduce (the
+    planner reads it into the static only), so the max-label checks reuse
+    phase 4's plans instead of planning twice more."""
+    static, arrays = plan
+    if not hasattr(static, "reduce"):  # an expand plan reads no reduce
+        return plan
+    mx = static.mx if static.mx is None else dataclasses.replace(static.mx, op="max")
+    return dataclasses.replace(static, reduce="max", mx=mx), arrays
+
+
+def mutate_routed(torch, np, kernels, dev, g, sh, plans, batches):
+    """The routed refresh on the main one-part layout with phase 4's BASE
+    plans (expand-pf, fused-pf, fused-mx): the same churn in a one-part
+    MutableGraph; PageRank refreshed direct and under each plan (expand-pf
+    bitwise the direct one, the fused families within MUTATE_ATOL); three
+    overlay iterations of the max-label step under each plan bitwise equal
+    to each other and to the cold merged-graph step; and each kernel's
+    launches in one PageRank iteration with the overlay and without,
+    which must be equal.  Returns (record, the MutableGraph, its overlay)."""
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+    from lux_tpu_torch.models.components import MaxLabelProgram
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+    from lux_tpu_torch.mutate import MutableGraph, refresh
+
+    t0 = time.perf_counter()
+    mg = MutableGraph(g, num_parts=1, cap=max(1024, g.ne // 200 + 128))
+    require(np.array_equal(mg.pull_shards.arrays.src_pos, sh.arrays.src_pos),
+            "mutate: the one-part layout is not the one phase 4 planned")
+    _, arr = mg.device_pull(dev)
+    pr0, _ = refresh.converge_pagerank(mg.pull_shards, device=dev, arrays=arr)
+    for b in batches:
+        mg.apply(*b)
+    ov = mg.pull_overlay()
+    rec = {"scale": SCALE, "parts": 1, "prior_seconds": time.perf_counter() - t0}
+    direct, it = refresh.refresh_pagerank(mg, pr0, device=dev)
+    rec["iters"] = {"direct": it}
+    for fam in ("expand-pf", "fused-pf", "fused-mx"):
+        got, it = refresh.refresh_pagerank(mg, pr0, route=plans[fam], device=dev)
+        rec["iters"][fam] = it
+        diff = float((got - direct).abs().max())
+        rec[f"{fam}_max_abs_diff"] = diff
+        if fam == "expand-pf":
+            require(torch.equal(got, direct),
+                    "mutate: PageRank refresh under expand-pf differs from the direct one")
+        else:
+            require(diff <= MUTATE_ATOL, f"mutate: PageRank refresh under {fam} off the "
+                                         f"direct one by {diff} (atol {MUTATE_ATOL})")
+    merged = mg.log.merged_graph()
+    sh_m = build_pull_shards(merged, 1, cuts=np.asarray(mg.pull_shards.cuts))
+    arr_m = to_device(sh_m.arrays, dev)
+    lab = MaxLabelProgram()
+    cold = pull.run_pull_fixed(lab, sh_m.spec, arr_m, pull.init_state(lab, arr_m), 3)
+    cold = sh_m.scatter_to_global(cold.cpu().numpy())
+    del arr_m, sh_m, merged
+    for fam in ("expand-pf", "fused-pf", "fused-mx"):
+        got = pull.run_pull_fixed(lab, mg.pull_shards.spec, arr, pull.init_state(lab, arr), 3,
+                                  route=max_plan(plans[fam]), overlay=ov)
+        require(np.array_equal(mg.pull_shards.scatter_to_global(got.cpu().numpy()), cold),
+                f"mutate: three max-label overlay iterations under {fam} differ from the "
+                "cold merged-graph step")
+    # the overlay launches no kernel of its own (the reference's LUX-J503)
+    prog = PageRankProgram(nv=g.nv)
+    s0 = pull.init_state(prog, arr)
+    launches = {}
+    for fam in ("direct", "expand-pf", "fused-pf", "fused-mx"):
+        route = None if fam == "direct" else plans[fam]
+        pair = []
+        for overlay in (None, ov):
+            before = {n: kn.launches for n, kn in kernels.items()}
+            pull.run_pull_fixed(prog, mg.pull_shards.spec, arr, s0, 1, route=route,
+                                overlay=overlay)
+            pair.append({n: kn.launches - before[n] for n, kn in kernels.items()})
+        require(pair[0] == pair[1], f"mutate: one {fam} iteration launches {pair[1]} with the "
+                                    f"overlay, {pair[0]} without")
+        launches[fam] = pair[1]
+    rec["launches_per_iteration"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, mg, ov
+
+
+def mutate_kernel_cases(torch, np, scan, shuffle, expand, dev, mg, ov, plans, reps):
+    """The four kernels of the refresh path on the overlay's inputs, at the
+    main one-part layout: mxscan_segmented on tombstone-masked values
+    (f32 sum against float64 segment sums, int32 max bitwise the plain
+    version); mxreduce_pass_gather with tombstoned ranks sent to v_blk in
+    the middle of tiles (f32 sum against float64, int32 max bitwise) and
+    timed; and every expand-pf, fused-pf and fused-mx replay with the
+    tombstones (fused_pass_gather, lane_gather, mxreduce) bitwise its run
+    with the kernels swapped for their plain versions on the same card
+    (int32 max-label values).  Returns {kernel: max_abs_err} and the mx
+    timing row."""
+    from lux_tpu_torch.mutate import overlay as ovl
+
+    sh = mg.pull_shards
+    rng = np.random.default_rng(18)
+    del_val = torch.from_numpy(ov[1].del_val[0]).to(dev)
+    full = torch.from_numpy(rng.random(sh.spec.gathered_size, dtype=np.float32) + 0.01).to(dev)
+    ifull = torch.from_numpy(rng.integers(0, 1 << 30, sh.spec.gathered_size)
+                             .astype(np.int32)).to(dev)
+    src_pos = torch.from_numpy(sh.arrays.src_pos[0]).to(dev)
+    row_ptr = torch.from_numpy(sh.arrays.row_ptr[0]).to(dev)
+    head = torch.from_numpy(sh.arrays.head_flag[0]).to(dev)
+    err = {}
+    # mxscan on masked values
+    vals = ovl.mask_deleted(full.index_select(0, src_pos), del_val, "sum")
+    got = scan.mxscan_segmented(vals, head, op="sum", valid_end=row_ptr[-1:])
+    nz = row_ptr[1:] > row_ptr[:-1]
+    ends = (row_ptr[1:].long() - 1).clamp(min=0)
+    cs = torch.zeros(vals.numel() + 1, dtype=torch.float64, device=dev)
+    torch.cumsum(vals.double(), 0, out=cs[1:])
+    want = cs[row_ptr[1:].long()] - cs[row_ptr[:-1].long()]
+    err["mxscan_segmented"] = compare(torch, got[ends][nz], want[nz], exact=False,
+                                      what="mutate: mxscan on tombstone-masked f32 values")
+    ivals = ovl.mask_deleted(ifull.index_select(0, src_pos), del_val, "max")
+    got = scan.mxscan_segmented(ivals, head, op="max", valid_end=row_ptr[-1:])
+    want = scan.mxscan_segmented_plain(ivals, head, op="max", valid_end=row_ptr[-1:])
+    m = int(row_ptr[-1])
+    compare(torch, got[:m], want[:m], exact=True, what="mutate: mxscan on masked int32 max")
+    # mxreduce with tombstoned ranks
+    static, arrays = expand.plan_to_device(plans["fused-mx"], dev)
+    part = tuple(a[0] for a in arrays)
+    *_, gslot, _, mxa = expand.split_fused_arrays(static, part, static.weighted)
+    mxg = static.mx
+    k = len(mxg.steps)
+    idx, dst_rel, tile_block = mxa[:k], mxa[k], mxa[k + 1]
+    g_del = torch.zeros(static.n2 + 1, dtype=torch.bool, device=dev)
+    g_del[gslot.long()] = del_val
+    rel = dst_rel.masked_fill(g_del[: static.n2].view(dst_rel.shape), mxg.v_blk)
+    total = sum(c for _, c, _ in static.groups)
+    xf = torch.from_numpy(rng.random(static.n2, dtype=np.float32) + 0.01).to(dev)
+    xi = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, static.n2, dtype=np.int64)
+                          .astype(np.int32)).to(dev)
+    mx_err = 0.0
+    for op, x in (("sum", xf), ("max", xi)):
+        g = dataclasses.replace(mxg, op=op)
+        y = shuffle._relayout(x, g.view, g.perm_axes).reshape(g.kshape)
+        got = shuffle.mxreduce_pass_gather(y, idx, rel, tile_block, g)
+        exact = op == "max"
+        want = (shuffle.mxreduce_pass_gather_plain(y, idx, rel, tile_block, g) if exact
+                else mx_sum_f64(torch, shuffle, y, idx, rel, tile_block, g))
+        torch.cuda.synchronize()
+        mx_err = max(mx_err, compare(torch, got[:total], want[:total], exact,
+                                     what=f"mutate: mx {op} with tombstoned ranks"))
+        if not exact:
+            mx_row = {"tombstoned_slots": int(g_del[: static.n2].sum()),
+                      "kernel_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather(
+                          y, idx, rel, tile_block, g), reps),
+                      "plain_ms": time_ms(torch, lambda: shuffle.mxreduce_pass_gather_plain(
+                          y, idx, rel, tile_block, g), max(2, reps // 4))}
+    err["mxreduce_pass_gather"] = mx_err
+    # the whole tombstoned replays, kernels against their plain versions
+    names = ("lane_gather", "fused_pass_gather", "mxreduce_pass_gather")
+    real = {n: getattr(shuffle, n) for n in names}
+
+    def replays():
+        out = {}
+        for fam in ("expand-pf", "fused-pf", "fused-mx"):
+            st, arrs = expand.plan_to_device(max_plan(plans[fam]), dev)
+            p0 = tuple(a[0] for a in arrs)
+            if fam == "expand-pf":
+                out[fam] = expand.apply_expand(ifull, st, p0)
+            else:
+                out[fam] = expand.apply_fused(ifull, st, p0, del_val=del_val)
+        torch.cuda.synchronize()
+        return out
+
+    with_kernels = replays()
+    try:
+        for n in names:
+            setattr(shuffle, n, getattr(shuffle, f"{n}_plain"))
+        plain = replays()
+    finally:
+        for n, fn in real.items():
+            setattr(shuffle, n, fn)
+    for fam, got in with_kernels.items():
+        require(torch.equal(got, plain[fam]),
+                f"mutate: the tombstoned {fam} replay differs with the plain kernels")
+    for n in ("lane_gather", "fused_pass_gather"):
+        err[n] = 0.0
+    return err, mx_row
+
+
+def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, reps):
+    """Phase 18: dynamic graphs on the main graph (the reference's
+    ``*_refresh_churn1pct_*`` row, bench.py:1130-1330), at MUTATE_PARTS
+    parts stacked on the card.  Priors (PageRank by converge_pagerank,
+    SSSP from the largest out-degree, components), a one-edge warm-up
+    batch refreshed, then the 1 % churn (mutate_churn) applied as two
+    batches; the three refreshes timed best of two, the two runs bitwise
+    equal; batched SSSP serving (Q = SERVE_Q, scatter) through a
+    WarmEngineCache holding the overlay, with the scheduler; compaction
+    (snapshot + invalidation report); the cold legs: read_lux of the
+    snapshot, the shard builds with the same cuts, the expand-pf plan
+    through the cached planner on an empty cache (built) and again
+    (loaded), the cold runs; the gates against the oracles of the pool
+    (mutate_oracles); the churn confined to one part (invalidated
+    fraction 1 / MUTATE_PARTS, its plan rebuild from the warm cache); the
+    routed refresh on the one-part layout with phase 4's plans
+    (mutate_routed).  Every launch counter is set to 0 at the start and
+    read after mutate_routed; then mutate_kernel_cases holds the four
+    kernels against their plain versions on the overlay's inputs.
+    ``routed`` = (graph, one-part shards, plans).  Returns (launches,
+    {kernel: max_abs_err}, record)."""
+    from lux_tpu_torch.engine import push
+    from lux_tpu_torch.graph.format import read_lux
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.models.components import MaxLabelProgram
+    from lux_tpu_torch.models.sssp import SSSPProgram
+    from lux_tpu_torch.mutate import OP_DELETE, OP_INSERT, MutableGraph, refresh
+    from lux_tpu_torch.ops import expand, scan, shuffle
+    from lux_tpu_torch.serve import batched
+    from lux_tpu_torch.serve.benchmarks import pick_sources
+    from lux_tpu_torch.serve.scheduler import MicroBatchScheduler
+    from lux_tpu_torch.serve.warm import WarmEngineCache
+
+    t_phase = time.perf_counter()
+    for kn in kernels.values():
+        kn.launches = 0
+    P = MUTATE_PARTS
+    snap = os.path.join(tmp, "mutate.lux")
+    cache_dir = os.path.join(tmp, "plans")
+    # the plan cache's default directory too (the compaction's
+    # invalidation report derives its entry paths there)
+    os.environ["LUX_TORCH_PLAN_CACHE"] = cache_dir
+    mg = MutableGraph(g, num_parts=P, snapshot=snap, cap=max(1024, g.ne // 200 + 128))
+    t0 = time.perf_counter()
+    pshards = mg.push_shards
+    mg.device_push(dev)
+    layout_s = time.perf_counter() - t0
+    start = int(np.argmax(np.bincount(g.col_idx, minlength=g.nv)))
+    t0 = time.perf_counter()
+    st, _, _ = push.run_push(SSSPProgram(nv=g.nv, start=start), pshards, device=dev)
+    dist = pshards.scatter_to_global(st.cpu().numpy())
+    st, _, _ = push.run_push(MaxLabelProgram(), pshards, device=dev)
+    labels = pshards.scatter_to_global(st.cpu().numpy())
+    pr, pr_it = refresh.converge_pagerank(mg.pull_shards, device=dev,
+                                          arrays=mg.device_pull(dev)[1])
+    priors_s = time.perf_counter() - t0
+    mg.apply([0], [1], [OP_INSERT])  # the warm-up batch (bench.py:1174)
+    t0 = time.perf_counter()
+    pr, _ = refresh.refresh_pagerank(mg, pr, device=dev)
+    dist, _ = refresh.refresh_sssp(mg, dist, start, device=dev)
+    labels, _ = refresh.refresh_components(mg, labels, device=dev)
+    warmup_s = time.perf_counter() - t0
+    _, deletes, inserts, k = mutate_churn(np, g, mg.log.merged_graph())
+    t0 = time.perf_counter()
+    mg.apply(*deletes, np.full(k, OP_DELETE, np.int8))
+    mg.apply(*inserts, np.full(k, OP_INSERT, np.int8))
+    apply_s = time.perf_counter() - t0
+    occ = mg.occupancy()
+    emit({"phase": "mutate_main", "scale": SCALE, "parts": P, "churn_edges": 2 * k,
+          "cap": mg.cap, "layout_seconds": layout_s, "priors_seconds": priors_s,
+          "prior_pagerank_iters": pr_it, "warmup_refresh_seconds": warmup_s,
+          "apply_s": apply_s, "delta_occupancy": occ})
+    # the warm refreshes, best of two; two runs from one prior bitwise equal
+    refresh_s, iters = {}, {}
+    refresh_s["pagerank"], (a, b) = best_of2(
+        torch, lambda: refresh.refresh_pagerank(mg, pr, device=dev))
+    require(torch.equal(a[0], b[0]) and a[1] == b[1],
+            "mutate: two PageRank refreshes from one prior differ")
+    pr_warm, iters["pagerank"] = mg.pull_shards.scatter_to_global(a[0].cpu().numpy()), a[1]
+    refresh_s["sssp"], (a, b) = best_of2(
+        torch, lambda: refresh.refresh_sssp(mg, dist, start, device=dev))
+    require(np.array_equal(a[0], b[0]), "mutate: two SSSP refreshes from one prior differ")
+    dist_warm, iters["sssp"] = a
+    refresh_s["components"], (a, b) = best_of2(
+        torch, lambda: refresh.refresh_components(mg, labels, device=dev))
+    require(np.array_equal(a[0], b[0]), "mutate: two CC refreshes from one prior differ")
+    labels_warm, iters["components"] = a
+    # the host's share: each refresh's analysis and overlay build alone
+    host_s = {}
+    for name, fn in (("sssp_dirty", lambda: refresh.sssp_dirty(mg, dist, start)),
+                     ("cc_dirty", lambda: refresh.cc_dirty(mg, labels)),
+                     ("pull_overlay", mg.pull_overlay),
+                     ("push_overlay", mg.push_overlay_parts)):
+        t0 = time.perf_counter()
+        fn()
+        host_s[name] = time.perf_counter() - t0
+    # one PageRank iteration at 8 parts, with the overlay (already on the
+    # card) and without: CUDA events over REPS iterations each
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+
+    prog = PageRankProgram(nv=g.nv)
+    _, arr = mg.device_pull(dev)
+    spec = mg.pull_shards.spec
+    ov_dev = pull.overlay_parts(mg.pull_overlay(), dev, spec)
+    s0 = pull.init_state(prog, arr)
+    iter_ms = {"overlay": time_ms(torch, lambda: pull.run_pull_fixed(
+                   prog, spec, arr, s0, 1, overlay=ov_dev), reps),
+               "base": time_ms(torch, lambda: pull.run_pull_fixed(prog, spec, arr, s0, 1), reps),
+               "fold_rounds": int(ov_dev[0].rounds.shape[0])}
+    del ov_dev, s0
+    # serving: the overlay installed in a warm cache, through the scheduler
+    t0 = time.perf_counter()
+    sources = pick_sources(g, SERVE_Q, seed=0)
+    ostatic, oarr = mg.pull_overlay()
+    cache = WarmEngineCache(mg.pull_shards, apps=("sssp",), q_buckets=(SERVE_Q,),
+                            method="scatter", overlay_static=ostatic, device=dev)
+    cache.prewarm()
+    cache.set_overlay(1, oarr)
+    sched = MicroBatchScheduler(cache, app="sssp", max_wait_ms=0.0).start()
+    try:
+        futs = [sched.submit(int(v)) for v in sources]
+        live = np.stack([f.result(timeout=600) for f in futs])
+        gens = {f.generation for f in futs}
+    finally:
+        sched.stop()
+    require(gens == {1}, f"mutate: served generations {gens}, not the installed 1")
+    serve_s = time.perf_counter() - t0
+    del cache, sched, futs
+    torch.cuda.empty_cache()
+    # compaction: the snapshot and the plan-cache invalidation
+    t0 = time.perf_counter()
+    rep = mg.compact(path=snap)
+    compact_s = time.perf_counter() - t0
+    inval = rep["invalidation"]
+    merged_sha = edge_sha(np, mg.base)
+    cold_eng = batched.BatchedEngine(mg.pull_shards, "sssp", SERVE_Q, method="scatter",
+                                     device=dev)
+    cold_serve = cold_eng.run(sources).state
+    require(np.array_equal(live, cold_serve),
+            "mutate: serving with the overlay differs from an engine on the compacted graph")
+    del cold_eng
+    torch.cuda.empty_cache()
+    # the cold legs
+    cuts = np.asarray(mg.pull_shards.cuts)
+    brk = {}
+    t0 = time.perf_counter()
+    gc = read_lux(snap)
+    brk["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shc = build_pull_shards(gc, P, cuts=cuts)
+    brk["build_pull"] = time.perf_counter() - t0
+    expand.reset_plan_stats()
+    t0 = time.perf_counter()
+    expand.plan_expand_shards_cached(shc, cache_dir, pf=True)
+    brk["plan_build"] = time.perf_counter() - t0
+    built = expand.plan_stats_snapshot()
+    t0 = time.perf_counter()
+    expand.plan_expand_shards_cached(shc, cache_dir, pf=True)
+    brk["plan_load"] = time.perf_counter() - t0
+    loaded = expand.plan_stats_snapshot()
+    require(built["built"] == 2 * P and loaded["built"] == built["built"]
+            and loaded["loaded"] == P,
+            f"mutate: the plan cache built {built} then {loaded}")
+    t0 = time.perf_counter()
+    out, _ = refresh.converge_pagerank(shc, device=dev)
+    pr_cold = shc.scatter_to_global(out.cpu().numpy())
+    brk["compute_pagerank"] = time.perf_counter() - t0
+    del shc, out
+    t0 = time.perf_counter()
+    shp = build_push_shards(gc, P, cuts=cuts)
+    brk["build_push"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st, _, _ = push.run_push(SSSPProgram(nv=g.nv, start=start), shp, device=dev)
+    dist_cold = shp.scatter_to_global(st.cpu().numpy())
+    brk["compute_sssp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st, _, _ = push.run_push(MaxLabelProgram(), shp, device=dev)
+    labels_cold = shp.scatter_to_global(st.cpu().numpy())
+    brk["compute_components"] = time.perf_counter() - t0
+    del shp, gc, st
+    torch.cuda.empty_cache()
+    cold = {}
+    for app, build, comp in (("pagerank", "build_pull", "compute_pagerank"),
+                             ("sssp", "build_push", "compute_sssp"),
+                             ("components", "build_push", "compute_components")):
+        base = brk["load"] + brk[build] + brk[comp]
+        cold[app] = {"plan_built": base + brk["plan_build"], "plan_loaded": base + brk["plan_load"]}
+    # the gates
+    o = mutate_oracle.get(timeout=900)
+    require(o["sha"] == merged_sha and o["start"] == start,
+            "mutate: the compacted graph is not the oracle's merged graph")
+    require(np.array_equal(o["sources"], sources[:SERVE_BFS]), "mutate: oracle sources differ")
+    require(np.array_equal(dist_warm, dist_cold) and np.array_equal(dist_warm, o["dist"][0]),
+            "mutate: warm SSSP differs from the cold rebuild or scipy's BFS")
+    require(np.array_equal(labels_warm, labels_cold) and np.array_equal(labels_warm, o["labels"]),
+            "mutate: warm components differ from the cold rebuild or the fixpoint")
+    for i in range(SERVE_BFS):
+        require(np.array_equal(live[i], o["dist"][1 + i]),
+                f"mutate: served answer {i} differs from scipy's BFS on the merged graph")
+    pr_err = {"warm": rel_err(np, pr_warm, o["pr"]), "cold": rel_err(np, pr_cold, o["pr"])}
+    require(max(pr_err.values()) <= RANK_RTOL,
+            f"mutate: PageRank off the float64 fixpoint by {pr_err} (rtol {RANK_RTOL})")
+    rows = {}
+    for app, warm_v, cold_v in (("pagerank", pr_warm, pr_cold), ("sssp", dist_warm, dist_cold),
+                                ("components", labels_warm, labels_cold)):
+        rows[app] = {"value": cold[app]["plan_built"] / refresh_s[app],
+                     "value_plan_loaded": cold[app]["plan_loaded"] / refresh_s[app],
+                     "refresh_s": refresh_s[app], "cold_s": cold[app]["plan_built"],
+                     "cold_s_plan_loaded": cold[app]["plan_loaded"],
+                     "warm_over_cold": refresh_s[app] / cold[app]["plan_built"],
+                     "warm_over_cold_plan_loaded": refresh_s[app] / cold[app]["plan_loaded"],
+                     "refresh_iters": int(iters[app]),
+                     "bitwise_equal": bool(np.array_equal(warm_v, cold_v))}
+    rows["pagerank"]["max_ulp_diff"] = ulp_diff(np, pr_warm, pr_cold)
+    rows["pagerank"]["max_rel_err_vs_f64"] = pr_err
+    emit({"phase": "mutate_main", "rows": rows, "cold_breakdown": brk,
+          "pagerank_iteration_ms": iter_ms, "host_seconds": host_s,
+          "invalidated_bucket_fraction": inval["fraction"], "invalidation": inval,
+          "apply_s": apply_s, "compact_s": compact_s, "delta_occupancy": occ, "parts": P,
+          "serve": {"q": SERVE_Q, "method": "scatter", "seconds": serve_s,
+                    "bfs_checked": SERVE_BFS},
+          "plan_cache": {"build": built, "load": loaded}, "oracle_seconds": o["seconds"],
+          "device": smi})
+    del o, dist, labels, pr, live, cold_serve
+    # a churn confined to one part's destination range
+    t0 = time.perf_counter()
+    lo, hi = int(cuts[MUTATE_PART]), int(cuts[MUTATE_PART + 1])
+    dsts = mg.base.dst_of_edges()
+    rng = np.random.default_rng(1)
+    dele = rng.choice(np.flatnonzero((dsts >= lo) & (dsts < hi)), MUTATE_CONFINED,
+                      replace=False)
+    mg.apply(np.asarray(mg.base.col_idx)[dele], dsts[dele],
+             np.full(MUTATE_CONFINED, OP_DELETE, np.int8))
+    mg.apply(rng.integers(0, g.nv, MUTATE_CONFINED), rng.integers(lo, hi, MUTATE_CONFINED),
+             np.full(MUTATE_CONFINED, OP_INSERT, np.int8))
+    del dsts
+    rep2 = mg.compact(path=snap)
+    expand.reset_plan_stats()
+    t1 = time.perf_counter()
+    expand.plan_expand_shards_cached(mg.pull_shards, cache_dir, pf=True)
+    rebuild_s = time.perf_counter() - t1
+    stats = expand.plan_stats_snapshot()
+    frac = rep2["invalidation"]["fraction"]
+    emit({"phase": "mutate_main", "confined_part": MUTATE_PART, "churn_edges": 2 * MUTATE_CONFINED,
+          "invalidation": rep2["invalidation"], "plan_rebuild_s": rebuild_s,
+          "plan_stats": stats, "seconds": time.perf_counter() - t0})
+    require(frac == 1.0 / P and rep2["invalidation"]["changed_parts"] == [MUTATE_PART],
+            f"mutate: a churn confined to part {MUTATE_PART} invalidated {rep2['invalidation']}")
+    require(stats["loaded"] == P - 1 and stats["built"] == 2,
+            f"mutate: the warm cache rebuilt {stats} after the confined churn")
+    del mg
+    torch.cuda.empty_cache()
+    # the routed refresh on the one-part layout, phase 4's plans: the same
+    # batches (a rehearsal on a smaller graph draws its own churn)
+    g_r, sh_r, plans = routed
+    if g_r is g:
+        batches = [([0], [1], [OP_INSERT]), (*deletes, np.full(k, OP_DELETE, np.int8)),
+                   (*inserts, np.full(k, OP_INSERT, np.int8))]
+    else:
+        _, d2, i2, k2 = mutate_churn(np, g_r, g_r)
+        batches = [(*d2, np.full(k2, OP_DELETE, np.int8)), (*i2, np.full(k2, OP_INSERT, np.int8))]
+    rec, mg1, ov1 = mutate_routed(torch, np, kernels, dev, g_r, sh_r, plans, batches)
+    counts = {name: kn.launches for name, kn in kernels.items()}
+    emit({"phase": "mutate_main", "routed": rec, "device": smi})
+    for name in ("mxscan_segmented", "lane_gather", "fused_pass_gather", "mxreduce_pass_gather"):
+        require(counts[name] > 0, f"mutate: {name} was never launched on the refresh path")
+    err, mx_row = mutate_kernel_cases(torch, np, scan, shuffle, expand, dev, mg1, ov1, plans,
+                                      reps)
+    emit({"phase": "mutate_main", "kernels_vs_plain": err, "mx_tombstoned": mx_row,
+          "launches": counts, "seconds": time.perf_counter() - t_phase})
+    return counts, err, {"rows": rows, "cold_breakdown": brk}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1913,6 +2507,7 @@ def main() -> int:
     long_w = _POOL.apply_async(long_weighted_graph, (_TMP, SCALE))
     long_s = _POOL.apply_async(long_stream_graph, (_TMP, STREAM_SCALE))
     serve_oracle = _POOL.apply_async(serve_oracles, (SCALE,))
+    mutate_oracle = _POOL.apply_async(mutate_oracles, (SCALE,))
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2092,8 +2687,10 @@ def main() -> int:
             require(mode == "expand-pf", f"the bare --route-gather ran {mode}")
     require(np.array_equal(ranks["fused-pf"], ranks["fused"]),
             "fused-pf ranks differ from fused")
-    # the push phases reuse the main graph, its pull layout and its expand plans
+    # the push phases reuse the main graph, its pull layout and its expand
+    # plans; the dynamic-graph phase the pass-fused families
     push_plans = {m: plans[m] for m in ("expand", "expand-pf")}
+    mutate_plans = {m: plans[m] for m in ("expand-pf", "fused-pf", "fused-mx")}
     pr_ranks = ranks["mxscan"]  # phase 16's uninterrupted run
     del plans, ranks, ref, res, small, small_bc
     torch.cuda.empty_cache()
@@ -2252,7 +2849,12 @@ def main() -> int:
 
     # 17. the batched query service
     serve_launches = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
-    del g, sh
+    torch.cuda.empty_cache()
+
+    # 18. dynamic graphs
+    mutate_launches, mutate_err, _ = mutate_main(torch, np, kernels, smi, dev, g, _TMP,
+                                                 mutate_oracle, (g, sh, mutate_plans), REPS)
+    del g, sh, mutate_plans
     torch.cuda.empty_cache()
 
     table = []
@@ -2300,6 +2902,9 @@ def main() -> int:
             kind: long_launches[phase][run][row["name"]]
             for kind, (phase, run) in LONG_KERNEL_RUN.get(row["name"], {}).items()}
         row["launches_serve"] = serve_launches[row["name"]]
+        row["launches_mutate"] = mutate_launches[row["name"]]
+        if row["name"] in mutate_err:
+            row["max_abs_err"] = max(row["max_abs_err"], mutate_err[row["name"]])
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
     emit({"kernels": table})
     print(smi, flush=True)

@@ -21,6 +21,13 @@ routed expand (bitwise equal), a (FusedStatic, arrays) plan replaces
 load AND reduce, and a (CFRouteStatic, arrays) plan routes both reads of
 a wide destination-dependent program.  Route arrays are stacked per
 part, (P, ...).
+
+``overlay=`` runs the step against a mutating graph
+(lux_tpu_torch.mutate): tombstoned base edges' values are neutralized
+before the reduce (through the fused plans' gslot route on the fused
+families), then the fixed-capacity insert buffer is folded into the
+accumulator before apply.  The overlay's tensors are moved to the device
+once per run.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from lux_tpu_torch.engine import methods
 from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec
+from lux_tpu_torch.mutate import overlay as ovl
 from lux_tpu_torch.ops import expand, segment
 
 
@@ -99,18 +107,24 @@ def _edge_reads_weight(prog) -> bool:
 
 
 def pull_reduce_part(prog: PullProgram, arrays: ShardArrays, gath,
-                     method: str) -> torch.Tensor:
+                     method: str, del_val=None) -> torch.Tensor:
     """COMP phase for ONE part: per-edge values + segmented reduce by
-    destination."""
+    destination.  ``del_val`` (the mutation overlay's (E,) tombstone
+    mask) neutralizes deleted base edges' VALUES; the base arrays and the
+    reduce itself run unchanged."""
     src_state, dst_state = gath
     vals = prog.edge_value(src_state, arrays.weights, dst_state)
+    if del_val is not None:
+        if vals.dim() > 1:
+            del_val = del_val.reshape(del_val.shape + (1,) * (vals.dim() - 1))
+        vals = ovl.mask_deleted(vals, del_val, prog.reduce)
     return _REDUCERS[prog.reduce](
         vals, arrays.row_ptr, arrays.head_flag, arrays.dst_local, method=method)
 
 
 def local_pull_step(prog: PullProgram, arrays: ShardArrays,
                     full_state: torch.Tensor, local_state: torch.Tensor,
-                    method: str = "scan", route=None) -> torch.Tensor:
+                    method: str = "scan", route=None, overlay=None) -> torch.Tensor:
     """One pull iteration for ONE part.  ``full_state`` is the (P*V, ...)
     concatenated padded state of all parts; ``local_state`` is (V, ...).
     ``route`` = (ExpandStatic, this part's arrays) switches the LOAD
@@ -118,7 +132,14 @@ def local_pull_step(prog: PullProgram, arrays: ShardArrays,
     load and the segmented reduce with the fused routed pipeline
     (ops/expand.apply_fused — destination-state-independent programs
     only); (CFRouteStatic, arrays) routes the source and destination reads
-    of a wide (V, K) state column by column (ops/expand.apply_cf_route)."""
+    of a wide (V, K) state column by column (ops/expand.apply_cf_route).
+    ``overlay`` = this part's mutate.overlay.DeviceOverlay: tombstones
+    neutralize, then the insert buffer folds into the accumulator before
+    apply.  The CF route refuses it (mutate.overlay.FUSED_OVERLAY_NOTE)."""
+    if overlay is not None and route is not None and isinstance(
+            route[0], expand.CFRouteStatic):
+        raise ValueError(ovl.FUSED_OVERLAY_NOTE)
+    del_val = None if overlay is None else overlay.del_val
     if route is not None and isinstance(route[0], expand.CFRouteStatic):
         gath = expand.apply_cf_route(full_state, local_state, route[0], route[1])
         acc = pull_reduce_part(prog, arrays, gath, method)
@@ -134,16 +155,20 @@ def local_pull_step(prog: PullProgram, arrays: ShardArrays,
         acc = expand.apply_fused(
             full_state, route[0], route[1],
             edge_value=lambda s, w: prog.edge_value(s, w, None),
-            weighted=route[0].weighted and _edge_reads_weight(prog))
-        return prog.apply(local_state, acc, arrays)
-    if route is not None:
-        gath = pull_gather_part_routed(arrays, full_state, local_state,
-                                       route[0], route[1],
-                                       prog.needs_dst_state)
+            weighted=route[0].weighted and _edge_reads_weight(prog),
+            del_val=del_val)
     else:
-        gath = pull_gather_part(arrays, full_state, local_state,
-                                prog.needs_dst_state)
-    acc = pull_reduce_part(prog, arrays, gath, method)
+        if route is not None:
+            gath = pull_gather_part_routed(arrays, full_state, local_state,
+                                           route[0], route[1],
+                                           prog.needs_dst_state)
+        else:
+            gath = pull_gather_part(arrays, full_state, local_state,
+                                    prog.needs_dst_state)
+        acc = pull_reduce_part(prog, arrays, gath, method, del_val)
+    if overlay is not None:
+        acc = ovl.delta_scatter(acc, full_state, overlay,
+                                lambda s, w: prog.edge_value(s, w, None), prog.reduce)
     return prog.apply(local_state, acc, arrays)
 
 
@@ -157,13 +182,15 @@ def init_state(prog: PullProgram, arrays: ShardArrays) -> torch.Tensor:
 
 
 def _pull_iteration(prog, spec: ShardSpec, method, arrays, state,
-                    routes=None):
+                    routes=None, overlays=None):
     """One pull iteration over the whole (P, V, ...) shard stack;
-    ``routes`` is one (static, arrays) plan per part, or None."""
+    ``routes`` is one (static, arrays) plan per part, or None;
+    ``overlays`` one DeviceOverlay per part, or None."""
     full = state.reshape((spec.gathered_size,) + tuple(state.shape[2:]))
     return torch.stack([
         local_pull_step(prog, arrays.part(p), full, state[p], method,
-                        None if routes is None else routes[p])
+                        None if routes is None else routes[p],
+                        None if overlays is None else overlays[p])
         for p in range(spec.num_parts)
     ])
 
@@ -216,6 +243,22 @@ def _route_parts(route, device, num_parts: int) -> Optional[list]:
     return [(static, tuple(a[p] for a in arrays)) for p in range(num_parts)]
 
 
+def overlay_parts(overlay, device, spec: ShardSpec) -> Optional[list]:
+    """An (OverlayStatic, OverlayArrays) pair as one DeviceOverlay per
+    part on ``device`` (mutate.overlay.device_overlay), or None.  A list
+    of DeviceOverlays (this function's result), alone or in the pair,
+    passes through."""
+    if overlay is None:
+        return None
+    oarr = overlay if isinstance(overlay, list) else overlay[1]
+    if isinstance(oarr, list):
+        return oarr
+    if oarr.del_val.shape[0] != spec.num_parts:
+        raise ValueError(f"overlay has {oarr.del_val.shape[0]} parts, the "
+                         f"shards {spec.num_parts}")
+    return ovl.device_overlay(oarr, device, spec.nv_pad)
+
+
 def _resolve(prog, method, arrays):
     return methods.resolve_sum(
         method, prog.reduce, methods.default_platform(arrays.src_pos.device))
@@ -223,20 +266,23 @@ def _resolve(prog, method, arrays):
 
 def run_pull_fixed(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
                    state0: torch.Tensor, num_iters: int, method: str = "auto",
-                   route=None, donate: bool = False) -> torch.Tensor:
+                   route=None, donate: bool = False, overlay=None) -> torch.Tensor:
     """Fixed iteration count (PageRank style).  ``arrays`` are torch
     tensors (graph.shards.to_device) on the state's device.
     ``method="auto"`` resolves per engine.methods.  ``route`` (from
     ops/expand.plan_expand_shards / plan_fused_shards, arrays numpy or
     tensors) switches to the routed pull.  ``donate=True`` writes each
     iteration's new state back into ``state0``'s buffer and returns it;
-    otherwise ``state0`` is left untouched.  Returns the final stacked
+    otherwise ``state0`` is left untouched.  ``overlay``
+    ((OverlayStatic, OverlayArrays) from lux_tpu_torch.mutate.overlay)
+    runs the step against the mutating graph.  Returns the final stacked
     (P, V, ...) state."""
     method = _resolve(prog, method, arrays)
     routes = _route_parts(route, state0.device, spec.num_parts)
+    overlays = overlay_parts(overlay, state0.device, spec)
     state = state0
     for _ in range(num_iters):
-        new = _pull_iteration(prog, spec, method, arrays, state, routes)
+        new = _pull_iteration(prog, spec, method, arrays, state, routes, overlays)
         if donate:
             state0.copy_(new)
         else:
@@ -247,17 +293,21 @@ def run_pull_fixed(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
 def run_pull_until(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
                    state0: torch.Tensor, max_iters: int,
                    active_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-                   method: str = "auto", route=None, donate: bool = False):
+                   method: str = "auto", route=None, donate: bool = False,
+                   overlay=None):
     """Iterate until no vertex is active or ``max_iters`` ran.
     ``active_fn(old, new)`` gives per-part active counts (P,); the total is
-    read on the host once per iteration.  ``route`` and ``donate`` as in
-    run_pull_fixed.  Returns (final_state, num_iters_run)."""
+    read on the host once per iteration.  ``route``, ``donate`` and
+    ``overlay`` as in run_pull_fixed: with an overlay this is the
+    incremental refresh's entry point (warm state in, iterate the overlay
+    step until quiescent).  Returns (final_state, num_iters_run)."""
     method = _resolve(prog, method, arrays)
     routes = _route_parts(route, state0.device, spec.num_parts)
+    overlays = overlay_parts(overlay, state0.device, spec)
     state = state0
     it = 0
     while it < max_iters:
-        new = _pull_iteration(prog, spec, method, arrays, state, routes)
+        new = _pull_iteration(prog, spec, method, arrays, state, routes, overlays)
         active = int(active_fn(state, new).sum())
         if donate:
             state0.copy_(new)

@@ -32,9 +32,14 @@ sparse-round out-edges walked per part, saturating at 2^32 - 1 as the
 reference's uint32 does), is summed on the host from the per-part totals
 that the one read of ``_push_prep`` already brings.
 
-Not ported here: the mutation overlay (``overlay``/``del_val``), the
-flight-recorder ``telemetry`` loop and carry donation; the distributed
-and ring push wait for the multi-GPU port.
+``overlay_static=``/``oarrays=`` run the loop against a mutating graph
+(lux_tpu_torch.mutate): dense rounds neutralize tombstoned base edges,
+sparse rounds walk the patched CSR (deleted edges point at the drop
+slot), and the insert buffer is folded in once a round after the
+direction branch, from the round's input state.
+
+Not ported here: the flight-recorder ``telemetry`` loop and carry
+donation; the distributed and ring push wait for the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from lux_tpu_torch.engine import methods, pull
 from lux_tpu_torch.graph import push_shards as ps
 from lux_tpu_torch.graph.push_shards import SRC_SENTINEL, PushArrays, PushShards, PushSpec
 from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec, to_device
+from lux_tpu_torch.mutate import overlay as ovl
 from lux_tpu_torch.ops import expand, merge_tree, segment
 from lux_tpu_torch.utils.device import resolve_device
 
@@ -81,17 +87,21 @@ def _scatter_reduce(prog) -> str:
 
 
 def dense_part_step(prog, arr: ShardArrays, full_state, local, method="scan",
-                    route=None):
+                    route=None, del_val=None):
     """Pull-mode relaxation of ONE part over all its in-edges:
     new[v] = op(old[v], op over in-edges relax(state[src])).  ``route`` =
     (ExpandStatic, this part's arrays) replaces the gather with the routed
     expand (ops/expand.py), bitwise equal; a pass-fused plan replays
-    through the fused kernel."""
+    through the fused kernel.  ``del_val`` (a mutation overlay's (E,)
+    tombstones) neutralizes deleted base edges' relax values, exactly
+    absorbed by the min/max combiner."""
     if route is not None:
         src = expand.apply_expand(full_state, route[0], route[1])
     else:
         src = full_state.index_select(0, arr.src_pos)
     vals = prog.relax(src, arr.weights)
+    if del_val is not None:
+        vals = ovl.mask_deleted(vals, del_val, prog.reduce)
     acc = _seg_reduce(prog)(vals, arr.row_ptr, arr.head_flag, arr.dst_local,
                             method=method)
     new = _op(prog)(local, acc)
@@ -313,28 +323,40 @@ def _push_prep(pspec: PushSpec, spec: ShardSpec, parrays: PushArrays,
 
 def _push_relax(prog, pspec: PushSpec, spec: ShardSpec, method, arrays,
                 parrays, c: PushCarry, plan: PushPlan, routes=None,
-                merge: str = "bulk"):
+                merge: str = "bulk", overlays=None):
     """COMP phase: the dense round (pull over all in-edges) or the sparse
     round (scatter the frontier's out-edges), part by part -> the new
     stacked state.  ``routes`` is one (static, arrays) expand plan per
-    part for the dense rounds, or None."""
+    part for the dense rounds, or None.  ``overlays`` (one
+    mutate.overlay.DeviceOverlay per part): dense rounds neutralize the
+    tombstoned base edges, sparse rounds already skip them (the patched
+    CSR), and the insert buffer is folded in once per round AFTER the
+    branch, relaxing every live insert from the round's INPUT state —
+    monotone-safe for min/max, and the empty slots drop."""
     V = spec.nv_pad
     full = c.state.reshape(spec.gathered_size)
     if plan.dense:
-        return torch.stack([
+        new = torch.stack([
             dense_part_step(prog, arrays.part(p), full, c.state[p], method,
-                            None if routes is None else routes[p])
+                            None if routes is None else routes[p],
+                            None if overlays is None else overlays[p].del_val)
             for p in range(spec.num_parts)
         ])
-    step = sparse_part_step if merge == "bulk" else sparse_part_step_tree
-    cap = pspec.e_sp_small if plan.small else pspec.e_sp
-    return torch.stack([
-        torch.where(arrays.vtx_mask[p],
-                    step(prog, pspec, parrays.part(p), V, plan.q_vids,
-                         plan.q_vals, plan.rows[p], plan.incl[p], c.state[p], cap),
-                    c.state[p])
-        for p in range(spec.num_parts)
-    ])
+    else:
+        step = sparse_part_step if merge == "bulk" else sparse_part_step_tree
+        cap = pspec.e_sp_small if plan.small else pspec.e_sp
+        new = torch.stack([
+            torch.where(arrays.vtx_mask[p],
+                        step(prog, pspec, parrays.part(p), V, plan.q_vids,
+                             plan.q_vals, plan.rows[p], plan.incl[p], c.state[p], cap),
+                        c.state[p])
+            for p in range(spec.num_parts)
+        ])
+    if overlays is None:
+        return new
+    return torch.stack([ovl.delta_scatter(new[p], full, overlays[p], prog.relax,
+                                          prog.reduce)
+                        for p in range(spec.num_parts)])
 
 
 def _push_requeue(prog, pspec: PushSpec, spec: ShardSpec, arrays,
@@ -356,10 +378,25 @@ def _acc_edges(edges: int, dense_ne: int, plan: PushPlan) -> int:
 
 
 def _push_iteration(prog, pspec, spec, method, arrays, parrays, c: PushCarry,
-                    plan: PushPlan, routes=None, merge="bulk") -> PushCarry:
+                    plan: PushPlan, routes=None, merge="bulk",
+                    overlays=None) -> PushCarry:
     new = _push_relax(prog, pspec, spec, method, arrays, parrays, c, plan,
-                      routes, merge)
+                      routes, merge, overlays)
     return _push_requeue(prog, pspec, spec, arrays, c, new, plan)
+
+
+def _overlay_parts(overlay_static, oarrays, device, spec: ShardSpec):
+    """The pairing guard and the overlay's one move to the device: an
+    engine handed ``oarrays`` without ``overlay_static`` (or the reverse)
+    would otherwise answer from the base graph under a caller who
+    believes the churn applied."""
+    if (overlay_static is None) != (oarrays is None):
+        raise ValueError(
+            "overlay_static and oarrays must be passed together: "
+            "run_push_chunk(..., overlay_static=ostatic, oarrays=oarr)")
+    if oarrays is None:
+        return None
+    return pull.overlay_parts((overlay_static, oarrays), device, spec)
 
 
 def _route_parts(route, device, num_parts: int):
@@ -377,28 +414,34 @@ def _resolve(prog, method, device) -> str:
 
 def run_push_chunk(prog, pspec: PushSpec, spec: ShardSpec, arrays, parrays,
                    carry: PushCarry, it_stop: int, method: str = "auto",
-                   route=None, merge: Optional[str] = None) -> PushCarry:
+                   route=None, merge: Optional[str] = None, overlay_static=None,
+                   oarrays=None) -> PushCarry:
     """Iterate from ``carry`` until nothing is active or ``it_stop``
     iterations have run in all (the reference's compiled chunk loop).
     ``arrays``/``parrays`` are tensors on the carry's device
     (:func:`push_init`); ``carry`` is left untouched, so one initial carry
-    serves several runs.  One host sync per iteration."""
+    serves several runs.  One host sync per iteration.
+    ``overlay_static``/``oarrays`` (mutate.overlay, passed together) run
+    against the mutating graph; ``parrays`` is then the patched CSR of
+    mutate.overlay.build_push_overlay."""
     dev = carry.state.device
     method = _resolve(prog, method, dev)
     merge = _resolve_merge(merge)
     routes = _route_parts(route, dev, spec.num_parts)
+    overlays = _overlay_parts(overlay_static, oarrays, dev, spec)
     c = carry
     while c.it < it_stop:
         plan = _push_prep(pspec, spec, parrays, c)
         if plan.active == 0:
             break
         c = _push_iteration(prog, pspec, spec, method, arrays, parrays, c,
-                            plan, routes, merge)
+                            plan, routes, merge, overlays)
     return c
 
 
 def push_phases(prog, pspec: PushSpec, spec: ShardSpec, method: str = "auto",
-                merge: Optional[str] = None, device="cuda"):
+                merge: Optional[str] = None, device="cuda", overlay_static=None,
+                oarrays=None):
     """One push iteration as THREE callables for the ``-verbose`` phase
     breakdown (the reference's loadTime/compTime/updateTime, its
     compile_push_phases):
@@ -408,16 +451,18 @@ def push_phases(prog, pspec: PushSpec, spec: ShardSpec, method: str = "auto",
       update(arrays, carry, new, plan)     -> next PushCarry
 
     The caller fences between them; :func:`run_push_chunk` is the fast
-    path."""
-    method = _resolve(prog, method, resolve_device(device))
+    path.  ``overlay_static``/``oarrays`` as in run_push_chunk."""
+    dev = resolve_device(device)
+    method = _resolve(prog, method, dev)
     merge = _resolve_merge(merge)
+    overlays = _overlay_parts(overlay_static, oarrays, dev, spec)
 
     def load(parrays, carry):
         return _push_prep(pspec, spec, parrays, carry)
 
     def comp(arrays, parrays, carry, plan):
         return _push_relax(prog, pspec, spec, method, arrays, parrays, carry,
-                           plan, merge=merge)
+                           plan, merge=merge, overlays=overlays)
 
     def update(arrays, carry, new, plan):
         return _push_requeue(prog, pspec, spec, arrays, carry, new, plan)

@@ -38,8 +38,14 @@ routing pays there is a measurement (PERF.md), not an assumption.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import os
+import stat
+import sys
+import tempfile
 import threading
+import time
 
 import numpy as np
 import torch
@@ -509,8 +515,8 @@ class FusedStatic:
     #: in place of the group mask.  None = the plain masked group-reduce.
     mx: object = None
     #: base CSC edge slots (length of the plan's ``gslot`` tombstone
-    #: route, the reference's FUSED_FORMAT 1 layout, kept so plan
-    #: arrays compare byte for byte; mutation overlays will read it).
+    #: route, the reference's FUSED_FORMAT 1 layout; mutation overlays
+    #: scatter their tombstones through it, apply_fused ``del_val=``).
     e_pad: int = 0
 
 
@@ -680,8 +686,8 @@ def plan_fused(src_pos: np.ndarray, dst_local: np.ndarray, m: int,
         gmask = np.zeros(n2, bool)
         gmask[gslot_csc] = True
     # tombstone route: CSC edge rank -> group slot, sentinel n2 on the
-    # padding rows — the reference's layout (its overlays mask deleted
-    # edges in group space through it); carried, not read, here
+    # padding rows (apply_fused ``del_val=`` masks deleted edges in group
+    # space through it)
     gslot_full = np.full(len(src_pos), n2, np.int32)
     gslot_full[:m] = gslot_csc
 
@@ -790,7 +796,8 @@ def _group_reduce(y: torch.Tensor, reduce: str, dim: int) -> torch.Tensor:
 
 
 def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
-                edge_value=None, weighted: bool | None = None) -> torch.Tensor:
+                edge_value=None, weighted: bool | None = None,
+                del_val=None) -> torch.Tensor:
     """Device replay of the fused routed pull for one part: full_state
     (state_size,) -> accumulator (v_pad,).
 
@@ -809,13 +816,26 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
     float sums accumulate in f32, min/max and integer ops keep their
     dtype bitwise, and the group-space array is read once, never written
     back.  A weighted edge function on an mx plan raises
-    NotImplementedError."""
+    NotImplementedError.
+
+    ``del_val``: optional (e_pad,) bool CSC-order tombstones (a mutation
+    overlay's deletions), scattered through the plan's ``gslot`` route
+    into a GROUP-SPACE mask (the sentinel ``n2`` drops): the plain layout
+    folds it into the group mask, the mx layout sends the tombstoned
+    slots' ranks to the kernel's sentinel ``v_blk`` in a fresh rank
+    tensor (the plan's own ``dst_rel`` is never written).  Deleted edges
+    reduce as the neutral, with the plan and the kernels unchanged."""
     if full_state.dim() != 1:
         raise ValueError("fused routed pull supports 1-D state only")
     if weighted is None:
         weighted = static.weighted
-    r1a, ffa, r2a, gmask, gweights, _gslot, vra, mxa = split_fused_arrays(
+    r1a, ffa, r2a, gmask, gweights, gslot, vra, mxa = split_fused_arrays(
         static, arrays, static.weighted)
+    g_del = None
+    if del_val is not None:
+        g_del = torch.zeros(static.n2 + 1, dtype=torch.bool, device=full_state.device)
+        g_del[gslot.long()] = del_val
+        g_del = g_del[: static.n2]
     x = _pad_to(full_state, static.n)
     y = shuf.apply_route_frozen(x, static.r1, r1a)
     y = apply_ff(y, static.ff, ffa)
@@ -836,13 +856,16 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
             y = edge_value(y, None).contiguous()
         n_steps = len(mxg.steps)
         dst_rel, tile_block, _tile_first = mxa[n_steps:]
+        if g_del is not None:
+            dst_rel = dst_rel.masked_fill(g_del.view(dst_rel.shape), mxg.v_blk)
         totals = shuf.mxreduce_pass_gather(
             y, tuple(mxa[:n_steps]), dst_rel, tile_block, group=mxg)
         t = totals[:total_slots]
     else:
         if edge_value is not None:
             y = edge_value(y, gweights if weighted else None)
-        y = torch.where(gmask, y, torch.full_like(
+        keep = gmask if g_del is None else gmask & ~g_del
+        y = torch.where(keep, y, torch.full_like(
             y, reduce_neutral(static.reduce, y.dtype)))
         totals = []
         for off, count, width in static.groups:
@@ -1043,3 +1066,410 @@ def plan_to_device(plan, device):
         (torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
          else a).to(device) for a in arrays)
 
+
+
+# ---------------------------------------------------------------------------
+# the per-part plan disk cache
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the reference's cached planners (``lux_tpu.ops.expand``
+# ``plan_*_shards_cached``): one npz entry PER PART, keyed on that part's
+# own index arrays, so a recut or a compaction that reuses the cuts
+# reloads every untouched part and rebuilds only the changed ones.  The
+# entry holds the arrays under index keys and the static as a JSON blob
+# over this module's own dataclasses — no pickle, so loading an entry
+# cannot run code.  The port's entries never meet the reference's: the
+# default directory and the key salt are the port's own.
+
+#: plan layout version of the port's entries (bump on any change to the
+#: planners' output); PF_FORMAT / MX_FORMAT salt the pass-fused and
+#: mxreduce families on top of it
+PLAN_FORMAT = 1
+PF_FORMAT = 1
+MX_FORMAT = 1
+FUSED_FORMAT = 1
+#: the key salt's prefix: keeps the port's entry names disjoint from the
+#: reference's even in one directory
+CACHE_SALT = "lux_tpu_torch"
+
+_PLAN_STATS_LOCK = threading.Lock()
+_PLAN_STATS = {"cold_s": 0.0, "warm_s": 0.0, "built": 0, "loaded": 0}
+
+
+def _stats_add(kind: str, seconds: float) -> None:
+    with _PLAN_STATS_LOCK:
+        _PLAN_STATS[f"{kind}_s"] += seconds
+        _PLAN_STATS["built" if kind == "cold" else "loaded"] += 1
+
+
+def plan_stats_snapshot() -> dict:
+    """This process's plan accounting: ``cold_s`` seconds BUILDING plan
+    entries (cache misses), ``warm_s`` seconds LOADING them, and the
+    entry counts.  Threaded builds sum per-entry wall time."""
+    with _PLAN_STATS_LOCK:
+        return dict(_PLAN_STATS)
+
+
+def reset_plan_stats() -> None:
+    with _PLAN_STATS_LOCK:
+        for k in _PLAN_STATS:
+            _PLAN_STATS[k] = 0.0 if k.endswith("_s") else 0
+
+
+def _hash_array(h, a) -> None:
+    """Fold ONE array into a cache key: shape + dtype + bytes (byte-equal
+    arrays of another shape or dtype must never collide)."""
+    a = np.ascontiguousarray(a)
+    h.update(f"{a.shape}:{a.dtype.str}:".encode())
+    h.update(a.tobytes())
+
+
+def _entry_path(cache_dir: str, tag: str, key_one, i: int) -> str:
+    """Disk path of ONE part's plan entry: sha1 over the (CACHE_SALT,
+    tag, PLAN_FORMAT, idx8) salt plus whatever key_one(h, i) folds in."""
+    h = hashlib.sha1()
+    h.update(f"{CACHE_SALT}:{tag}{PLAN_FORMAT}:idx8={_idx8_enabled()}:".encode())
+    key_one(h, i)
+    return os.path.join(cache_dir, f"{tag}_{h.hexdigest()[:16]}.npz")
+
+
+def _default_cache_dir() -> str:
+    """The port's per-user plan cache directory (vetted by
+    _cache_dir_trusted before any read or write).  LUX_TORCH_PLAN_CACHE
+    overrides it."""
+    env = os.environ.get("LUX_TORCH_PLAN_CACHE")
+    if env:
+        return env
+    uid = os.getuid() if hasattr(os, "getuid") else "na"
+    return os.path.join(tempfile.gettempdir(), f"lux_torch_expand_plans_{uid}")
+
+
+def _cache_dir_trusted(cache_dir: str) -> bool:
+    """Create (0o700) and vet the cache directory: refuse one that is a
+    symlink, not a directory, not owned by this uid, or group/world-
+    writable — for loading AND for storing (the parent is the shared
+    temp directory, so another local user could pre-create the path)."""
+    try:
+        os.makedirs(cache_dir, mode=0o700, exist_ok=True)
+        st = os.lstat(cache_dir)
+    except OSError:
+        return False
+    if stat.S_ISLNK(st.st_mode) or not stat.S_ISDIR(st.st_mode):
+        return False
+    if hasattr(os, "getuid") and st.st_uid != os.getuid():
+        return False
+    return not st.st_mode & 0o022
+
+
+#: the dataclasses a cached static may contain: the decoder builds only
+#: these (nothing in an entry can name other code)
+_STATIC_TYPES = {
+    cls.__name__: cls
+    for cls in (ExpandStatic, FusedStatic, CFRouteStatic, FFStatic,
+                FFLevelStatic, shuf.StaticRoute, shuf.StaticPass,
+                shuf.StaticRoutePF, shuf.StaticGroup, shuf.StaticStep,
+                shuf.StaticMXGroup)
+}
+
+
+def _static_to_obj(x):
+    """Plan static -> JSON-able tree (dataclasses tagged by name)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        if type(x).__name__ not in _STATIC_TYPES:
+            raise TypeError(f"unserializable plan-static type: {type(x)}")
+        return {"__type__": type(x).__name__,
+                "fields": {f.name: _static_to_obj(getattr(x, f.name))
+                           for f in dataclasses.fields(x)}}
+    if isinstance(x, tuple):
+        return {"__tuple__": [_static_to_obj(v) for v in x]}
+    if isinstance(x, np.bool_):
+        return bool(x)
+    if isinstance(x, np.integer):
+        return int(x)
+    if isinstance(x, (int, float, str, bool)) or x is None:
+        return x
+    raise TypeError(f"unserializable plan-static field: {type(x)}")
+
+
+def _static_from_obj(o):
+    if isinstance(o, dict) and "__type__" in o:
+        cls = _STATIC_TYPES[o["__type__"]]
+        return cls(**{k: _static_from_obj(v) for k, v in o["fields"].items()})
+    if isinstance(o, dict) and "__tuple__" in o:
+        return tuple(_static_from_obj(v) for v in o["__tuple__"])
+    return o
+
+
+def _save_plan(path: str, plan) -> None:
+    """(static, arrays) -> one npz (arrays under index keys, the static
+    as a JSON byte blob), written to a temporary name and renamed."""
+    static, arrays = plan
+    blob = np.frombuffer(json.dumps(_static_to_obj(static)).encode(), np.uint8)
+    payload = {f"a{i}": np.asarray(a) for i, a in enumerate(arrays)}
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, __static__=blob, **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _load_plan(path: str):
+    with np.load(path, allow_pickle=False) as z:
+        static = _static_from_obj(json.loads(bytes(z["__static__"]).decode()))
+        arrays = tuple(z[f"a{i}"] for i in range(len(z.files) - 1))
+    return static, arrays
+
+
+def _cached_part_fn(tag: str, num_parts: int, key_one, build_one,
+                    cache_dir: str | None = None, paths=None, validate=None):
+    """Per-part disk-cached plan getter: returns ``one(i) -> (static,
+    arrays)``.  ``validate`` (static -> bool) guards a family against
+    entries of the wrong plan FORM; such an entry, like a corrupt one,
+    is rebuilt and overwritten.  A failed store costs cache warmth,
+    never the run; an untrusted directory is neither read nor written."""
+    cache_dir = cache_dir or _default_cache_dir()
+    trusted = _cache_dir_trusted(cache_dir)
+    if paths is None and trusted:
+        paths = [_entry_path(cache_dir, tag, key_one, i) for i in range(num_parts)]
+
+    def one(i):
+        path = paths[i] if trusted else None
+        if path is not None and os.path.exists(path):
+            t0 = time.perf_counter()
+            try:
+                static, arrays = _load_plan(path)
+                if validate is not None and not validate(static):
+                    raise ValueError("entry is not of this plan family's form")
+                _stats_add("warm", time.perf_counter() - t0)
+                return static, arrays
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                print(f"# plan cache ignored ({path}): {e}", file=sys.stderr, flush=True)
+        t0 = time.perf_counter()
+        static, arrays = build_one(i)
+        _stats_add("cold", time.perf_counter() - t0)
+        if path is not None:
+            try:
+                _save_plan(path, (static, arrays))
+            except (OSError, TypeError, ValueError) as e:
+                print(f"# plan cache not written ({path}): {e}", file=sys.stderr,
+                      flush=True)
+        return static, tuple(arrays)
+
+    return one
+
+
+def _cached_stack(tag: str, num_parts: int, key_one, build_one,
+                  cache_dir: str | None = None, paths=None, validate=None):
+    """A plan family cached one entry per part: misses build on the
+    planning pool, hits load; the parts' statics must agree."""
+    one = _cached_part_fn(tag, num_parts, key_one, build_one, cache_dir, paths,
+                          validate=validate)
+    return _stack_from(_map_parts(num_parts, one))
+
+
+def _warm_paths(tag: str, num_parts: int, key_one, cache_dir: str | None):
+    """Per-part cache paths when the whole family is a pure disk load
+    (EVERY entry present), else None."""
+    cache_dir = cache_dir or _default_cache_dir()
+    if not _cache_dir_trusted(cache_dir):
+        return None
+    paths = tuple(_entry_path(cache_dir, tag, key_one, i) for i in range(num_parts))
+    return paths if all(os.path.exists(p) for p in paths) else None
+
+
+def _pf_salt() -> str:
+    """Key salt of pass-fused entries: the pf layout version and the
+    fusion knobs, which are baked into the frozen static."""
+    blk, grp, smem = shuf._pf_defaults()
+    return f":pfv{PF_FORMAT}:{blk}:{grp}:{smem}"
+
+
+def _mx_salt() -> str:
+    """Key salt of mxreduce entries: the pf salt plus the mx geometry
+    knobs (suffix block bound, tile rows, v_blk)."""
+    blk, rows, vb = shuf._mx_defaults()
+    return _pf_salt() + f":mx{MX_FORMAT}:{blk}:{rows}:{vb}"
+
+
+def _salted(base_key_one, salt: str):
+    salt_b = salt.encode()
+
+    def key_one(h, i):
+        base_key_one(h, i)
+        h.update(salt_b)
+
+    return key_one
+
+
+def _pf_key_one(base_key_one):
+    return _salted(base_key_one, _pf_salt())
+
+
+def _mx_key_one(base_key_one):
+    return _salted(base_key_one, _mx_salt())
+
+
+def _pf_form(static) -> bool:
+    """Family guard of the "*-pf" tags: the plain PASS-FUSED form."""
+    if isinstance(static, CFRouteStatic):
+        return _pf_form(static.src) and _pf_form(static.dst)
+    if getattr(static, "mx", None) is not None:
+        return False
+    return isinstance(static.r1, shuf.StaticRoutePF)
+
+
+def _mx_form(static) -> bool:
+    """Family guard of the "fused-mx-*" tags: an MXREDUCE plan."""
+    return (isinstance(static, FusedStatic) and static.mx is not None
+            and isinstance(static.r1, shuf.StaticRoutePF))
+
+
+def _plain_form(kind):
+    """Family guard of the unfused tags: a ``kind`` static with unfused
+    routes (a CF static: both sub-plans unfused expands)."""
+    def ok(static) -> bool:
+        if kind is CFRouteStatic:
+            return (isinstance(static, CFRouteStatic)
+                    and all(_plain_form(ExpandStatic)(s) for s in (static.src, static.dst)))
+        return (isinstance(static, kind) and getattr(static, "mx", None) is None
+                and isinstance(static.r1, shuf.StaticRoute))
+    return ok
+
+
+def _expand_key_one(shards):
+    arrays = shards.arrays
+
+    def key_one(h, i):
+        _hash_array(h, arrays.src_pos[i])
+        _hash_array(h, arrays.edge_mask[i])
+        h.update(str(shards.spec.gathered_size).encode())
+
+    return key_one
+
+
+def _fused_key_one(shards, template):
+    arrays = shards.arrays
+    tmpl_salt = json.dumps(sorted(template.items())).encode()
+
+    def key_one(h, i):
+        for f in (arrays.src_pos[i], arrays.dst_local[i], arrays.weights[i],
+                  arrays.edge_mask[i]):
+            _hash_array(h, f)
+        v_pad = arrays.row_ptr.shape[1] - 1
+        h.update(f"{shards.spec.gathered_size}:{v_pad}".encode())
+        h.update(f":fusedv{FUSED_FORMAT}".encode())
+        h.update(tmpl_salt)
+
+    return key_one
+
+
+def _cf_key_one(shards):
+    arrays = shards.arrays
+    v_pad = arrays.row_ptr.shape[1] - 1
+
+    def key_one(h, i):
+        for f in (arrays.src_pos[i], arrays.dst_local[i], arrays.edge_mask[i]):
+            _hash_array(h, f)
+        h.update(f"{shards.spec.gathered_size}:{v_pad}".encode())
+
+    return key_one
+
+
+def plan_expand_shards_cached(shards, cache_dir: str | None = None,
+                              cache_path=None, pf: bool = False):
+    """plan_expand_shards with the per-part disk cache keyed on each
+    part's gather layout (src_pos + edge_mask bytes + gathered size).
+    ``pf=True``: the pass-fused family ("expand-pf"); a pf miss loads (or
+    builds AND caches) the unfused entry and upgrades it with the numpy
+    transform, so the coloring is never paid twice.  ``cache_path``: a
+    has_cached_expand_plan result of the same ``pf``, to skip hashing."""
+    num = shards.arrays.src_pos.shape[0]
+    key_one = _expand_key_one(shards)
+    paths = list(cache_path) if cache_path else None
+    if not pf:
+        return _cached_stack("expand", num, key_one,
+                             lambda i: _expand_plan_one(shards, i), cache_dir,
+                             paths=paths, validate=_plain_form(ExpandStatic))
+    base_one = _cached_part_fn("expand", num, key_one,
+                               lambda i: _expand_plan_one(shards, i), cache_dir,
+                               validate=_plain_form(ExpandStatic))
+    return _cached_stack("expand-pf", num, _pf_key_one(key_one),
+                         lambda i: _to_pf_one(*base_one(i)), cache_dir,
+                         paths=paths, validate=_pf_form)
+
+
+def has_cached_expand_plan(shards, cache_dir: str | None = None, pf: bool = False):
+    """The per-part cache paths when plan_expand_shards_cached would be a
+    pure disk load (every entry present), else None."""
+    key_one = _expand_key_one(shards)
+    num = shards.arrays.src_pos.shape[0]
+    if pf:
+        return _warm_paths("expand-pf", num, _pf_key_one(key_one), cache_dir)
+    return _warm_paths("expand", num, key_one, cache_dir)
+
+
+def plan_fused_shards_cached(shards, reduce: str = "sum",
+                             cache_dir: str | None = None, pf: bool = False,
+                             mx: bool | None = False):
+    """plan_fused_shards with the per-part disk cache (the reduce joins
+    the tag).  Each part's key folds the SHARED group template, so a
+    recut that changes any part's width-class census invalidates exactly
+    the parts it must.  ``pf=True``: the pass-fused family; ``mx`` (True,
+    or None following engine/methods.reduce_mode): the mxreduce family,
+    its own "fused-mx-<reduce>" tag and key salt."""
+    template = _group_template(shards.arrays)
+    num = shards.arrays.src_pos.shape[0]
+    key_one = _fused_key_one(shards, template)
+    if resolve_fused_mx(mx):
+        return _cached_stack(
+            f"fused-mx-{reduce}", num, _mx_key_one(key_one),
+            lambda i: _fused_plan_one(shards, template, reduce, i, mx=True),
+            cache_dir, validate=_mx_form)
+    base_one = _cached_part_fn(
+        f"fused-{reduce}", num, key_one,
+        lambda i: _fused_plan_one(shards, template, reduce, i), cache_dir,
+        validate=_plain_form(FusedStatic))
+    if not pf:
+        return _stack_from(_map_parts(num, base_one))
+    return _cached_stack(f"fused-pf-{reduce}", num, _pf_key_one(key_one),
+                         lambda i: _to_pf_one(*base_one(i)), cache_dir,
+                         validate=_pf_form)
+
+
+def has_cached_fused_plan(shards, reduce: str = "sum", cache_dir: str | None = None,
+                          pf: bool = False, mx: bool | None = False):
+    """Per-part paths when the fused plan family is fully cached, else
+    None."""
+    template = _group_template(shards.arrays)
+    key_one = _fused_key_one(shards, template)
+    num = shards.arrays.src_pos.shape[0]
+    if resolve_fused_mx(mx):
+        return _warm_paths(f"fused-mx-{reduce}", num, _mx_key_one(key_one), cache_dir)
+    if pf:
+        return _warm_paths(f"fused-pf-{reduce}", num, _pf_key_one(key_one), cache_dir)
+    return _warm_paths(f"fused-{reduce}", num, key_one, cache_dir)
+
+
+def plan_cf_route_shards_cached(shards, cache_dir: str | None = None, pf: bool = False):
+    """plan_cf_route_shards with the per-part disk cache."""
+    num = shards.arrays.src_pos.shape[0]
+    key_one = _cf_key_one(shards)
+    base_one = _cached_part_fn("cf", num, key_one, lambda i: _cf_plan_one(shards, i),
+                               cache_dir, validate=_plain_form(CFRouteStatic))
+    if not pf:
+        return _stack_from(_map_parts(num, base_one))
+    return _cached_stack("cf-pf", num, _pf_key_one(key_one),
+                         lambda i: _to_pf_one(*base_one(i)), cache_dir,
+                         validate=_pf_form)
+
+
+def has_cached_cf_plan(shards, cache_dir: str | None = None, pf: bool = False):
+    """Per-part paths when the CF plan family is fully cached, else None."""
+    key_one = _cf_key_one(shards)
+    num = shards.arrays.src_pos.shape[0]
+    if pf:
+        return _warm_paths("cf-pf", num, _pf_key_one(key_one), cache_dir)
+    return _warm_paths("cf", num, key_one, cache_dir)

@@ -24,9 +24,12 @@ the batch keep relaxing (relaxing a converged query is a no-op).  At most
 two (P, V, Q) state buffers are live in the loop: the state and the
 iteration's new state.
 
-The mutation overlay (``overlay_static``, ``oarrays``, ``degree``) comes
-with the dynamic-graph slice and raises here: an engine must never answer
-a mutating graph from the base graph.
+An engine built with ``overlay_static`` (lux_tpu_torch.mutate.overlay)
+serves a MUTATING graph: every ``run`` then requires the current overlay
+arrays (and, for degree-consuming programs like PPR, the merged degree
+stack).  Tombstoned base edges neutralize their (E, Q) values (the (E,)
+mask broadcasts over the query lanes), and the fixed-capacity insert
+buffer is folded into the accumulator as (D, Q) rows before apply.
 """
 from __future__ import annotations
 
@@ -38,13 +41,10 @@ import torch
 
 from lux_tpu_torch.engine import methods
 from lux_tpu_torch.graph.shards import PullShards, ShardArrays, ShardSpec, to_device
+from lux_tpu_torch.mutate import overlay as ovl
 from lux_tpu_torch.ops import segment
 from lux_tpu_torch.program import BatchedSpecBacked, library
 from lux_tpu_torch.utils.device import resolve_device
-
-_OVERLAY = ("the mutation overlay of the batched engines (overlay_static, oarrays, "
-            "degree) is not ported to lux_tpu_torch yet: it comes with the "
-            "dynamic-graph slice (ROADMAP Queue 1 item 6)")
 
 _REDUCERS = segment.reducers()
 
@@ -114,29 +114,38 @@ class MultiSourcePPR(BatchedSpecBacked, QueryProgram):
 
 
 def _batched_part(prog, method: str, arr: ShardArrays, full: torch.Tensor,
-                  loc: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+                  loc: torch.Tensor, queries: torch.Tensor, oa=None) -> torch.Tensor:
     """One part's batched step: (E, Q) gather, edge values, the segmented
-    reduce of every lane, apply -> (V, Q)."""
+    reduce of every lane, apply -> (V, Q).  ``oa`` (this part's
+    mutate.overlay.DeviceOverlay) neutralizes the tombstoned edges' values
+    and folds the (D, Q) insert rows into the accumulator."""
     src = full.index_select(0, arr.src_pos)  # (E, Q)
     vals = prog.edge_value(src, arr.weights)
     del src  # free the gather now where the edge function copied it
+    if oa is not None:
+        vals = ovl.mask_deleted(vals, oa.del_val[:, None], prog.reduce)
     acc = _REDUCERS[prog.reduce](vals, arr.row_ptr, arr.head_flag,
                                  arr.dst_local, method=method)
     del vals
+    if oa is not None:
+        acc = ovl.delta_scatter(acc, full, oa, prog.edge_value, prog.reduce)
     return prog.apply(loc, acc, arr, queries)
 
 
 def batched_iteration(prog, spec: ShardSpec, method: str, arrays: ShardArrays,
-                      state: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+                      state: torch.Tensor, queries: torch.Tensor,
+                      overlays=None) -> torch.Tensor:
     """One batched pull iteration over the whole (P, V, Q) shard stack;
-    returns the new stack (a fresh buffer: ``state`` is only read)."""
+    returns the new stack (a fresh buffer: ``state`` is only read).
+    ``overlays``: one DeviceOverlay per part, or None."""
     full = state.reshape((spec.gathered_size,) + tuple(state.shape[2:]))
     if spec.num_parts == 1:
-        return _batched_part(prog, method, arrays.part(0), full, state[0],
-                             queries).unsqueeze(0)
+        return _batched_part(prog, method, arrays.part(0), full, state[0], queries,
+                             None if overlays is None else overlays[0]).unsqueeze(0)
     new = torch.empty_like(state)
     for p in range(spec.num_parts):
-        new[p] = _batched_part(prog, method, arrays.part(p), full, state[p], queries)
+        new[p] = _batched_part(prog, method, arrays.part(p), full, state[p], queries,
+                               None if overlays is None else overlays[p])
     return new
 
 
@@ -149,7 +158,8 @@ def batched_init(prog, arrays: ShardArrays, queries: torch.Tensor) -> torch.Tens
 
 
 def run_batched_fixpoint(prog, spec: ShardSpec, method: str, arrays: ShardArrays,
-                         queries: torch.Tensor, state: torch.Tensor, max_iters: int):
+                         queries: torch.Tensor, state: torch.Tensor, max_iters: int,
+                         overlays=None):
     """Iterate while ANY query is still changing (at most ``max_iters``);
     per-query round counters freeze as queries converge.  ``state`` is
     consumed (the caller keeps no reference, so the first iteration
@@ -159,7 +169,7 @@ def run_batched_fixpoint(prog, spec: ShardSpec, method: str, arrays: ShardArrays
     rounds = [0] * q
     it = 0
     while it < max_iters and any(a > 0 for a in active):
-        new = batched_iteration(prog, spec, method, arrays, state, queries)
+        new = batched_iteration(prog, spec, method, arrays, state, queries, overlays)
         changed = (new != state).sum(dim=(0, 1), dtype=torch.int32)  # (Q,)
         # a query active at iteration entry walked every edge this round
         rounds = [r + (a > 0) for r, a in zip(rounds, active)]
@@ -171,11 +181,12 @@ def run_batched_fixpoint(prog, spec: ShardSpec, method: str, arrays: ShardArrays
 
 
 def run_batched_fixed(prog, spec: ShardSpec, method: str, arrays: ShardArrays,
-                      queries: torch.Tensor, state: torch.Tensor, num_iters: int):
+                      queries: torch.Tensor, state: torch.Tensor, num_iters: int,
+                      overlays=None):
     """``num_iters`` batched iterations (PPR style), no host read.
     Returns (state, iterations, per-query rounds)."""
     for _ in range(num_iters):
-        state = batched_iteration(prog, spec, method, arrays, state, queries)
+        state = batched_iteration(prog, spec, method, arrays, state, queries, overlays)
     return state, num_iters, [num_iters] * queries.shape[0]
 
 
@@ -217,7 +228,12 @@ class BatchedEngine:
 
     ``device_arrays``: the shards' arrays already on the device, shared by
     every engine of a warm cache (one device copy of the O(E) arrays);
-    without it the engine places its own copy on ``device``."""
+    without it the engine places its own copy on ``device``.
+
+    ``overlay_static`` (mutate.overlay.OverlayStatic) builds the LIVE
+    twin: every ``run`` then REQUIRES the current overlay arrays — an
+    engine built for a mutating graph must never silently answer from
+    the base graph."""
 
     def __init__(self, shards: PullShards, app: str, q: int,
                  method: str = "auto", num_iters: int = 10,
@@ -225,8 +241,7 @@ class BatchedEngine:
                  overlay_static=None, device="cuda"):
         if q < 1:
             raise ValueError(f"q must be >= 1, got {q}")
-        if overlay_static is not None:
-            raise NotImplementedError(_OVERLAY)
+        self.overlay_static = overlay_static
         self.shards = shards
         self.app = app
         self.q = q
@@ -247,11 +262,24 @@ class BatchedEngine:
         self._warmed = False
         self._warm_lock = threading.Lock()
 
-    def _run(self, queries: torch.Tensor, stop: int):
+    def _run(self, queries: torch.Tensor, stop: int, arrays=None, overlays=None):
         # the initial state goes straight into the loop: no reference
         # here keeps it alive past the first iteration
-        return self._loop(self.prog, self.shards.spec, self.method, self._arrays,
-                          queries, batched_init(self.prog, self._arrays, queries), stop)
+        arrays = self._arrays if arrays is None else arrays
+        return self._loop(self.prog, self.shards.spec, self.method, arrays,
+                          queries, batched_init(self.prog, arrays, queries), stop,
+                          overlays)
+
+    def _empty_oarrays(self):
+        return ovl.empty_overlay_arrays(self.shards, self.overlay_static.cap)
+
+    def device_overlays(self, oarrays) -> list:
+        """Overlay arrays (numpy OverlayArrays, or the per-part device
+        list this returns) as one DeviceOverlay per part on the engine's
+        device."""
+        if isinstance(oarrays, list):
+            return oarrays
+        return ovl.device_overlay(oarrays, self.device, self.shards.spec.nv_pad)
 
     def _query_rows(self, state: torch.Tensor) -> torch.Tensor:
         """(P, V, Q) stacked state -> (Q, nv) rows in global vertex order,
@@ -265,13 +293,16 @@ class BatchedEngine:
     def warm(self, oarrays=None) -> "BatchedEngine":
         """Run one dummy batch (queries = vertex 0, one iteration) and wait
         for it.  Serialized: concurrent pumps (the scheduler thread and a
-        draining caller) must not both pay the first launches."""
-        if oarrays is not None:
-            raise NotImplementedError(_OVERLAY)
+        draining caller) must not both pay the first launches.  An
+        overlay engine warms against the given (or the empty) overlay."""
         with self._warm_lock:
             if not self._warmed:
                 q0 = torch.zeros(self.q, dtype=torch.int32, device=self.device)
-                self._run(q0, 1)
+                overlays = None
+                if self.overlay_static is not None:
+                    overlays = self.device_overlays(
+                        oarrays if oarrays is not None else self._empty_oarrays())
+                self._run(q0, 1, overlays=overlays)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self._warmed = True
@@ -279,9 +310,11 @@ class BatchedEngine:
 
     def run(self, queries, oarrays=None, degree=None) -> BatchedResult:
         """Answer ``queries`` ((q,) int vertex ids) -> BatchedResult, on
-        the host."""
-        if oarrays is not None or degree is not None:
-            raise NotImplementedError(_OVERLAY)
+        the host.  ``oarrays``: the current mutation overlay (required iff
+        the engine was built with ``overlay_static``; numpy OverlayArrays
+        or the list ``device_overlays`` returns).  ``degree``: the merged
+        (P, V) out-degree stack, substituting the base degrees for
+        degree-consuming programs."""
         queries = np.asarray(queries, np.int32)
         if queries.shape != (self.q,):
             raise ValueError(
@@ -289,8 +322,19 @@ class BatchedEngine:
         nv = self.shards.spec.nv
         if queries.size and (queries.min() < 0 or queries.max() >= nv):
             raise ValueError(f"query vertex out of range [0, {nv})")
+        if (self.overlay_static is None) != (oarrays is None):
+            # a silently ignored overlay would serve base-graph answers
+            # under a live graph
+            raise ValueError(
+                "overlay_static and oarrays must be passed together: "
+                "BatchedEngine(..., overlay_static=ostatic) and "
+                "run(..., oarrays=oarr)")
+        arrays = self._arrays
+        if degree is not None:
+            arrays = arrays._replace(degree=torch.as_tensor(degree).to(self.device))
+        overlays = None if oarrays is None else self.device_overlays(oarrays)
         q_dev = torch.from_numpy(queries.copy()).to(self.device)
-        state, it, rounds = self._run(q_dev, self._stop)
+        state, it, rounds = self._run(q_dev, self._stop, arrays, overlays)
         self._warmed = True
         rows = self._query_rows(state)
         del state

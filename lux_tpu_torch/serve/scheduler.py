@@ -59,6 +59,9 @@ class _Request:
     error: Optional[BaseException] = None
     traversed: int = 0
     rounds: int = 0
+    #: mutation generation of the overlay the answering batch ran with
+    #: (None: the cache serves no overlay)
+    generation: Optional[int] = None
 
 
 class ServeFuture:
@@ -87,6 +90,12 @@ class ServeFuture:
     @property
     def rounds(self) -> int:
         return self._req.rounds
+
+    @property
+    def generation(self) -> Optional[int]:
+        """Mutation generation the answer reflects (a LOWER bound: the
+        overlay installed at dispatch)."""
+        return self._req.generation
 
 
 class MicroBatchScheduler:
@@ -206,9 +215,18 @@ class MicroBatchScheduler:
         queries = queries + [queries[0]] * (q - len(queries))
         t0 = self._clock()
         try:
-            # one read of self.cache for the whole dispatch
-            engine, was_warm = self.cache.get(self.app, q)
-            out = engine.run(queries)
+            # one read of self.cache for the whole dispatch, and one atomic
+            # read of its overlay: the generation tag is the overlay this
+            # batch runs with (a lower bound under a racing install)
+            cache = self.cache
+            engine, was_warm = cache.get(self.app, q)
+            overlay = cache.current_overlay()
+            if overlay is None:
+                out = engine.run(queries)
+                gen = None
+            else:
+                gen, oarr, deg = overlay
+                out = engine.run(queries, oarrays=oarr, degree=deg)
         except Exception as e:  # noqa: BLE001 - a failed batch must resolve
             # its requests (a hung future is worse than any error)
             for r in batch:
@@ -225,6 +243,7 @@ class MicroBatchScheduler:
             r.result = out.query_state(i)
             r.traversed = out.traversed[i]
             r.rounds = int(out.rounds[i])
+            r.generation = gen
             self.metrics.record_done(latency_s=done_t - r.enqueue_t,
                                      wait_s=t0 - r.enqueue_t,
                                      traversed=out.traversed[i])

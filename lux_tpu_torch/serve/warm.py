@@ -14,6 +14,11 @@ The layout half of the key exists because an engine binds the shard
 GEOMETRY (part count, padded sizes): engines of a superseded layout are
 dropped when a new shards bundle is installed.  Every engine of one
 layout shares ONE device copy of the shard arrays.
+
+A cache built with ``overlay_static`` serves a mutating graph: every
+engine is the overlay twin, and ``set_overlay`` installs the current
+overlay (moved to the device once) as one atomic store that dispatchers
+read with ``current_overlay``.
 """
 from __future__ import annotations
 
@@ -23,8 +28,11 @@ import threading
 import time
 from typing import Optional, Tuple
 
+import torch
+
 from lux_tpu_torch.graph.shards import PullShards, to_device
-from lux_tpu_torch.serve.batched import _OVERLAY, BatchedEngine, resolve_method
+from lux_tpu_torch.mutate import overlay as ovl
+from lux_tpu_torch.serve.batched import BatchedEngine, resolve_method
 from lux_tpu_torch.utils.config import env_int
 from lux_tpu_torch.utils.device import resolve_device
 
@@ -61,10 +69,13 @@ class WarmEngineCache:
                  num_iters: int = 10, max_iters: int = 10_000,
                  metrics=None, max_engines: Optional[int] = None,
                  overlay_static=None, device="cuda"):
-        if overlay_static is not None:
-            raise NotImplementedError(_OVERLAY)
         self.shards = shards
         self.device = resolve_device(device)
+        #: mutate.overlay.OverlayStatic -> every engine of this cache is the
+        #: overlay twin; the current overlay lives in ``_overlay`` as one
+        #: immutable (generation, device overlays, device degree) tuple
+        self.overlay_static = overlay_static
+        self._overlay = None
         self.apps = tuple(apps)
         self.q_buckets = tuple(sorted(set(int(q) for q in q_buckets)))
         if self.q_buckets and self.q_buckets[0] < 1:
@@ -99,6 +110,40 @@ class WarmEngineCache:
         return EngineKey(app=app, method=self._method[app], layout=self._layout,
                          q=int(q))
 
+    # -- live overlay -----------------------------------------------------
+
+    def set_overlay(self, generation: int, oarrays, degree=None) -> None:
+        """Install the CURRENT mutation overlay: one atomic store of an
+        immutable (generation, per-part device overlays, device degree)
+        tuple.  A dispatcher that read the tuple before a newer install
+        tags its answers with the older generation — a lower bound on
+        what the batch served."""
+        if self.overlay_static is None:
+            raise ValueError(
+                "cache was built without overlay_static; a live server "
+                "must construct its WarmEngineCache with the overlay "
+                "descriptor so every engine is the overlay twin")
+        dev_o = ovl.device_overlay(oarrays, self.device, self.shards.spec.nv_pad)
+        dev_d = None if degree is None else torch.as_tensor(degree).to(self.device)
+        self._overlay = (int(generation), dev_o, dev_d)
+
+    def current_overlay(self):
+        """(generation, device overlays, degree) or None (a cache without
+        overlays).  A live cache before any set_overlay serves the empty
+        overlay at generation 0."""
+        if self.overlay_static is None:
+            return None
+        ov = self._overlay
+        if ov is None:
+            self.set_overlay(0, ovl.empty_overlay_arrays(self.shards,
+                                                         self.overlay_static.cap))
+            ov = self._overlay
+        return ov
+
+    def _warm_oarrays(self):
+        ov = self.current_overlay()
+        return None if ov is None else ov[1]
+
     def prewarm(self, apps=None, q_buckets=None) -> float:
         """Build and warm one engine per (app, bucket); returns the wall
         seconds spent (the service-start cost, reported apart from
@@ -106,7 +151,7 @@ class WarmEngineCache:
         t0 = time.perf_counter()
         for app in apps if apps is not None else self.apps:
             for q in q_buckets if q_buckets is not None else self.q_buckets:
-                self._build(app, int(q)).warm()
+                self._build(app, int(q)).warm(self._warm_oarrays())
         spent = time.perf_counter() - t0
         with self._lock:
             self.warm_seconds += spent
@@ -134,7 +179,8 @@ class WarmEngineCache:
                 eng = BatchedEngine(
                     self.shards, app, q, method=k.method,
                     num_iters=self.num_iters, max_iters=self.max_iters,
-                    device_arrays=self._device_arrays)
+                    device_arrays=self._device_arrays,
+                    overlay_static=self.overlay_static)
                 self._engines[k] = eng
                 self._evict_locked()
             else:
@@ -167,7 +213,7 @@ class WarmEngineCache:
         if was_warm:
             return eng, True
         t0 = time.perf_counter()
-        eng.warm()
+        eng.warm(self._warm_oarrays())
         with self._lock:
             self.warm_seconds += time.perf_counter() - t0
         return eng, False
@@ -179,6 +225,7 @@ class WarmEngineCache:
             self.shards = shards
             self._layout = layout_key(shards)
             self._device_arrays = None
+            self._overlay = None  # stale occupancy, stale shapes
             self._engines = collections.OrderedDict(
                 (k, e) for k, e in self._engines.items() if k.layout == self._layout)
 

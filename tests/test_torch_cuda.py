@@ -668,3 +668,184 @@ def test_batched_serving_on_card_matches_cpu(cuda, parts, method):
                     np.testing.assert_allclose(out, want.state[i], rtol=1e-5, atol=0)
         finally:
             sched.stop()
+
+
+# --- dynamic graphs: the kernels under a mutation overlay's inputs -------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["random", "hub_block", "whole_tiles"])
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.int32),
+                                      ("max", torch.int32)])
+def test_mxreduce_tombstoned_ranks(cuda, pattern, op, dtype):
+    """The mx kernel with ranks tombstoned to the sentinel v_blk in the
+    MIDDLE of tiles, as apply_fused(del_val=) writes them: 20 % of the
+    slots at random, every slot of the hub block (block 0, five chunks),
+    or eight whole tiles.  f32 sums within rtol 1e-5 of the same sums in
+    float64, min/max int32 bitwise the plain version."""
+    tiles, tile_block, ranks, num_blocks = _mx_split_case("hub")
+    rng = np.random.default_rng(77)
+    tile = 1024
+    if pattern == "random":
+        ranks[rng.random(ranks.size) < 0.2] = _MX_V_BLK
+    elif pattern == "hub_block":
+        ranks[np.repeat(tile_block, tile) == 0] = _MX_V_BLK
+    else:
+        ranks[3 * tile:11 * tile] = _MX_V_BLK
+    rows = tiles * 8
+    steps = (shuffle.StaticStep(relayout=None),
+             shuffle.StaticStep(relayout=((1, 8, 8, 16), (0, 2, 3, 1))))
+    mxg = shuffle.StaticMXGroup(view=(rows * 128,), perm_axes=(), kshape=(rows, 128),
+                                block_rows=8, steps=steps, v_blk=_MX_V_BLK,
+                                num_blocks=num_blocks, op=op)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, 128), dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+    else:
+        x = torch.from_numpy(rng.random((rows, 128), dtype=np.float32) + 0.01).to(cuda)
+    idx = [torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(np.uint8)).to(cuda)
+           for _ in steps]
+    dst_rel = torch.from_numpy(ranks.reshape(rows, 128).astype(np.uint8)).to(cuda)
+    tb = torch.from_numpy(tile_block).to(cuda)
+    got = shuffle.mxreduce_pass_gather(x, idx, dst_rel, tb, mxg)
+    if op == "sum":
+        y = shuffle._steps_plain(x, steps, idx).double()
+        flat = (tb.long()[torch.arange(rows, device=cuda) // 8][:, None] * _MX_V_BLK
+                + dst_rel.long())
+        valid = dst_rel.long() < _MX_V_BLK
+        want = torch.zeros(num_blocks * _MX_V_BLK, dtype=torch.float64, device=cuda)
+        want.index_add_(0, flat[valid], y[valid])
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, shuffle.mxreduce_pass_gather_plain(x, idx, dst_rel, tb, mxg))
+    if pattern == "hub_block":  # a block with no live slot comes out neutral
+        neutral = spmv.reduce_neutral(op, got.dtype)
+        assert bool((got[:_MX_V_BLK] == neutral).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["fused-pf", "fused-mx"])
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_apply_fused_del_val_on_card(cuda, family, reduce):
+    """apply_fused with a tombstone mask on the card against its plain
+    twin (the same call on the CPU): max bitwise, f32 sums rtol 1e-5;
+    the plan's own rank tiles are left as they were."""
+    from lux_tpu_torch.graph import generate
+
+    g = generate.rmat(12, 8, seed=3)
+    sh = shards.build_pull_shards(g, 2)
+    plan = (expand.plan_fused_shards(sh, reduce, mx=True) if family == "fused-mx"
+            else expand.plan_fused_shards(sh, reduce, pf=True))
+    rng = np.random.default_rng(5)
+    dtype = np.float32 if reduce == "sum" else np.int32
+    state = (rng.random(sh.spec.gathered_size).astype(np.float32) if reduce == "sum"
+             else rng.integers(0, 1 << 20, sh.spec.gathered_size).astype(np.int32))
+    for p in range(2):
+        del_val = (rng.random(sh.spec.e_pad) < 0.1) & sh.arrays.edge_mask[p]
+        outs = []
+        for dev in ("cpu", cuda):
+            st, arr = expand.plan_to_device(plan, dev)
+            part = tuple(a[p] for a in arr)
+            before = [a.clone() for a in part]
+            outs.append(expand.apply_fused(torch.from_numpy(state).to(dev), st, part,
+                                           del_val=torch.from_numpy(del_val).to(dev)).cpu())
+            assert all(torch.equal(a, b) for a, b in zip(part, before))
+        if reduce == "sum":
+            torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-12)
+        else:
+            assert torch.equal(outs[1], outs[0])
+        assert outs[0].dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.int32),
+                                      ("max", torch.int32)])
+def test_mxscan_on_neutral_masked_values(cuda, op, dtype):
+    """The scan kernel on values a tombstone mask set to the reduce's
+    neutral (mutate.overlay.mask_deleted), inside and across segments:
+    int32 min/max bitwise, f32 sums rtol 1e-5 of the plain version."""
+    from lux_tpu_torch.mutate import overlay as ovl
+
+    rng = np.random.default_rng(8)
+    n = 200_003
+    head = rng.random(n) < 0.01
+    head[0] = True
+    head[50_000:120_000] = False  # one segment over several tiles
+    vals = (torch.from_numpy(rng.random(n, dtype=np.float32) + 0.01) if dtype == torch.float32
+            else torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)))
+    dead = torch.from_numpy(rng.random(n) < 0.15)
+    dead[60_000:90_000] = True
+    masked = ovl.mask_deleted(vals, dead, op).to(cuda)
+    h = torch.from_numpy(head).to(cuda)
+    got = scan.mxscan_segmented(masked, h, op=op)
+    want = scan.mxscan_segmented_plain(masked, h, op=op)
+    if op == "sum":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_insert_fold_deterministic_on_card(cuda):
+    """The float-sum insert fold with many duplicate destinations: ten
+    runs on the card bitwise equal (no atomic-order dependence), within
+    rtol 1e-5 of the float64 sums, and bitwise the CPU fold (the same
+    rounds add in the same order)."""
+    from lux_tpu_torch.mutate import overlay as ovl
+
+    rng = np.random.default_rng(11)
+    V, D = 4096, 8192
+    dst = np.full((1, D), V, np.int32)
+    live = 7000
+    dst[0, :live] = rng.choice(np.arange(0, V, 97), live)  # 43 destinations
+    src = rng.integers(0, 2 * V, (1, D)).astype(np.int32)
+    oarr = ovl.OverlayArrays(np.zeros((1, 128), bool), src, dst, np.zeros((1, D), np.float32))
+    full = rng.random(2 * V, dtype=np.float32)
+    acc = rng.random(V, dtype=np.float32)
+    outs = []
+    for dev in (cuda,) * 10 + ("cpu",):
+        oa = ovl.device_overlay(oarr, dev, V)[0]
+        outs.append(ovl.delta_scatter(torch.from_numpy(acc).to(dev),
+                                      torch.from_numpy(full).to(dev), oa,
+                                      lambda s, w: s, "sum").cpu())
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    want = acc.astype(np.float64)
+    np.add.at(want, dst[0, :live], full[src[0, :live]].astype(np.float64))
+    np.testing.assert_allclose(outs[0].numpy(), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_refresh_on_card_matches_cpu(cuda):
+    """Warm SSSP / CC refreshes on the card equal the CPU's bitwise, and
+    the PageRank refresh lands within rtol 1e-5 of the CPU's fixpoint;
+    two card refreshes from one prior are bitwise equal."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models import components as comp
+    from lux_tpu_torch.mutate import OP_DELETE, OP_INSERT, MutableGraph, refresh
+
+    g = generate.rmat(13, 8, seed=6)
+    rng = np.random.default_rng(6)
+    mg = MutableGraph(g, num_parts=4)
+    start = int(np.argmax(g.out_degrees()))
+    dist = comp_dist = None
+    from lux_tpu_torch.models import sssp as sssp_model
+
+    dist = sssp_model.sssp(g, start=start, num_parts=4, device="cpu")
+    comp_dist = comp.connected_components_push(g, num_parts=4, device="cpu")
+    pr0, _ = refresh.converge_pagerank(mg.pull_shards, device="cpu")
+    dele = rng.choice(g.ne, 300, replace=False)
+    mg.apply(g.col_idx[dele], g.dst_of_edges()[dele], np.full(300, OP_DELETE, np.int8))
+    mg.apply(rng.integers(0, g.nv, 300), rng.integers(0, g.nv, 300),
+             np.full(300, OP_INSERT, np.int8))
+    for dev in ("cpu", cuda):
+        d, _ = refresh.refresh_sssp(mg, dist, start, device=dev)
+        lab, _ = refresh.refresh_components(mg, comp_dist, device=dev)
+        p, _ = refresh.refresh_pagerank(mg, pr0, device=dev)
+        if dev == "cpu":
+            want = (d, lab, p)
+            continue
+        np.testing.assert_array_equal(d, want[0])
+        np.testing.assert_array_equal(lab, want[1])
+        np.testing.assert_allclose(p.cpu().numpy(), want[2].numpy(), rtol=1e-5, atol=0)
+        p2, _ = refresh.refresh_pagerank(mg, pr0, device=dev)
+        assert torch.equal(p, p2)

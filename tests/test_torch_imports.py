@@ -40,6 +40,7 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "utils.checkpoint", "engine.delta", "engine.repartition",
                  "engine.stream", "utils.timing", "serve", "serve.batched", "serve.warm",
                  "serve.scheduler", "serve.metrics", "serve.benchmarks", "serve.driver",
-                 "utils.roofline"):
+                 "utils.roofline", "mutate", "mutate.deltalog", "mutate.overlay",
+                 "mutate.graph", "mutate.compact", "mutate.refresh"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 50

@@ -156,17 +156,86 @@ def test_engine_validates_inputs(graphs):
         batched.BatchedEngine(shards, "sssp", 0, device="cpu")
 
 
-def test_overlay_arm_raises_instead_of_base_graph_answers(graphs):
+def _churned_pair(g, rg, parts):
+    """The same churn (base deletes, then inserts) in the port's and the
+    reference's MutableGraph."""
+    from lux_tpu.mutate import MutableGraph as RefMutableGraph
+    from lux_tpu_torch.mutate import OP_DELETE, OP_INSERT, MutableGraph
+
+    rng = np.random.default_rng(5)
+    dele = rng.choice(g.ne, 30, replace=False)
+    batches = [(g.col_idx[dele], g.dst_of_edges()[dele], np.full(30, OP_DELETE, np.int8)),
+               (rng.integers(0, g.nv, 40), rng.integers(0, g.nv, 40),
+                np.full(40, OP_INSERT, np.int8))]
+    mg, rmg = MutableGraph(g, num_parts=parts), RefMutableGraph(rg, num_parts=parts)
+    for b in batches:
+        mg.apply(*b)
+        rmg.apply(*b)
+    return mg, rmg
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("app", ["sssp", "ppr"])
+def test_overlay_engine_matches_reference(graphs, app, parts):
+    """The overlay twin (tombstones broadcast over the Q lanes, (D, Q)
+    insert fold, merged degrees) answers as the reference's overlay
+    BatchedEngine: SSSP bitwise and equal to a BFS of the merged graph,
+    PPR within rtol 1e-5."""
+    from lux_tpu.mutate import overlay as ref_ovl
+    from lux_tpu_torch.mutate import overlay as ovl
+
+    g, rg = graphs
+    mg, rmg = _churned_pair(g, rg, parts)
+    srcs = mixed_sources(g, 3)
+    st, oa = mg.pull_overlay()
+    rst, roa = rmg.pull_overlay()
+    deg = ovl.merged_degree_stacked(mg.pull_shards, mg.log) if app == "ppr" else None
+    rdeg = ref_ovl.merged_degree_stacked(rmg.pull_shards, rmg.log) if app == "ppr" else None
+    got = batched.BatchedEngine(mg.pull_shards, app, 3, num_iters=NI, overlay_static=st,
+                                device="cpu").run(srcs, oarrays=oa, degree=deg)
+    want = ref_batched.BatchedEngine(rmg.pull_shards, app, 3, num_iters=NI,
+                                     overlay_static=rst).run(srcs, oarrays=roa, degree=rdeg)
+    if app == "sssp":
+        np.testing.assert_array_equal(got.state, np.asarray(want.state))
+        merged = mg.log.merged_graph()
+        for i, s in enumerate(srcs):
+            np.testing.assert_array_equal(got.state[i], sssp.bfs_reference(merged, int(s)))
+        assert got.iters == int(want.iters)
+        np.testing.assert_array_equal(got.rounds, np.asarray(want.rounds))
+    else:
+        np.testing.assert_allclose(got.state, np.asarray(want.state), rtol=PPR_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("app", ["sssp", "ppr"])
+def test_empty_overlay_bitwise_no_overlay_engine(graphs, app):
+    from lux_tpu_torch.mutate import overlay as ovl
+
+    g, _ = graphs
+    shards = build_pull_shards(g, 2)
+    srcs = mixed_sources(g, 3)
+    plain = batched.BatchedEngine(shards, app, 3, num_iters=NI, device="cpu").run(srcs)
+    live = batched.BatchedEngine(shards, app, 3, num_iters=NI, device="cpu",
+                                 overlay_static=ovl.OverlayStatic(cap=128, weighted=False))
+    live.warm()
+    got = live.run(srcs, oarrays=ovl.empty_overlay_arrays(shards, 128))
+    np.testing.assert_array_equal(got.state, plain.state)
+    assert got.iters == plain.iters and got.traversed == plain.traversed
+
+
+def test_overlay_pairing_guard(graphs):
+    """An overlay engine never answers from the base graph, and a plain
+    engine never silently ignores an overlay."""
+    from lux_tpu_torch.mutate import overlay as ovl
+
     g, _ = graphs
     shards = build_pull_shards(g, 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        batched.BatchedEngine(shards, "sssp", 1, overlay_static=object(), device="cpu")
-    eng = batched.BatchedEngine(shards, "ppr", 1, device="cpu")
-    for kw in ({"oarrays": object()}, {"degree": np.ones((1, shards.spec.nv_pad))}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            eng.run([0], **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.warm(oarrays=object())
+    live = batched.BatchedEngine(shards, "sssp", 1, device="cpu",
+                                 overlay_static=ovl.OverlayStatic(cap=128, weighted=False))
+    with pytest.raises(ValueError, match="passed together"):
+        live.run([0])
+    plain = batched.BatchedEngine(shards, "sssp", 1, device="cpu")
+    with pytest.raises(ValueError, match="passed together"):
+        plain.run([0], oarrays=ovl.empty_overlay_arrays(shards, 128))
 
 
 def test_cuda_without_a_card_raises(graphs):

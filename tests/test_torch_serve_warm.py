@@ -127,7 +127,52 @@ def test_method_resolution(small, monkeypatch):
         "sssp", 1).method == "mxscan"
 
 
-def test_overlay_refused(small):
+def test_set_overlay_needs_overlay_static(small):
+    from lux_tpu_torch.mutate import overlay as ovl
+
     _, shards = small
-    with pytest.raises(NotImplementedError, match="item 6"):
-        WarmEngineCache(shards, overlay_static=object(), device="cpu")
+    cache = WarmEngineCache(shards, device="cpu")
+    assert cache.current_overlay() is None
+    with pytest.raises(ValueError, match="overlay_static"):
+        cache.set_overlay(1, ovl.empty_overlay_arrays(shards, 128))
+
+
+def test_live_cache_serves_the_installed_overlay(small):
+    """A live cache starts at generation 0 (the empty overlay: answers of
+    the base graph), serves the installed overlay (answers of the merged
+    graph, bitwise a BFS of it and an engine on the compacted graph) and
+    drops it on install_shards."""
+    from lux_tpu_torch.mutate import OP_DELETE, OP_INSERT, MutableGraph
+    from lux_tpu_torch.serve.batched import BatchedEngine
+
+    g, _ = small
+    mg = MutableGraph(g, num_parts=2, cap=256)
+    st, _ = mg.pull_overlay()
+    cache = WarmEngineCache(mg.pull_shards, apps=("sssp",), q_buckets=(2,),
+                            overlay_static=st, device="cpu")
+    cache.prewarm()
+    gen, _, deg = cache.current_overlay()
+    assert gen == 0 and deg is None
+    srcs = [0, 3]
+    eng, warm = cache.get("sssp", 2)
+    assert warm
+    out = eng.run(srcs, oarrays=cache.current_overlay()[1])
+    for i, s in enumerate(srcs):
+        np.testing.assert_array_equal(out.state[i], bfs_reference(g, s))
+    rng = np.random.default_rng(1)
+    dele = rng.choice(g.ne, 20, replace=False)
+    mg.apply(g.col_idx[dele], g.dst_of_edges()[dele], np.full(20, OP_DELETE, np.int8))
+    mg.apply(rng.integers(0, g.nv, 30), rng.integers(0, g.nv, 30),
+             np.full(30, OP_INSERT, np.int8))
+    cache.set_overlay(7, mg.pull_overlay()[1])
+    gen, oarr, _ = cache.current_overlay()
+    assert gen == 7
+    got = eng.run(srcs, oarrays=oarr)
+    merged = mg.log.merged_graph()
+    mg.compact()
+    cold = BatchedEngine(mg.pull_shards, "sssp", 2, device="cpu").run(srcs)
+    np.testing.assert_array_equal(got.state, cold.state)
+    for i, s in enumerate(srcs):
+        np.testing.assert_array_equal(got.state[i], bfs_reference(merged, s))
+    cache.install_shards(mg.pull_shards)
+    assert cache.current_overlay()[0] == 0

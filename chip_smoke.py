@@ -4,8 +4,12 @@ kernels, then drive single-GPU PageRank (direct and routed), collaborative
 filtering, SSSP, connected components, the spec workloads (bfs, kcore,
 labelprop, triangles), the long and out-of-core runs (delta-stepping,
 adaptive repartitioning, host-offload streaming, checkpoint/resume) and
-the batched query service (--serve) through the apps, and dynamic graphs
-(lux_tpu_torch.mutate: churn, warm refresh, compaction, the plan cache).
+the batched query service (--serve) through the apps, dynamic graphs
+(lux_tpu_torch.mutate: churn, warm refresh, compaction, the plan cache),
+and the cold start and observability surface (the plan disk cache in the
+apps, overlapped planning, the telemetry ring, --profile-dir, the flight
+recorder's event log, which every phase of the smoke writes into one run
+directory under LUX_OBS_DIR).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -36,7 +40,9 @@ Phases, each printing one JSON line with its seconds:
               (grid, threads, shared-memory bytes).
   4. plan     the routed plans of the main graph, each family built once
               and reused below: expand, its pass-fused form, the fused
-              (group) plan and its pass-fused form, and fused-mx; for
+              (group) plan and its pass-fused form (these four through
+              the cached planners the apps call, into a cache directory
+              that phase 19 loads), and fused-mx; for
               each its spaces, digits, kernel and step counts, seconds,
               colorer (the native one must have run) and threads.
   5. routed   the four routed-pull kernels against their plain versions:
@@ -162,7 +168,9 @@ Phases, each printing one JSON line with its seconds:
               4 sequential Q = 1 queries, one batch: bench.py's serving
               row) under auto and scatter, and one batched iteration's
               gather, edge, reduce and apply timed under the plain scan and
-              scatter.  No kernel lies on this path: auto's mxscan falls
+              scatter.  Each run's peak device memory (less what the card
+              held before it) must not exceed the batched estimate
+              (utils/preflight.estimate_batched) of its method.  No kernel lies on this path: auto's mxscan falls
               back to the plain scan on (E, Q) values.
   18. mutate_main dynamic graphs (the reference's refresh row,
               bench.py:1130-1330) on the main graph at 8 parts stacked on
@@ -176,7 +184,9 @@ Phases, each printing one JSON line with its seconds:
               compaction (snapshot + plan-cache invalidation report);
               the cold legs (read_lux, the shard builds with the same
               cuts, the expand-pf plan through the cached planner built
-              on an empty cache and loaded again, the cold runs).  Warm
+              on an empty cache and loaded again, the cold runs).  The six
+              timed refreshes' mutate.refresh recorder spans must agree
+              with their measured seconds within 5 %.  Warm
               SSSP and components bitwise the cold ones, scipy's BFS and
               the max-label fixpoint of the merged graph (the pool builds
               it by position, independently of the delta-log); PageRank
@@ -195,6 +205,19 @@ Phases, each printing one JSON line with its seconds:
               on tombstone-masked values, the mx kernel with tombstoned
               ranks in the middle of tiles (timed), and every tombstoned
               routed replay bitwise its run on the plain versions.
+  19. cold_obs cold start and observability on the main graph (see
+              cold_obs_main): `apps.pagerank --route-gather expand-pf -ni
+              10 -check` twice on phase 4's plan cache (both load, ranks
+              and launches phase 6's); run_pull_fixed_overlapped with a
+              plan_async future (expand-pf hands over mid-run, bitwise the
+              direct run; a fused-pf future finishes direct); the
+              telemetry ring on PageRank and SSSP (bitwise no-op, equal
+              launches, residuals against float64); `apps.pagerank
+              --method pallas --profile-dir` in a subprocess (its
+              xprof.kernels point against the counters and a CUDA-event
+              time of the same work).  Then obs_log: the span totals of
+              the whole event log, which must hold plan.load, plan.build,
+              pull.chunk, serve.dispatch, mutate.refresh and xprof.trace.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -204,8 +227,9 @@ PageRank main path, and beside them on the push paths: one SSSP and one
 components run of the mode that runs that kernel, on the spec paths
 one bfs, one kcore and one triangles run, and on the long runs one delta,
 one adaptive SSSP, one streamed PageRank and one resumed PageRank run,
-on the serving path the whole of phase 17, and on the dynamic-graph path
-phase 18 up to the kernels' comparisons), the smoke's seconds, the
+on the serving path the whole of phase 17, on the dynamic-graph path
+phase 18 up to the kernels' comparisons, and the whole of phase 19), the
+smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -214,6 +238,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import glob
 import json
 import multiprocessing
 import os
@@ -1835,7 +1860,9 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     phase's start and read at its end: returns them."""
     from lux_tpu_torch.apps import pagerank as pr_app
     from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.serve.batched import resolve_method
     from lux_tpu_torch.serve.benchmarks import measure_serving
+    from lux_tpu_torch.utils import preflight
 
     t0 = time.perf_counter()
     for k in kernels.values():
@@ -1860,6 +1887,9 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
               "peak_bytes": res.peak_bytes, "wall_seconds": time.perf_counter() - t1,
               "device": smi})
         require(res.rc == 0, f"serve_main {app}: -check failed")
+        require(res.peak_bytes <= res.estimate_bytes,
+                f"serve_main {app}: peak {res.peak_bytes} B over the printed estimate "
+                f"{res.estimate_bytes} B")
         require(s["completed"] == SERVE_Q and s["timeouts"] == 0,
                 f"serve_main {app}: {s['completed']} of {SERVE_Q} answered")
         require(all(a is not None and a.shape == (g.nv,) for a in res.answers),
@@ -1889,13 +1919,21 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     del runs, ss, pp
     torch.cuda.empty_cache()
     for method in SERVE_METHODS:
+        # the service's own peak (what the card held before is not its)
+        # against the batched estimate the driver prints
+        est = preflight.estimate_batched(
+            sh.spec, SERVE_Q, resolve_method(method, "sssp", g.nv, dev)).total_bytes
+        base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t1 = time.perf_counter()
         res = measure_serving(g, sh, app="sssp", q=SERVE_Q, num_seq=4, batched_reps=1,
                               method=method, device=dev)
-        emit({"phase": "serve_main", "measure_serving": method,
-              "peak_bytes": int(torch.cuda.max_memory_allocated(dev)),
-              "wall_seconds": time.perf_counter() - t1, "device": smi, **res})
+        peak = int(torch.cuda.max_memory_allocated(dev)) - base
+        emit({"phase": "serve_main", "measure_serving": method, "peak_bytes": peak,
+              "estimate_bytes": est, "wall_seconds": time.perf_counter() - t1,
+              "device": smi, **res})
+        require(peak <= est, f"serve_main measure_serving {method}: peak {peak} B over the "
+                             f"estimate {est} B")
         require(res["scheduler"]["completed"] == SERVE_Q and res["scheduler"]["timeouts"] == 0,
                 f"serve_main measure_serving {method}: the burst was not fully answered")
         require(res["qps_batched"] > 0 and res["qps_q1_sequential"] > 0,
@@ -1997,15 +2035,18 @@ def rel_err(np, got, want) -> float:
     return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), F32_TINY)))
 
 
-def best_of2(torch, fn):
+def best_of2(torch, fn, walls=None):
     """(best wall seconds of two calls, both results): each call ends
-    with a synchronize."""
+    with a synchronize.  ``walls`` (a list) collects both calls' seconds."""
     best, outs = float("inf"), []
     for _ in range(2):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        best = min(best, wall)
+        if walls is not None:
+            walls.append(wall)
         outs.append(out)
     return best, outs
 
@@ -2216,6 +2257,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     kernels against their plain versions on the overlay's inputs.
     ``routed`` = (graph, one-part shards, plans).  Returns (launches,
     {kernel: max_abs_err}, record)."""
+    from lux_tpu_torch import obs
     from lux_tpu_torch.engine import push
     from lux_tpu_torch.graph.format import read_lux
     from lux_tpu_torch.graph.push_shards import build_push_shards
@@ -2268,21 +2310,34 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
           "cap": mg.cap, "layout_seconds": layout_s, "priors_seconds": priors_s,
           "prior_pagerank_iters": pr_it, "warmup_refresh_seconds": warmup_s,
           "apply_s": apply_s, "delta_occupancy": occ})
-    # the warm refreshes, best of two; two runs from one prior bitwise equal
-    refresh_s, iters = {}, {}
+    # the warm refreshes, best of two; two runs from one prior bitwise
+    # equal; the recorder's mutate.refresh spans against the measured
+    # seconds of the same six calls
+    refresh_s, iters, walls = {}, {}, []
+    rec = obs.recorder()
+    span_s0, span_n0 = rec.total_seconds("mutate.refresh"), rec.total_count("mutate.refresh")
     refresh_s["pagerank"], (a, b) = best_of2(
-        torch, lambda: refresh.refresh_pagerank(mg, pr, device=dev))
+        torch, lambda: refresh.refresh_pagerank(mg, pr, device=dev), walls)
     require(torch.equal(a[0], b[0]) and a[1] == b[1],
             "mutate: two PageRank refreshes from one prior differ")
     pr_warm, iters["pagerank"] = mg.pull_shards.scatter_to_global(a[0].cpu().numpy()), a[1]
     refresh_s["sssp"], (a, b) = best_of2(
-        torch, lambda: refresh.refresh_sssp(mg, dist, start, device=dev))
+        torch, lambda: refresh.refresh_sssp(mg, dist, start, device=dev), walls)
     require(np.array_equal(a[0], b[0]), "mutate: two SSSP refreshes from one prior differ")
     dist_warm, iters["sssp"] = a
     refresh_s["components"], (a, b) = best_of2(
-        torch, lambda: refresh.refresh_components(mg, labels, device=dev))
+        torch, lambda: refresh.refresh_components(mg, labels, device=dev), walls)
     require(np.array_equal(a[0], b[0]), "mutate: two CC refreshes from one prior differ")
     labels_warm, iters["components"] = a
+    span_s = rec.total_seconds("mutate.refresh") - span_s0
+    span_n = rec.total_count("mutate.refresh") - span_n0
+    emit({"phase": "mutate_main", "refresh_span_seconds": span_s, "refresh_spans": span_n,
+          "refresh_measured_seconds": sum(walls), "refresh_calls": len(walls)})
+    require(span_n == len(walls) == 6, f"mutate: {span_n} mutate.refresh spans for "
+                                       f"{len(walls)} refreshes")
+    require(abs(span_s - sum(walls)) <= REFRESH_SPAN_REL * sum(walls),
+            f"mutate: the mutate.refresh spans' {span_s:.4f} s are off the measured "
+            f"{sum(walls):.4f} s by more than {REFRESH_SPAN_REL:.0%}")
     # the host's share: each refresh's analysis and overlay build alone
     host_s = {}
     for name, fn in (("sssp_dirty", lambda: refresh.sssp_dirty(mg, dist, start)),
@@ -2470,6 +2525,381 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     return counts, err, {"rows": rows, "cold_breakdown": brk}
 
 
+COLD_LEAD = 3.0  # overlapped runs: iterations for this many plan loads of direct chunks
+PROFILE_REL = 0.10  # the profiled run's device total against its CUDA-event time
+REFRESH_SPAN_REL = 0.05  # mutate.refresh spans against the measured refresh seconds
+TEL_RTOL = 1e-4  # the ring's f32 residual against its float64 recomputation
+SLEEP_CYCLES = 100_000_000  # ~50 ms of torch.cuda._sleep: the host's head start
+#: spans the smoke's event log must hold (phases 4, 17, 18, 19)
+OBS_SPANS = ("plan.load", "plan.build", "pull.chunk", "serve.dispatch", "mutate.refresh",
+             "xprof.trace")
+
+
+def obs_run_dir() -> str:
+    return os.path.join(os.environ["LUX_OBS_DIR"], os.environ["LUX_OBS_RUN_ID"])
+
+
+def obs_events(paths=None) -> list:
+    """Every event of the smoke's run directory (all its processes), or
+    of ``paths``."""
+    from lux_tpu_torch import obs
+
+    obs.recorder().flush()
+    paths = paths or sorted(glob.glob(os.path.join(obs_run_dir(), "events-*.jsonl")))
+    out = []
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            out.extend(json.loads(line) for line in f if line.strip())
+    return out
+
+
+def obs_spans(events, name=None, since=None) -> list:
+    """Completed spans as (name, begin attrs, t0, t1, end attrs), begun at
+    or after ``since`` (the monotonic clock)."""
+    begins, out = {}, []
+    for ev in events:
+        if ev["e"] == "b":
+            begins[ev["s"]] = ev
+        elif ev["e"] == "e" and ev["ok"] and ev["s"] in begins:
+            b = begins[ev["s"]]
+            if (name is None or b["n"] == name) and (since is None or b["t"] >= since):
+                out.append((b["n"], b.get("a", {}), b["t"], ev["t"], ev.get("a", {})))
+    return out
+
+
+def launch_snapshot(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def launch_delta(kernels, before: dict) -> dict:
+    return {name: k.launches - before[name] for name, k in kernels.items()}
+
+
+def cold_app_runs(np, kernels, smi, g, plan_dir, main_pf, built_s) -> list:
+    """Phase 19a: `apps.pagerank --route-gather expand-pf -ni 10 -check`
+    twice on LUX_TORCH_PLAN_CACHE = phase 4's cache: both load their plan
+    (the printed line, no entry built), ranks bitwise phase 6's expand-pf
+    run, its lane, fused and mxscan launches equal.  Returns the load
+    seconds of each run."""
+    import contextlib
+    import io
+
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.ops import expand
+
+    pf_ranks, pf_counts = main_pf
+    argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--route-gather", "expand-pf",
+            "-ni", str(ITERS), "-check"]
+    old_cache = os.environ.get("LUX_TORCH_PLAN_CACHE")
+    os.environ["LUX_TORCH_PLAN_CACHE"] = plan_dir
+    load_s = []
+    try:
+        for i in range(2):
+            before, st0 = launch_snapshot(kernels), expand.plan_stats_snapshot()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                res = pr_app.run(argv, graph=g)
+            wall = time.perf_counter() - t0
+            text = out.getvalue()
+            sys.stdout.write(text)
+            st1, counts = expand.plan_stats_snapshot(), launch_delta(kernels, before)
+            line = [x for x in text.splitlines() if x.startswith("routed plan ")]
+            load_s.append(st1["warm_s"] - st0["warm_s"])
+            emit({"phase": "cold_obs", "leg": "app_plan_cache", "run": i, "argv": argv,
+                  "rc": res.rc, "plan_line": line, "plan_loaded_s": load_s[-1],
+                  "entries_loaded": st1["loaded"] - st0["loaded"],
+                  "entries_built": st1["built"] - st0["built"],
+                  "plan_built_s_phase4": built_s["expand"] + built_s["expand-pf"],
+                  "launches": counts, "ms_per_iter": res.seconds * 1e3 / ITERS,
+                  "wall_seconds": wall, "device": smi})
+            require(res.rc == 0, f"cold app run {i}: -check failed")
+            require(len(line) == 1 and line[0].startswith("routed plan loaded:")
+                    and line[0].endswith(" s"), f"cold app run {i} printed {line}")
+            require(st1["built"] == st0["built"] and st1["loaded"] > st0["loaded"],
+                    f"cold app run {i}: built a plan entry instead of loading it")
+            require(np.array_equal(res.ranks, pf_ranks),
+                    f"cold app run {i}: ranks differ from phase 6's expand-pf run")
+            for name in ("lane_gather", "fused_pass_gather", "mxscan_segmented"):
+                require(counts[name] == pf_counts[name],
+                        f"cold app run {i}: {name} launched {counts[name]} times, "
+                        f"phase 6 {pf_counts[name]}")
+            del res
+    finally:
+        if old_cache is None:
+            os.environ.pop("LUX_TORCH_PLAN_CACHE", None)
+        else:
+            os.environ["LUX_TORCH_PLAN_CACHE"] = old_cache
+    return load_s
+
+
+def cold_overlapped(torch, smi, dev, sh, arrays, prog, s0, plan_dir, app_load_s):
+    """Phase 19b: PageRank (mxscan) through run_pull_fixed_overlapped with
+    a plan_async future loading phase 4's expand-pf plan: it hands over
+    mid-run, bitwise the direct run; the time to the first iteration
+    against the load, ms a synchronized direct chunk with the future
+    loading (the pull.chunk spans) and alone.  A fused-pf future resolving
+    mid-run finishes direct, bitwise.  The iteration counts follow the
+    measured loads: COLD_LEAD loads' worth of direct chunks."""
+    from lux_tpu_torch import obs
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.ops import expand
+
+    keep = s0.clone()
+
+    def sync_chunks_ms(n: int) -> float:
+        st = s0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            st = pull.run_pull_fixed(prog, sh.spec, arrays, st, 1, "mxscan")
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    sync_chunks_ms(20)
+    chunk_ms = sync_chunks_ms(300)
+    t0 = time.perf_counter()
+    expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir, pf=True)
+    fused_load_s = time.perf_counter() - t0
+    n_e = max(200, int(COLD_LEAD * max(app_load_s) * 1e3 / chunk_ms))
+    n_f = max(200, int(COLD_LEAD * fused_load_s * 1e3 / chunk_ms))
+    ref_e = pull.run_pull_fixed(prog, sh.spec, arrays, s0, n_e, "mxscan")
+    ref_f = (pull.run_pull_fixed(prog, sh.spec, arrays, ref_e, n_f - n_e, "mxscan")
+             if n_f >= n_e else pull.run_pull_fixed(prog, sh.spec, arrays, s0, n_f, "mxscan"))
+    rows = {}
+    for fam, n, ref, build in (
+            ("expand-pf", n_e, ref_e,
+             lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir, pf=True)),
+            ("fused-pf", n_f, ref_f,
+             lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir, pf=True))):
+        torch.cuda.synchronize(dev)
+        st0 = expand.plan_stats_snapshot()
+        t_mono, t0 = time.monotonic(), time.perf_counter()
+        fut = expand.plan_async(build)
+        out, routed = pull.run_pull_fixed_overlapped(prog, sh.spec, arrays, s0, n, "mxscan",
+                                                     route_future=fut, chunk=1)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        fut.result()
+        st1 = expand.plan_stats_snapshot()
+        chunks = obs_spans(obs_events([obs.recorder().log_path]), "pull.chunk", since=t_mono)
+        direct = [c for c in chunks if not c[1]["routed"] and not c[1].get("fused_skip")]
+        rows[fam] = {
+            "iters": n, "routed_iters": routed, "wall_seconds": wall,
+            "plan_load_s": st1["warm_s"] - st0["warm_s"],
+            "first_iter_s": direct[0][3] - t_mono if direct else None,
+            "direct_chunks": len(direct),
+            "ms_per_direct_chunk_loading": (1e3 * sum(c[3] - c[2] for c in direct) / len(direct)
+                                            if direct else None),
+            "ms_per_direct_chunk_alone": chunk_ms,
+            "fused_skip": any(c[1].get("fused_skip") for c in chunks)}
+        require(torch.equal(s0, keep), f"overlapped {fam}: the caller's state was written")
+        require(torch.equal(out, ref), f"overlapped {fam}: state differs from the direct run")
+        if fam == "expand-pf":
+            require(0 < routed < n, f"overlapped expand-pf: routed_iters {routed} of {n}")
+        else:
+            require(routed == 0 and rows[fam]["fused_skip"],
+                    f"overlapped fused-pf: routed {routed}, resolved mid-run "
+                    f"{rows[fam]['fused_skip']}: it must resolve mid-run and finish direct")
+        del out, fut
+    emit({"phase": "cold_obs", "leg": "overlapped", "runs": rows,
+          "fused_pf_load_s": fused_load_s, "device": smi})
+
+
+def cold_telemetry(torch, np, kernels, smi, dev, g, sh, arrays, prog, s0):
+    """Phase 19c: PageRank 10 iterations (mxscan) and SSSP from the largest
+    out-degree, ring on and off: results and every kernel's launches
+    equal, the ring's n the iterations, PageRank's residuals within
+    TEL_RTOL of a float64 recomputation, SSSP's traversed and dense
+    columns summing to the run's; ms an iteration each way (CUDA events,
+    off, on, on, off)."""
+    from lux_tpu_torch.engine import pull, push
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.models.sssp import SSSPProgram
+    from lux_tpu_torch.obs import ring
+
+    tel = {}
+    before = launch_snapshot(kernels)
+    plain = pull.run_pull_fixed(prog, sh.spec, arrays, s0, ITERS, "mxscan")
+    c_off = launch_delta(kernels, before)
+    before = launch_snapshot(kernels)
+    out, rg = pull.run_pull_fixed(prog, sh.spec, arrays, s0, ITERS, "mxscan",
+                                  telemetry=ring.new_ring("pull_fixed", device=dev))
+    c_on = launch_delta(kernels, before)
+    rows_r, n_r = ring.ring_rows(rg)
+    st, want = s0, []
+    for _ in range(ITERS):
+        nxt = pull.run_pull_fixed(prog, sh.spec, arrays, st, 1, "mxscan")
+        want.append(float(np.abs(nxt.double().cpu().numpy() - st.double().cpu().numpy()).sum()))
+        st = nxt
+    resid_err = float(np.max(np.abs(rows_r[:, 1] - np.asarray(want))
+                             / np.maximum(np.asarray(want), F32_TINY)))
+    require(torch.equal(out, plain), "telemetry: PageRank with the ring differs")
+    require(c_on == c_off, f"telemetry: PageRank launches {c_on} with the ring, {c_off} without")
+    require(n_r == ITERS, f"telemetry: the PageRank ring holds {n_r} rows")
+    require(resid_err <= TEL_RTOL, f"telemetry: residuals off float64 by {resid_err}")
+
+    def pr_ms(on: bool) -> float:
+        return time_ms(torch, lambda: pull.run_pull_fixed(
+            prog, sh.spec, arrays, s0, ITERS, "mxscan",
+            telemetry=ring.new_ring("pull_fixed", device=dev) if on else None), 5) / ITERS
+
+    off1, on1, on2, off2 = pr_ms(False), pr_ms(True), pr_ms(True), pr_ms(False)
+    tel["pagerank"] = {"iters": n_r, "residual": rows_r[:, 1].tolist(),
+                       "max_rel_err_vs_f64": resid_err, "launches": c_on,
+                       "ms_per_iter_off": [off1, off2], "ms_per_iter_on": [on1, on2]}
+    del plain, out, rg, st, nxt
+    start = int(np.argmax(g.out_degrees()))
+    psh = build_push_shards(g, 1)
+    sp = SSSPProgram(nv=g.nv, start=start)
+    parr, pparr, carry0 = push.push_init(sp, psh, dev)
+
+    def converge(on: bool):
+        return push.run_push_chunk(sp, psh.pspec, psh.spec, parr, pparr, carry0, 10_000,
+                                   "mxscan",
+                                   telemetry=ring.new_ring("push", device=dev) if on else None)
+
+    before = launch_snapshot(kernels)
+    p_off = converge(False)
+    c_off = launch_delta(kernels, before)
+    before = launch_snapshot(kernels)
+    p_on, prg = converge(True)
+    c_on = launch_delta(kernels, before)
+    prows, pn = ring.ring_rows(prg)
+    require(torch.equal(p_on.state, p_off.state)
+            and (p_on.it, p_on.edges) == (p_off.it, p_off.edges),
+            "telemetry: SSSP with the ring differs")
+    require(c_on == c_off, f"telemetry: SSSP launches {c_on} with the ring, {c_off} without")
+    require(pn == p_on.it, f"telemetry: the push ring holds {pn} rows for {p_on.it} rounds")
+    # each row's count is exact in f32 (a round walks at most ne = 2^24
+    # edges); their sum is taken in int64
+    ring_edges = int(prows[:, 2].astype(np.int64).sum())
+    ring_dense = int(prows[:, 3].astype(np.int64).sum())
+    require(ring_edges == p_on.edges and ring_dense == p_on.dense_rounds,
+            f"telemetry: the push ring counts {ring_edges} edges and {ring_dense} dense "
+            f"rounds, the run {p_on.edges} and {p_on.dense_rounds}")
+
+    def ssp_ms(on: bool) -> float:
+        return time_ms(torch, lambda: converge(on), 3) / p_off.it
+
+    off1, on1, on2, off2 = ssp_ms(False), ssp_ms(True), ssp_ms(True), ssp_ms(False)
+    tel["sssp"] = {"start": start, "iters": pn, "dense_rounds": p_on.dense_rounds,
+                   "traversed": p_on.edges, "rows": prows.tolist(), "launches": c_on,
+                   "ms_per_round_off": [off1, off2], "ms_per_round_on": [on1, on2]}
+    emit({"phase": "cold_obs", "leg": "telemetry", **tel, "device": smi})
+
+
+def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts):
+    """Phase 19d: `apps.pagerank --method pallas -ni 10 --profile-dir` in a
+    subprocess (one profiler session a process): its event log's one
+    xprof.kernels point counts spmv's span kernel as often as the counters
+    count an app run (phase 6, and the same work here), and its device
+    total is within PROFILE_REL of the CUDA-event time of that work
+    (apps.common.timed_iterations: ITERS iterations on a copy of the
+    state, then ITERS on the state) timed here."""
+    from lux_tpu_torch.models.pagerank import make_pallas_runner
+
+    prof_dir = os.path.join(_TMP, "profile")
+    cmd = [sys.executable, "-m", "lux_tpu_torch.apps.pagerank", "--rmat-scale", str(SCALE),
+           "--rmat-ef", str(EF), "--method", "pallas", "-ni", str(ITERS), "--profile-dir",
+           prof_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    prof_wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"--profile-dir run failed: {proc.stderr[-2000:]}")
+    points = [ev["a"] for ev in obs_events() if ev["e"] == "p" and ev["n"] == "xprof.kernels"]
+    require(len(points) == 1, f"{len(points)} xprof.kernels points in the event log")
+    pt = points[0]
+    span_calls = sum(r["calls"] for r in pt["rows"] if "spmv_span_kernel" in r["name"])
+    run_p, sp0 = make_pallas_runner(g, device=dev)
+
+    def profiled_work():
+        run_p(sp0.clone(), ITERS)
+        run_p(sp0, ITERS)
+
+    def device_ms() -> float:
+        # the device's time for the work, not the host's: a sleeping
+        # kernel queued first lets the host enqueue the whole window
+        # before the start event runs, as the trace's kernels ran
+        # back to back
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        profiled_work()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end)
+
+    profiled_work()
+    before = launch_snapshot(kernels)
+    ev_ms = device_ms()
+    work_counts = launch_delta(kernels, before)
+    ev_ms2 = device_ms()
+    emit({"phase": "cold_obs", "leg": "profile_dir", "argv": cmd[2:], "wall_seconds": prof_wall,
+          "host_only": pt.get("host_only", False), "total_ms": pt["total_ms"],
+          "calls": pt["calls"], "classes": pt["classes"],
+          "top": [[r["name"][:120], r["class"], r["total_ms"], r["calls"]]
+                  for r in pt["rows"][:10]],
+          "spmv_span_calls": span_calls, "counter_app_run": pallas_counts["spmv_blockcsr"],
+          "counter_here": work_counts["spmv_blockcsr"], "event_ms": [ev_ms, ev_ms2],
+          "device": smi})
+    require(not pt.get("host_only"), "the --profile-dir trace holds no device events")
+    require(span_calls == pallas_counts["spmv_blockcsr"] == work_counts["spmv_blockcsr"],
+            f"--profile-dir: spmv span kernel {span_calls} calls, the counters "
+            f"{pallas_counts['spmv_blockcsr']} (phase 6) and {work_counts['spmv_blockcsr']}")
+    require(abs(pt["total_ms"] - ev_ms) <= PROFILE_REL * ev_ms,
+            f"--profile-dir: device total {pt['total_ms']:.4f} ms against the CUDA-event "
+            f"{ev_ms:.4f} ms")
+
+
+def cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf, built_s,
+                  pallas_counts):
+    """Phase 19: cold start and observability on the main graph, four legs
+    (cold_app_runs, cold_overlapped, cold_telemetry, cold_profile_dir).
+    Every launch counter is set to 0 at the start and read at the end:
+    returns them."""
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph.shards import to_device
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+
+    t_phase = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    load_s = cold_app_runs(np, kernels, smi, g, plan_dir, main_pf, built_s)
+    torch.cuda.empty_cache()
+    arrays = to_device(sh.arrays, dev)
+    prog = PageRankProgram(nv=g.nv)
+    s0 = pull.init_state(prog, arrays)
+    cold_overlapped(torch, smi, dev, sh, arrays, prog, s0, plan_dir, load_s)
+    torch.cuda.empty_cache()
+    cold_telemetry(torch, np, kernels, smi, dev, g, sh, arrays, prog, s0)
+    del arrays, s0
+    torch.cuda.empty_cache()
+    cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts)
+    counts = launch_snapshot(kernels)
+    for name in ("mxscan_segmented", "lane_gather", "fused_pass_gather", "spmv_blockcsr"):
+        require(counts[name] > 0, f"cold_obs: {name} was never launched")
+    emit({"phase": "cold_obs", "launches": counts, "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def obs_log_main(smi):
+    """The smoke's event log, read back: span totals by name over every
+    process of the run; the OBS_SPANS must be there."""
+    totals = {}
+    for name, _, t0, t1, _ in obs_spans(obs_events()):
+        t = totals.setdefault(name, [0, 0.0])
+        t[0] += 1
+        t[1] += t1 - t0
+    emit({"phase": "obs_log", "run_dir": obs_run_dir(),
+          "files": len(glob.glob(os.path.join(obs_run_dir(), "events-*.jsonl"))),
+          "span_totals": {k: {"count": v[0], "seconds": v[1]} for k, v in sorted(totals.items())},
+          "device": smi})
+    missing = [n for n in OBS_SPANS if n not in totals]
+    require(not missing, f"the event log lacks the spans {missing}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2499,6 +2929,12 @@ def main() -> int:
     # the host oracles take minutes: start them now, beside the card
     global _POOL, _TMP
     _TMP = tempfile.mkdtemp(prefix="lux_smoke_")
+    # one flight-recorder run for the whole smoke: this process, the pool
+    # and the apps it spawns write their event logs into one run directory
+    from lux_tpu_torch import obs
+    os.environ["LUX_OBS_DIR"] = os.path.join(_TMP, "obs")
+    os.environ["LUX_OBS_RUN_ID"] = obs.new_run_id()
+    os.environ.pop("LUX_OBS", None)
     _POOL = multiprocessing.get_context("spawn").Pool(4)
     cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
     push_oracle = _POOL.apply_async(push_oracles, (SCALE,))
@@ -2604,20 +3040,27 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del bc, state, src_pos, row_ptr, main_head, main_vals, spmv_vals, e_dst, cb, cf
 
-    # 4. the routed plans, each family built once
+    # 4. the routed plans, each family built once; the expand and fused
+    # families through the cached planners the apps call, into a cache
+    # directory that phase 19 loads again
     t0 = time.perf_counter()
+    plan_dir = os.path.join(_TMP, "main_plans")
     plans, reports = {}, []
     for mode, build in (
-            ("expand", lambda: expand.plan_expand_shards(sh)),
-            ("expand-pf", lambda: expand.to_pf(plans["expand"])),
-            ("fused", lambda: expand.plan_fused_shards(sh, "sum")),
-            ("fused-pf", lambda: expand.to_pf(plans["fused"])),
+            ("expand", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir)),
+            ("expand-pf", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir,
+                                                                   pf=True)),
+            ("fused", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir)),
+            ("fused-pf", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir,
+                                                                 pf=True)),
             ("fused-mx", lambda: expand.plan_fused_shards(sh, "sum", mx=True))):
         plans[mode], rep = timed_plan(native, route_mod, shuffle, mode, build)
         reports.append(rep)
         require(rep["native"] is (None if mode.endswith("-pf") else True),
                 f"plan {mode}: colorer {rep['colorer_calls']}, the native one must run")
-    emit({"phase": "plan", "plans": reports, "seconds": time.perf_counter() - t0})
+    emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir,
+          "seconds": time.perf_counter() - t0})
+    built_s = {r["mode"]: r["seconds"] for r in reports}
 
     # 5. the routed-pull kernels against their plain versions
     t0 = time.perf_counter()
@@ -2692,6 +3135,7 @@ def main() -> int:
     push_plans = {m: plans[m] for m in ("expand", "expand-pf")}
     mutate_plans = {m: plans[m] for m in ("expand-pf", "fused-pf", "fused-mx")}
     pr_ranks = ranks["mxscan"]  # phase 16's uninterrupted run
+    main_pf = (ranks["expand-pf"], launches["expand-pf"])  # phase 19's cold runs
     del plans, ranks, ref, res, small, small_bc
     torch.cuda.empty_cache()
 
@@ -2854,8 +3298,15 @@ def main() -> int:
     # 18. dynamic graphs
     mutate_launches, mutate_err, _ = mutate_main(torch, np, kernels, smi, dev, g, _TMP,
                                                  mutate_oracle, (g, sh, mutate_plans), REPS)
-    del g, sh, mutate_plans
+    del mutate_plans
     torch.cuda.empty_cache()
+
+    # 19. cold start and observability
+    cold_launches = cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf,
+                                  built_s, launches["pallas"])
+    del g, sh, main_pf
+    torch.cuda.empty_cache()
+    obs_log_main(smi)
 
     table = []
     for name, rows, stress, run, replaces in (
@@ -2903,6 +3354,7 @@ def main() -> int:
             for kind, (phase, run) in LONG_KERNEL_RUN.get(row["name"], {}).items()}
         row["launches_serve"] = serve_launches[row["name"]]
         row["launches_mutate"] = mutate_launches[row["name"]]
+        row["launches_cold"] = cold_launches[row["name"]]
         if row["name"] in mutate_err:
             row["max_abs_err"] = max(row["max_abs_err"], mutate_err[row["name"]])
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})

@@ -18,7 +18,7 @@ from lux_tpu_torch.graph.format import read_lux
 from lux_tpu_torch.graph.shards import build_pull_shards, to_device
 from lux_tpu_torch.ops import cuda_build, expand, spmv
 from lux_tpu_torch.ops import shuffle as shuf
-from lux_tpu_torch.utils import checkpoint, preflight
+from lux_tpu_torch.utils import checkpoint, preflight, profiling
 from lux_tpu_torch.utils.config import RunConfig
 from lux_tpu_torch.utils.timing import IterStats, Timer
 
@@ -195,7 +195,8 @@ def run_pull_app(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, app: st
     if cfg.method == "pallas" or not (stepwise or cfg.ckpt_dir):
         iterate, state, read = prepare(cfg, g, dev, prog, pallas_runner, route,
                                        state_width)
-        elapsed = timed_iterations(iterate, state, cfg.num_iters, dev)
+        with profiling.trace(cfg.profile_dir, dev):
+            elapsed = timed_iterations(iterate, state, cfg.num_iters, dev)
         return read(state), elapsed, cfg.num_iters
     validate_exchange(cfg, prog, dev)
     pl = setup_pull(cfg, g, dev, prog, route, state_width)
@@ -203,16 +204,18 @@ def run_pull_app(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, app: st
                                      g.nv)
     n = max(cfg.num_iters - start_it, 0)
     if not stepwise:
-        elapsed = timed_iterations(pl.iterate, state, n, dev)
+        with profiling.trace(cfg.profile_dir, dev):
+            elapsed = timed_iterations(pl.iterate, state, n, dev)
         return pl.read(state), elapsed, n
 
     def on_iter(it, st):
         if cfg.ckpt_every and (it + 1) % cfg.ckpt_every == 0:
             save_global(cfg, app, pl.shards, it + 1, st)
 
-    pl.iterate(state.clone(), n)  # untimed, as timed_iterations does
-    state, stats = run_pull_stepwise(pl, state, start_it, cfg.num_iters, cfg, g.nv,
-                                     dev, on_iter)
+    with profiling.trace(cfg.profile_dir, dev):
+        pl.iterate(state.clone(), n)  # untimed, as timed_iterations does
+        state, stats = run_pull_stepwise(pl, state, start_it, cfg.num_iters, cfg,
+                                         g.nv, dev, on_iter)
     return pl.read(state), stats.seconds, n
 
 
@@ -329,10 +332,11 @@ def run_streamed(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1,
         return (stream_eng.run_pull_fixed_streamed(prog, ssh, state0, cfg.num_iters,
                                                    method=cfg.method), cfg.num_iters)
 
-    go()
-    timer = Timer(dev)
-    out, iters = go()
-    elapsed = timer.stop()
+    with profiling.trace(cfg.profile_dir, dev):
+        go()
+        timer = Timer(dev)
+        out, iters = go()
+        elapsed = timer.stop()
     host = out.float() if out.dtype == torch.bfloat16 else out
     return StreamedRun(ssh.scatter_to_global(host.cpu().numpy()), elapsed, iters, chunk_e,
                        n_chunks, resident, budget, total, ssh)
@@ -395,12 +399,31 @@ def resolve_route_auto(cfg) -> None:
                         else "expand")
 
 
+def report_plan(build):
+    """Run a cached planner call ``build()`` and print whether its entries
+    were loaded from the plan disk cache (``LUX_TORCH_PLAN_CACHE``) or
+    built, and the seconds it took (ops/expand.plan_stats_snapshot).
+    Returns the plan."""
+    before = expand.plan_stats_snapshot()
+    plan = build()
+    after = expand.plan_stats_snapshot()
+    built = after["built"] - before["built"]
+    loaded = after["loaded"] - before["loaded"]
+    secs = (after["cold_s"] - before["cold_s"]) + (after["warm_s"] - before["warm_s"])
+    how = "built" if built and not loaded else "loaded" if loaded and not built \
+        else f"built {built} / loaded {loaded}"
+    print(f"routed plan {how}: {built + loaded} cache entries in {secs:.3f} s")
+    return plan
+
+
 def build_pull_route(cfg: RunConfig, shards, prog):
     """ONE --route-gather plan construction for a pull-layout run (host
     set-up: call it OUTSIDE the timed window): the fused plans for the
     'fused*' modes, the CF per-column src + dst plan for wide programs,
-    the expand plan otherwise; '' = None.  Returns the (static, numpy
-    arrays) plan."""
+    the expand plan otherwise; '' = None.  Each goes through the plan
+    disk cache (ops/expand's ``*_cached`` planners, as the reference's
+    apps do), and the run prints whether it loaded or built the plan.
+    Returns the (static, numpy arrays) plan."""
     rg = cfg.route_gather
     if not rg:
         return None
@@ -414,22 +437,24 @@ def build_pull_route(cfg: RunConfig, shards, prog):
                 "--route-gather fused supports scalar vertex state; "
                 "wide dst-dependent programs route with "
                 "--route-gather expand (per-column src + dst plans)")
-        return expand.plan_fused_shards(shards, prog.reduce, pf=pf,
-                                        mx=route_mx(rg))
+        return report_plan(lambda: expand.plan_fused_shards_cached(
+            shards, prog.reduce, pf=pf, mx=route_mx(rg)))
     if wide:
-        return expand.plan_cf_route_shards(shards, pf=pf)
-    return expand.plan_expand_shards(shards, pf=pf)
+        return report_plan(lambda: expand.plan_cf_route_shards_cached(shards, pf=pf))
+    return report_plan(lambda: expand.plan_expand_shards_cached(shards, pf=pf))
 
 
 def build_push_route(cfg: RunConfig, shards):
     """The push apps' --route-gather plan (host set-up, outside the timed
     window): the expand plan of the push shards' embedded pull layout,
-    pass-fused for 'expand-pf'; '' = None.  The dense rounds route their
+    pass-fused for 'expand-pf', through the plan disk cache as in
+    :func:`build_pull_route`; '' = None.  The dense rounds route their
     gather only, so there is no fused form."""
     if not cfg.route_gather:
         return None
     resolve_route_auto(cfg)
-    return expand.plan_expand_shards(shards.pull, pf=route_is_pf(cfg.route_gather))
+    pf = route_is_pf(cfg.route_gather)
+    return report_plan(lambda: expand.plan_expand_shards_cached(shards.pull, pf=pf))
 
 
 def route_mode_of(plan) -> str:

@@ -25,18 +25,21 @@ iterations, dense rounds, traversed edges and GTEPS), the CUDA kernel time
 per iteration from the trace, the device's idle share (1 - traced kernel
 time / the app's unprofiled wall time of an equal window; the profiler's
 own wall time is inflated by its overhead and is not used), and the
-kernels by total device time.  Needs a CUDA device.
+kernels by total device time with their class, as obs/xprof.kernel_table
+reads the trace (the classifier ``--profile-dir`` also uses).  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import warnings
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from lux_tpu_torch.apps import colfilter, common, pagerank
@@ -44,6 +47,7 @@ from lux_tpu_torch.apps import sssp as sssp_app
 from lux_tpu_torch.engine import methods, push
 from lux_tpu_torch.models import components as cc_model
 from lux_tpu_torch.models import sssp as sssp_model
+from lux_tpu_torch.obs import xprof
 from lux_tpu_torch.ops import cuda_build, expand
 from lux_tpu_torch.utils.config import parse_args
 from lux_tpu_torch.utils.device import resolve_device
@@ -57,17 +61,28 @@ SPEC_APPS = ("kcore",)
 
 
 def _trace(fn, dev):
-    """CUDA kernel events of one call of ``fn`` under torch.profiler."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    """The device-time rows of one call of ``fn`` under torch.profiler:
+    its chrome trace through obs/xprof.kernel_table (kernels, copies and
+    memsets by name, with their class)."""
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        prof.export_chrome_trace(os.path.join(d, "window.trace.json"))
+        return xprof.kernel_table(d)
 
 
-def _top(kernels, n: int) -> list:
-    return [{"name": e.key[:80], "ms_per_iter": e.device_time_total / 1e3 / n,
-             "count": e.count}
-            for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]]
+def _busy_ms(rows) -> float:
+    return sum(r["total_ms"] for r in rows)
+
+
+def _top(rows, n: int) -> list:
+    return [{"name": r["name"][:80], "class": r["class"], "ms_per_iter": r["total_ms"] / n,
+             "count": r["calls"]} for r in rows[:12]]
+
+
+def _classes(rows, n: int) -> dict:
+    return {k: v / n for k, v in xprof.class_summary(rows).items()}
 
 
 def _host_syncs(fn) -> int:
@@ -114,7 +129,7 @@ def profile_push(app: str, rest: list, dev) -> dict:
     wall_ms = timer.stop() * 1e3
     syncs = _host_syncs(converge)
     kernels = _trace(converge, dev)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = _busy_ms(kernels)
     phases = None
     if route is None:
         _, phases = sssp_app.run_push_verbose(prog, shards, cfg, arrays, parrays,
@@ -129,7 +144,7 @@ def profile_push(app: str, rest: list, dev) -> dict:
         "kernel_ms_per_iter": busy_ms / n, "idle_share": 1.0 - busy_ms / wall_ms,
         "host_syncs_per_iter": syncs / n,
         "phase_ms_fenced": None if phases is None else {k: v * 1e3 for k, v in phases.items()},
-        "kernels": _top(kernels, n),
+        "classes_ms_per_iter": _classes(kernels, n), "kernels": _top(kernels, n),
     }
 
 
@@ -156,7 +171,7 @@ def profile_kcore(rest: list, dev) -> dict:
     wall_ms = timer.stop() * 1e3
     syncs = _host_syncs(peel)
     kernels = _trace(peel, dev)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = _busy_ms(kernels)
     return {
         "app": "kcore", "method": cfg.method, "k_max": k_max, "rounds": rounds,
         "nv": g.nv, "ne": g.ne, "device": torch.cuda.get_device_name(dev),
@@ -164,7 +179,7 @@ def profile_kcore(rest: list, dev) -> dict:
         "ms_per_round": wall_ms / rounds, "kernel_ms_per_round": busy_ms / rounds,
         "idle_ms_per_round": (wall_ms - busy_ms) / rounds,
         "idle_share": 1.0 - busy_ms / wall_ms, "host_syncs_per_round": syncs / rounds,
-        "kernels": _top(kernels, rounds),
+        "classes_ms_per_round": _classes(kernels, rounds), "kernels": _top(kernels, rounds),
     }
 
 
@@ -173,6 +188,8 @@ def main(argv=None) -> int:
     ap.add_argument("--app", default="pagerank",
                     choices=sorted(APPS) + list(PUSH_APPS) + list(SPEC_APPS))
     ns, rest = ap.parse_known_args(argv)
+    if any(a.split("=", 1)[0] == "--profile-dir" for a in rest):
+        raise SystemExit("profile_pagerank traces its own window; drop --profile-dir")
     if ns.app in SPEC_APPS:
         dev = resolve_device(parse_args(rest, program=True).device)
         if dev.type != "cuda":
@@ -196,14 +213,14 @@ def main(argv=None) -> int:
     n = cfg.num_iters
     wall_ms = common.timed_iterations(iterate, state, n, dev) * 1e3
     kernels = _trace(lambda: iterate(state, n), dev)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = _busy_ms(kernels)
     print(json.dumps({
         "app": ns.app, "method": cfg.method, "route_gather": cfg.route_gather,
         "iters": n, "nv": g.nv, "ne": g.ne,
         "device": torch.cuda.get_device_name(dev),
         "ms_per_iter": wall_ms / n, "kernel_ms_per_iter": busy_ms / n,
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels": _top(kernels, n),
+        "classes_ms_per_iter": _classes(kernels, n), "kernels": _top(kernels, n),
     }), flush=True)
     return 0
 

@@ -46,6 +46,7 @@ from lux_tpu_torch.program import library, workloads
 from lux_tpu_torch.program.spec import bind
 from lux_tpu_torch.utils.config import RunConfig, parse_args
 from lux_tpu_torch.utils.device import resolve_device
+from lux_tpu_torch.utils import profiling
 from lux_tpu_torch.utils.timing import Timer, report_elapsed
 
 
@@ -265,9 +266,10 @@ def run(argv, route=None, graph: Optional[HostGraph] = None) -> SpecRunResult:
     kind, runner = PROGRAMS[name]
     cfg = parse_args(argv[1:], description=__doc__, push=kind == "push",
                      program=True, prog=name)
-    resolve_device(cfg.device)
+    dev = resolve_device(cfg.device)
     g = graph if graph is not None else common.load_graph(cfg)
-    return runner(cfg, g, route)
+    with profiling.trace(cfg.profile_dir, dev):
+        return runner(cfg, g, route)
 
 
 def main(argv=None) -> int:

@@ -42,6 +42,7 @@ from lux_tpu_torch.utils import checkpoint as ckpt
 from lux_tpu_torch.utils import preflight
 from lux_tpu_torch.utils.config import RunConfig, parse_args
 from lux_tpu_torch.utils.device import resolve_device
+from lux_tpu_torch.utils import profiling
 from lux_tpu_torch.utils.timing import Timer, report_elapsed
 
 
@@ -313,36 +314,37 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
                                        parrays, carry0, cfg.max_iters, cfg.method,
                                        route)
 
-    if cfg.repartition_every:
-        # warm-up on the static layout: the recuts' host rebuilds are part
-        # of the adaptive run, not first-launch costs
-        push.run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays,
-                            push._init_carry(prog, shards.pspec, arrays),
-                            cfg.max_iters, cfg.method)
-    else:
-        converge()
-    timer = Timer(dev)
-    if cfg.ckpt_every:
-        out, compute = converge(save=True)
-    elif cfg.repartition_every:
-        recuts = []
+    with profiling.trace(cfg.profile_dir, dev):
+        if cfg.repartition_every:
+            # warm-up on the static layout: the recuts' host rebuilds are part
+            # of the adaptive run, not first-launch costs
+            push.run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays,
+                                push._init_carry(prog, shards.pspec, arrays),
+                                cfg.max_iters, cfg.method)
+        else:
+            converge()
+        timer = Timer(dev)
+        if cfg.ckpt_every:
+            out, compute = converge(save=True)
+        elif cfg.repartition_every:
+            recuts = []
 
-        def note(it, old_cuts, new_cuts, work):
-            recuts.append((it, old_cuts.tolist(), new_cuts.tolist(), work.tolist()))
-            moved = int(np.abs(new_cuts - old_cuts).max())
-            print(f"iter {it}: repartition (imbalance "
-                  f"{repartition.imbalance(work):.2f}, max boundary move "
-                  f"{moved} vertices)")
+            def note(it, old_cuts, new_cuts, work):
+                recuts.append((it, old_cuts.tolist(), new_cuts.tolist(), work.tolist()))
+                moved = int(np.abs(new_cuts - old_cuts).max())
+                print(f"iter {it}: repartition (imbalance "
+                      f"{repartition.imbalance(work):.2f}, max boundary move "
+                      f"{moved} vertices)")
 
-        res = converge(note)
-        print(f"{res.reparts} repartition(s)")
-        out = _Final(res.stacked, res.iters, res.edges, res.dense_rounds)
-        shards = res.shards
-    elif cfg.verbose:
-        out, phases = run_push_verbose(prog, shards, cfg, arrays, parrays, carry0, dev)
-    else:
-        out = converge()
-    elapsed = timer.stop()
+            res = converge(note)
+            print(f"{res.reparts} repartition(s)")
+            out = _Final(res.stacked, res.iters, res.edges, res.dense_rounds)
+            shards = res.shards
+        elif cfg.verbose:
+            out, phases = run_push_verbose(prog, shards, cfg, arrays, parrays, carry0, dev)
+        else:
+            out = converge()
+        elapsed = timer.stop()
     if compute is not None:
         elapsed = compute  # checkpoint I/O (device reads + disk) is not engine time
     state = shards.scatter_to_global(out.state.cpu().numpy())

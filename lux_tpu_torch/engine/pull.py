@@ -28,6 +28,11 @@ before the reduce (through the fused plans' gslot route on the fused
 families), then the fixed-capacity insert buffer is folded into the
 accumulator before apply.  The overlay's tensors are moved to the device
 once per run.
+
+``telemetry=`` (obs/ring.py) records one row an iteration in a device
+tensor with no host read, leaving every result bitwise unchanged;
+``run_pull_fixed_overlapped`` iterates direct while a routed plan builds
+on another thread and hands over once it resolves.
 """
 from __future__ import annotations
 
@@ -36,9 +41,11 @@ from typing import Any, Callable, Optional, Protocol
 
 import torch
 
+from lux_tpu_torch import obs
 from lux_tpu_torch.engine import methods
 from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec
 from lux_tpu_torch.mutate import overlay as ovl
+from lux_tpu_torch.obs import ring as obs_ring
 from lux_tpu_torch.ops import expand, segment
 
 
@@ -266,7 +273,8 @@ def _resolve(prog, method, arrays):
 
 def run_pull_fixed(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
                    state0: torch.Tensor, num_iters: int, method: str = "auto",
-                   route=None, donate: bool = False, overlay=None) -> torch.Tensor:
+                   route=None, donate: bool = False, overlay=None,
+                   telemetry=None):
     """Fixed iteration count (PageRank style).  ``arrays`` are torch
     tensors (graph.shards.to_device) on the state's device.
     ``method="auto"`` resolves per engine.methods.  ``route`` (from
@@ -275,40 +283,107 @@ def run_pull_fixed(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
     iteration's new state back into ``state0``'s buffer and returns it;
     otherwise ``state0`` is left untouched.  ``overlay``
     ((OverlayStatic, OverlayArrays) from lux_tpu_torch.mutate.overlay)
-    runs the step against the mutating graph.  Returns the final stacked
-    (P, V, ...) state."""
+    runs the step against the mutating graph.  ``telemetry`` (an
+    ``obs.ring.new_ring("pull_fixed")`` on the state's device) records
+    each iteration's L1 residual, a device reduction of new − old, with
+    no host read; the results stay bitwise the same and the return
+    becomes (state, ring).  Returns the final stacked (P, V, ...)
+    state."""
     method = _resolve(prog, method, arrays)
     routes = _route_parts(route, state0.device, spec.num_parts)
     overlays = overlay_parts(overlay, state0.device, spec)
+    ring = telemetry
     state = state0
-    for _ in range(num_iters):
+    for i in range(num_iters):
         new = _pull_iteration(prog, spec, method, arrays, state, routes, overlays)
+        if ring is not None:
+            ring = obs_ring.ring_push_residual(ring, i, new, state)
         if donate:
             state0.copy_(new)
         else:
             state = new
-    return state
+    return state if ring is None else (state, ring)
+
+
+def run_pull_fixed_overlapped(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
+                              state0: torch.Tensor, num_iters: int,
+                              method: str = "auto", route_future=None,
+                              chunk: int = 1):
+    """run_pull_fixed that overlaps routed-plan construction with the
+    first iterations: while ``route_future`` (an ops/expand.PlanFuture)
+    is still building on the host, iterations run direct in
+    ``chunk``-sized windows, each synchronized before the future is
+    polled again; once the plan resolves, the remaining iterations run
+    routed.  The routed expand (and the CF route) is bitwise the direct
+    gather, so the handover point cannot change the result.  A fused
+    plan changes the reduce's association: one that is ready at entry
+    runs fused from iteration 0, one that resolves mid-run finishes the
+    remaining iterations DIRECT, so the result is exactly the direct
+    engine's.  The caller's ``state0`` is never written: the first chunk
+    runs undonated and later chunks write into the state the first one
+    made.  Each window is a ``pull.chunk`` recorder span.  Returns
+    (final_state, routed_iters), the iterations that ran routed."""
+    if route_future is None:
+        return run_pull_fixed(prog, spec, arrays, state0, num_iters, method), 0
+    if route_future.ready():
+        route = route_future.result()
+        return run_pull_fixed(prog, spec, arrays, state0, num_iters, method,
+                              route=route), num_iters
+    state = state0
+    done = 0
+    while done < num_iters and not route_future.ready():
+        k = min(chunk, num_iters - done)
+        with obs.span("pull.chunk", k=k, done=done, routed=False):
+            state = run_pull_fixed(prog, spec, arrays, state, k, method,
+                                   donate=done > 0)
+            # materialize before polling again: launches are
+            # asynchronous, so without a sync the loop would queue every
+            # chunk before the future could win the race
+            if state.device.type == "cuda":
+                torch.cuda.synchronize(state.device)
+        done += k
+    if done >= num_iters:
+        return state, 0
+    route = route_future.result()
+    if isinstance(route[0], expand.FusedStatic):
+        # mixing associations mid-run is invalid; the direct result is a
+        # valid deterministic answer, so finish direct
+        with obs.span("pull.chunk", k=num_iters - done, done=done,
+                      routed=False, fused_skip=True):
+            state = run_pull_fixed(prog, spec, arrays, state, num_iters - done,
+                                   method, donate=done > 0)
+        return state, 0
+    with obs.span("pull.chunk", k=num_iters - done, done=done, routed=True):
+        state = run_pull_fixed(prog, spec, arrays, state, num_iters - done, method,
+                               route=route, donate=done > 0)
+    return state, num_iters - done
 
 
 def run_pull_until(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
                    state0: torch.Tensor, max_iters: int,
                    active_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                    method: str = "auto", route=None, donate: bool = False,
-                   overlay=None):
+                   overlay=None, telemetry=None):
     """Iterate until no vertex is active or ``max_iters`` ran.
     ``active_fn(old, new)`` gives per-part active counts (P,); the total is
     read on the host once per iteration.  ``route``, ``donate`` and
     ``overlay`` as in run_pull_fixed: with an overlay this is the
     incremental refresh's entry point (warm state in, iterate the overlay
-    step until quiescent).  Returns (final_state, num_iters_run)."""
+    step until quiescent).  ``telemetry`` (an
+    ``obs.ring.new_ring("pull_until")``) records each iteration's active
+    count, the value the loop already reads; the return gains the ring.
+    Returns (final_state, num_iters_run[, ring])."""
     method = _resolve(prog, method, arrays)
     routes = _route_parts(route, state0.device, spec.num_parts)
     overlays = overlay_parts(overlay, state0.device, spec)
+    ring = telemetry
     state = state0
     it = 0
     while it < max_iters:
         new = _pull_iteration(prog, spec, method, arrays, state, routes, overlays)
         active = int(active_fn(state, new).sum())
+        if ring is not None:
+            ring = obs_ring.ring_push(ring, it, active)
         if donate:
             state0.copy_(new)
         else:
@@ -316,4 +391,4 @@ def run_pull_until(prog: PullProgram, spec: ShardSpec, arrays: ShardArrays,
         it += 1
         if active == 0:
             break
-    return state, it
+    return (state, it) if ring is None else (state, it, ring)

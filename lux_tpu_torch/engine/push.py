@@ -38,8 +38,13 @@ sparse rounds walk the patched CSR (deleted edges point at the drop
 slot), and the insert buffer is folded in once a round after the
 direction branch, from the round's input state.
 
-Not ported here: the flight-recorder ``telemetry`` loop and carry
-donation; the distributed and ring push wait for the multi-GPU port.
+``telemetry=`` (obs/ring.py, schema ``("it", "frontier", "edges_lo",
+"dense")``) records one row a round in a device tensor; its values are
+the ones the round's one host read already returned, so it adds no read
+and leaves every result bitwise unchanged.
+
+Not ported here: carry donation; the distributed and ring push wait for
+the multi-GPU port.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from lux_tpu_torch.graph import push_shards as ps
 from lux_tpu_torch.graph.push_shards import SRC_SENTINEL, PushArrays, PushShards, PushSpec
 from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec, to_device
 from lux_tpu_torch.mutate import overlay as ovl
+from lux_tpu_torch.obs import ring as obs_ring
 from lux_tpu_torch.ops import expand, merge_tree, segment
 from lux_tpu_torch.utils.device import resolve_device
 
@@ -415,7 +421,7 @@ def _resolve(prog, method, device) -> str:
 def run_push_chunk(prog, pspec: PushSpec, spec: ShardSpec, arrays, parrays,
                    carry: PushCarry, it_stop: int, method: str = "auto",
                    route=None, merge: Optional[str] = None, overlay_static=None,
-                   oarrays=None) -> PushCarry:
+                   oarrays=None, telemetry=None):
     """Iterate from ``carry`` until nothing is active or ``it_stop``
     iterations have run in all (the reference's compiled chunk loop).
     ``arrays``/``parrays`` are tensors on the carry's device
@@ -423,20 +429,28 @@ def run_push_chunk(prog, pspec: PushSpec, spec: ShardSpec, arrays, parrays,
     serves several runs.  One host sync per iteration.
     ``overlay_static``/``oarrays`` (mutate.overlay, passed together) run
     against the mutating graph; ``parrays`` is then the patched CSR of
-    mutate.overlay.build_push_overlay."""
+    mutate.overlay.build_push_overlay.  ``telemetry`` (an
+    ``obs.ring.new_ring("push")``) records each round's iteration,
+    frontier size, traversed edges and direction from the round's one
+    host read; the return becomes (carry, ring)."""
     dev = carry.state.device
     method = _resolve(prog, method, dev)
     merge = _resolve_merge(merge)
     routes = _route_parts(route, dev, spec.num_parts)
     overlays = _overlay_parts(overlay_static, oarrays, dev, spec)
+    ring = telemetry
     c = carry
     while c.it < it_stop:
         plan = _push_prep(pspec, spec, parrays, c)
         if plan.active == 0:
             break
+        if ring is not None:
+            ring = obs_ring.ring_push(
+                ring, c.it, plan.active,
+                spec.ne if plan.dense else plan.sparse_edges, int(plan.dense))
         c = _push_iteration(prog, pspec, spec, method, arrays, parrays, c,
                             plan, routes, merge, overlays)
-    return c
+    return c if ring is None else (c, ring)
 
 
 def push_phases(prog, pspec: PushSpec, spec: ShardSpec, method: str = "auto",
@@ -484,15 +498,20 @@ def push_init(prog, shards: PushShards, device="cuda"):
 
 def run_push(prog: PushProgram, shards: PushShards, max_iters: int = 10_000,
              method: str = "auto", route=None, merge: Optional[str] = None,
-             device="cuda"):
+             device="cuda", telemetry=None):
     """Single-device driver: the direction-optimized loop to convergence
     (or ``max_iters``) on ``device``.  ``route`` (ops/expand
     .plan_expand_shards on the PULL layout, unfused or pass-fused, both
     bitwise equal) runs the dense rounds' gather through the routed
     expand.  ``merge`` ("bulk" | "tree", None = engine/methods.merge_mode)
-    selects the sparse rounds' cross-part merge.  Returns (final stacked
-    state tensor, iterations, traversed edges as an int)."""
+    selects the sparse rounds' cross-part merge.  ``telemetry`` (an
+    ``obs.ring.new_ring("push")`` on ``device``) as in run_push_chunk.
+    Returns (final stacked state tensor, iterations, traversed edges as
+    an int[, ring])."""
     arrays, parrays, carry0 = push_init(prog, shards, device)
     out = run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays,
-                         carry0, max_iters, method, route, merge)
-    return out.state, out.it, out.edges
+                         carry0, max_iters, method, route, merge, telemetry=telemetry)
+    if telemetry is None:
+        return out.state, out.it, out.edges
+    out, ring = out
+    return out.state, out.it, out.edges, ring

@@ -33,7 +33,17 @@ def read_lux(path: str, weighted: Optional[bool] = None, mmap: bool = True) -> H
     base + 4*ne (weighted), base + 4*ne + 4*nv (weighted + degrees).
     Ambiguous sizes (nv == ne) resolve to unweighted with a warning;
     unrecognized sizes raise.  ``mmap`` memory-maps the arrays read-only.
+    The read is a ``graph.load`` recorder span.
     """
+    from lux_tpu_torch import obs
+
+    with obs.span("graph.load", file=os.path.basename(path), mmap=mmap) as sp:
+        g = _read_lux_impl(path, weighted, mmap)
+        sp.set(nv=g.nv, ne=g.ne, weighted=g.weights is not None)
+        return g
+
+
+def _read_lux_impl(path: str, weighted: Optional[bool], mmap: bool) -> HostGraph:
     size = os.path.getsize(path)
     with open(path, "rb") as f:
         header = f.read(LUX_HEADER_BYTES)

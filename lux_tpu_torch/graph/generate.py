@@ -22,7 +22,16 @@ def rmat(
     max_weight: int = 100,
 ) -> HostGraph:
     """Recursive-matrix (Graph500-style) power-law graph: nv = 2**scale,
-    ne = nv * edge_factor."""
+    ne = nv * edge_factor.  The draw is a ``graph.generate`` recorder
+    span."""
+    from lux_tpu_torch import obs
+
+    with obs.span("graph.generate", kind="rmat", scale=scale, ef=edge_factor,
+                  seed=seed):
+        return _rmat_impl(scale, edge_factor, a, b, c, seed, weighted, max_weight)
+
+
+def _rmat_impl(scale, edge_factor, a, b, c, seed, weighted, max_weight) -> HostGraph:
     rng = np.random.default_rng(seed)
     nv = 1 << scale
     ne = nv * edge_factor

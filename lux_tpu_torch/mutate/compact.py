@@ -84,39 +84,43 @@ def compact_mutable(mg, path: Optional[str] = None, reuse_cuts: bool = True) -> 
     """Compact a MutableGraph in place (the steps of the module
     docstring).  Returns a report: the snapshot path (or None), the
     merged sizes, and the plan-cache invalidation of the pull layout."""
+    from lux_tpu_torch import obs
     from lux_tpu_torch.graph.push_shards import build_push_shards
     from lux_tpu_torch.graph.shards import build_pull_shards
 
-    if mg.log.journal_dir is not None and path is None:
-        raise ValueError(
-            "a journaled MutableGraph needs a snapshot path to "
-            "compact: rotating the journal without persisting the "
-            "merged base would drop durable mutations (set "
-            "MutableGraph(snapshot=...) or pass compact(path=...))")
-    merged = mg.log.merged_graph()
-    if path is not None:
-        snapshot_write(path, merged)
-    mg.log.journal_reset()
+    with obs.span("mutate.compact", inserts=int(mg.log.ins_live.sum()),
+                  deletes=int(mg.log.del_base.sum())) as sp:
+        if mg.log.journal_dir is not None and path is None:
+            raise ValueError(
+                "a journaled MutableGraph needs a snapshot path to "
+                "compact: rotating the journal without persisting the "
+                "merged base would drop durable mutations (set "
+                "MutableGraph(snapshot=...) or pass compact(path=...))")
+        merged = mg.log.merged_graph()
+        if path is not None:
+            snapshot_write(path, merged)
+        mg.log.journal_reset()
 
-    old_pull = mg._pull
-    cuts = np.asarray(old_pull.cuts) if (reuse_cuts and old_pull is not None) else None
-    report = {"path": path, "nv": int(merged.nv), "ne": int(merged.ne)}
-    new_pull = new_push = None
-    if mg._push is not None:
-        new_push = build_push_shards(merged, mg.num_parts, cuts=cuts)
-        new_pull = new_push.pull
-    elif old_pull is not None:
-        new_pull = build_pull_shards(merged, mg.num_parts, cuts=cuts)
-    if old_pull is not None and new_pull is not None:
-        report["invalidation"] = invalidation_report(old_pull, new_pull)
-    # swap the base LAST so a build failure leaves mg consistent
-    mg.base = merged
-    mg.log = type(mg.log)(merged, journal_dir=mg.log.journal_dir)
-    mg._pull = new_pull
-    mg._push = new_push
-    mg._csr = None
-    mg._csr_perms = None
-    mg._dev = {}
+        old_pull = mg._pull
+        cuts = np.asarray(old_pull.cuts) if (reuse_cuts and old_pull is not None) else None
+        report = {"path": path, "nv": int(merged.nv), "ne": int(merged.ne)}
+        new_pull = new_push = None
+        if mg._push is not None:
+            new_push = build_push_shards(merged, mg.num_parts, cuts=cuts)
+            new_pull = new_push.pull
+        elif old_pull is not None:
+            new_pull = build_pull_shards(merged, mg.num_parts, cuts=cuts)
+        if old_pull is not None and new_pull is not None:
+            report["invalidation"] = invalidation_report(old_pull, new_pull)
+        # swap the base LAST so a build failure leaves mg consistent
+        mg.base = merged
+        mg.log = type(mg.log)(merged, journal_dir=mg.log.journal_dir)
+        mg._pull = new_pull
+        mg._push = new_push
+        mg._csr = None
+        mg._csr_perms = None
+        mg._dev = {}
+        sp.set(nv=report["nv"], ne=report["ne"])
     return report
 
 

@@ -23,9 +23,12 @@ order minus tombstones, then live inserts in append order, through
 order per destination).  Compaction (``compact.py``) materializes
 exactly this definition.
 
-The reference's fault-injection sites (``journal.write``,
-``journal.before_marker``) are not ported: ``lux_tpu.fault`` has no
-counterpart here yet.
+The journal fires the reference's two fault-injection sites
+(lux_tpu_torch.fault): ``journal.write``, where a ``torn`` rule lands
+half a file's bytes at its final path and raises ``InjectedKill``, and
+``journal.before_marker``, between a durable batch and its marker.  The
+drills ``torn_journal_write`` and ``kill_before_marker`` replay to the
+same committed batches as the reference's under the same plan.
 """
 from __future__ import annotations
 
@@ -49,7 +52,20 @@ def _fsync_write(path: str, data: bytes) -> None:
     DIRECTORY fsync — without the last, the rename's directory entry
     can flush after a later file's, and the batch-before-marker
     ordering the crash-replay protocol depends on would not be
-    durable."""
+    durable.
+
+    Fault site ``journal.write`` (lux_tpu_torch.fault): a ``torn`` rule
+    lands HALF the bytes at the final path with no rename and no fsync —
+    the on-disk shape of a non-atomic writer caught by a crash — then
+    raises InjectedKill; the replay protocol must discard exactly that
+    file (no marker ever follows it)."""
+    from lux_tpu_torch import fault
+
+    rule = fault.ppoint("journal.write", file=os.path.basename(path))
+    if rule is not None and rule.action == "torn":
+        with open(path, "wb") as f:
+            f.write(data[:max(len(data) // 2, 1)])
+        raise fault.InjectedKill(f"injected torn write at {path}")
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -167,11 +183,15 @@ class DeltaLog:
              self.ins_live, self.batches_applied) = snap
             raise
         if self.journal_dir is not None:
+            from lux_tpu_torch import fault
+
             seq = self._journal_write_batch(src, dst, op, w,
                                             self.batches_applied - 1,
                                             extra=journal_extra)
             # THE crash window the replay protocol is built around:
-            # batch npz durable, marker not yet
+            # batch npz durable, marker not yet — the kill_before_marker
+            # drill injects the kill exactly here
+            fault.ppoint("journal.before_marker", seq=seq)
             self._journal_mark(seq)
 
     def _apply_resolved(self, src, dst, op, w) -> None:

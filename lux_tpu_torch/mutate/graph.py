@@ -125,21 +125,24 @@ class MutableGraph:
         in the log.  A batch that ALONE exceeds the capacity raises
         DeltaOverflow (folding it too would silently invalidate every
         caller-held prior state).  Returns the log stats, with
-        ``compacted`` set when a compaction ran.  (The reference's
-        ``mutate.apply`` span is not ported: lux_tpu.obs has no
-        counterpart here yet.)"""
-        compacted = False
-        if not self.log.empty and self._would_overflow(dst, op):
-            self.compact()
-            compacted = True
-        self.log.apply(src, dst, op, weight)
-        self._version += 1
-        if self._overflowed():
-            raise DeltaOverflow(
-                "one batch exceeds the per-part delta capacity "
-                f"{self.cap} (LUX_DELTA_CAP) on its own — split the "
-                "batch, raise the capacity, or compact() and "
-                "cold-recompute the app states")
+        ``compacted`` set when a compaction ran.  The call is a
+        ``mutate.apply`` recorder span."""
+        from lux_tpu_torch import obs
+
+        with obs.span("mutate.apply", rows=int(np.size(src))) as sp:
+            compacted = False
+            if not self.log.empty and self._would_overflow(dst, op):
+                self.compact()
+                compacted = True
+            self.log.apply(src, dst, op, weight)
+            self._version += 1
+            if self._overflowed():
+                raise DeltaOverflow(
+                    "one batch exceeds the per-part delta capacity "
+                    f"{self.cap} (LUX_DELTA_CAP) on its own — split the "
+                    "batch, raise the capacity, or compact() and "
+                    "cold-recompute the app states")
+            sp.set(compacted=compacted)
         return {**self.log.stats(), "compacted": compacted}
 
     def _would_overflow(self, dst, op) -> bool:

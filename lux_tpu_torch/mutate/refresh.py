@@ -26,9 +26,11 @@ Per-app exactness contracts (the parity tests pin them):
     compared, never single iterations.
 
 The probe's count is read on the host once an iteration
-(engine/pull.run_pull_until).  The reference's ``mutate.overlay`` and
-``mutate.refresh`` spans are not ported: lux_tpu.obs has no counterpart
-here yet.
+(engine/pull.run_pull_until).  Each refresh is a ``mutate.refresh``
+recorder span over the whole call (the host analysis, the overlay build,
+nested as ``mutate.overlay``, and the warm loop up to its host read), so
+its seconds are the refresh latency a caller waits; the reference's span
+covers the warm loop alone.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from lux_tpu_torch import obs
 from lux_tpu_torch.graph.shards import global_to_stacked
 
 
@@ -199,7 +202,8 @@ def _run_push_overlay(prog, mg, state_g, frontier_g, method, max_iters, pad_fill
 
     pshards = mg.push_shards
     dev, arrays, parrays = mg.device_push(device)
-    ostatic, oarr, tomb = mg.push_overlay_parts()
+    with obs.span("mutate.overlay", kind="push"):
+        ostatic, oarr, tomb = mg.push_overlay_parts()
     if len(tomb[0]):
         csr = parrays.csr_dst_local.clone()
         csr[torch.from_numpy(tomb[0]).to(dev), torch.from_numpy(tomb[1]).to(dev)] = \
@@ -222,25 +226,28 @@ def refresh_sssp(mg, prior_state_g: np.ndarray, start: int, method: str = "auto"
     fixpoint)."""
     from lux_tpu_torch.models.sssp import SSSPProgram, WeightedSSSPProgram
 
-    cls = WeightedSSSPProgram if weighted else SSSPProgram
-    prog = cls(nv=mg.base.nv, start=start)
-    dist = np.asarray(prior_state_g).copy()
-    dirty = sssp_dirty(mg, dist, start, weighted)
-    seeds = _live_in_neighbors(mg, dirty)
-    # boundary members must hold a REACHED value to be worth pushing
-    seeds &= np.asarray(dist) < prog.inf
-    seeds &= ~dirty
-    isrc, _, _ = mg.log.live_inserts()
-    if len(isrc):
-        s = np.unique(isrc)
-        seeds[s[dist[s] < prog.inf]] = True
-    dist[dirty] = prog.inf
-    dist[start] = 0
-    if dirty[start]:
-        seeds[start] = True
-    state, it = _run_push_overlay(prog, mg, dist, seeds, method, max_iters,
-                                  pad_fill=prog.inf, device=device)
-    return mg.push_shards.scatter_to_global(state.cpu().numpy()), it
+    with obs.span("mutate.refresh", app="sssp", kind="push") as sp:
+        cls = WeightedSSSPProgram if weighted else SSSPProgram
+        prog = cls(nv=mg.base.nv, start=start)
+        dist = np.asarray(prior_state_g).copy()
+        dirty = sssp_dirty(mg, dist, start, weighted)
+        seeds = _live_in_neighbors(mg, dirty)
+        # boundary members must hold a REACHED value to be worth pushing
+        seeds &= np.asarray(dist) < prog.inf
+        seeds &= ~dirty
+        isrc, _, _ = mg.log.live_inserts()
+        if len(isrc):
+            s = np.unique(isrc)
+            seeds[s[dist[s] < prog.inf]] = True
+        dist[dirty] = prog.inf
+        dist[start] = 0
+        if dirty[start]:
+            seeds[start] = True
+        state, it = _run_push_overlay(prog, mg, dist, seeds, method, max_iters,
+                                      pad_fill=prog.inf, device=device)
+        out = mg.push_shards.scatter_to_global(state.cpu().numpy())
+        sp.set(iters=int(it))
+    return out, it
 
 
 def refresh_components(mg, prior_labels_g: np.ndarray, method: str = "auto",
@@ -249,18 +256,21 @@ def refresh_components(mg, prior_labels_g: np.ndarray, method: str = "auto",
     numpy, rounds) — bitwise a cold rebuild's."""
     from lux_tpu_torch.models.components import MaxLabelProgram
 
-    prog = MaxLabelProgram()
-    labels = np.asarray(prior_labels_g).copy()
-    dirty = cc_dirty(mg, labels)
-    seeds = _live_in_neighbors(mg, dirty) | dirty
-    isrc, idst, _ = mg.log.live_inserts()
-    if len(isrc):
-        seeds[np.unique(isrc)] = True
-        seeds[np.unique(idst)] = True
-    labels[dirty] = np.flatnonzero(dirty)  # reset to own id (cold init)
-    state, it = _run_push_overlay(prog, mg, labels, seeds, method, max_iters,
-                                  pad_fill=-1, device=device)
-    return mg.push_shards.scatter_to_global(state.cpu().numpy()), it
+    with obs.span("mutate.refresh", app="components", kind="push") as sp:
+        prog = MaxLabelProgram()
+        labels = np.asarray(prior_labels_g).copy()
+        dirty = cc_dirty(mg, labels)
+        seeds = _live_in_neighbors(mg, dirty) | dirty
+        isrc, idst, _ = mg.log.live_inserts()
+        if len(isrc):
+            seeds[np.unique(isrc)] = True
+            seeds[np.unique(idst)] = True
+        labels[dirty] = np.flatnonzero(dirty)  # reset to own id (cold init)
+        state, it = _run_push_overlay(prog, mg, labels, seeds, method, max_iters,
+                                      pad_fill=-1, device=device)
+        out = mg.push_shards.scatter_to_global(state.cpu().numpy())
+        sp.set(iters=int(it))
+    return out, it
 
 
 def _changed_count(old, new):
@@ -347,17 +357,22 @@ def refresh_pagerank(mg, prior_state_stacked, method: str = "auto", route=None,
     converge_pagerank.  Returns (stacked state tensor, iterations)."""
     from lux_tpu_torch.mutate import overlay as ovl
 
-    shards = mg.pull_shards
-    ostatic, oarr = mg.pull_overlay()
-    deg_new = ovl.merged_degree_stacked(shards, mg.log)
-    deg_old = np.asarray(shards.arrays.degree, np.float32)
-    dn = deg_new.astype(np.float32)
-    scale = np.where(deg_old > 0, deg_old, 1.0) / np.where(dn > 0, dn, 1.0)
-    prior = (prior_state_stacked.cpu().numpy() if torch.is_tensor(prior_state_stacked)
-             else np.asarray(prior_state_stacked))
-    warm = (prior.astype(np.float32) * scale).astype(dtype)
-    _, arrays = mg.device_pull(device)
-    return converge_pagerank(shards, method=method, route=route,
-                             overlay=(ostatic, oarr), state0=warm, max_iters=max_iters,
-                             dtype=dtype, degree_override=deg_new, tolerance=tolerance,
-                             device=device, arrays=arrays)
+    with obs.span("mutate.refresh", app="pagerank", kind="pull") as sp:
+        shards = mg.pull_shards
+        with obs.span("mutate.overlay", kind="pull"):
+            ostatic, oarr = mg.pull_overlay()
+            deg_new = ovl.merged_degree_stacked(shards, mg.log)
+        deg_old = np.asarray(shards.arrays.degree, np.float32)
+        dn = deg_new.astype(np.float32)
+        scale = np.where(deg_old > 0, deg_old, 1.0) / np.where(dn > 0, dn, 1.0)
+        prior = (prior_state_stacked.cpu().numpy() if torch.is_tensor(prior_state_stacked)
+                 else np.asarray(prior_state_stacked))
+        warm = (prior.astype(np.float32) * scale).astype(dtype)
+        _, arrays = mg.device_pull(device)
+        state, it = converge_pagerank(shards, method=method, route=route,
+                                      overlay=(ostatic, oarr), state0=warm,
+                                      max_iters=max_iters, dtype=dtype,
+                                      degree_override=deg_new, tolerance=tolerance,
+                                      device=device, arrays=arrays)
+        sp.set(iters=int(it), tolerance=float(tolerance))
+    return state, it

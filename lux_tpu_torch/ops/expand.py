@@ -37,6 +37,7 @@ routing pays there is a measurement (PERF.md), not an assumption.
 """
 from __future__ import annotations
 
+import concurrent.futures as _cf
 import dataclasses
 import hashlib
 import json
@@ -45,12 +46,11 @@ import stat
 import sys
 import tempfile
 import threading
-import time
 
 import numpy as np
 import torch
 
-from lux_tpu_torch import native
+from lux_tpu_torch import native, obs
 from lux_tpu_torch.engine import methods
 from lux_tpu_torch.ops import route as route_mod
 from lux_tpu_torch.ops import shuffle as shuf
@@ -122,6 +122,42 @@ def _map_parts(num_parts: int, fn):
         return [fn(i) for i in range(num_parts)]
     return _parallel_map(num_parts, fn, min(_plan_threads(), num_parts))
 
+
+
+class PlanFuture:
+    """Handle to a routed plan being built off the caller's thread.
+    ``ready()`` polls; ``result()`` blocks and returns the ordinary
+    (static, arrays) pair.  Drivers use it to overlap plan construction
+    with the first direct-gather iterations
+    (engine/pull.run_pull_fixed_overlapped)."""
+
+    def __init__(self, fut: _cf.Future):
+        self._fut = fut
+
+    def ready(self) -> bool:
+        return self._fut.done()
+
+    def result(self, timeout: float | None = None):
+        return self._fut.result(timeout)
+
+
+def plan_async(build) -> PlanFuture:
+    """Run any plan builder (e.g. ``lambda:
+    plan_expand_shards_cached(shards)``) on a background DAEMON thread
+    and return a PlanFuture.  Daemon, so an abandoned build never blocks
+    process exit; the builder's own per-part fan-out still runs at full
+    width underneath.  An exception the builder raises is delivered by
+    ``result()``."""
+    fut: _cf.Future = _cf.Future()
+
+    def run():
+        try:
+            fut.set_result(build())
+        except BaseException as e:  # noqa: BLE001 — delivered via result()
+            fut.set_exception(e)
+
+    threading.Thread(target=run, name="lux-plan-async", daemon=True).start()
+    return PlanFuture(fut)
 
 
 def _idx8_enabled() -> bool:
@@ -850,9 +886,9 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
         if edge_value is not None:
             if weighted:
                 raise NotImplementedError(
-                    "a weighted edge function in the mx kernel comes with "
-                    "the push-apps slice of the port; run --route-gather "
-                    "fused-pf or expand-pf")
+                    "a weighted edge function in the mx kernel is not "
+                    "ported yet (ROADMAP Queue 2, weighted edge "
+                    "functions); run --route-gather fused-pf or expand-pf")
             y = edge_value(y, None).contiguous()
         n_steps = len(mxg.steps)
         dst_rel, tile_block, _tile_first = mxa[n_steps:]
@@ -1238,18 +1274,23 @@ def _cached_part_fn(tag: str, num_parts: int, key_one, build_one,
     def one(i):
         path = paths[i] if trusted else None
         if path is not None and os.path.exists(path):
-            t0 = time.perf_counter()
+            # span-timed: the stats take the SPAN's duration, so
+            # plan_stats_snapshot and the event log's plan.* spans are
+            # views over one clock
+            sp = obs.span("plan.load", tag=tag, part=i)
             try:
-                static, arrays = _load_plan(path)
-                if validate is not None and not validate(static):
-                    raise ValueError("entry is not of this plan family's form")
-                _stats_add("warm", time.perf_counter() - t0)
+                with sp:
+                    static, arrays = _load_plan(path)
+                    if validate is not None and not validate(static):
+                        raise ValueError("entry is not of this plan family's form")
+                _stats_add("warm", sp.dur)
                 return static, arrays
             except (OSError, ValueError, KeyError, TypeError) as e:
                 print(f"# plan cache ignored ({path}): {e}", file=sys.stderr, flush=True)
-        t0 = time.perf_counter()
-        static, arrays = build_one(i)
-        _stats_add("cold", time.perf_counter() - t0)
+        sp = obs.span("plan.build", tag=tag, part=i)
+        with sp:
+            static, arrays = build_one(i)
+        _stats_add("cold", sp.dur)
         if path is not None:
             try:
                 _save_plan(path, (static, arrays))

@@ -4,9 +4,13 @@ Counterpart of ``lux_tpu.serve.driver``.  Runs the whole serving path in
 one process on one device: build the pull layout, print the memory
 estimate, warm the configured Q buckets, push the query burst through
 the micro-batching scheduler, and print the metrics summary as one JSON
-line ``{"metric": "<app>_serve", ...}`` (the reference's keys but
-``run_id``, which comes with ``obs``).  ``LUX_SERVE_PROM=<path>`` also
-writes the Prometheus text of the run there.
+line ``{"metric": "<app>_serve", "run_id": ..., ...}`` (the reference's
+keys; ``run_id`` names the flight recorder's event log).  The layout
+build and the burst are ``serve.layout`` and ``serve.burst`` recorder
+spans.  The printed estimate is ``utils/preflight.estimate_batched`` of
+the widest bucket, which the card's peak must not exceed.
+``LUX_SERVE_PROM=<path>`` also writes the Prometheus text of the run
+there.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ class ServeRunResult:
     sources: np.ndarray  # (n,) int32 query vertices, in submit order
     answers: List[Optional[np.ndarray]]  # (nv,) per query; None = failed
     estimate_bytes: int  # the memory estimate printed before set-up
-    peak_bytes: Optional[int]  # max_memory_allocated on the card (None off it)
+    #: the service's peak device memory: max_memory_allocated over the
+    #: run, less what the card held at its start (None off a card)
+    peak_bytes: Optional[int]
     method: str  # the resolved segment-reduction method
 
 
@@ -121,6 +127,7 @@ def run_serve_cli(cfg: RunConfig, g, app: str, route=None) -> ServeRunResult:
     vertices (or --serve-sources) of ``g`` (None: the graph the flags
     name) through warm engines on cfg.device and print the JSON metrics
     line; returns the answers beside the exit code (``rc``)."""
+    from lux_tpu_torch import obs
     from lux_tpu_torch.apps import common
     from lux_tpu_torch.graph.shards import build_pull_shards
     from lux_tpu_torch.serve.batched import resolve_method
@@ -138,14 +145,17 @@ def run_serve_cli(cfg: RunConfig, g, app: str, route=None) -> ServeRunResult:
         g = common.load_graph(cfg)
     buckets = parse_buckets(cfg.serve_buckets)
     sources = parse_sources(cfg, g)
-    shards = build_pull_shards(g, cfg.num_parts)
+    with obs.span("serve.layout", parts=cfg.num_parts):
+        shards = build_pull_shards(g, cfg.num_parts)
     method = resolve_method(cfg.method, app, g.nv, dev)
-    # the widest bucket's state and per-edge gather, every part resident
+    # the widest bucket's batched iteration, every part resident
     est = preflight.scale_residency(
-        preflight.estimate_pull(shards.spec, max(buckets), method=method),
+        preflight.estimate_batched(shards.spec, max(buckets), method),
         shards.spec.num_parts)
     common.report_preflight(est, dev)
     if dev.type == "cuda":
+        # the service's own peak: what the card held before is not its
+        base_bytes = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     metrics = ServeMetrics()
     cache = WarmEngineCache(
@@ -160,18 +170,19 @@ def run_serve_cli(cfg: RunConfig, g, app: str, route=None) -> ServeRunResult:
         default_timeout_ms=cfg.serve_timeout_ms, metrics=metrics)
     timer = Timer(dev)
     futs = []
-    for s in sources:
-        while True:
-            try:
-                futs.append(sched.submit(int(s)))
-                break
-            except RejectedError:
-                # burst larger than the admission bound: pump until the
-                # queue drains a batch, then retry (a client's backpressure
-                # loop)
-                if not sched.step():
-                    time.sleep(max(cfg.serve_wait_ms / 4e3, 1e-4))
-    sched.drain()
+    with obs.span("serve.burst", app=app, queries=len(sources)):
+        for s in sources:
+            while True:
+                try:
+                    futs.append(sched.submit(int(s)))
+                    break
+                except RejectedError:
+                    # burst larger than the admission bound: pump until the
+                    # queue drains a batch, then retry (a client's
+                    # backpressure loop)
+                    if not sched.step():
+                        time.sleep(max(cfg.serve_wait_ms / 4e3, 1e-4))
+        sched.drain()
     answers, failed = [], 0
     for f in futs:
         try:
@@ -182,10 +193,14 @@ def run_serve_cli(cfg: RunConfig, g, app: str, route=None) -> ServeRunResult:
     elapsed = timer.stop()
     cache_stats = cache.stats()
     summary = metrics.summary(elapsed_s=elapsed, cache_stats=cache_stats)
-    print(json.dumps({"metric": f"{app}_serve", **summary}), flush=True)
+    # end-of-run snapshot: the event log's serve section is complete even
+    # when the periodic cadence never fired (short bursts)
+    metrics.emit_snapshot(summary=summary)
+    print(json.dumps({"metric": f"{app}_serve", "run_id": obs.run_id(), **summary}),
+          flush=True)
     peak = None
     if dev.type == "cuda":
-        peak = int(torch.cuda.max_memory_allocated(dev))
+        peak = int(torch.cuda.max_memory_allocated(dev)) - base_bytes
         print(f"peak device memory: {peak / (1 << 30):.3f} GiB "
               f"(estimate {est.total_bytes / (1 << 30):.3f} GiB)")
     prom_path = os.environ.get("LUX_SERVE_PROM")

@@ -10,9 +10,9 @@ past their cap (utils/timing.LatencyHistogram), batch records keep a
 recent window plus running aggregates, and queue depth keeps only its
 running max.
 
-The flight-recorder snapshot (``emit_snapshot``) and the per-bucket
-trace-id exemplars read the reference's ``obs`` package, which is not
-ported: both are no-ops here (``exemplars()`` is always empty).
+``emit_snapshot`` writes a ``serve.metrics`` point into the flight
+recorder's event log (lux_tpu_torch.obs), and the latency histogram
+keeps the most recent distributed-trace id per bucket as an exemplar.
 """
 from __future__ import annotations
 
@@ -64,6 +64,9 @@ class ServeMetrics:
         self._depth_n = 0
         #: service birth on the monotonic clock: scrape()'s qps denominator
         self._t_start = time.monotonic()
+        #: latency-bucket upper bound -> (trace_id, seconds): the most
+        #: recent distributed-trace exemplar per histogram bucket
+        self._exemplars: dict = {}
 
     def record_batch(self, q: int, real: int, warm: bool, service_s: float):
         with self._lock:
@@ -75,13 +78,20 @@ class ServeMetrics:
 
     def record_done(self, latency_s: float, wait_s: float, traversed: int,
                     trace: str | None = None):
-        """One answered request.  ``trace`` (a distributed-trace id) is
-        accepted and not recorded: exemplars come with ``obs``."""
+        """One answered request.  ``trace`` (a distributed-trace id)
+        becomes the exemplar of the latency bucket it lands in."""
         with self._lock:
             self.completed += 1
             self.latency.record(latency_s)
             self.queue_wait.record(wait_s)
             self.traversed_edges += int(traversed)
+            if trace is not None:
+                for le in self.BUCKETS_S:
+                    if latency_s <= le:
+                        self._exemplars[le] = (str(trace), latency_s)
+                        break
+                else:
+                    self._exemplars["+Inf"] = (str(trace), latency_s)
 
     def record_timeout(self):
         with self._lock:
@@ -156,21 +166,31 @@ class ServeMetrics:
         return out
 
     def _histogram_lines(self, name: str, hist, help_text: str,
-                         lab: str = "") -> list:
+                         lab: str = "", exemplars: dict | None = None) -> list:
         """Prometheus text-format histogram of a LatencyHistogram.  Past
         the reservoir cap the recorder holds a uniform sample of the
         stream, so bucket counts are scaled to the true request count
         while ``_count`` stays exact.  ``lab`` is a pre-rendered label
-        pair (``replica="w0",``) merged ahead of ``le``."""
+        pair (``replica="w0",``) merged ahead of ``le``.  ``exemplars``
+        maps a bucket bound to its latest (trace_id, seconds), appended
+        in the OpenMetrics exemplar form (``# {trace_id="..."} <value>``)."""
         samples = list(hist.samples)
         count = len(hist)
         lines = [f"# HELP {name} {help_text}", f"# TYPE {name} histogram"]
         bare = f"{{{lab[:-1]}}}" if lab else ""  # label set without le
+
+        def exm(le) -> str:
+            ex = (exemplars or {}).get(le)
+            if ex is None:
+                return ""
+            return f' # {{trace_id="{ex[0]}"}} {round(ex[1], 6)}'
+
         scale = (count / len(samples)) if samples else 0.0
         for le in self.BUCKETS_S:
             cum = sum(1 for s in samples if s <= le)
-            lines.append(f'{name}_bucket{{{lab}le="{le}"}} {int(round(cum * scale))}')
-        lines.append(f'{name}_bucket{{{lab}le="+Inf"}} {count}')
+            lines.append(f'{name}_bucket{{{lab}le="{le}"}} '
+                         f"{int(round(cum * scale))}{exm(le)}")
+        lines.append(f'{name}_bucket{{{lab}le="+Inf"}} {count}{exm("+Inf")}')
         lines.append(f"{name}_sum{bare} {round(sum(samples) * scale, 6)}")
         lines.append(f"{name}_count{bare} {count}")
         return lines
@@ -180,9 +200,10 @@ class ServeMetrics:
              exemplars: bool = True) -> str:
         """Prometheus text exposition of the counter, gauge and histogram
         set; safe from any thread.  ``replica`` labels every series with
-        a worker id.  ``exemplars`` is accepted for the reference's
-        signature; there are none to append (they come with ``obs``), so
-        the output is always classic 0.0.4 text."""
+        a worker id.  ``exemplars`` appends the per-bucket trace-id
+        exemplars to the latency histogram in OpenMetrics form, which a
+        strict classic text-format (0.0.4) parser rejects: pass
+        ``exemplars=False`` when the output feeds one."""
         lab = f'replica="{replica}",' if replica else ""
         sfx = f"{{{lab[:-1]}}}" if lab else ""
         with self._lock:
@@ -224,7 +245,8 @@ class ServeMetrics:
                       "batches served by a warm engine")
             lines.extend(self._histogram_lines(
                 "lux_serve_request_latency_seconds", self.latency,
-                "enqueue-to-result latency", lab=lab))
+                "enqueue-to-result latency", lab=lab,
+                exemplars=dict(self._exemplars) if exemplars else None))
             lines.extend(self._histogram_lines(
                 "lux_serve_queue_wait_seconds", self.queue_wait,
                 "enqueue-to-dispatch wait", lab=lab))
@@ -248,8 +270,10 @@ class ServeMetrics:
         return "\n".join(lines) + "\n"
 
     def exemplars(self) -> dict:
-        """The per-bucket latency exemplars: none until ``obs`` is ported."""
-        return {}
+        """Point-in-time copy of the per-bucket latency exemplars
+        ({bucket_le: (trace_id, seconds)})."""
+        with self._lock:
+            return dict(self._exemplars)
 
     def scrape(self, queue_depth: int | None = None,
                cache_stats: dict | None = None, replica: str = "",
@@ -276,5 +300,17 @@ class ServeMetrics:
     def emit_snapshot(self, rec=None, elapsed_s: float | None = None,
                       cache_stats: dict | None = None,
                       summary: dict | None = None) -> None:
-        """The flight-recorder snapshot point: a no-op until ``obs`` (the
-        event log it writes to) is ported."""
+        """One ``serve.metrics`` point into the event log (the scheduler
+        emits one every ``MicroBatchScheduler.snapshot_every_s``; luxview's
+        serve section reads the last one).  Callers that already built
+        ``summary()`` pass it so the percentiles are not recomputed.
+        Never raises."""
+        try:
+            from lux_tpu_torch import obs
+
+            if summary is None:
+                summary = self.summary(elapsed_s=elapsed_s, cache_stats=cache_stats)
+            r = rec if rec is not None else obs.recorder()
+            r.point("serve.metrics", **summary)
+        except Exception:  # noqa: BLE001 — telemetry must never cost a run
+            pass

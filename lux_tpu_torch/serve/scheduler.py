@@ -33,6 +33,7 @@ import threading
 import time
 from typing import List, Optional
 
+from lux_tpu_torch import obs
 from lux_tpu_torch.serve.metrics import ServeMetrics
 from lux_tpu_torch.serve.warm import WarmEngineCache
 
@@ -62,6 +63,9 @@ class _Request:
     #: mutation generation of the overlay the answering batch ran with
     #: (None: the cache serves no overlay)
     generation: Optional[int] = None
+    #: distributed trace id of the request (obs/dtrace.py): the dispatch
+    #: span and the latency histogram's exemplars name it; None = untraced
+    trace: Optional[str] = None
 
 
 class ServeFuture:
@@ -99,6 +103,10 @@ class ServeFuture:
 
 
 class MicroBatchScheduler:
+    #: seconds between periodic ``serve.metrics`` flight-recorder
+    #: snapshots (0 disables), on the scheduler's own clock
+    snapshot_every_s: float = 30.0
+
     def __init__(self, cache: WarmEngineCache, app: str = "sssp",
                  max_wait_ms: float = 5.0, max_queue: int = 256,
                  default_timeout_ms: float = 0.0, clock=time.monotonic,
@@ -116,6 +124,7 @@ class MicroBatchScheduler:
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self._last_service_s = 0.0
+        self._last_snapshot_t: Optional[float] = None
 
     # -- admission -------------------------------------------------------
 
@@ -130,12 +139,13 @@ class MicroBatchScheduler:
         buckets = max(depth // max(self._max_bucket(), 1), 1)
         return per_batch * buckets
 
-    def submit(self, query: int, timeout_ms: Optional[float] = None) -> ServeFuture:
+    def submit(self, query: int, timeout_ms: Optional[float] = None,
+               trace: Optional[str] = None) -> ServeFuture:
         now = self._clock()
         t = self.default_timeout_ms if timeout_ms is None else float(timeout_ms)
         deadline = now + t / 1e3 if t > 0 else None
         req = _Request(query=int(query), enqueue_t=now, deadline_t=deadline,
-                       event=threading.Event())
+                       event=threading.Event(), trace=trace)
         with self._wake:
             if len(self._queue) >= self.max_queue:
                 self.metrics.record_rejected()
@@ -204,6 +214,7 @@ class MicroBatchScheduler:
         """One pump: expire deadlines, then dispatch at most one batch.
         Returns the number of requests RESOLVED (answers + timeouts)."""
         now = self._clock() if now is None else now
+        self._maybe_snapshot(now)
         resolved = self._expire(now)
         if not self._ready(now):
             return resolved
@@ -213,20 +224,27 @@ class MicroBatchScheduler:
             return resolved
         queries = [r.query for r in batch]
         queries = queries + [queries[0]] * (q - len(queries))
+        # the batch's dispatch span names the traces it serves (a sample)
+        traces = [r.trace for r in batch if r.trace is not None]
         t0 = self._clock()
         try:
-            # one read of self.cache for the whole dispatch, and one atomic
-            # read of its overlay: the generation tag is the overlay this
-            # batch runs with (a lower bound under a racing install)
-            cache = self.cache
-            engine, was_warm = cache.get(self.app, q)
-            overlay = cache.current_overlay()
-            if overlay is None:
-                out = engine.run(queries)
-                gen = None
-            else:
-                gen, oarr, deg = overlay
-                out = engine.run(queries, oarrays=oarr, degree=deg)
+            with obs.span("serve.dispatch", app=self.app, q=q, real=len(batch),
+                          **({"traces": traces[:4], "n_traced": len(traces)}
+                             if traces else {})) as sp:
+                # one read of self.cache for the whole dispatch, and one
+                # atomic read of its overlay: the generation tag is the
+                # overlay this batch runs with (a lower bound under a
+                # racing install)
+                cache = self.cache
+                engine, was_warm = cache.get(self.app, q)
+                overlay = cache.current_overlay()
+                if overlay is None:
+                    out = engine.run(queries)
+                    gen = None
+                else:
+                    gen, oarr, deg = overlay
+                    out = engine.run(queries, oarrays=oarr, degree=deg)
+                sp.set(warm=was_warm, generation=gen)
         except Exception as e:  # noqa: BLE001 - a failed batch must resolve
             # its requests (a hung future is worse than any error)
             for r in batch:
@@ -246,9 +264,23 @@ class MicroBatchScheduler:
             r.generation = gen
             self.metrics.record_done(latency_s=done_t - r.enqueue_t,
                                      wait_s=t0 - r.enqueue_t,
-                                     traversed=out.traversed[i])
+                                     traversed=out.traversed[i], trace=r.trace)
             r.event.set()
         return resolved + len(batch)
+
+    def _maybe_snapshot(self, now: float) -> None:
+        """Periodic ``serve.metrics`` point (``snapshot_every_s`` on the
+        scheduler's own clock): a long-lived service's heartbeat in the
+        event log.  The first pump only arms the timer."""
+        if not self.snapshot_every_s:
+            return
+        with self._lock:
+            last = self._last_snapshot_t
+            if last is not None and now - last < self.snapshot_every_s:
+                return
+            self._last_snapshot_t = now
+        if last is not None:
+            self.metrics.emit_snapshot()
 
     def drain(self, max_steps: int = 10_000) -> int:
         """Pump until the queue is empty; returns requests resolved.  An

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from lux_tpu_torch import obs
 from lux_tpu_torch.graph.shards import PullShards, to_device
 from lux_tpu_torch.mutate import overlay as ovl
 from lux_tpu_torch.serve.batched import BatchedEngine, resolve_method
@@ -151,7 +152,10 @@ class WarmEngineCache:
         t0 = time.perf_counter()
         for app in apps if apps is not None else self.apps:
             for q in q_buckets if q_buckets is not None else self.q_buckets:
-                self._build(app, int(q)).warm(self._warm_oarrays())
+                # one span per (app, bucket): a service start's warm-up
+                # is attributable per engine shape
+                with obs.span("serve.pretrace", app=app, q=int(q)):
+                    self._build(app, int(q)).warm(self._warm_oarrays())
         spent = time.perf_counter() - t0
         with self._lock:
             self.warm_seconds += spent
@@ -211,9 +215,13 @@ class WarmEngineCache:
             else:
                 self.cold_traces += 1
         if was_warm:
+            # hit: a point, not a span — nothing is waited on
+            obs.point("serve.cache", app=app, q=int(q), warm=True)
             return eng, True
         t0 = time.perf_counter()
-        eng.warm(self._warm_oarrays())
+        # miss: the request path pays the first launches
+        with obs.span("serve.cold_trace", app=app, q=int(q)):
+            eng.warm(self._warm_oarrays())
         with self._lock:
             self.warm_seconds += time.perf_counter() - t0
         return eng, False

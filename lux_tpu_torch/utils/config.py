@@ -45,11 +45,33 @@ def env_int(name: str, default: Optional[int] = None, *,
     return val
 
 
+def env_float(name: str, default: Optional[float] = None, *,
+              minimum: Optional[float] = None,
+              maximum: Optional[float] = None) -> Optional[float]:
+    """``env_int``'s float twin, with the same contract: unset or empty
+    reads as ``default``; garbage, NaN or an out-of-bounds value raises a
+    ValueError that names the variable."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        val = float(raw.strip())
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {raw!r}") from None
+    if val != val:  # NaN would defeat every min/max comparison below
+        raise ValueError(f"{name} must be a number, got NaN")
+    if minimum is not None and val < minimum:
+        raise ValueError(f"{name} must be >= {minimum}, got {val}")
+    if maximum is not None and val > maximum:
+        raise ValueError(f"{name} must be <= {maximum}, got {val}")
+    return val
+
+
 #: reference flags this package does not run yet (and, as before the push
 #: apps took them, the push flags on the apps that do not take them)
 NOT_PORTED = (
     "-start", "-verbose", "-v", "--max-iters", "--distributed",
-    "--profile-dir", "--exchange", "--edge-shards", "--feat-shards",
+    "--exchange", "--edge-shards", "--feat-shards",
     "--sort-segments", "--compact-gather", "--weighted",
 )
 
@@ -77,6 +99,7 @@ class RunConfig:
     rmat_ef: int = 8
     seed: int = 0
     device: str = "cuda"
+    profile_dir: Optional[str] = None  # --profile-dir: torch.profiler trace
     start: int = 0  # -start: SSSP's source vertex
     verbose: bool = False  # -verbose: per-iteration phase times
     max_iters: int = 10_000  # --max-iters: the push apps' iteration cap
@@ -176,6 +199,11 @@ def parse_args(argv=None, description: str = "", push: bool = False,
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (no fallback: cuda without a card fails)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the run's "
+                         "iterations into this directory; the per-kernel "
+                         "device-time table lands in the event log "
+                         "(utils/profiling.py, obs/xprof.py)")
     if sssp:
         ap.add_argument("--weighted", action="store_true",
                         help="relax with integer edge weights")
@@ -265,6 +293,7 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         rmat_ef=ns.rmat_ef,
         seed=ns.seed,
         device=ns.device,
+        profile_dir=ns.profile_dir,
         start=getattr(ns, "start", 0),
         verbose=getattr(ns, "verbose", False),
         max_iters=getattr(ns, "max_iters", 10_000),

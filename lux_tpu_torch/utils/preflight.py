@@ -71,6 +71,48 @@ def estimate_pull(spec: ShardSpec, state_width: int = 1,
     return MemoryEstimate(shard, state, gathered, shard + state + gathered)
 
 
+def estimate_batched(spec: ShardSpec, q: int, method: str,
+                     state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """One part of a batched serving iteration (serve/batched) with Q
+    query lanes, for ``method`` as ``serve.batched.resolve_method`` picks
+    it: the ShardArrays as in :func:`estimate_pull`; the (V, Q) state
+    pair (the state and the iteration's new state); and the larger of the
+    two peaks of the per-edge work:
+
+    * the gather: the (E, Q) gathered source values and the (E, Q) edge
+      values computed from them (a relax that copies, as SSSP's does);
+    * the reduce, by method: the (E, Q) values plus the scan ladder's
+      working copy and its (E - 1, Q) temporary and head flags (``scan``,
+      and ``mxscan``, whose kernel is 1-D: (E, Q) values run the plain
+      ladder), or its ends gather's three (V, Q) arrays; ``scatter``'s
+      (V + 1, Q) output with its dump row and the int64 destination index
+      twice (``long()`` then ``clamp``); ``cumsum``'s prefix and its
+      padded copy; ``mxsum``'s padded copy, the blocked products and
+      their sum, and the 512 x 512 triangle (its ones and its tril).
+
+    The tests pin the terms to the ``nbytes`` one batched iteration
+    allocates on the CPU, and the estimate to its measured peak."""
+    V, E, b = spec.nv_pad, spec.e_pad, state_dtype_bytes
+    base = estimate_pull(spec, q, b)
+    eq, vq = E * q * b, V * q * b
+    gather = 2 * eq
+    if method == "scatter":
+        reduce = eq + (V + 1) * q * b + 16 * E
+    elif method in ("scan", "mxscan"):
+        reduce = max(3 * eq + E, 2 * eq + 3 * vq)
+    elif method == "cumsum":
+        reduce = 3 * eq + q * b + 16 * (V + 1)
+    elif method == "mxsum":
+        block = 512
+        e_blk = -(-E // block) * block
+        reduce = eq + 3 * e_blk * q * 4 + 2 * block * block * 4
+    else:
+        raise ValueError(f"estimate_batched: unknown method {method!r}")
+    peak = max(gather, reduce)
+    return MemoryEstimate(base.shard_bytes, base.state_bytes, peak,
+                          base.shard_bytes + base.state_bytes + peak)
+
+
 def routed_plan_bytes(plan) -> int:
     """Device bytes of a built routed plan, (static, arrays) with numpy or
     tensor arrays: the sum of its arrays' sizes (uint8 indices where the

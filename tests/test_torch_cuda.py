@@ -849,3 +849,31 @@ def test_refresh_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(p.cpu().numpy(), want[2].numpy(), rtol=1e-5, atol=0)
         p2, _ = refresh.refresh_pagerank(mg, pr0, device=dev)
         assert torch.equal(p, p2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 8, 64])
+@pytest.mark.parametrize("method", ["auto", "scatter"])
+def test_batched_serving_peak_within_the_estimate_on_card(cuda, method, q):
+    """serve/driver's memory estimate (utils/preflight.estimate_batched)
+    is at or above the card's peak of a served batch: the engine's own
+    device arrays and a whole run to convergence, for SSSP and PPR."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.serve.batched import BatchedEngine
+    from lux_tpu_torch.utils import preflight
+
+    g = generate.rmat(14, 16, seed=0)
+    sh = shards.build_pull_shards(g, 1)
+    for app in ("sssp", "ppr"):
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        eng = BatchedEngine(sh, app, q, method=method, num_iters=5, device=cuda)
+        res = eng.run(np.arange(q, dtype=np.int32) * 7 % g.nv)
+        torch.cuda.synchronize(cuda)
+        peak = torch.cuda.max_memory_allocated(cuda) - base
+        est = preflight.estimate_batched(sh.spec, q, eng.method)
+        assert res.state.shape == (q, g.nv)
+        assert peak <= est.total_bytes, (app, eng.method, peak, est.total_bytes)
+        del eng, res

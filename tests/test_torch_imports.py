@@ -15,11 +15,13 @@ names = sorted(m.name for m in pkgutil.walk_packages(lux_tpu_torch.__path__, "lu
 for n in names:
     importlib.import_module(n)
 from lux_tpu_torch import native
+recorder = importlib.import_module("lux_tpu_torch.obs.recorder")
 from lux_tpu_torch.ops import cuda_build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "lux_tpu" or m.startswith("lux_tpu."))
 print(json.dumps({"modules": names, "bad": bad, "libs": sorted(cuda_build._libs),
-                  "native": native._lib is not None or native._tried}))
+                  "native": native._lib is not None or native._tried,
+                  "recorder": recorder._RECORDER is not None}))
 """
 
 
@@ -32,6 +34,7 @@ def test_port_imports_no_jax_and_no_lux_tpu():
     assert res["bad"] == []
     assert res["libs"] == []
     assert res["native"] is False
+    assert res["recorder"] is False  # no event log is opened at import
     for name in ("ops.scan", "apps.pagerank", "native", "ops.route", "ops.shuffle",
                  "ops.expand", "ops.spmv", "models.colfilter", "apps.colfilter",
                  "graph.push_shards", "ops.merge_tree", "engine.push", "engine.validate",
@@ -41,6 +44,9 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "engine.stream", "utils.timing", "serve", "serve.batched", "serve.warm",
                  "serve.scheduler", "serve.metrics", "serve.benchmarks", "serve.driver",
                  "utils.roofline", "mutate", "mutate.deltalog", "mutate.overlay",
-                 "mutate.graph", "mutate.compact", "mutate.refresh"):
+                 "mutate.graph", "mutate.compact", "mutate.refresh",
+                 "obs", "obs.recorder", "obs.dtrace", "obs.slo", "obs.ring", "obs.xprof",
+                 "utils.profiling", "fault", "fault.plan", "fault.drills", "tools",
+                 "tools.plan_prewarm"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 50

@@ -203,3 +203,79 @@ def test_apps_print_the_estimate_before_set_up(main, argv, capsys):
     out = capsys.readouterr().out
     assert out.index("per-device memory estimate") < out.index("ELAPSED TIME")
     assert "memory check skipped" in out
+
+
+def _batched_peak(sh, arrays, app, method, q):
+    """(peak bytes of one batched iteration on the CPU: the arrays, the
+    state and the most the iteration held at once, from the profiler's
+    allocation record; the gather and edge values; the new state)."""
+    import json as _json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lux_tpu_torch.serve import batched
+
+    prog = batched.make_program(app, sh.spec.nv)
+    queries = torch.arange(q, dtype=torch.int32) % sh.spec.nv
+    state = batched.batched_init(prog, arrays, queries)
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        new = batched.batched_iteration(prog, sh.spec, method, arrays, state, queries)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/mem.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            mem = [e["args"] for e in _json.load(f)["traceEvents"]
+                   if e.get("name") == "[memory]"]
+    base = mem[0]["Total Allocated"] - mem[0]["Bytes"]
+    peak = max(m["Total Allocated"] for m in mem) - base
+    full = state.reshape((sh.spec.gathered_size,) + tuple(state.shape[2:]))
+    src = full.index_select(0, arrays.part(0).src_pos)
+    vals = prog.edge_value(src, arrays.part(0).weights)
+    return _nbytes(arrays) + state.nbytes + peak, src, vals, state, new
+
+
+@pytest.mark.parametrize("q", [1, 8, 64])
+@pytest.mark.parametrize("method", ["auto", "scatter"])
+def test_estimate_batched_is_the_iterations_arrays(graph, method, q):
+    """serve/driver's estimate: its terms are the nbytes of what one
+    batched iteration allocates (the (E, Q) gather and edge values, the
+    scan ladder's copy and temporary, scatter's output and index), and
+    the whole is at or above the iteration's measured peak and no more
+    than the new state's bytes (plus the ladder's last two rows) over
+    it, for SSSP, whose relax copies its values."""
+    from lux_tpu_torch.serve.batched import resolve_method
+
+    sh = build_pull_shards(graph, 1)
+    arrays = to_device(sh.arrays, "cpu")
+    resolved = resolve_method(method, "sssp", graph.nv, torch.device("cpu"))
+    est = preflight.estimate_batched(sh.spec, q, resolved)
+    peak, src, vals, state, new = _batched_peak(sh, arrays, "sssp", resolved, q)
+    E, V = sh.spec.e_pad, sh.spec.nv_pad
+    assert est.shard_bytes == _nbytes(arrays)
+    assert est.state_bytes == state.nbytes + new.nbytes
+    if resolved == "scatter":
+        idx = arrays.dst_local[0].long()
+        out = torch.empty((V + 1, q), dtype=vals.dtype)
+        want = max(src.nbytes + vals.nbytes, vals.nbytes + out.nbytes + 2 * idx.nbytes)
+    else:
+        ladder, tmp = vals.clone(), vals[1:].clone()
+        want = max(vals.nbytes + ladder.nbytes + tmp.nbytes + q * 4 + E,
+                   2 * vals.nbytes + 3 * state.nbytes)
+    assert est.gathered_bytes == want
+    assert peak <= est.total_bytes <= peak + new.nbytes + 2 * q * 4
+    # PPR's f32 relax reads the gather in place: the estimate still holds
+    ppr_peak = _batched_peak(sh, arrays, "ppr", resolved, q)[0]
+    assert ppr_peak <= est.total_bytes
+
+
+def test_serve_driver_prints_the_batched_estimate(capsys):
+    from lux_tpu_torch.apps import sssp as sssp_app
+
+    res = sssp_app.run(["--rmat-scale", "8", "--serve", "--serve-queries", "8",
+                        "--serve-buckets", "1,8", "--device", "cpu"])
+    g = generate.rmat(8, 8, seed=0)
+    sh = build_pull_shards(g, 1)
+    est = preflight.estimate_batched(sh.spec, 8, res.method)
+    assert res.estimate_bytes == est.total_bytes
+    assert str(est) in capsys.readouterr().out

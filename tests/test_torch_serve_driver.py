@@ -1,7 +1,7 @@
 """The --serve driver of lux_tpu_torch (serve/driver.py, serve/benchmarks.py
 and the apps' --serve branch) vs lux_tpu's, on the CPU: both apps'
 `--serve --device cpu -check` exit 0 and print a JSON line whose keys are
-the reference's minus ``run_id``; the refusals, the source draw and the
+the reference's, ``run_id`` included; the refusals, the source draw and the
 check are the reference's; LUX_SERVE_PROM writes the Prometheus text."""
 import json
 import os
@@ -45,7 +45,8 @@ def _keys(d: dict, prefix: str = "") -> set:
 @pytest.mark.parametrize("app", ["sssp", "pagerank"])
 def test_serve_cli_exits_0_with_the_reference_keys(app, capsys):
     """The module entry (a subprocess that never imports jax) exits 0
-    under -check; its JSON line carries the reference's keys but run_id."""
+    under -check; its JSON line carries the reference's keys, run_id
+    included."""
     argv = SMALL + ["--serve", "--serve-queries", "16", "-check"]
     if app == "pagerank":
         argv += ["-ni", "5"]
@@ -61,7 +62,8 @@ def test_serve_cli_exits_0_with_the_reference_keys(app, capsys):
     ref_main = ref_sssp_app.main if app == "sssp" else ref_pr_app.main
     assert ref_main(argv) == 0
     ref = _metric_line(capsys.readouterr().out)
-    assert _keys(mine) == _keys(ref) - {"run_id"}
+    assert _keys(mine) == _keys(ref)
+    assert isinstance(mine["run_id"], str) and mine["run_id"]
     assert mine["metric"] == ref["metric"] == f"{name}_serve"
     for k in ("completed", "timeouts", "rejected", "batches", "batch_occupancy",
               "warm_batch_ratio", "queries", "traversed_edges"):

@@ -282,9 +282,17 @@ def test_metrics_prometheus_text_and_scrape():
     assert 'lux_serve_request_latency_seconds_bucket{le="0.025"} 1' in text
     assert "lux_serve_queue_depth 2" in text and "lux_x 7" in text
     assert "lux_serve_warm_hit_ratio 0.5" in text and "lux_serve_qps " in text
-    assert "trace_id" not in text  # exemplars come with obs
-    assert m.exemplars() == {}
-    assert m.emit_snapshot() is None
+    # the exemplar of the request's latency bucket, as the reference writes it
+    ref = ref_metrics.ServeMetrics()
+    ref.record_batch(q=4, real=3, warm=True, service_s=0.01)
+    ref.record_done(latency_s=0.02, wait_s=0.005, traversed=10, trace="abc")
+    ref.record_eviction()
+    ref.sample_queue_depth(3)
+    assert m.exemplars() == ref.exemplars() == {0.025: ("abc", 0.02)}
+    assert 'le="0.025"} 1 # {trace_id="abc"} 0.02' in text
+    assert m.dump(elapsed_s=1.0) == ref.dump(elapsed_s=1.0)
+    assert "trace_id" not in m.dump(elapsed_s=1.0, exemplars=False)
+    assert m.emit_snapshot() is None  # never raises, returns nothing
     assert m.counters()["evictions"] == 1
 
 

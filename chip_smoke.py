@@ -6,10 +6,12 @@ labelprop, triangles), the long and out-of-core runs (delta-stepping,
 adaptive repartitioning, host-offload streaming, checkpoint/resume) and
 the batched query service (--serve) through the apps, dynamic graphs
 (lux_tpu_torch.mutate: churn, warm refresh, compaction, the plan cache),
-and the cold start and observability surface (the plan disk cache in the
+the cold start and observability surface (the plan disk cache in the
 apps, overlapped planning, the telemetry ring, --profile-dir, the flight
-recorder's event log, which every phase of the smoke writes into one run
-directory under LUX_OBS_DIR).
+recorder's event log, which every phase of the smoke and every worker
+process writes into one run directory under LUX_OBS_DIR), and the serving
+fleet and a pod (serve/fleet: replica and pod workers as CUDA processes
+on the card).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -43,8 +45,12 @@ Phases, each printing one JSON line with its seconds:
               (group) plan and its pass-fused form (these four through
               the cached planners the apps call, into a cache directory
               that phase 19 loads), and fused-mx; for
-              each its spaces, digits, kernel and step counts, seconds,
-              colorer (the native one must have run) and threads.
+              each its spaces, digits, kernel and step counts, seconds
+              and threads, and the colorer's calls over all of them (the
+              native one must have run).  The three chains (expand then
+              expand-pf, fused then fused-pf, fused-mx) build at once,
+              beside each other only: no timed phase runs until they are
+              done.
   5. routed   the four routed-pull kernels against their plain versions:
               lane_gather (u8/int32 indices, f32/bf16/int32 values, small
               row counts and the main path's (2^24/128, 128)),
@@ -215,9 +221,34 @@ Phases, each printing one JSON line with its seconds:
               launches, residuals against float64); `apps.pagerank
               --method pallas --profile-dir` in a subprocess (its
               xprof.kernels point against the counters and a CUDA-event
-              time of the same work).  Then obs_log: the span totals of
-              the whole event log, which must hold plan.load, plan.build,
-              pull.chunk, serve.dispatch, mutate.refresh and xprof.trace.
+              time of the same work).
+  20. fleet   the serving fleet (see fleet_main): two replica workers as
+              CUDA processes through the launcher, apps sssp and ppr,
+              buckets 1, 8, 64, the controller here, the main graph as a
+              .lux snapshot.  Under auto the 64 serving sources of phase
+              17: SSSP bitwise, PPR within rtol 1e-5 of phase 17's
+              in-process answers; phase 18's compacted 1 %-churn snapshot
+              published (mutate/compact.publish_to_fleet) under a 64-query
+              burst: nothing shed, and then every answer bitwise a fresh
+              engine on the snapshot.  Under scatter (SSSP) the
+              worker_kill_mid_burst drill: the victim SIGKILLs itself at
+              its 5th query and the survivor answers all 64, bitwise.
+              measure_fleet_saturation at widths 1 and 2 under scatter: QPS
+              and p99 at the knee.  Every worker's peak device bytes.
+  21. pod     run_pull_pod over two pod worker processes on the card, the
+              main graph in 8 parts (4 each): PageRank (10 iterations),
+              SSSP from 732873 and components under auto, each bitwise the
+              single-process 8-part run; ms an iteration beside the
+              single-process one; every member launched mxscan_segmented
+              once a resident part an iteration, counted from its
+              pod_build.  The scan kernel on the largest part of that
+              8-part layout, on the edge values of each app's final state
+              (PageRank f32 sum within rtol 1e-5 of float64, SSSP int32
+              min and components int32 max bitwise), against its plain
+              version.  Then obs_log: the span totals of the whole event log, which
+              must hold plan.load, plan.build, pull.chunk, serve.dispatch,
+              mutate.refresh, xprof.trace, fleet.start, fleet.worker.start
+              and mutate.publish.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -228,14 +259,16 @@ components run of the mode that runs that kernel, on the spec paths
 one bfs, one kcore and one triangles run, and on the long runs one delta,
 one adaptive SSSP, one streamed PageRank and one resumed PageRank run,
 on the serving path the whole of phase 17, on the dynamic-graph path
-phase 18 up to the kernels' comparisons, and the whole of phase 19), the
-smoke's seconds, the
+phase 18 up to the kernels' comparisons, the whole of phase 19, and in
+the fleet and pod worker processes of phases 20-21, which each report
+their own counters: ``launches_fleet``), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import glob
@@ -623,22 +656,19 @@ def counters(spmv, scan, shuffle) -> dict:
             "mxscan_segmented": scan.mxscan_segmented, **shuffle.KERNELS}
 
 
-def timed_plan(native, route_mod, shuffle, mode: str, build):
+def timed_plan(native, shuffle, mode: str, build):
     """Run ``build()`` (a routed planner) and return (plan, report): its
-    spaces, digits, kernel and step counts, seconds, which colorer ran
-    (native True / numpy False / None when no coloring ran, as in a
-    to_pf upgrade) and on how many threads."""
-    route_mod.reset_color_stats()
+    spaces, digits, kernel and step counts, seconds and the colorer's
+    threads.  Builds run concurrently, so which colorer ran is counted
+    over all of them by the caller (ops/route.COLOR_STATS)."""
     t0 = time.perf_counter()
     plan = build()
     seconds = time.perf_counter() - t0
     static, arrays = plan
-    calls = dict(route_mod.COLOR_STATS)
     rep = {"mode": mode, "n": static.n, "n2": getattr(static, "n2", None),
            "seconds": seconds, "arrays": len(arrays),
            "bytes": int(sum(a.nbytes for a in arrays)),
-           "native": None if not any(calls.values()) else calls["numpy"] == 0,
-           "colorer_calls": calls, "threads": native.route_threads()}
+           "threads": native.route_threads()}
     for k in ("r1", "r2", "vr"):
         r = getattr(static, k, None)
         if r is not None:
@@ -1857,7 +1887,8 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     serve/benchmarks.measure_serving with bench.py's serving-row
     arguments under each of SERVE_METHODS, and one batched iteration's
     steps timed (serve_split).  Every launch counter is set to 0 at the
-    phase's start and read at its end: returns them."""
+    phase's start and read at its end: returns them, and (sources, SSSP
+    answers, PPR answers) of the two app runs."""
     from lux_tpu_torch.apps import pagerank as pr_app
     from lux_tpu_torch.apps import sssp as sssp_app
     from lux_tpu_torch.serve.batched import resolve_method
@@ -1916,6 +1947,8 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
           "bfs_checked": SERVE_BFS, "ppr_checked": SERVE_PPR, "ppr_max_rel_err": ppr_err,
           "sssp_max_dist": int(max(int(a[a < g.nv].max()) for a in ss.answers)),
           "oracle_seconds": oracle_s})
+    # phase 20's yardstick: the in-process engines' answers, under auto
+    served = (np.asarray(ss.sources), list(ss.answers), list(pp.answers))
     del runs, ss, pp
     torch.cuda.empty_cache()
     for method in SERVE_METHODS:
@@ -1944,7 +1977,7 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     torch.cuda.empty_cache()
     counts = {name: k.launches for name, k in kernels.items()}
     emit({"phase": "serve_main", "launches": counts, "seconds": time.perf_counter() - t0})
-    return counts
+    return counts, served
 
 
 MUTATE_PARTS = 8  # the reference's refresh row runs 8 parts (bench.py:1155)
@@ -2385,6 +2418,8 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     t0 = time.perf_counter()
     rep = mg.compact(path=snap)
     compact_s = time.perf_counter() - t0
+    churn_snap = os.path.join(tmp, "churn1pct.lux")  # phase 20 publishes it
+    shutil.copyfile(snap, churn_snap)
     inval = rep["invalidation"]
     merged_sha = edge_sha(np, mg.base)
     cold_eng = batched.BatchedEngine(mg.pull_shards, "sssp", SERVE_Q, method="scatter",
@@ -2522,7 +2557,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
                                       reps)
     emit({"phase": "mutate_main", "kernels_vs_plain": err, "mx_tombstoned": mx_row,
           "launches": counts, "seconds": time.perf_counter() - t_phase})
-    return counts, err, {"rows": rows, "cold_breakdown": brk}
+    return counts, err, {"rows": rows, "cold_breakdown": brk, "churn_snapshot": churn_snap}
 
 
 COLD_LEAD = 3.0  # overlapped runs: iterations for this many plan loads of direct chunks
@@ -2532,7 +2567,7 @@ TEL_RTOL = 1e-4  # the ring's f32 residual against its float64 recomputation
 SLEEP_CYCLES = 100_000_000  # ~50 ms of torch.cuda._sleep: the host's head start
 #: spans the smoke's event log must hold (phases 4, 17, 18, 19)
 OBS_SPANS = ("plan.load", "plan.build", "pull.chunk", "serve.dispatch", "mutate.refresh",
-             "xprof.trace")
+             "xprof.trace", "fleet.start", "fleet.worker.start", "mutate.publish")
 
 
 def obs_run_dir() -> str:
@@ -2888,16 +2923,381 @@ def obs_log_main(smi):
     """The smoke's event log, read back: span totals by name over every
     process of the run; the OBS_SPANS must be there."""
     totals = {}
-    for name, _, t0, t1, _ in obs_spans(obs_events()):
+    events = obs_events()
+    for name, _, t0, t1, _ in obs_spans(events):
         t = totals.setdefault(name, [0, 0.0])
         t[0] += 1
         t[1] += t1 - t0
+    # the fleet controller's own heartbeat stalls (credited to its leases)
+    stalls = [ev.get("a", {}).get("seconds", 0.0) for ev in events
+              if ev["e"] == "p" and ev["n"] == "fleet.heartbeat_stall"]
     emit({"phase": "obs_log", "run_dir": obs_run_dir(),
           "files": len(glob.glob(os.path.join(obs_run_dir(), "events-*.jsonl"))),
           "span_totals": {k: {"count": v[0], "seconds": v[1]} for k, v in sorted(totals.items())},
+          "heartbeat_stalls": {"count": len(stalls), "max_seconds": max(stalls, default=0.0)},
           "device": smi})
     missing = [n for n in OBS_SPANS if n not in totals]
     require(not missing, f"the event log lacks the spans {missing}")
+
+
+#: the serving fleet and pods (phases 20-21)
+FLEET_WORKERS = 2  # replica worker processes on the one card
+FLEET_APPS = ("sssp", "ppr")
+FLEET_BUCKETS = (1, 8, 64)
+FLEET_VICTIM, FLEET_NTH = "w1", 5  # fault/drills.worker_kill_mid_burst's victim and query
+FLEET_RTOL = 1e-5  # PPR through the fleet against the in-process engine
+#: measure_fleet_saturation's ramp under scatter (auto's (E, Q) batch takes
+#: ~2.6 s at Q = 64): widths 1 and 2, levels of FLEET_WINDOW_S seconds
+FLEET_WIDTHS, FLEET_START_QPS, FLEET_LEVELS, FLEET_WINDOW_S = (1, 2), 48.0, 6, 1.0
+POD_PARTS, POD_WORKERS = 8, 2  # one 8-part graph over two pod processes, 4 parts each
+
+
+def close_enough(np, got, want, rtol: float) -> float:
+    """The largest relative difference of two float arrays (zeros must be
+    zeros), or inf when an element is off by more than ``rtol``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    if bool((diff > rtol * np.abs(want) + F32_TINY).any()):
+        return float("inf")
+    return float((diff / np.maximum(np.abs(want), F32_TINY)).max())
+
+
+def fleet_answers(np, ctl, sources, apps, want_sssp, want_ppr, label: str) -> dict:
+    """Submit every source of ``sources`` for each app of ``apps`` at once
+    (one burst through the controller), wait for every answer and hold
+    SSSP bitwise and PPR within FLEET_RTOL of the in-process answers.
+    Returns per app the workers that answered, the seconds and the PPR
+    error (and whether it was bitwise)."""
+    t0 = time.perf_counter()
+    futs = {app: [ctl.submit(int(s), app=app) for s in sources] for app in apps}
+    out = {}
+    for app, fs in futs.items():
+        by = {}
+        err, bitwise = 0.0, True
+        for i, f in enumerate(fs):
+            got = f.result(timeout=600)
+            by[f.worker_id] = by.get(f.worker_id, 0) + 1
+            want = (want_sssp if app == "sssp" else want_ppr)[i]
+            require(got.shape == want.shape and bool(np.isfinite(got).all()),
+                    f"{label}: {app} answer {i} is misshaped or not finite")
+            if app == "sssp":
+                require(np.array_equal(got, want),
+                        f"{label}: sssp answer {i} (source {sources[i]}) differs from the "
+                        "in-process engine")
+            else:
+                bitwise = bitwise and bool(np.array_equal(got, want))
+                e = close_enough(np, got, want, FLEET_RTOL)
+                require(e <= FLEET_RTOL, f"{label}: ppr answer {i} (seed {sources[i]}) off "
+                                         f"the in-process engine beyond rtol {FLEET_RTOL}")
+                err = max(err, e)
+        out[app] = {"answered_by": by, "seconds": time.perf_counter() - t0}
+        if app == "ppr":
+            out[app].update(max_rel_err=err, bitwise=bitwise)
+    return out
+
+
+def fleet_worker_rows(ctl) -> dict:
+    """Each live worker's last heartbeat: peak device bytes, completed,
+    shed and its process's kernel launches."""
+    rows = {}
+    for wid, w in ctl.workers().items():
+        hb = w["last_hb"]
+        rows[wid] = {"alive": w["alive"], "peak_bytes": hb.get("peak_bytes"),
+                     "completed": hb.get("completed"), "shed": hb.get("shed_total"),
+                     "launches": hb.get("launches", {})}
+    return rows
+
+
+def fleet_diagnosis(torch, fleet, label: str) -> None:
+    """On a failed fleet run, before its teardown deletes the workers'
+    private tmpdirs: each worker's liveness and last heartbeat as the
+    controller saw them, its process's exit code and the tail of its
+    stderr, and the card's free memory, on standard error."""
+    ctl = fleet.controller
+    free, total = torch.cuda.mem_get_info()
+    diag = {"fleet_failure": label, "controller": ctl.stats(),
+            "workers": {w: {"alive": r["alive"], "last_hb": r["last_hb"]}
+                        for w, r in ctl.workers().items()},
+            "free_bytes": free, "total_bytes": total, "procs": {}}
+    for p in fleet.procs:
+        tail = ""
+        if p.tmpdir is not None:
+            try:
+                with open(os.path.join(p.tmpdir, "stderr.log")) as fh:
+                    tail = fh.read()[-3000:]
+            except OSError as e:
+                tail = repr(e)
+        diag["procs"][p.worker_id] = {"rc": p.proc.poll(), "stderr_tail": tail}
+    print(json.dumps(diag, default=str), file=sys.stderr, flush=True)
+
+
+def fleet_main(torch, np, kernels, smi, dev, snap, serve_out, churn_snap):
+    """Phase 20: the serving fleet on the card, serving ``snap`` (the main
+    graph as a .lux snapshot); FLEET_WORKERS replica workers are CUDA
+    processes started through the launcher (serve/fleet/bench.start_fleet,
+    kernels built once in this process first) with apps FLEET_APPS and
+    buckets FLEET_BUCKETS, the controller here.  Under auto: the 64
+    serving sources of phase 17 for both apps at once, SSSP bitwise and
+    PPR within FLEET_RTOL of phase 17's in-process answers; then the
+    compacted 1 %-churn snapshot of phase 18 published through
+    mutate/compact.publish_to_fleet while a 64-query burst is in flight:
+    nothing shed, every burst answer the old graph's or the new one's,
+    and after the commit all 64 bitwise a fresh single-process engine on
+    the snapshot (its first SERVE_BFS also equal phase 18's oracle).
+    Under scatter (SSSP only: scatter's f32 index_add_ sums PPR in atomic
+    order) with fault/drills.worker_kill_mid_burst in the workers'
+    LUX_FAULT_PLAN: FLEET_VICTIM SIGKILLs itself at its FLEET_NTH query
+    frame, and every query of the 64-source burst is answered by the
+    survivor, bitwise phase 17's answers.  Last,
+    serve/fleet/bench.measure_fleet_saturation at widths FLEET_WIDTHS
+    under scatter: QPS and p99 at the knee.  Each worker's peak device
+    bytes come from its stats heartbeat.  Returns the workers' kernel
+    launches, summed, and the rows."""
+    from lux_tpu_torch.fault import drills
+    from lux_tpu_torch.graph.format import read_lux
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.mutate.compact import publish_to_fleet
+    from lux_tpu_torch.serve.batched import BatchedEngine
+    from lux_tpu_torch.serve.fleet.bench import measure_fleet_saturation, start_fleet
+
+    t_phase = time.perf_counter()
+    sources, want_sssp, want_ppr = serve_out
+    gid = f"rmat{SCALE}"
+    launches = {name: 0 for name in kernels}
+    rows = {}
+
+    def add_launches(workers: dict) -> None:
+        for w in workers.values():
+            for name, n in w["launches"].items():
+                launches[name] += n
+
+    # fleet A: auto, the bitwise check, then the republish under a burst
+    t0 = time.perf_counter()
+    fleet = start_fleet(FLEET_WORKERS, graph_path=snap, graph_id=gid, mode="proc",
+                        buckets=FLEET_BUCKETS, device=dev.type, apps=FLEET_APPS,
+                        method="auto", pin=False)
+    try:
+        ctl = fleet.controller
+        start_s = time.perf_counter() - t0
+        require(sorted(ctl.live_workers()) == [f"w{i}" for i in range(FLEET_WORKERS)],
+                f"fleet: live workers {ctl.live_workers()}")
+        require(all(p.ready["device"].startswith(dev.type) for p in fleet.procs),
+                f"fleet: a worker is not on {dev.type}: {[p.ready for p in fleet.procs]}")
+        answers = fleet_answers(np, ctl, sources, FLEET_APPS, want_sssp, want_ppr, "fleet auto")
+        # the churned snapshot's own answers, from a fresh in-process engine
+        t1 = time.perf_counter()
+        g2 = read_lux(churn_snap, mmap=False)
+        sh2 = build_pull_shards(g2, 1)
+        eng = BatchedEngine(sh2, "sssp", SERVE_Q, method="auto", device=dev)
+        want_new = eng.run(sources).state
+        fresh_s = time.perf_counter() - t1
+        del eng, sh2, g2
+        torch.cuda.empty_cache()
+        burst = [ctl.submit(int(s)) for s in sources]
+        t1 = time.perf_counter()
+        rep = publish_to_fleet(ctl, churn_snap, graph_id="churn1pct")
+        publish_s = time.perf_counter() - t1
+        old_or_new = {"old": 0, "new": 0}
+        for i, f in enumerate(burst):
+            a = f.result(timeout=600)
+            if np.array_equal(a, want_sssp[i]):
+                old_or_new["old"] += 1
+            else:
+                require(np.array_equal(a, want_new[i]),
+                        f"fleet: burst answer {i} during the republish is neither graph's")
+                old_or_new["new"] += 1
+        after = [ctl.submit(int(s)) for s in sources]
+        for i, f in enumerate(after):
+            require(np.array_equal(f.result(timeout=600), want_new[i]),
+                    f"fleet: answer {i} after the commit differs from a fresh engine on the "
+                    "published snapshot")
+        time.sleep(2 * ctl.hb_interval_s + 0.1)  # a heartbeat after the last batch
+        st = ctl.stats()
+        workers = fleet_worker_rows(ctl)
+        require(st["shed"] == 0 and st["errors"] == 0 and st["timeouts"] == 0,
+                f"fleet: the republish shed or failed requests: {st}")
+        require(rep["generations"] == {f"w{i}": 1 for i in range(FLEET_WORKERS)}
+                and not rep["retired"], f"fleet: republish {rep}")
+        add_launches(workers)
+        rows["auto"] = {"start_s": start_s, "answers": answers, "publish": rep,
+                        "publish_s": publish_s, "fresh_engine_s": fresh_s,
+                        "burst_during_publish": old_or_new, "controller": st,
+                        "workers": workers}
+        emit({"phase": "fleet", "run": "auto", **rows["auto"], "device": smi})
+    except BaseException:
+        fleet_diagnosis(torch, fleet, "auto")
+        raise
+    finally:
+        fleet.close()
+    torch.cuda.empty_cache()
+
+    # fleet B: scatter, the kill drill in the workers' fault plan
+    plan = drills.worker_kill_mid_burst(FLEET_VICTIM, nth_query=FLEET_NTH)
+    t0 = time.perf_counter()
+    fleet = start_fleet(FLEET_WORKERS, graph_path=snap, graph_id=gid, mode="proc",
+                        buckets=FLEET_BUCKETS, device=dev.type, apps=("sssp",),
+                        method="scatter", pin=False,
+                        env={"LUX_FAULT_PLAN": plan.to_json()})
+    try:
+        ctl = fleet.controller
+        start_s = time.perf_counter() - t0
+        answers = fleet_answers(np, ctl, sources, ("sssp",), want_sssp, None,
+                                "fleet kill drill")
+        victim = next(p for p in fleet.procs if p.worker_id == FLEET_VICTIM)
+        victim.proc.wait(timeout=60)
+        survivor = [f"w{i}" for i in range(FLEET_WORKERS) if f"w{i}" != FLEET_VICTIM]
+        time.sleep(2 * ctl.hb_interval_s + 0.1)
+        st = ctl.stats()
+        workers = fleet_worker_rows(ctl)
+        require(victim.proc.returncode == -9,
+                f"fleet: the victim exited {victim.proc.returncode}, not by SIGKILL")
+        require(st["worker_deaths"] == 1 and ctl.live_workers() == survivor,
+                f"fleet: after the drill {st}, live {ctl.live_workers()}")
+        for app, a in answers.items():
+            require(set(a["answered_by"]) == set(survivor),
+                    f"fleet: {app} answers came from {a['answered_by']}, not the survivor")
+        add_launches({w: r for w, r in workers.items() if r["alive"]})
+        rows["kill_drill"] = {"start_s": start_s, "plan": plan.to_dict(), "answers": answers,
+                              "victim_rc": victim.proc.returncode, "controller": st,
+                              "workers": workers}
+        emit({"phase": "fleet", "run": "kill_drill", **rows["kill_drill"], "device": smi})
+    except BaseException:
+        fleet_diagnosis(torch, fleet, "kill_drill")
+        raise
+    finally:
+        fleet.close()
+    torch.cuda.empty_cache()
+
+    # the saturation ramp, widths 1 and 2, scatter
+    t0 = time.perf_counter()
+    sat = measure_fleet_saturation(
+        scale=SCALE, ef=EF, workers=FLEET_WIDTHS, mode="proc", buckets=FLEET_BUCKETS,
+        start_qps=FLEET_START_QPS, max_levels=FLEET_LEVELS, window_s=FLEET_WINDOW_S,
+        graph_path=snap, paired=False, trace_probe=False, device=dev.type,
+        method="scatter")
+    for row in sat["rows"]:
+        emit({"phase": "fleet", "run": "saturation", "metric": row["metric"],
+              "knee_qps": row["value"], "p99_ms": row["p99_ms"], "p50_ms": row["p50_ms"],
+              "offered_at_knee": row["offered_at_knee"], "workers": row["workers"],
+              "method": row["method"], "peak_bytes": row["peak_bytes"],
+              "levels": [{k: lv[k] for k in ("offered_qps", "goodput_qps", "p99_ms",
+                                              "fail_frac", "sustained")}
+                         for lv in row["levels"]],
+              "controller": {k: row["controller"][k] for k in
+                             ("submitted", "completed", "shed", "rerouted", "timeouts")},
+              "device": smi})
+        require(row["value"] > 0 and row["controller"]["completed"] > 0,
+                f"fleet: no goodput at width {row['workers']}")
+    rows["saturation"] = {r["workers"]: {"knee_qps": r["value"], "p99_ms": r["p99_ms"]}
+                          for r in sat["rows"]}
+    emit({"phase": "fleet", "knees": sat["knees"], "launches": launches,
+          "saturation_seconds": time.perf_counter() - t0,
+          "seconds": time.perf_counter() - t_phase})
+    return launches, rows
+
+
+def pod_main(torch, np, kernels, smi, dev, g, snap, start):
+    """Phase 21: a pod on the card.  POD_WORKERS pod worker processes
+    (serve/fleet/launcher.launch_pod_worker, --device cuda) hold ``g``
+    cut into POD_PARTS parts, 4 each, streamed to them over the wire from
+    its snapshot ``snap``; run_pull_pod runs PageRank (ITERS
+    iterations), SSSP from ``start`` and components under auto (mxscan on
+    the card), each bitwise the single-process 8-part
+    run_pull_fixed/run_pull_until on the card.  The pod's ms an iteration
+    (wire and assembly included) stands beside the single-process one,
+    timed here after an untimed run.  Each member's step replies carry the
+    kernel launches its process made in that run (counted from its
+    pod_build): mxscan_segmented once a resident part an iteration, in
+    both.  The members' scan runs at the per-part shapes of the 8-part
+    layout, so the kernel is held against its plain version there too:
+    on the part with the most edges, on the edge values that the step
+    reduces from each app's final single-process state (scan_case).
+    Returns the members' launches summed over the apps and the members,
+    and the scan rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+    from lux_tpu_torch.models.components import MaxLabelProgram
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+    from lux_tpu_torch.models.sssp import SSSPProgram
+    from lux_tpu_torch.ops import scan
+    from lux_tpu_torch.program.spec import active_changed
+    from lux_tpu_torch.serve.fleet import launcher
+    from lux_tpu_torch.serve.fleet.pod import run_pull_pod
+
+    t_phase = time.perf_counter()
+    sh8 = build_pull_shards(g, POD_PARTS)
+    arr = to_device(sh8.arrays, dev)
+    launcher.prebuild_kernels(dev.type)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(POD_WORKERS) as ex:
+        procs = list(ex.map(lambda i: launcher.launch_pod_worker(f"p{i}", device=dev.type),
+                            range(POD_WORKERS)))
+    start_s = time.perf_counter() - t0
+    total = {name: 0 for name in kernels}
+    rows = []
+    # the part with the most edges: the scan's largest per-part shape
+    big = int(torch.argmax(arr.row_ptr[:, -1]))
+    part = arr.part(big)
+    try:
+        ends = [("127.0.0.1", p.port) for p in procs]
+        for app, prog in (("pagerank", PageRankProgram(nv=g.nv)),
+                          ("sssp", SSSPProgram(nv=g.nv, start=start)),
+                          ("components", MaxLabelProgram())):
+            s0 = pull.init_state(prog, arr)
+
+            def single(s0=s0, prog=prog, app=app):
+                if app == "pagerank":
+                    return pull.run_pull_fixed(prog, sh8.spec, arr, s0, ITERS), ITERS
+                return pull.run_pull_until(prog, sh8.spec, arr, s0, 10_000, active_changed)
+
+            fence = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+            single()  # untimed: first launches, allocator growth
+            fence()
+            t0 = time.perf_counter()
+            want, iters = single()
+            fence()
+            single_ms = (time.perf_counter() - t0) * 1e3 / int(iters)
+            # the step's reduce on one part, on the edge values of the
+            # final state, against the plain scan
+            src, dst = pull.pull_gather_part(part, want.reshape(-1), want[big],
+                                             prog.needs_dst_state)
+            vals = prog.edge_value(src, part.weights, dst).contiguous()
+            rows.append(scan_case(torch, scan, f"pod part {big} of {POD_PARTS}, {app}",
+                                  vals, part.head_flag, part.row_ptr[-1:], prog.reduce, REPS))
+            want = want.cpu().numpy()
+            t0 = time.perf_counter()
+            res = run_pull_pod(ends, snap, POD_PARTS, app=app, start=start, method="auto",
+                               num_iters=ITERS, shutdown=app == "components")
+            wall_s = time.perf_counter() - t0
+            require(res["iters"] == int(iters),
+                    f"pod {app}: {res['iters']} iterations, single-process {int(iters)}")
+            require(res["state"].dtype == want.dtype and np.array_equal(res["state"], want),
+                    f"pod {app}: the state differs from the single-process 8-part run")
+            methods = {w["method"] for w in res["workers"].values()}
+            require(methods == {"mxscan" if dev.type == "cuda" else "scan"},
+                    f"pod {app}: members resolved {methods}")
+            for w, r in res["workers"].items():
+                want_n = (r["hi"] - r["lo"]) * res["iters"]
+                require(r["launches"].get("mxscan_segmented", 0) == want_n,
+                        f"pod {app}: member {w} launched mxscan "
+                        f"{r['launches'].get('mxscan_segmented')} times, not {want_n}")
+                for name in kernels:
+                    total[name] += r["launches"].get(name, 0)
+            emit({"phase": "pod", "app": app, "iters": res["iters"], "bitwise": True,
+                  "pod_ms_per_iter": res["loop_s"] * 1e3 / res["iters"],
+                  "single_ms_per_iter": single_ms, "scan_vs_plain": rows[-1],
+                  "phases": res["phases"], "workers": res["workers"], "wall_seconds": wall_s,
+                  "device": smi})
+    finally:
+        for p in procs:
+            p.terminate(timeout_s=30.0)
+    emit({"phase": "pod", "launches": total, "start_seconds": start_s,
+          "seconds": time.perf_counter() - t_phase})
+    del arr, sh8, part
+    torch.cuda.empty_cache()
+    return total, rows
 
 
 def main() -> int:
@@ -3042,24 +3442,30 @@ def main() -> int:
 
     # 4. the routed plans, each family built once; the expand and fused
     # families through the cached planners the apps call, into a cache
-    # directory that phase 19 loads again
+    # directory that phase 19 loads again.  Three chains build at once on
+    # the host's cores (each -pf upgrade after the plan it upgrades, from
+    # the cache); a family's seconds are its wall time beside the others
     t0 = time.perf_counter()
     plan_dir = os.path.join(_TMP, "main_plans")
-    plans, reports = {}, []
-    for mode, build in (
-            ("expand", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir)),
-            ("expand-pf", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir,
-                                                                   pf=True)),
-            ("fused", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir)),
-            ("fused-pf", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir,
-                                                                 pf=True)),
-            ("fused-mx", lambda: expand.plan_fused_shards(sh, "sum", mx=True))):
-        plans[mode], rep = timed_plan(native, route_mod, shuffle, mode, build)
-        reports.append(rep)
-        require(rep["native"] is (None if mode.endswith("-pf") else True),
-                f"plan {mode}: colorer {rep['colorer_calls']}, the native one must run")
-    emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir,
-          "seconds": time.perf_counter() - t0})
+    chains = (
+        (("expand", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir)),
+         ("expand-pf", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir,
+                                                                pf=True))),
+        (("fused", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir)),
+         ("fused-pf", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir,
+                                                              pf=True))),
+        (("fused-mx", lambda: expand.plan_fused_shards(sh, "sum", mx=True)),))
+    route_mod.reset_color_stats()
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as ex:
+        built = list(ex.map(lambda chain: [(mode, *timed_plan(native, shuffle, mode, build))
+                                           for mode, build in chain], chains))
+    plans = {mode: plan for chain in built for mode, plan, _ in chain}
+    reports = [rep for chain in built for _, _, rep in chain]
+    calls = dict(route_mod.COLOR_STATS)
+    emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir, "parallel_chains": 3,
+          "colorer_calls": calls, "seconds": time.perf_counter() - t0})
+    require(calls["native"] > 0 and calls["numpy"] == 0,
+            f"plan: colorer {calls}, the native one must run for every family")
     built_s = {r["mode"]: r["seconds"] for r in reports}
 
     # 5. the routed-pull kernels against their plain versions
@@ -3292,19 +3698,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 17. the batched query service
-    serve_launches = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
+    serve_launches, served = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
     torch.cuda.empty_cache()
 
     # 18. dynamic graphs
-    mutate_launches, mutate_err, _ = mutate_main(torch, np, kernels, smi, dev, g, _TMP,
-                                                 mutate_oracle, (g, sh, mutate_plans), REPS)
+    mutate_launches, mutate_err, mutate_out = mutate_main(
+        torch, np, kernels, smi, dev, g, _TMP, mutate_oracle, (g, sh, mutate_plans), REPS)
     del mutate_plans
     torch.cuda.empty_cache()
 
     # 19. cold start and observability
     cold_launches = cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf,
                                   built_s, launches["pallas"])
-    del g, sh, main_pf
+    del sh, main_pf
+    torch.cuda.empty_cache()
+
+    # 20-21. the serving fleet and a pod: worker processes on the card
+    from lux_tpu_torch.graph.format import write_lux
+
+    snap = os.path.join(_TMP, "fleet_main.lux")
+    write_lux(snap, g)
+    fleet_launches, _ = fleet_main(torch, np, kernels, smi, dev, snap, served,
+                                   mutate_out["churn_snapshot"])
+    del served
+    pod_launches, pod_rows = pod_main(torch, np, kernels, smi, dev, g, snap, start)
+    fleet_launches = {k: fleet_launches[k] + pod_launches[k] for k in kernels}
+    require(fleet_launches["mxscan_segmented"] > 0, "the fleet path launched no mxscan")
+    require(all(n == 0 for k, n in fleet_launches.items() if k != "mxscan_segmented"),
+            f"the fleet path launched kernels it does not run: {fleet_launches}")
+    del g
     torch.cuda.empty_cache()
     obs_log_main(smi)
 
@@ -3314,7 +3736,7 @@ def main() -> int:
             ("mxscan_segmented", rows_scan, scan_seg, "mxscan",
              "lux_tpu/ops/pallas_scan.py:193")):
         r = timed(rows)
-        extra = long_rows if name == "mxscan_segmented" else []
+        extra = long_rows + pod_rows if name == "mxscan_segmented" else []
         table.append({"name": name, "route": "cuda",
                       "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES[name]}",
                       "replaces": replaces, "launches": launches[run][name],
@@ -3355,6 +3777,7 @@ def main() -> int:
         row["launches_serve"] = serve_launches[row["name"]]
         row["launches_mutate"] = mutate_launches[row["name"]]
         row["launches_cold"] = cold_launches[row["name"]]
+        row["launches_fleet"] = fleet_launches[row["name"]]
         if row["name"] in mutate_err:
             row["max_abs_err"] = max(row["max_abs_err"], mutate_err[row["name"]])
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})

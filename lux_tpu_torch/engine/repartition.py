@@ -39,7 +39,7 @@ from lux_tpu_torch.graph.push_shards import SRC_SENTINEL, PushShards, build_push
 from lux_tpu_torch.utils.device import resolve_device
 
 MULTI_GPU = ("the distributed and ring push are not ported to lux_tpu_torch yet "
-             "(ROADMAP Queue 1 item 5, multi-GPU)")
+             "(ROADMAP Queue 1 item 7, multi-GPU)")
 
 
 class AdaptiveResult(NamedTuple):

@@ -11,9 +11,10 @@ the reference).  Two pieces:
 * ``drills.py`` — the named plan library: the fault drills as seeded
   plans.
 
-The reference's randomized soak over a live fleet (``fault/chaos.py``)
-and the wire sites its fleet drills fire at come with the serving
-fleet.
+The fleet drills fire at the serving fleet's sites: ``wire.send`` /
+``wire.recv`` in ``serve/fleet/wire.py`` and the ``controller.heartbeat``
+process point.  The reference's randomized soak over a live fleet
+(``fault/chaos.py``) comes with the live and autopilot slice.
 
 This module owns the process-global installation point.  The fast path
 is one attribute read (``_PLAN is None``) so shipped code consults it

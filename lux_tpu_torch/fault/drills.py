@@ -18,9 +18,9 @@ when" is data a failing test prints:
 * :func:`wire_chaos`              — seeded probabilistic frame delays and
   drops on query traffic.
 
-The journal drills fire at ``mutate/deltalog.py``'s sites.  The other
-three name the serving fleet's sites (``wire.*``, the controller's
-heartbeat), which come with that tier: here they are plan constructors.
+The journal drills fire at ``mutate/deltalog.py``'s sites, the other
+three at the serving fleet's (``serve/fleet/wire.py``'s ``wire.*`` and
+the controller's ``controller.heartbeat``).
 Callers bind the kill callbacks the rules name (``plan.bind``).
 """
 from __future__ import annotations

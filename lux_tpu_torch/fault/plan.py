@@ -18,8 +18,8 @@ of the reference; a plan's JSON is the same in both packages).
 
 The sites are consulted by the production code itself
 (``mutate/deltalog.py``'s npz+``.ok`` journal protocol and its named
-``fault.ppoint(...)`` process points; the ``wire.*`` sites come with the
-serving fleet), behind a single module-global fast path that costs one
+``fault.ppoint(...)`` process points; the fleet's ``wire.send`` /
+``wire.recv`` sites and its ``controller.heartbeat`` point), behind a single module-global fast path that costs one
 attribute read when no plan is installed.
 """
 from __future__ import annotations

@@ -103,3 +103,26 @@ def write_lux(path: str, g: HostGraph) -> None:
         f.write(g.col_idx.astype("<u4").tobytes())
         if g.weights is not None:
             f.write(g.weights.astype("<i4").tobytes())
+
+
+def read_lux_range(path: str, row_lo: int, row_hi: int,
+                   weighted: Optional[bool] = None,
+                   header: Optional[HostGraph] = None):
+    """Read one partition's slice of a `.lux` file, vertices [row_lo,
+    row_hi): the per-part partial load (counterpart of
+    ``lux_tpu.graph.format.read_lux_range``, its mmap path).
+
+    Returns (row_ptr_local (n+1,) int64 rebased to 0, col_idx (m,) int32,
+    weights (m,) int32 | None).  Pass ``header`` (a prior mmap read_lux
+    result) to avoid re-reading the header and offsets per call."""
+    g = header if header is not None else read_lux(path, weighted=weighted, mmap=True)
+    if not 0 <= row_lo <= row_hi <= g.nv:
+        raise ValueError(f"row range [{row_lo}, {row_hi}) outside [0, {g.nv}]")
+    col_lo, col_hi = int(g.row_ptr[row_lo]), int(g.row_ptr[row_hi])
+    if weighted is None:
+        weighted = g.weights is not None
+    row_ptr = (g.row_ptr[row_lo: row_hi + 1] - col_lo).astype(np.int64)
+    cols = np.asarray(g.col_idx[col_lo:col_hi])
+    w = (np.asarray(g.weights[col_lo:col_hi])
+         if weighted and g.weights is not None else None)
+    return row_ptr, cols, w

@@ -70,7 +70,7 @@ def refuse_unported(mesh=None, exchange="allgather") -> None:
         if val != default:
             raise NotImplementedError(
                 f"{name}={val!r}: the distributed and ring push drivers are not "
-                "ported to lux_tpu_torch yet (ROADMAP Queue 1 item 5; -ng parts "
+                "ported to lux_tpu_torch yet (ROADMAP Queue 1 item 7; -ng parts "
                 "stack on one device)")
 
 
@@ -170,13 +170,15 @@ def inf_value(nv: int, weighted: bool = False) -> int:
 def check_distances(g: HostGraph, dist: np.ndarray, weighted: bool = False) -> int:
     """Host ``-check`` oracle: the count of edges violating the triangle
     inequality dist[dst] <= dist[src] + w (0 at a fixpoint)."""
-    w = g.weights if (weighted and g.weights is not None) else np.ones(g.ne, np.int64)
-    dst = g.dst_of_edges()
-    lhs = dist[dst].astype(np.int64)
-    rhs = dist[g.col_idx].astype(np.int64) + w
+    d_src = dist[g.col_idx]
+    d_dst = dist[g.dst_of_edges()]
+    if weighted and g.weights is not None:
+        viol = d_dst.astype(np.int64) > d_src.astype(np.int64) + g.weights
+    else:
+        # hop counts are at most the INF sentinel nv, so + 1 cannot wrap
+        viol = d_dst > d_src + 1
     # relaxations from unreached (INF) sources don't count
-    reached = dist[g.col_idx] < inf_value(g.nv, weighted)
-    return int(np.sum((lhs > rhs) & reached))
+    return int(np.count_nonzero(viol & (d_src < inf_value(g.nv, weighted))))
 
 
 def bfs_reference(g: HostGraph, start: int) -> np.ndarray:

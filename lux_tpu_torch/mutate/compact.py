@@ -17,10 +17,9 @@ step durable before the next):
      cache's own key functions;
   5. swap the base last, so a failed build leaves the graph consistent.
 
-Publishing a snapshot to a serving fleet waits for ``serve/fleet``
-(``publish_to_fleet`` raises).  The reference's ``mutate.compact`` and
-``mutate.publish`` spans are not ported: lux_tpu.obs has no counterpart
-here yet.
+``publish_to_fleet`` ships a compacted snapshot to a serving fleet
+(``serve/fleet``) through the controller's two-phase republish, inside a
+``mutate.publish`` recorder span.
 """
 from __future__ import annotations
 
@@ -125,10 +124,14 @@ def compact_mutable(mg, path: Optional[str] = None, reuse_cuts: bool = True) -> 
 
 
 def publish_to_fleet(controller, path: str, graph_id: Optional[str] = None) -> dict:
-    """Publish a compacted snapshot to a live serving fleet: not ported —
-    the fleet (``serve/fleet``, ROADMAP Queue 1 item 7) is not in
-    lux_tpu_torch yet."""
-    raise NotImplementedError(
-        "publish_to_fleet needs serve/fleet, which is not ported to "
-        "lux_tpu_torch yet (ROADMAP Queue 1 item 7); serve the compacted "
-        "snapshot with a fresh serve.WarmEngineCache (install_shards)")
+    """Publish a compacted snapshot to a live fleet through the
+    controller's token-guarded two-phase republish (serve/fleet: every
+    worker prepares a second engine cache while the old graph serves,
+    then an atomic commit — zero shed, answers equal to a fresh engine on
+    the snapshot; a failed prepare anywhere aborts with the old graph
+    still serving).  One ``mutate.publish`` recorder span."""
+    from lux_tpu_torch import obs
+
+    gid = graph_id if graph_id is not None else os.path.basename(path)
+    with obs.span("mutate.publish", graph=gid):
+        return controller.republish(path, graph_id=gid)

@@ -877,3 +877,94 @@ def test_batched_serving_peak_within_the_estimate_on_card(cuda, method, q):
         assert res.state.shape == (q, g.nv)
         assert peak <= est.total_bytes, (app, eng.method, peak, est.total_bytes)
         del eng, res
+
+
+# --- the serving fleet and pods on the card ------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["auto", "scatter"])
+def test_fleet_on_card_matches_cpu(cuda, method, tmp_path):
+    """A 2-replica fleet with its engines on the card (threads here; the
+    smoke runs CUDA worker processes): SSSP answers bitwise the CPU
+    engine's, PPR within rtol 1e-5; each heartbeat reports the card's
+    peak bytes; a republish of another snapshot sheds nothing and then
+    answers that snapshot's engine, bitwise."""
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.serve.batched import BatchedEngine
+    from lux_tpu_torch.serve.fleet.bench import start_fleet
+
+    g = generate.rmat(12, 8, seed=6)
+    sh = shards.build_pull_shards(g, 1)
+    srcs = [int(s) for s in np.argsort(g.out_degrees())[::-1][:8]]
+    fleet = start_fleet(2, shards=sh, mode="thread", buckets=(1, 8), device="cuda",
+                        apps=("sssp", "ppr"), method=method)
+    ctl = fleet.controller
+    try:
+        for app in ("sssp", "ppr"):
+            want = BatchedEngine(sh, app, 8, method="scan", device="cpu").run(srcs)
+            futs = [ctl.submit(s, app=app) for s in srcs]
+            for i, f in enumerate(futs):
+                got = f.result(timeout=120)
+                if app == "sssp":
+                    np.testing.assert_array_equal(got, want.state[i])
+                else:
+                    np.testing.assert_allclose(got, want.state[i], rtol=1e-5, atol=0)
+        for w in fleet.thread_workers:
+            hb = w.heartbeat()
+            assert hb["device"].startswith("cuda") and hb["peak_bytes"] > 0
+        g2 = generate.rmat(12, 8, seed=7)
+        snap = str(tmp_path / "g2.lux")
+        fmt.write_lux(snap, g2)
+        rep = ctl.republish(snap, graph_id="g2")
+        assert rep["generations"] == {"w0": 1, "w1": 1}
+        want2 = BatchedEngine(shards.build_pull_shards(g2, 1), "sssp", 8, method="scan",
+                              device="cpu").run(srcs)
+        for i, s in enumerate(srcs):
+            np.testing.assert_array_equal(ctl.submit(s).result(timeout=120), want2.state[i])
+        assert ctl.stats()["shed"] == 0 and ctl.stats()["errors"] == 0
+    finally:
+        fleet.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("app", ["sssp", "components", "pagerank"])
+def test_pod_on_card_matches_single_process(cuda, app, tmp_path):
+    """A 2-member pod with its parts on the card is bitwise the
+    single-process 8-part run on the card under auto (mxscan), and every
+    iteration launches the scan kernel."""
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.components import MaxLabelProgram
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+    from lux_tpu_torch.models.sssp import SSSPProgram
+    from lux_tpu_torch.program.spec import active_changed
+    from lux_tpu_torch.serve.fleet.pod import PodWorker, run_pull_pod
+
+    g = generate.rmat(12, 8, seed=3)
+    snap = str(tmp_path / "g.lux")
+    fmt.write_lux(snap, g)
+    sh = shards.build_pull_shards(g, 8)
+    arr = shards.to_device(sh.arrays, cuda)
+    start = int(np.argmax(g.out_degrees()))
+    prog = {"sssp": SSSPProgram(nv=g.nv, start=start), "components": MaxLabelProgram(),
+            "pagerank": PageRankProgram(nv=g.nv)}[app]
+    s0 = pull.init_state(prog, arr)
+    if app == "pagerank":
+        want, iters = pull.run_pull_fixed(prog, sh.spec, arr, s0, 10), 10
+    else:
+        want, iters = pull.run_pull_until(prog, sh.spec, arr, s0, 10_000, active_changed)
+    before = scan.mxscan_segmented.launches
+    ws = [PodWorker(f"p{i}", device="cuda").start() for i in range(2)]
+    res = run_pull_pod([(w.host, w.port) for w in ws], snap, 8, app=app, start=start,
+                       num_iters=10)
+    assert res["iters"] == int(iters)
+    np.testing.assert_array_equal(res["state"], want.cpu().numpy())
+    assert {w["method"] for w in res["workers"].values()} == {"mxscan"}
+    assert scan.mxscan_segmented.launches - before >= 8 * int(iters)
+    # each member's reply counts the launches since its pod_build (the two
+    # in-process members share the counters, so each sees at least its own)
+    for w in res["workers"].values():
+        assert w["launches"]["mxscan_segmented"] >= (w["hi"] - w["lo"]) * int(iters)

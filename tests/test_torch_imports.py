@@ -47,6 +47,11 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "mutate.graph", "mutate.compact", "mutate.refresh",
                  "obs", "obs.recorder", "obs.dtrace", "obs.slo", "obs.ring", "obs.xprof",
                  "utils.profiling", "fault", "fault.plan", "fault.drills", "tools",
-                 "tools.plan_prewarm"):
+                 "tools.plan_prewarm", "utils.backoff", "parallel", "parallel.placement",
+                 "graph.sharded_load", "serve.fleet", "serve.fleet.hashring",
+                 "serve.fleet.pubproto", "serve.fleet.wire", "serve.fleet.stream",
+                 "serve.fleet.launcher", "serve.fleet.worker", "serve.fleet.controller",
+                 "serve.fleet.pod", "serve.fleet.bench", "tools.fleet_bench",
+                 "tools.serve_bench"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 50

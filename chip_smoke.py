@@ -9,9 +9,12 @@ the batched query service (--serve) through the apps, dynamic graphs
 the cold start and observability surface (the plan disk cache in the
 apps, overlapped planning, the telemetry ring, --profile-dir, the flight
 recorder's event log, which every phase of the smoke and every worker
-process writes into one run directory under LUX_OBS_DIR), and the serving
+process writes into one run directory under LUX_OBS_DIR), the serving
 fleet and a pod (serve/fleet: replica and pod workers as CUDA processes
-on the card).
+on the card), live serving (serve/live: live replica workers as CUDA
+processes taking writes, with standing queries) and the autopilot
+(serve/autopilot: the autoscaler over CUDA worker processes, the soaks,
+the election drill).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -42,15 +45,17 @@ Phases, each printing one JSON line with its seconds:
               (grid, threads, shared-memory bytes).
   4. plan     the routed plans of the main graph, each family built once
               and reused below: expand, its pass-fused form, the fused
-              (group) plan and its pass-fused form (these four through
-              the cached planners the apps call, into a cache directory
-              that phase 19 loads), and fused-mx; for
+              (group) plan and its pass-fused form, and fused-mx (all
+              through the cached planners the apps call, into a cache
+              directory that phase 19 loads); for
               each its spaces, digits, kernel and step counts, seconds
               and threads, and the colorer's calls over all of them (the
               native one must have run).  The three chains (expand then
-              expand-pf, fused then fused-pf, fused-mx) build at once,
-              beside each other only: no timed phase runs until they are
-              done.
+              expand-pf, fused then fused-pf, fused-mx) and the fused-pf
+              plan of phase 22's post-compaction base build at once, each
+              in a process of its own, beside each other only: no timed
+              phase runs until they are done; then this process loads
+              every family of the main graph from the cache.
   5. routed   the four routed-pull kernels against their plain versions:
               lane_gather (u8/int32 indices, f32/bf16/int32 values, small
               row counts and the main path's (2^24/128, 128)),
@@ -111,10 +116,9 @@ Phases, each printing one JSON line with its seconds:
               --route-gather expand-pf (phase 4's plan), bitwise equal in
               distances, iterations, traversed edges and dense rounds, and
               equal to scipy's shortest paths; --engine pull once, equal.
-              kcore on the symmetrized main graph under mxscan and scatter,
-              bitwise equal, equal to a host peel; at RMAT 16 direct,
-              fused-mx and expand-pf (plans built once here), bitwise
-              equal.  labelprop (8 labels, seed stride 16, 10 iterations)
+              kcore on the symmetrized main graph under mxscan, equal to a
+              host peel; at RMAT 16 mxscan, scatter, fused-mx and
+              expand-pf (plans built once here), bitwise equal.  labelprop (8 labels, seed stride 16, 10 iterations)
               under auto and scatter, within rtol 2e-4, atol 1e-6 of a
               float64 oracle.  triangles on the symmetrized weighted RMAT
               15 graph (nv = 2^15, 1,024 bitset words) under mxscan and
@@ -233,7 +237,7 @@ Phases, each printing one JSON line with its seconds:
               engine on the snapshot.  Under scatter (SSSP) the
               worker_kill_mid_burst drill: the victim SIGKILLs itself at
               its 5th query and the survivor answers all 64, bitwise.
-              measure_fleet_saturation at widths 1 and 2 under scatter: QPS
+              measure_fleet_saturation at width 1 under scatter: QPS
               and p99 at the knee.  Every worker's peak device bytes.
   21. pod     run_pull_pod over two pod worker processes on the card, the
               main graph in 8 parts (4 each): PageRank (10 iterations),
@@ -249,6 +253,51 @@ Phases, each printing one JSON line with its seconds:
               must hold plan.load, plan.build, pull.chunk, serve.dispatch,
               mutate.refresh, xprof.trace, fleet.start, fleet.worker.start
               and mutate.publish.
+  22. live    live serving (see live_main): two live replica workers as
+              CUDA processes (--live, a journal each, --delta-cap 18432,
+              standing SSSP from 732873, components and PageRank on the
+              fused-pf route from phase 4's plan cache) behind a
+              LiveFleetController.  The mixed window: 16 churn batches of
+              4,096 rows (2,048 deletes of live base edges, 2,048 random
+              inserts) admitted while two closed-loop readers send SSSP
+              over the 64 serving sources, a quarter bounded by the last
+              acknowledged generation; the 10th batch overflows and
+              escalates to a fleet compaction.  Write batches/s and
+              rows/s, read QPS, staleness p50/p99 in generations, the
+              compaction's seconds; 0 shed, 0 deaths, every bounded read
+              at or above its bound, the answers after the compaction
+              bitwise a fresh engine.  One refresh_fleet: standing SSSP
+              and components bitwise scipy's BFS and the max-label
+              fixpoint of the merged graph (regenerated in the pool) and
+              across the replicas, PageRank within rtol 1e-4 of the
+              float64 fixpoint and bitwise across them.  The live
+              kernels: mxscan_segmented on the standing push round's
+              int32 min and max (tombstones masked), bitwise its plain
+              version, and the fused-pf replay (fused_pass_gather,
+              lane_gather) of the standing ranks with the tombstones,
+              bitwise the replay on the plain versions.  The kill drill:
+              w1 SIGKILLs itself at worker.before_delta_ack of generation
+              17; the survivor takes 17 and 18 and answers a 16-query
+              burst; w1 relaunched from the compaction snapshot and its
+              journal (replayed to 17) is caught up to 18; standing SSSP
+              and components bitwise the survivor's and the oracles,
+              PageRank bitwise the survivor's and within rtol 1e-4 of the
+              float64 fixpoint of generation 18.  Refresh seconds by
+              app (first, warm, after the relaunch), catch-up seconds,
+              deaths, heartbeat stalls, each worker's peak bytes beside
+              the estimate and its kernel launches.
+  23. autopilot measure_autoscale on the main snapshot under scatter:
+              one CUDA worker process, process_spawner CUDA workers for
+              the autoscaler (min 1, max 2), fed phase 20's one-worker
+              knee: a level at 0.5x, levels at 1.5x until it scales up,
+              levels at 0.5x until it scales down (the same worker, after
+              the cooldown); no query lost, the shed fraction inside the
+              policy's budget.  The scaler is told each level's offered
+              load: the gates check its arithmetic and the join and
+              retire, not overload detection.  autopilot_soak and chaos_soak at seed 0
+              with CUDA thread workers here; election_drill on the model
+              checker's unfenced counterexample: 2 elections unfenced, 1
+              fenced.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -261,7 +310,9 @@ one adaptive SSSP, one streamed PageRank and one resumed PageRank run,
 on the serving path the whole of phase 17, on the dynamic-graph path
 phase 18 up to the kernels' comparisons, the whole of phase 19, and in
 the fleet and pod worker processes of phases 20-21, which each report
-their own counters: ``launches_fleet``), the smoke's seconds, the
+their own counters: ``launches_fleet``; in the live worker processes of
+phase 22, the killed one's last report included: ``launches_live``; the
+soaks of phase 23: ``launches_autopilot``), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -270,16 +321,21 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import faulthandler
 import functools
+import gc
 import glob
 import json
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 
 SCALE, EF, ITERS = 20, 16, 10  # the main path: RMAT 20 / ef 16, 10 iterations
 REPS = 20  # timed launches per kernel
@@ -365,19 +421,187 @@ LONG_KERNEL_RUN = {
 #: generated graphs and checkpoints, removed on every exit path
 _POOL = None
 _TMP = None
+_T0 = time.perf_counter()
+#: the last phase line printed (its phase, run and clock), for the messages
+#: of a stopped run
+_LAST = {"phase": None}
+#: seconds after which the smoke stops itself, ahead of the 1,200 s that a
+#: card run may take: every thread's stack on stderr, every process it
+#: started killed, exit 124
+DEADLINE_S = 1170.0
+_TEARDOWN = threading.Lock()
 
 
 class PhaseFailure(Exception):
     pass
 
 
+class Stopped(BaseException):
+    """SIGTERM, SIGINT or SIGHUP: unwinds main through every phase's
+    teardown (not an Exception, so no phase's handler catches it)."""
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        # seconds since the smoke started: the phases' place on its clock
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 3)}
+        _LAST["phase"] = f"{obj['phase']} {obj.get('run', '')} at {obj['at_s']} s".replace(
+            "  ", " ")
     print(json.dumps(obj), flush=True)
+
+
+def child_processes() -> list:
+    """(pid, command line) of every live child of this process, from
+    /proc; children that have exited are reaped."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me:
+                continue
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except (OSError, IndexError, ValueError):
+            continue
+        if fields[0] == "Z":
+            try:
+                os.waitpid(int(name), os.WNOHANG)
+            except ChildProcessError:
+                pass
+            continue
+        out.append((int(name), cmd))
+    return out
+
+
+def kill_children() -> list:
+    """SIGKILL every child of this process but multiprocessing's resource
+    tracker (it must outlive the pool to unlink its semaphores; it is
+    stopped last, by teardown), each worker that leads its own session
+    (serve/fleet/launcher starts them so) with its whole process group,
+    and reap them.  Returns their command lines."""
+    killed = []
+    for pid, cmd in child_processes():
+        if "resource_tracker" in cmd:
+            continue
+        try:
+            if os.getpgid(pid) == pid:
+                os.killpg(pid, signal.SIGKILL)
+            else:
+                os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            continue
+        killed.append((pid, cmd))
+    deadline = time.monotonic() + 30.0
+    for pid, _ in killed:
+        while time.monotonic() < deadline:
+            try:
+                if os.waitpid(pid, os.WNOHANG)[0]:
+                    break
+            except ChildProcessError:
+                break  # reaped by its own handle
+            time.sleep(0.05)
+    return [cmd for _, cmd in killed]
+
+
+def teardown(finished: bool) -> None:
+    """Stop everything the run started, on every exit path: the oracle
+    pool (its idle workers leave at their sentinels when the run
+    finished, else they are killed), any process still running (named on
+    stderr), the scratch directory, and multiprocessing's resource
+    tracker.  Nothing is left for the interpreter's own exit, which the
+    caller skips."""
+    global _POOL
+    with _TEARDOWN:
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+                signal.signal(sig, signal.SIG_IGN)
+        if _POOL is not None:
+            _POOL.shutdown(wait=False, cancel_futures=True)
+            _POOL = None
+        if finished:
+            # the pool's manager thread ends once its workers have
+            deadline = time.monotonic() + 30.0
+            for t in threading.enumerate():
+                if t is not threading.current_thread() and not t.daemon:
+                    t.join(max(0.0, deadline - time.monotonic()))
+        left = kill_children()
+        if left:
+            print(f"chip_smoke: killed {len(left)} processes still running at the end: "
+                  + "; ".join(c[:160] for c in left), file=sys.stderr, flush=True)
+        if _TMP is not None:
+            shutil.rmtree(_TMP, ignore_errors=True)
+        # the pool's queues go, and their semaphores leave the tracker's
+        # books; then the tracker, which exits at its pipe's end
+        gc.collect()
+        from multiprocessing import resource_tracker
+
+        stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+        if stop is not None:
+            stop()
+        sys.stdout.flush()
+        sys.stderr.flush()
+
+
+def on_stop_signal(signum, frame) -> None:
+    """The first SIGTERM, SIGINT or SIGHUP: every thread's stack on
+    stderr, every child killed at once (a SIGKILL may follow), then
+    Stopped unwinds main; later ones are ignored while it does."""
+    for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(sig, signal.SIG_IGN)
+    name = signal.Signals(signum).name
+    print(f"chip_smoke: {name} after {_LAST['phase']}, "
+          f"{time.perf_counter() - _T0:.1f} s in; stacks:", file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    kill_children()
+    raise Stopped(name)
+
+
+def start_watchdog() -> None:
+    """A daemon thread that stops the run at DEADLINE_S: stacks on
+    stderr, teardown, exit 124."""
+    def watch():
+        time.sleep(max(0.0, _T0 + DEADLINE_S - time.perf_counter()))
+        print(f"chip_smoke: {DEADLINE_S:g} s passed, after {_LAST['phase']}; stacks:",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        teardown(finished=False)
+        os._exit(124)
+
+    threading.Thread(target=watch, name="smoke-watchdog", daemon=True).start()
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseFailure(msg)
+
+
+def host_line(tmp: str) -> dict:
+    """The host beside the card: its cores and load (a card's host may be
+    shared), and the scratch directory's filesystem (the longest
+    /proc/mounts entry that holds it) with the median milliseconds of 20
+    fsync'd 4 KiB writes there, what a journal's durable write costs."""
+    path, fs = os.path.realpath(tmp), "?"
+    best = ""
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) > 2 and path.startswith(parts[1]) and len(parts[1]) > len(best):
+                best, fs = parts[1], parts[2]
+    probe, ms = os.path.join(tmp, "fsync_probe"), []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        with open(probe, "wb") as fh:
+            fh.write(b"\0" * 4096)
+            fh.flush()
+            os.fsync(fh.fileno())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    os.remove(probe)
+    return {"cpus": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+            "loadavg": os.getloadavg(), "tmp": tmp, "tmp_mount": best, "tmp_fs": fs,
+            "fsync_ms_p50": sorted(ms)[len(ms) // 2]}
 
 
 def nvidia_smi_line() -> str:
@@ -656,6 +880,41 @@ def counters(spmv, scan, shuffle) -> dict:
             "mxscan_segmented": scan.mxscan_segmented, **shuffle.KERNELS}
 
 
+#: phase 4's plan chains, each built in a process of its own
+PLAN_CHAINS = (("expand", "expand-pf"), ("fused", "fused-pf"), ("fused-mx",))
+
+
+def plan_family(sh, mode: str, plan_dir: str):
+    """One routed plan family of the one-part layout ``sh`` through the
+    cached planner (built, or loaded from ``plan_dir``)."""
+    from lux_tpu_torch.ops import expand
+
+    if mode.startswith("expand"):
+        return expand.plan_expand_shards_cached(sh, cache_dir=plan_dir, pf=mode == "expand-pf")
+    if mode == "fused-mx":
+        return expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir, mx=True)
+    return expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir, pf=mode == "fused-pf")
+
+
+def plan_chain(tmp: str, plan_dir: str, chain):
+    """Phase 4's plan chain ``chain`` (families in order) built into the
+    plan cache in a process of its own, on the one-part layout of the
+    main graph saved under ``tmp``.  Returns each family's timed_plan
+    report and the colorer's calls (ops/route.COLOR_STATS)."""
+    import numpy as np
+
+    from lux_tpu_torch import native
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import route, shuffle
+
+    sh = build_pull_shards(load_saved_graph(np, csc, tmp, "main"), 1)
+    route.reset_color_stats()
+    reps = [timed_plan(native, shuffle, mode, lambda m=mode: plan_family(sh, m, plan_dir))[1]
+            for mode in chain]
+    return reps, dict(route.COLOR_STATS)
+
+
 def timed_plan(native, shuffle, mode: str, build):
     """Run ``build()`` (a routed planner) and return (plan, report): its
     spaces, digits, kernel and step counts, seconds and the colorer's
@@ -911,6 +1170,30 @@ def path_yardsticks(torch, np, expand, segment, sh, plans, dev, reps: int):
     out["fused-mx_ms"] = time_ms(torch, lambda: expand.apply_fused(full, st, part), reps)
     out["direct_gather_mxscan_ms"] = time_ms(torch, direct_sum, reps)
     return out
+
+
+def share_push_layouts(sssp_app) -> None:
+    """Build each push layout once.  The push apps (SSSP, components, the
+    bfs program, delta-stepping) build the push layout of their graph on
+    every run (apps/sssp.build_push_app_shards, seconds of host time at
+    RMAT 20), and the smoke runs them tens of times on the same graph
+    objects at the same part counts: a run gets the layout the last run
+    on its graph and part count built (host arrays that no run writes; the
+    engines copy them to the card).  A recut's layout is built as before."""
+    build = sssp_app.build_push_shards
+    memo = []  # [(graph, parts, layout)], the last two
+
+    def shared(g, num_parts, **kw):
+        if kw:
+            return build(g, num_parts, **kw)
+        for hg, parts, sh in memo:
+            if hg is g and parts == num_parts:
+                return sh
+        sh = build(g, num_parts)
+        memo[:] = [(g, num_parts, sh)] + memo[:1]
+        return sh
+
+    sssp_app.build_push_shards = shared
 
 
 def cf_argv(scale: int) -> list:
@@ -1281,26 +1564,22 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
     require(np.array_equal(res.state, bfs["mxscan"].state), "bfs pull: distances differ")
     require(spec_launches["bfs-pull"]["mxscan_segmented"] >= res.iters,
             "bfs pull: the scan kernel launched too few times")
-    o_dist, o_probs, o_secs = spec_oracle_a.get(timeout=900)
+    o_dist, o_probs, o_secs = spec_oracle_a.result(timeout=900)
     require(np.array_equal(bfs["mxscan"].state, o_dist), "bfs distances differ from scipy's")
     emit({"phase": "spec_main", "program": "bfs", "sources": srcs,
           "oracle": "scipy.sparse.csgraph shortest_path, min over the sources",
           "oracle_seconds": o_secs["bfs"], "reached": int((o_dist < g.nv).sum()),
           "oracle_equal": True})
 
-    # k-core on the symmetrized main graph, its int32 sums through the scan kernel
+    # k-core on the symmetrized main graph, its int32 sums through the
+    # scan kernel (the other methods run at KCORE_ROUTED_SCALE below)
     kc = {}
-    for label in ("mxscan", "scatter"):
-        res, spec_launches[f"kcore-{label}"] = spec_run(
-            torch, run_app, "spec_main", f"kcore-{label}",
-            ["kcore"] + main_argv + ["-check", "--method", label], kernels, smi, g)
-        kc[label] = res
-        require(np.array_equal(res.state, kc["mxscan"].state)
-                and (res.iters, res.stats) == (kc["mxscan"].iters, kc["mxscan"].stats),
-                f"kcore {label}: (coreness, rounds, k_max) differ from the mxscan run's")
+    kc["mxscan"], spec_launches["kcore-mxscan"] = spec_run(
+        torch, run_app, "spec_main", "kcore-mxscan",
+        ["kcore"] + main_argv + ["-check", "--method", "mxscan"], kernels, smi, g)
     require(spec_launches["kcore-mxscan"]["mxscan_segmented"] >= kc["mxscan"].iters,
             "kcore mxscan: the scan kernel launched fewer times than the rounds")
-    o_core, o_inc, o2_secs = spec_oracle_b.get(timeout=900)
+    o_core, o_inc, o2_secs = spec_oracle_b.result(timeout=900)
     require(np.array_equal(kc["mxscan"].state, o_core), "coreness differs from the host peel")
     gs = kc["mxscan"].graph
     emit({"phase": "spec_main", "program": "kcore", "ne_symmetrized": gs.ne,
@@ -1321,6 +1600,12 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
               "--seed", "0", "--device", dev.type, "-check", "--method", "mxscan"]
     k16, spec_launches["kcore16-mxscan"] = spec_run(torch, run_app, "spec_main",
                                                     "kcore16-mxscan", argv16, kernels, smi, g16)
+    res, spec_launches["kcore16-scatter"] = spec_run(
+        torch, run_app, "spec_main", "kcore16-scatter", argv16[:-1] + ["scatter"], kernels,
+        smi, g16)
+    require(np.array_equal(res.state, k16.state)
+            and (res.iters, res.stats) == (k16.iters, k16.stats),
+            "kcore scatter: (coreness, rounds, k_max) differ from the mxscan run's")
     for mode in KCORE_ROUTED:
         res, spec_launches[f"kcore16-{mode}"] = spec_run(
             torch, run_app, "spec_main", f"kcore16-{mode}", argv16 + ["--route-gather", mode],
@@ -1516,7 +1801,7 @@ def delta_main(torch, np, kernels, smi, dev, tmp, long_w, plan_pf, hub, reps):
     from lux_tpu_torch.ops import scan
 
     t0 = time.perf_counter()
-    w_hub, w_dist, w_secs = long_w.get(timeout=900)
+    w_hub, w_dist, w_secs = long_w.result(timeout=900)
     require(w_hub == hub, f"the weighted graph's hub {w_hub} is not the main graph's {hub}")
     gw = load_saved_graph(np, csc, tmp, "weighted")
     base = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "--weighted",
@@ -1641,7 +1926,7 @@ def stream_main(torch, np, kernels, smi, dev, tmp, long_s, reps):
     from lux_tpu_torch.utils.timing import Timer
 
     t0 = time.perf_counter()
-    pr64, oracle_s = long_s.get(timeout=1100)
+    pr64, oracle_s = long_s.result(timeout=1100)
     gs = load_saved_graph(np, csc, tmp, "stream")
     argv = ["--rmat-scale", str(STREAM_SCALE), "--rmat-ef", str(EF), "--seed", "0",
             "--device", "cuda", "--method", "mxscan", "--stream-hbm-gib", str(STREAM_GIB)]
@@ -1929,7 +2214,7 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     for i, (v, a) in enumerate(zip(ss.sources, ss.answers)):
         require(a[int(v)] == 0, f"serve_main sssp: answer {i} is not 0 at its source {v}")
     require(all(np.isfinite(a).all() for a in pp.answers), "serve_main ppr: ranks not finite")
-    o_src, o_dist, o_ppr, oracle_s = serve_oracle.get(timeout=900)
+    o_src, o_dist, o_ppr, oracle_s = serve_oracle.result(timeout=900)
     require(np.array_equal(o_src, ss.sources) and np.array_equal(o_src, pp.sources),
             "serve_main: the oracle's query vertices differ from the driver's")
     for i in range(SERVE_BFS):
@@ -1984,6 +2269,17 @@ MUTATE_PARTS = 8  # the reference's refresh row runs 8 parts (bench.py:1155)
 MUTATE_CONFINED = 256  # the confined churn: deletes (and as many inserts) in one part
 MUTATE_PART = 3  # ... that part's destination range
 MUTATE_ATOL = 1e-6  # fused-pf / fused-mx refresh against the direct one (test_mutate.py)
+
+
+def graph_sha(g) -> str:
+    """A fingerprint of a graph's CSC arrays in their order: the same for
+    two graphs built by one deterministic definition (the delta-log's
+    merged graph), unlike edge_sha, which any edge order shares."""
+    import hashlib
+
+    h = hashlib.sha1(g.row_ptr.tobytes())
+    h.update(g.col_idx.tobytes())
+    return h.hexdigest()
 
 
 def edge_sha(np, g) -> str:
@@ -2475,7 +2771,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
         base = brk["load"] + brk[build] + brk[comp]
         cold[app] = {"plan_built": base + brk["plan_build"], "plan_loaded": base + brk["plan_load"]}
     # the gates
-    o = mutate_oracle.get(timeout=900)
+    o = mutate_oracle.result(timeout=900)
     require(o["sha"] == merged_sha and o["start"] == start,
             "mutate: the compacted graph is not the oracle's merged graph")
     require(np.array_equal(o["sources"], sources[:SERVE_BFS]), "mutate: oracle sources differ")
@@ -2947,8 +3243,10 @@ FLEET_BUCKETS = (1, 8, 64)
 FLEET_VICTIM, FLEET_NTH = "w1", 5  # fault/drills.worker_kill_mid_burst's victim and query
 FLEET_RTOL = 1e-5  # PPR through the fleet against the in-process engine
 #: measure_fleet_saturation's ramp under scatter (auto's (E, Q) batch takes
-#: ~2.6 s at Q = 64): widths 1 and 2, levels of FLEET_WINDOW_S seconds
-FLEET_WIDTHS, FLEET_START_QPS, FLEET_LEVELS, FLEET_WINDOW_S = (1, 2), 48.0, 6, 1.0
+#: ~2.6 s at Q = 64): one worker (the knee the autopilot phase is fed; two
+#: against one is tools/fleet_bench.py's paired probe), levels of
+#: FLEET_WINDOW_S seconds
+FLEET_WIDTHS, FLEET_START_QPS, FLEET_LEVELS, FLEET_WINDOW_S = (1,), 48.0, 6, 0.5
 POD_PARTS, POD_WORKERS = 8, 2  # one 8-part graph over two pod processes, 4 parts each
 
 
@@ -3168,7 +3466,7 @@ def fleet_main(torch, np, kernels, smi, dev, snap, serve_out, churn_snap):
         fleet.close()
     torch.cuda.empty_cache()
 
-    # the saturation ramp, widths 1 and 2, scatter
+    # the saturation ramp, one worker, scatter
     t0 = time.perf_counter()
     sat = measure_fleet_saturation(
         scale=SCALE, ef=EF, workers=FLEET_WIDTHS, mode="proc", buckets=FLEET_BUCKETS,
@@ -3300,6 +3598,598 @@ def pod_main(torch, np, kernels, smi, dev, g, snap, start):
     return total, rows
 
 
+
+#: live serving and the autopilot (phases 22-23)
+LIVE_WORKERS = 2  # live replica worker processes on the one card
+LIVE_SEED = 0  # the window's churn: np.random.default_rng(LIVE_SEED), serve/live/bench.churn_batch
+LIVE_BATCHES, LIVE_ROWS = 16, 4096  # the mixed window: 16 batches of 2,048 deletes + 2,048 inserts
+#: per-part insert capacity of the live workers (--delta-cap): 9 batches fit
+#: (18,432), the 10th overflows (20,480) and escalates to a fleet compaction;
+#: the 8 batches after it (11-18, 16,384 inserts) fit the new epoch
+LIVE_CAP, LIVE_COMPACT_AT = 18432, 10
+LIVE_DRILL = 2  # after the window: generation 17 (the victim dies before its ack), 18
+LIVE_VICTIM = "w1"
+LIVE_ROUTE = "fused-pf"  # --route-gather of the standing PageRank (the reference's default)
+LIVE_BUCKETS = (1, 8)
+LIVE_READERS, LIVE_RMW, LIVE_MIN_WINDOW_S = 2, 0.25, 10.0
+LIVE_BURST = 16  # the kill drill's queries, all answered by the survivor
+LIVE_PR_RTOL = 1e-4  # standing PageRank against the float64 fixpoint
+#: the autopilot phase: measure_autoscale over CUDA worker processes
+PILOT_WINDOW_S = 2.0  # seconds an offered level lasts
+PILOT_OVERLOAD, PILOT_LOW = 4, 20  # levels at 1.5x, then 0.5x of the knee (after one at 0.5x)
+PILOT_COOLDOWN_S = 8.0
+
+
+def live_sequence(g, n: int):
+    """The live phase's write sequence, regenerated independently of the
+    fleet: the churn batches serve/live/bench.churn_batch draws with
+    default_rng(LIVE_SEED) against the current epoch's delta-log, and the
+    compaction that a per-part insert count above LIVE_CAP escalates to
+    (the controller's journal folds every batch up to the overflowing one
+    into a new base).  Yields (generation, the delta-log after it)."""
+    import numpy as np
+
+    from lux_tpu_torch.mutate.deltalog import DeltaLog
+    from lux_tpu_torch.serve.live.bench import churn_batch
+
+    rng = np.random.default_rng(LIVE_SEED)
+    log = DeltaLog(g)
+    for gen in range(1, n + 1):
+        src, dst, op = churn_batch(log, rng, LIVE_ROWS)
+        log.apply(src, dst, op)
+        if int(log.live_inserts()[0].size) > LIVE_CAP:
+            log = DeltaLog(log.merged_graph())
+        yield gen, log
+
+
+def live_plan(tmp: str, plan_dir: str):
+    """The fused-pf plan of the live phase's post-compaction base (the
+    merged graph at LIVE_COMPACT_AT), built into the plan disk cache the
+    live workers load (LUX_TORCH_PLAN_CACHE), so no worker builds it.
+    Runs in a process of its own beside phase 4's plan chains, from the
+    main graph saved under ``tmp``.  Returns the base's fingerprint and
+    seconds."""
+    import numpy as np
+
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import expand
+
+    t0 = time.perf_counter()
+    for gen, log in live_sequence(load_saved_graph(np, csc, tmp, "main"), LIVE_COMPACT_AT):
+        pass
+    base = log.base
+    expand.plan_fused_shards_cached(build_pull_shards(base, 1), "sum", cache_dir=plan_dir,
+                                    pf=True)
+    return {"sha": graph_sha(base), "ne": base.ne, "seconds": time.perf_counter() - t0}
+
+
+def live_oracles(scale: int):
+    """The live phase's host oracles, built independently of the fleet
+    (live_sequence): for the merged graph at the window's end (generation
+    LIVE_BATCHES) scipy's BFS from the largest out-degree, the max-label
+    fixpoint and the float64 PageRank fixpoint (60 iterations), the same
+    for the merged graph after the kill drill (LIVE_BATCHES + LIVE_DRILL);
+    each graph's fingerprint, and the post-compaction
+    base's with a live worker's memory estimate on it.  Runs in the
+    spawned pool."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.components import fixpoint_labels
+    from lux_tpu_torch.models.pagerank import _host_iteration
+
+    t0 = time.perf_counter()
+    g = generate.rmat(scale, EF, seed=0)
+    start = int(np.argmax(np.bincount(g.col_idx, minlength=g.nv)))
+    out = {"start": start}
+    for gen, log in live_sequence(g, LIVE_BATCHES + LIVE_DRILL):
+        if gen == LIVE_COMPACT_AT:
+            out["base_sha"] = graph_sha(log.base)
+            out["estimate_bytes"] = live_estimate(log.base)
+        if gen not in (LIVE_BATCHES, LIVE_BATCHES + LIVE_DRILL):
+            continue
+        merged = log.merged_graph()
+        adj = csr_matrix((np.ones(merged.ne), (merged.col_idx, merged.dst_of_edges())),
+                         shape=(g.nv, g.nv))
+        d = shortest_path(adj, directed=True, unweighted=True, indices=[start])[0]
+        deg = merged.out_degrees().astype(np.float64)
+        pr = np.where(deg > 0, (1.0 / g.nv) / np.maximum(deg, 1.0), 1.0 / g.nv)
+        for _ in range(60):
+            pr = _host_iteration(merged, pr, deg)
+        out[gen] = {"sha": graph_sha(merged), "ne": merged.ne,
+                    "dist": np.where(np.isinf(d), g.nv, d).astype(np.int32),
+                    "labels": fixpoint_labels(merged), "pr": pr}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def live_worker_args(snap: str, jdir: str, start: int) -> list:
+    """A live replica worker's arguments (serve/fleet/worker.py --live)."""
+    return ["--graph", snap, "--graph-id", f"rmat{SCALE}", "--parts", "1", "--apps", "sssp",
+            "--buckets", ",".join(str(b) for b in LIVE_BUCKETS), "--method", "auto",
+            "--live", "--journal-dir", jdir, "--delta-cap", str(LIVE_CAP),
+            "--standing", f"sssp:{start},components,pagerank", "--route-gather", LIVE_ROUTE]
+
+
+def live_estimate(g) -> int:
+    """A live worker's device-memory estimate (utils/preflight): the
+    serving engines at the largest bucket (auto), the standing push
+    layout and states, and the standing PageRank's pull arrays with the
+    fused-pf plan's analytic bytes.  The worker holds the pull arrays
+    twice (the serving cache's copy and the refresh's)."""
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.utils import preflight
+
+    ps = build_push_shards(g, 1)
+    serve = preflight.estimate_batched(ps.spec, max(LIVE_BUCKETS), "mxscan").total_bytes
+    push = preflight.estimate_push(ps.spec, ps.pspec).total_bytes
+    pull = preflight.add_routed_bytes(
+        preflight.estimate_pull(ps.spec),
+        preflight.routed_plan_bytes_analytic(ps.spec, LIVE_ROUTE)).total_bytes
+    return int(serve + push + pull)
+
+
+def live_kernel_cases(torch, np, scan, shuffle, expand, dev, base, batches, states, plan_dir,
+                      reps):
+    """The live path's kernels on the live overlay's inputs: the epoch
+    base ``base`` with the epoch's ``batches`` in a MutableGraph at one
+    part.  mxscan_segmented at the standing push round's shape (the
+    dense round's per-edge candidates of the standing SSSP distances
+    plus one and of the standing labels, tombstones masked to the
+    reduce's identity): int32 min and max bitwise the plain version, and
+    timed; fused_pass_gather (and the fill-forward's lane_gather) on the
+    fused-pf route of the standing PageRank: the whole tombstoned
+    apply_fused replay of the standing ranks bitwise its run with the
+    kernels swapped for their plain versions, and timed.  Returns
+    {kernel: max_abs_err} and the timing rows."""
+    from lux_tpu_torch.mutate import overlay as ovl
+    from lux_tpu_torch.mutate.graph import MutableGraph
+
+    mg = MutableGraph(base, 1, cap=LIVE_CAP)
+    for _, arr in batches:
+        s, d, o = arr[:, 0], arr[:, 1], arr[:, 2].astype(np.int8)
+        mg.log.apply(s, d, o)
+    sh = mg.pull_shards
+    _, oarr = mg.pull_overlay()
+    del_val = torch.from_numpy(oarr.del_val[0]).to(dev)
+    src_pos = torch.from_numpy(sh.arrays.src_pos[0]).to(dev).long()
+    row_ptr = torch.from_numpy(sh.arrays.row_ptr[0]).to(dev)
+    head = torch.from_numpy(sh.arrays.head_flag[0]).to(dev)
+    m = int(row_ptr[-1])
+    n = sh.spec.gathered_size
+
+    def full(state):
+        flat = np.zeros(n, np.int32)
+        st = sh.global_to_stacked(np.asarray(state)).reshape(-1)
+        flat[: st.size] = st
+        return torch.from_numpy(flat).to(dev)
+
+    rows, err = {}, {}
+    inf = np.int32(base.nv)
+    for op, state, label in (("min", states["sssp"], "sssp dist + 1"),
+                             ("max", states["components"], "labels")):
+        vals = full(state).index_select(0, src_pos)
+        if op == "min":
+            vals = torch.where(vals >= inf, vals, vals + 1)
+        vals = ovl.mask_deleted(vals.contiguous(), del_val, op)
+        got = scan.mxscan_segmented(vals, head, op=op, valid_end=row_ptr[-1:])
+        want = scan.mxscan_segmented_plain(vals, head, op=op, valid_end=row_ptr[-1:])
+        torch.cuda.synchronize()
+        compare(torch, got[:m], want[:m], exact=True, what=f"live: mxscan int32 {op} ({label})")
+        rows[f"mxscan_{op}"] = {
+            "values": label, "n": int(vals.numel()),
+            "tombstoned": int(del_val.sum()),
+            "kernel_ms": time_ms(torch, lambda: scan.mxscan_segmented(
+                vals, head, op=op, valid_end=row_ptr[-1:]), reps),
+            "plain_ms": time_ms(torch, lambda: scan.mxscan_segmented_plain(
+                vals, head, op=op, valid_end=row_ptr[-1:]), max(2, reps // 4)),
+            "bound_ms": bound_ms(vals.numel() * 9)}
+    err["mxscan_segmented"] = 0.0
+    # the standing PageRank's route: the fused-pf plan of the epoch base
+    plan = expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir, pf=True)
+    st, arrs = expand.plan_to_device(plan, dev)
+    p0 = tuple(a[0] for a in arrs)
+    pr = np.zeros(n, np.float32)
+    stp = sh.global_to_stacked(np.asarray(states["pagerank"], np.float32)).reshape(-1)
+    pr[: stp.size] = stp
+    x = torch.from_numpy(pr).to(dev)
+    names = ("lane_gather", "fused_pass_gather")
+    real = {k: getattr(shuffle, k) for k in names}
+
+    def replay():
+        out = expand.apply_fused(x, st, p0, del_val=del_val)
+        torch.cuda.synchronize()
+        return out
+
+    got = replay()
+    kernel_ms = time_ms(torch, replay, reps)
+    try:
+        for k in names:
+            setattr(shuffle, k, getattr(shuffle, f"{k}_plain"))
+        want = replay()
+        plain_ms = time_ms(torch, replay, max(2, reps // 4))
+    finally:
+        for k, fn in real.items():
+            setattr(shuffle, k, fn)
+    require(torch.equal(got, want),
+            "live: the tombstoned fused-pf replay of the standing ranks differs with the "
+            "plain kernels")
+    err["fused_pass_gather"] = err["lane_gather"] = 0.0
+    rows["fused_pf_replay"] = {"n2": int(st.n2), "tombstoned": int(del_val.sum()),
+                               "kernel_ms": kernel_ms, "plain_ms": plain_ms}
+    return err, rows
+
+
+def live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir, live_oracle,
+              sources, reps):
+    """Phase 22: live (mutation-aware) serving on the card.  LIVE_WORKERS
+    live replica worker processes (serve/fleet/worker.py --live, each a
+    CUDA process with a journal directory, --delta-cap LIVE_CAP, standing
+    SSSP from ``start``, components and PageRank on the LIVE_ROUTE route,
+    phase 4's plan cache as LUX_TORCH_PLAN_CACHE) serve ``snap`` behind a
+    LiveFleetController (its journal and compaction snapshot here).
+
+    The mixed window (serve/live/bench.mixed_window): a writer admits
+    LIVE_BATCHES churn batches of LIVE_ROWS rows while LIVE_READERS
+    closed-loop readers send SSSP queries over the 64 serving sources, a
+    quarter of them bounded by the last acknowledged generation; batch
+    LIVE_COMPACT_AT overflows the workers' capacity and escalates to a
+    fleet compaction.  Then one refresh_fleet (the standing states' first
+    convergence).  Gates: 0 shed, 0 deaths, 0 read errors, every bounded
+    read tagged at or above its bound, one compaction at
+    LIVE_COMPACT_AT; the controller's merged graph the pool's
+    independently regenerated one; answers after the compaction bitwise
+    a fresh engine on the merged graph; each replica's standing SSSP and
+    components bitwise the pool's scipy BFS and max-label fixpoint and
+    each other, standing PageRank within LIVE_PR_RTOL of the float64
+    fixpoint and bitwise across the replicas.  The live kernels against
+    their plain versions (live_kernel_cases).  Then the kill drill:
+    LIVE_VICTIM's fault plan SIGKILLs it at worker.before_delta_ack of
+    generation LIVE_BATCHES + 1, the survivor acknowledges that batch and
+    the next and answers a LIVE_BURST-query burst, refreshes warm; the
+    victim is relaunched from the compaction snapshot and its own journal
+    (generation LIVE_BATCHES + 1) and caught up by the controller's
+    stream (the last batch); after a refresh its standing SSSP and
+    components are bitwise the survivor's and the pool's oracles, its
+    PageRank bitwise the survivor's, and that within LIVE_PR_RTOL of the
+    float64 fixpoint of the merged graph after the drill.  Returns the
+    workers' kernel launches, summed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lux_tpu_torch import obs
+    from lux_tpu_torch.fault.plan import FaultPlan, FaultRule
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import expand, scan, shuffle
+    from lux_tpu_torch.serve.batched import BatchedEngine
+    from lux_tpu_torch.serve.fleet import launcher
+    from lux_tpu_torch.serve.live.bench import churn_batch, mixed_window
+    from lux_tpu_torch.serve.live.controller import LiveFleetController
+
+    t_phase, t_mono = time.perf_counter(), time.monotonic()
+    tmp = os.path.join(_TMP, "live")
+    os.makedirs(tmp, exist_ok=True)
+    ctl = LiveFleetController(g, journal_dir=os.path.join(tmp, "controller"),
+                              snapshot_path=os.path.join(tmp, "snap.lux"),
+                              refresh_timeout_s=900.0)
+    jdirs = {f"w{i}": os.path.join(tmp, f"w{i}") for i in range(LIVE_WORKERS)}
+    # the victim dies at its first ack after the window: the window's
+    # overflowing batch answers before the point, so it fires once for
+    # each of the others
+    after = LIVE_BATCHES - 1
+    plan = FaultPlan([FaultRule("proc", "kill", point="worker.before_delta_ack", after=after,
+                                count=1, callback=f"kill:{LIVE_VICTIM}",
+                                note="drill: SIGKILL between a durable delta and its ack")],
+                     name="live_kill_before_ack")
+    base_env = {"LUX_OBS_RUN_ID": obs.run_id(), "LUX_TORCH_PLAN_CACHE": plan_dir}
+
+    def launch(wid: str, graph: str, env: dict):
+        return launcher.launch_fleet_worker(wid, live_worker_args(graph, jdirs[wid], start),
+                                            device=dev.type, env={**base_env, **env},
+                                            ready_timeout_s=600.0)
+
+    procs = {}
+    out = {"device": smi}
+    worker_launches = {}
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(LIVE_WORKERS) as ex:
+            futs = {wid: ex.submit(launch, wid, snap,
+                                   {"LUX_FAULT_PLAN": plan.to_json()} if wid == LIVE_VICTIM
+                                   else {})
+                    for wid in jdirs}
+            for wid, f in futs.items():
+                procs[wid] = f.result()
+        for wid in jdirs:
+            ctl.add_worker("127.0.0.1", procs[wid].port)
+        out["start_s"] = time.perf_counter() - t0
+        require(ctl.live_workers() == sorted(jdirs), f"live: workers {ctl.live_workers()}")
+        require(all(p.ready["device"].startswith(dev.type) and p.ready["delta_generation"] == 0
+                    for p in procs.values()), f"live: {[p.ready for p in procs.values()]}")
+
+        # the mixed window
+        rng = np.random.default_rng(LIVE_SEED)
+        win = mixed_window(ctl, sources, rng, batch_rows=LIVE_ROWS,
+                           write_batches=LIVE_BATCHES, reader_threads=LIVE_READERS,
+                           rmw_frac=LIVE_RMW, min_window_s=LIVE_MIN_WINDOW_S,
+                           read_timeout_s=600.0)
+        st = ctl.stats()
+        compact_s = win["write_s_each"][LIVE_COMPACT_AT - 1]
+        window = {k: win[k] for k in (
+            "write_batches_per_s", "write_rows_per_s", "read_qps", "reads", "read_errors",
+            "bounded_reads", "bounded_below_bound", "read_p50_ms", "read_p99_ms",
+            "staleness_gen_p50", "staleness_gen_p99", "write_seconds", "window_seconds",
+            "compactions")}
+        window.update(compaction_admit_s=compact_s, admit_s=win["write_s_each"],
+                      shed=st["shed"], deaths=st["worker_deaths"], errors=st["errors"],
+                      timeouts=st["timeouts"], resyncs=st["resyncs"])
+        emit({"phase": "live", "run": "window", **window, "device": smi})
+        require(st["shed"] == 0 and st["worker_deaths"] == 0 and win["read_errors"] == 0,
+                f"live: the window shed, lost a worker or failed reads: {window}")
+        require(win["bounded_reads"] > 0 and win["bounded_below_bound"] == 0,
+                f"live: bounded reads below their bound: {window}")
+        require(win["compactions"] == 1 and ctl.journal.base_generation == LIVE_COMPACT_AT
+                and ctl.generation() == LIVE_BATCHES,
+                f"live: compactions {win['compactions']}, base "
+                f"{ctl.journal.base_generation}, generation {ctl.generation()}")
+        require(ctl.worker_generations() == {w: LIVE_BATCHES for w in jdirs},
+                f"live: replicated generations {ctl.worker_generations()}")
+        require(sum(LIVE_VICTIM in a for a in win["acks"]) == after + 1,
+                f"live: the victim acked {sum(LIVE_VICTIM in a for a in win['acks'])} batches")
+        o = live_oracle.result(timeout=1200)
+        merged = ctl.journal.log.merged_graph()
+        require(o["base_sha"] == graph_sha(ctl.journal.log.base)
+                and o[LIVE_BATCHES]["sha"] == graph_sha(merged),
+                "live: the controller's merged graph is not the pool's regenerated one")
+        # the answers after the compaction: a fresh engine on the merged graph
+        t0 = time.perf_counter()
+        eng = BatchedEngine(build_pull_shards(merged, 1), "sssp", max(LIVE_BUCKETS),
+                            method="auto", device=dev)
+        probe = [int(s) for s in sources[: max(LIVE_BUCKETS)]]
+        want = eng.run(probe).state
+        del eng
+        torch.cuda.empty_cache()
+        futs = [ctl.submit(s, min_generation=LIVE_BATCHES) for s in probe]
+        for i, f in enumerate(futs):
+            require(np.array_equal(f.result(timeout=600), want[i]),
+                    f"live: answer {i} after the compaction differs from a fresh engine")
+        out["fresh_engine_s"] = time.perf_counter() - t0
+
+        # the standing states' first convergence, on every replica
+        r1 = ctl.refresh_fleet(timeout_s=900.0)
+        emit({"phase": "live", "run": "refresh", "kind": "first", **r1, "device": smi})
+        states = {}
+        for app in ("sssp", "components", "pagerank"):
+            allr = ctl.read_standing_all(app)
+            require(set(allr) == set(jdirs)
+                    and all(e["generation"] == LIVE_BATCHES for e in allr.values()),
+                    f"live: standing {app} tags {[(w, e['generation']) for w, e in allr.items()]}")
+            a, b = (allr[w]["state"] for w in sorted(jdirs))
+            require(np.array_equal(a, b), f"live: standing {app} differs across the replicas")
+            if app == "sssp":
+                require(np.array_equal(a, o[LIVE_BATCHES]["dist"]),
+                        "live: standing SSSP differs from scipy's BFS of the merged graph")
+            elif app == "components":
+                require(np.array_equal(a, o[LIVE_BATCHES]["labels"]),
+                        "live: standing labels differ from the max-label fixpoint")
+            else:
+                out["pagerank_rel_err"] = rel_err(np, a, o[LIVE_BATCHES]["pr"])
+                require(out["pagerank_rel_err"] <= LIVE_PR_RTOL,
+                        f"live: standing PageRank off the f64 fixpoint by "
+                        f"{out['pagerank_rel_err']}")
+            states[app] = a
+        out["refresh_first"] = r1
+
+        # the live path's kernels against their plain versions
+        t0 = time.perf_counter()
+        kerr, krows = live_kernel_cases(torch, np, scan, shuffle, expand, dev,
+                                        ctl.journal.log.base,
+                                        ctl.journal.batches_since(LIVE_COMPACT_AT), states,
+                                        plan_dir, reps)
+        emit({"phase": "live", "run": "kernels", **krows, "seconds": time.perf_counter() - t0,
+              "device": smi})
+        torch.cuda.empty_cache()
+
+        # the kill drill: the victim dies between a durable delta and its ack
+        t0 = time.perf_counter()
+        victim_hb = None
+        reps_drill = []
+        for i in range(LIVE_DRILL):
+            src, dst, op = churn_batch(ctl.journal.log, rng, LIVE_ROWS)
+            reps_drill.append(ctl.admit_writes(src, dst, op))
+            if i == 0:
+                procs[LIVE_VICTIM].proc.wait(timeout=120)
+                victim_hb = ctl.workers()[LIVE_VICTIM]["last_hb"]
+        survivor = [w for w in sorted(jdirs) if w != LIVE_VICTIM]
+        last = LIVE_BATCHES + LIVE_DRILL
+        require(procs[LIVE_VICTIM].proc.returncode == -9,
+                f"live: the victim exited {procs[LIVE_VICTIM].proc.returncode}, not by SIGKILL")
+        require([r["acked"] for r in reps_drill] == [survivor] * LIVE_DRILL
+                and reps_drill[-1]["generation"] == last,
+                f"live: drill admits {reps_drill}")
+        require(ctl.live_workers() == survivor, f"live: live workers {ctl.live_workers()}")
+        burst = [start] + [int(s) for s in sources[: LIVE_BURST - 1]]
+        futs = [ctl.submit(s, min_generation=last) for s in burst]
+        answered = [f.result(timeout=600) for f in futs]
+        require(all(f.worker_id == survivor[0] for f in futs),
+                "live: a drill query was not answered by the survivor")
+        require(np.array_equal(answered[0], o[last]["dist"]),
+                "live: the survivor's answer from the standing start differs from scipy's BFS")
+        drill_s = time.perf_counter() - t0
+        r2 = ctl.refresh_fleet(timeout_s=900.0)
+        emit({"phase": "live", "run": "refresh", "kind": "warm (survivor)", **r2,
+              "device": smi})
+        # the victim relaunched from the compaction snapshot and its own journal
+        t0 = time.perf_counter()
+        h = launch(LIVE_VICTIM, ctl.snapshot_path, {})
+        procs[LIVE_VICTIM] = h
+        replayed = h.ready["delta_generation"]
+        ctl.add_worker("127.0.0.1", h.port)
+        catchup_s = time.perf_counter() - t0
+        require(replayed == LIVE_BATCHES + 1,
+                f"live: the relaunched victim replayed to generation {replayed}")
+        require(ctl.worker_generations() == {w: last for w in jdirs},
+                f"live: after the catch-up {ctl.worker_generations()}")
+        r3 = ctl.refresh_fleet(timeout_s=900.0)
+        emit({"phase": "live", "run": "refresh", "kind": "relaunched (cold) + survivor", **r3,
+              "device": smi})
+        ulps = None
+        for app in ("sssp", "components", "pagerank"):
+            allr = ctl.read_standing_all(app)
+            a, b = allr[survivor[0]]["state"], allr[LIVE_VICTIM]["state"]
+            require(all(e["generation"] == last for e in allr.values()),
+                    f"live: standing {app} tags after the drill")
+            if app == "pagerank":
+                ulps = ulp_diff(np, a, b)
+                out["pagerank_rel_err_drill"] = rel_err(np, a, o[last]["pr"])
+                require(np.array_equal(a, b),
+                        f"live: the relaunched replica's PageRank is {ulps} ulps off the "
+                        f"survivor's, not bitwise")
+                require(out["pagerank_rel_err_drill"] <= LIVE_PR_RTOL,
+                        f"live: standing PageRank after the drill off the f64 fixpoint by "
+                        f"{out['pagerank_rel_err_drill']}")
+            else:
+                require(np.array_equal(a, b),
+                        f"live: the relaunched replica's {app} differs from the survivor's")
+                require(np.array_equal(a, o[last]["dist" if app == "sssp" else "labels"]),
+                        f"live: standing {app} after the drill differs from the oracle")
+        time.sleep(2 * ctl.hb_interval_s + 0.1)  # a heartbeat after the last work
+        st = ctl.stats()
+        rows = fleet_worker_rows(ctl)
+        require(st["worker_deaths"] == 1 and st["shed"] == 0,
+                f"live: after the drill {st}")
+        events = obs_events()
+        stalls = [ev.get("a", {}).get("seconds", 0.0) for ev in events
+                  if ev["e"] == "p" and ev["n"] == "fleet.heartbeat_stall"
+                  and ev["t"] >= t_mono]
+        worker_launches = {w: r["launches"] for w, r in rows.items()}
+        worker_launches[f"{LIVE_VICTIM} (killed)"] = (victim_hb or {}).get("launches", {})
+        compact_spans = obs_spans(events, "live.compact_fleet", since=t_mono)
+        out.update(drill_s=drill_s, catchup_s=catchup_s, replayed_to=replayed,
+                   pagerank_ulps_relaunched=ulps, controller=st,
+                   compaction_span_s=[t1 - t0_ for _, _, t0_, t1, _ in compact_spans],
+                   heartbeat_stalls={"count": len(stalls), "max_seconds": max(stalls, default=0.0)},
+                   peak_bytes={w: r["peak_bytes"] for w, r in rows.items()},
+                   killed_peak_bytes=(victim_hb or {}).get("peak_bytes"),
+                   estimate_bytes=o["estimate_bytes"], launches=worker_launches,
+                   refresh_seconds={"first": {w: r["apps"] for w, r in r1["workers"].items()},
+                                    "warm": {w: r["apps"] for w, r in r2["workers"].items()},
+                                    "after_relaunch": {w: r["apps"]
+                                                       for w, r in r3["workers"].items()}})
+    except BaseException:
+        from lux_tpu_torch.serve.fleet.bench import Fleet
+
+        fleet_diagnosis(torch, Fleet(ctl, [], list(procs.values())), "live")
+        raise
+    finally:
+        ctl.close(shutdown_workers=True)
+        for p in procs.values():
+            p.terminate(timeout_s=30.0)
+    total = {name: sum(c.get(name, 0) for c in worker_launches.values()) for name in kernels}
+    require(dev.type != "cuda" or (total["mxscan_segmented"] > 0
+                                   and total["fused_pass_gather"] > 0),
+            f"live: the workers did not launch the path's kernels: {total}")
+    emit({"phase": "live", **out, "launches_total": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, kerr
+
+
+def autopilot_main(torch, np, kernels, smi, dev, snap, knee):
+    """Phase 23: the autopilot on the card.  serve/fleet/bench
+    .measure_autoscale on ``snap`` under scatter, one CUDA worker process
+    to start, launcher.process_spawner CUDA worker processes for the
+    autoscaler (min 1, max 2), fed phase 20's one-worker knee ``knee``:
+    one level at 0.5x the knee (the scaler holds), up to
+    PILOT_OVERLOAD at 1.5x (it must scale up), then up to PILOT_LOW at
+    0.5x (it must scale down, the same worker — LIFO — at least
+    PILOT_COOLDOWN_S later); no query lost (no error, no timeout), the
+    shed fraction inside the policy's budget.  The scaler is told the
+    offered load of each level (as in the reference's bench), so these
+    gates check its arithmetic against the knee and the fleet's join and
+    retire of a CUDA worker process, not that the card's own signals
+    detect the overload; each level's goodput, p99 and ``sustained`` are
+    what the card measured, and are printed.  Then, with the replicas as
+    CUDA thread workers here, fault/chaos.autopilot_soak(seed=0) and
+    chaos_soak(seed=0) at the reference's sizes, and election_drill on
+    the unfenced election counterexample that the model checker finds
+    (analysis/proto): the unfenced group reproduces the split brain (2
+    elections), the fenced group absorbs the same schedule (1).
+    Returns the kernel launches of the soaks (this process)."""
+    from lux_tpu_torch import obs
+    from lux_tpu_torch.analysis.proto.election_model import ElectionModel
+    from lux_tpu_torch.analysis.proto.export import export_faultplan
+    from lux_tpu_torch.analysis.proto.mc import check
+    from lux_tpu_torch.fault.chaos import autopilot_soak, chaos_soak, election_drill
+    from lux_tpu_torch.fault.plan import FaultPlan
+    from lux_tpu_torch.serve.fleet import launcher
+    from lux_tpu_torch.serve.fleet.bench import measure_autoscale
+
+    t_phase = time.perf_counter()
+    gid = f"rmat{SCALE}"
+    spawner = launcher.process_spawner(
+        prefix="as", device=dev.type, env={"LUX_OBS_RUN_ID": obs.run_id()},
+        extra_args=["--graph", snap, "--graph-id", gid, "--parts", "1", "--apps", "sssp",
+                    "--buckets", ",".join(str(b) for b in FLEET_BUCKETS),
+                    "--method", "scatter"])
+    t0 = time.perf_counter()
+    res = measure_autoscale(
+        knee, spawner, scale=SCALE, ef=EF, buckets=FLEET_BUCKETS, window_s=PILOT_WINDOW_S,
+        overload_levels=PILOT_OVERLOAD, low_levels=PILOT_LOW, cooldown_s=PILOT_COOLDOWN_S,
+        mode="proc", graph_path=snap, device=dev.type, method="scatter")
+    (row,) = res["rows"]
+    levels = res["levels"]
+    acts = [(i, lv["scale_action"]) for i, lv in enumerate(levels) if "scale_action" in lv]
+    lost = sum(lv["errors"] + lv["timeouts"] for lv in levels)
+    emit({"phase": "autopilot", "run": "autoscale", "knee_qps": knee,
+          "levels": [{k: lv.get(k) for k in ("phase", "offered_qps", "submitted", "completed",
+                                               "shed", "timeouts", "errors", "goodput_qps",
+                                               "p50_ms", "p99_ms", "sustained", "alive")}
+                     for lv in levels],
+          "actions": [{**a, "level": i} for i, a in acts], "lost": lost,
+          "shed_frac": row["shed_frac"], "max_shed_frac": row["max_shed_frac"],
+          "pilot": row["pilot"], "seconds": time.perf_counter() - t0, "device": smi})
+    require([a["action"] for _, a in acts] == ["scale_up", "scale_down"],
+            f"autopilot: scale actions {[a for _, a in acts]}")
+    (iu, up), (idn, down) = acts
+    require(up["worker"] == down["worker"], "autopilot: the scale-down was not LIFO")
+    require(levels[iu]["phase"] == "overload" and levels[idn]["phase"] == "low",
+            "autopilot: scaled at the wrong load")
+    require(levels[idn]["t"] - levels[iu]["t"] >= PILOT_COOLDOWN_S,
+            "autopilot: scaled down inside the cooldown")
+    require(lost == 0 and row["shed_bounded"], f"autopilot: lost {lost}, row {row['shed_frac']}")
+    # the soaks, with CUDA thread workers
+    for fn in kernels.values():
+        fn.launches = 0
+    soaks = {}
+    for name, fn in (("autopilot_soak", autopilot_soak), ("chaos_soak", chaos_soak)):
+        t0 = time.perf_counter()
+        rep = fn(0, device=dev)
+        soaks[name] = {k: v for k, v in rep.items() if k not in ("events", "fault_counters")}
+        soaks[name]["seconds"] = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    require(soaks["autopilot_soak"]["scale_ups"] >= 1
+            and soaks["autopilot_soak"]["elections"] == 1
+            and soaks["autopilot_soak"]["compactions"] >= 1, f"autopilot: {soaks}")
+    emit({"phase": "autopilot", "run": "soaks", **soaks, "launches": counts, "device": smi})
+    # the model checker's counterexample replayed on the real election
+    t0 = time.perf_counter()
+    cex = check(ElectionModel(n_standbys=2, fenced=False, max_restarts=1))
+    clean = check(ElectionModel(n_standbys=3, fenced=True, max_restarts=1))
+    require(cex.violation is not None and clean.ok, "autopilot: the election model")
+    plan_json = export_faultplan(cex).to_json()
+    unf = election_drill(FaultPlan.from_json(plan_json), fenced=False)
+    fen = election_drill(FaultPlan.from_json(plan_json), fenced=True)
+    emit({"phase": "autopilot", "run": "election_drill", "trace": list(cex.violation.trace),
+          "clean_states": clean.states, "unfenced": unf, "fenced": fen,
+          "seconds": time.perf_counter() - t0})
+    require(unf["elections"] == 2 and fen["elections"] == 1,
+            f"autopilot: election drill unfenced {unf}, fenced {fen}")
+    emit({"phase": "autopilot", "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3326,6 +4216,7 @@ def main() -> int:
     from lux_tpu_torch.ops import route as route_mod
     from lux_tpu_torch.utils.config import parse_args
 
+    share_push_layouts(sssp_app)
     # the host oracles take minutes: start them now, beside the card
     global _POOL, _TMP
     _TMP = tempfile.mkdtemp(prefix="lux_smoke_")
@@ -3335,15 +4226,18 @@ def main() -> int:
     os.environ["LUX_OBS_DIR"] = os.path.join(_TMP, "obs")
     os.environ["LUX_OBS_RUN_ID"] = obs.new_run_id()
     os.environ.pop("LUX_OBS", None)
-    _POOL = multiprocessing.get_context("spawn").Pool(4)
-    cf_oracle = _POOL.apply_async(cf_oracle_f64, (SCALE,))
-    push_oracle = _POOL.apply_async(push_oracles, (SCALE,))
-    spec_oracle_a = _POOL.apply_async(spec_oracles_bfs_labelprop, (SCALE,))
-    spec_oracle_b = _POOL.apply_async(spec_oracles_kcore_triangles, (SCALE, TRI_SCALE))
-    long_w = _POOL.apply_async(long_weighted_graph, (_TMP, SCALE))
-    long_s = _POOL.apply_async(long_stream_graph, (_TMP, STREAM_SCALE))
-    serve_oracle = _POOL.apply_async(serve_oracles, (SCALE,))
-    mutate_oracle = _POOL.apply_async(mutate_oracles, (SCALE,))
+    _POOL = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    cf_oracle = _POOL.submit(cf_oracle_f64, SCALE)
+    push_oracle = _POOL.submit(push_oracles, SCALE)
+    spec_oracle_a = _POOL.submit(spec_oracles_bfs_labelprop, SCALE)
+    spec_oracle_b = _POOL.submit(spec_oracles_kcore_triangles, SCALE, TRI_SCALE)
+    long_w = _POOL.submit(long_weighted_graph, _TMP, SCALE)
+    long_s = _POOL.submit(long_stream_graph, _TMP, STREAM_SCALE)
+    serve_oracle = _POOL.submit(serve_oracles, SCALE)
+    mutate_oracle = _POOL.submit(mutate_oracles, SCALE)
+    live_oracle = _POOL.submit(live_oracles, SCALE)
+    plan_dir = os.path.join(_TMP, "main_plans")
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3355,7 +4249,7 @@ def main() -> int:
     # 1. device
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "numpy": np.__version__})
+          "cuda": torch.version.cuda, "numpy": np.__version__, "host": host_line(_TMP)})
 
     # 2. build
     t0 = time.perf_counter()
@@ -3440,30 +4334,30 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del bc, state, src_pos, row_ptr, main_head, main_vals, spmv_vals, e_dst, cb, cf
 
-    # 4. the routed plans, each family built once; the expand and fused
-    # families through the cached planners the apps call, into a cache
-    # directory that phase 19 loads again.  Three chains build at once on
-    # the host's cores (each -pf upgrade after the plan it upgrades, from
-    # the cache); a family's seconds are its wall time beside the others
+    # 4. the routed plans, each family built once, through the cached
+    # planners the apps call, into a cache directory that phase 19 loads
+    # again.  The three chains and the live phase's post-compaction base
+    # build at once, each in a process of its own (threads of one process
+    # serialize on the interpreter lock); each -pf upgrade after the plan
+    # it upgrades, from the cache.  A family's seconds are its wall time
+    # beside the others; then this process loads every family of the
+    # main graph from the cache
     t0 = time.perf_counter()
-    plan_dir = os.path.join(_TMP, "main_plans")
-    chains = (
-        (("expand", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir)),
-         ("expand-pf", lambda: expand.plan_expand_shards_cached(sh, cache_dir=plan_dir,
-                                                                pf=True))),
-        (("fused", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir)),
-         ("fused-pf", lambda: expand.plan_fused_shards_cached(sh, "sum", cache_dir=plan_dir,
-                                                              pf=True))),
-        (("fused-mx", lambda: expand.plan_fused_shards(sh, "sum", mx=True)),))
-    route_mod.reset_color_stats()
-    with concurrent.futures.ThreadPoolExecutor(len(chains)) as ex:
-        built = list(ex.map(lambda chain: [(mode, *timed_plan(native, shuffle, mode, build))
-                                           for mode, build in chain], chains))
-    plans = {mode: plan for chain in built for mode, plan, _ in chain}
-    reports = [rep for chain in built for _, _, rep in chain]
-    calls = dict(route_mod.COLOR_STATS)
-    emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir, "parallel_chains": 3,
-          "colorer_calls": calls, "seconds": time.perf_counter() - t0})
+    save_graph(np, _TMP, "main", g)
+    with concurrent.futures.ProcessPoolExecutor(
+            len(PLAN_CHAINS) + 1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        live_plan_fut = ex.submit(live_plan, _TMP, plan_dir)
+        built = list(ex.map(plan_chain, [_TMP] * len(PLAN_CHAINS),
+                            [plan_dir] * len(PLAN_CHAINS), PLAN_CHAINS))
+        live_plan_row = live_plan_fut.result()
+    reports = [rep for reps, _ in built for rep in reps]
+    calls = {k: sum(c.get(k, 0) for _, c in built) for k in ("native", "numpy")}
+    t1 = time.perf_counter()
+    plans = {mode: plan_family(sh, mode, plan_dir) for chain in PLAN_CHAINS for mode in chain}
+    emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir,
+          "parallel_chains": len(PLAN_CHAINS), "colorer_calls": calls,
+          "live_compaction_base": live_plan_row,
+          "load_seconds": time.perf_counter() - t1, "seconds": time.perf_counter() - t0})
     require(calls["native"] > 0 and calls["numpy"] == 0,
             f"plan: colorer {calls}, the native one must run for every family")
     built_s = {r["mode"]: r["seconds"] for r in reports}
@@ -3618,7 +4512,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     got["colfilter"] = cf_model.colfilter(g_cf, ITERS, gamma=CF_GAMMA, device=dev)
     t1 = time.perf_counter()
-    v64, rmse64, oracle_s = cf_oracle.get(timeout=1200)
+    v64, rmse64, oracle_s = cf_oracle.result(timeout=1200)
     for name, v in got.items():
         rel = float(np.max(np.abs(v - v64) / np.abs(v64)))
         rmse = cf_model.rmse(g_cf, v)
@@ -3640,7 +4534,7 @@ def main() -> int:
     start = int(np.argmax(g.out_degrees()))
     sssp_runs, sssp_launches = push_runs(np, sssp_app, "push_main", g, ["-start", str(start)],
                                          push_plans, kernels, smi)
-    o_start, o_dist, o_labels, oracle_s, o_tail = push_oracle.get(timeout=900)
+    o_start, o_dist, o_labels, oracle_s, o_tail = push_oracle.result(timeout=900)
     require(o_start == start, f"the oracle's start {o_start} is not {start}")
     require(np.array_equal(sssp_runs["mxscan"].state, o_dist),
             "SSSP distances differ from the scipy BFS oracle")
@@ -3718,15 +4612,27 @@ def main() -> int:
 
     snap = os.path.join(_TMP, "fleet_main.lux")
     write_lux(snap, g)
-    fleet_launches, _ = fleet_main(torch, np, kernels, smi, dev, snap, served,
-                                   mutate_out["churn_snapshot"])
+    fleet_launches, fleet_rows = fleet_main(torch, np, kernels, smi, dev, snap, served,
+                                            mutate_out["churn_snapshot"])
+    live_sources = served[0]
     del served
     pod_launches, pod_rows = pod_main(torch, np, kernels, smi, dev, g, snap, start)
     fleet_launches = {k: fleet_launches[k] + pod_launches[k] for k in kernels}
     require(fleet_launches["mxscan_segmented"] > 0, "the fleet path launched no mxscan")
     require(all(n == 0 for k, n in fleet_launches.items() if k != "mxscan_segmented"),
             f"the fleet path launched kernels it does not run: {fleet_launches}")
+    torch.cuda.empty_cache()
+
+    # 22-23. live serving and the autopilot: worker processes on the card
+    emit({"phase": "live", "run": "plan", "compaction_base": live_plan_row})
+    require(live_plan_row["sha"] == live_oracle.result(timeout=1200)["base_sha"],
+            "live: the planned compaction base is not the pool's")
+    live_launches, live_err = live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir,
+                                        live_oracle, live_sources, REPS)
     del g
+    torch.cuda.empty_cache()
+    pilot_launches = autopilot_main(torch, np, kernels, smi, dev, snap,
+                                    fleet_rows["saturation"][1]["knee_qps"])
     torch.cuda.empty_cache()
     obs_log_main(smi)
 
@@ -3778,9 +4684,13 @@ def main() -> int:
         row["launches_mutate"] = mutate_launches[row["name"]]
         row["launches_cold"] = cold_launches[row["name"]]
         row["launches_fleet"] = fleet_launches[row["name"]]
-        if row["name"] in mutate_err:
-            row["max_abs_err"] = max(row["max_abs_err"], mutate_err[row["name"]])
-    emit({"phase": "total", "seconds": time.perf_counter() - t_smoke})
+        row["launches_live"] = live_launches[row["name"]]
+        row["launches_autopilot"] = pilot_launches[row["name"]]
+        for errs in (mutate_err, live_err):
+            if row["name"] in errs:
+                row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
+    emit({"phase": "total", "seconds": time.perf_counter() - t_smoke,
+          "loadavg": os.getloadavg()})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3789,14 +4699,24 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(sig, on_stop_signal)
+    start_watchdog()
+    rc = 1
     try:
-        sys.exit(main())
+        rc = main()
     except PhaseFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(1)
+    except Stopped as e:
+        print(f"chip_smoke: stopped by {e}", file=sys.stderr)
+        rc = 143
+    except BaseException:
+        traceback.print_exc()
     finally:
-        if _POOL is not None:
-            _POOL.terminate()
-            _POOL.join()
-        if _TMP is not None:
-            shutil.rmtree(_TMP, ignore_errors=True)
+        try:
+            teardown(finished=rc == 0)
+        finally:
+            # everything the run started is stopped: skip the interpreter's
+            # exit, whose hooks (CUDA's, the thread pools') have nothing
+            # left to do and could only wait on a thread a phase left behind
+            os._exit(rc)

@@ -13,8 +13,8 @@ the reference).  Two pieces:
 
 The fleet drills fire at the serving fleet's sites: ``wire.send`` /
 ``wire.recv`` in ``serve/fleet/wire.py`` and the ``controller.heartbeat``
-process point.  The reference's randomized soak over a live fleet
-(``fault/chaos.py``) comes with the live and autopilot slice.
+process point; the seeded soaks over a live fleet and the election
+drill are ``fault/chaos.py``.
 
 This module owns the process-global installation point.  The fast path
 is one attribute read (``_PLAN is None``) so shipped code consults it

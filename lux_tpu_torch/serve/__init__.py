@@ -1,7 +1,7 @@
 """lux_tpu_torch.serve — batched multi-source query serving on one device.
 
-Counterpart of ``lux_tpu.serve`` (its live and autopilot layers are not
-ported yet; the fleet and pods are ``serve.fleet``):
+Counterpart of ``lux_tpu.serve`` (the fleet and pods are ``serve.fleet``,
+mutation-aware serving ``serve.live``, the autopilot ``serve.autopilot``):
 
   * ``serve.batched``    — multi-source engines: one iteration answers Q
     SSSP sources or Q personalized-PageRank seeds (a trailing query axis

@@ -1,7 +1,7 @@
 """Fleet saturation measurement core of ``lux_tpu_torch/tools/fleet_bench.py``.
 
-Counterpart of ``lux_tpu.serve.fleet.bench`` (``measure_autoscale``, which
-drives the autopilot, comes with the autopilot slice).
+Counterpart of ``lux_tpu.serve.fleet.bench``; ``measure_autoscale`` drives
+the autopilot's autoscaler over it.
 
 The measurement is an **open-loop offered-QPS ramp**: at each level the
 harness submits queries at a fixed rate for a window (it does NOT wait
@@ -592,3 +592,202 @@ def measure_fleet_saturation(scale: int = 12, ef: int = 8,
             # sequential-knee ratio the host noise owns
             out["scaleup_2v1"] = row["paired_vs_w1"]["median_ratio"]
     return out
+
+
+# ----------------------------------------------------------------------
+# the autoscale ramp
+# ----------------------------------------------------------------------
+
+
+#: the autoscale bench's loads, as multiples of the knee it is given
+OVERLOAD_FACTOR, LOW_FACTOR = 1.5, 0.5
+#: the scaler's streaks: it ticks once a level, seconds of traffic, so one
+#: overloaded level is the trend (a second would run under the shed mode
+#: that the first one's latency arms); three idle levels retire a replica
+AUTOSCALE_UP_TICKS, AUTOSCALE_DOWN_TICKS = 1, 3
+#: the levels' read-latency objective: a batch of 8 RMAT 20 sources takes
+#: about 0.25 s on the card at half the knee, so the reference's 500 ms
+#: is two batches, and its burn arms shed mode inside the first
+#: overloaded level
+AUTOSCALE_P99_MS = 2000.0
+#: a query's deadline: an overload's backlog drains, it does not time out
+AUTOSCALE_TIMEOUT_MS = 30000.0
+#: the scaler's bounds: one worker to start, one more at most
+AUTOSCALE_MIN_WORKERS, AUTOSCALE_MAX_WORKERS = 1, 2
+
+
+def measure_autoscale(knee_qps: float, spawner=None, scale: int = 10,
+                      ef: int = 8, buckets: Sequence[int] = (1, 8),
+                      window_s: float = 1.0, overload_levels: int = 2,
+                      low_levels: int = 0, cooldown_s: float = 0.0,
+                      mode: str = "thread", graph_path: str = "",
+                      device: str = "cuda",
+                      method: str = "auto") -> dict:
+    """The closed-loop bench over a knee measured elsewhere
+    (``knee_qps``, one worker's saturation QPS from
+    :func:`measure_fleet_saturation`) on the seed-0 RMAT ``scale``
+    graph (or ``graph_path``), one part a worker: start
+    ``AUTOSCALE_MIN_WORKERS``, install the default AdmissionPolicy plus
+    an Autoscaler fed that knee (at most ``AUTOSCALE_MAX_WORKERS``),
+    then offer one level at ``LOW_FACTOR`` x the knee (the scaler must
+    hold), up to ``overload_levels`` at ``OVERLOAD_FACTOR`` x (the
+    scaler spawns and joins a replica, previewed), and up to
+    ``low_levels`` at ``LOW_FACTOR`` x until the scaler retires a
+    replica (LIFO, after ``cooldown_s``).  The scaler ticks after each
+    level.  As in the reference's bench, the scale-up is decided on the
+    offered load the bench declares (``note_offered_qps``) against the
+    knee: the actions check the scaler's arithmetic and the fleet's
+    join and retire, not the detection of an overload; each level's
+    counts (goodput, p99, ``sustained``) are what the fleet measured.
+    The row records every scale action, every level's counts, and the
+    shed fraction of the overload levels against the policy's
+    ``max_shed_frac`` budget (``shed_bounded``).  The SLO windows span
+    2.5 and 7.5 levels, so an overload's burn clears inside the run.
+
+    ``mode="thread"`` builds the baseline fleet and the spawned replicas
+    in-process on ``device``; ``mode="proc"`` starts the baseline as
+    worker processes serving ``graph_path`` and spawns through
+    ``spawner`` (``launcher.process_spawner``'s (spawn, reap) pair)."""
+    from lux_tpu_torch import obs
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.serve.autopilot import (
+        Autoscaler,
+        AutoscalerConfig,
+        default_fleet_policy,
+    )
+    from lux_tpu_torch.serve.benchmarks import pick_sources
+    from lux_tpu_torch.serve.fleet.worker import ReplicaWorker
+
+    if graph_path:
+        from lux_tpu_torch.graph.format import read_lux
+
+        g = read_lux(graph_path, mmap=False)
+    else:
+        g = generate.rmat(scale, ef, seed=0)
+    sources = pick_sources(g, 256, seed=0)
+    gid = f"rmat{scale}"
+    start_workers = AUTOSCALE_MIN_WORKERS
+    shards = build_pull_shards(g, 1) if mode == "thread" else None
+    fleet = start_fleet(start_workers, graph_path=graph_path, shards=shards,
+                        graph_id=gid, mode=mode, parts=1,
+                        buckets=buckets, device=device, method=method,
+                        pin=False)
+    ctl = fleet.controller
+    policy = default_fleet_policy()
+    ctl.set_slos(default_fleet_slos(
+        read_p99_ms=AUTOSCALE_P99_MS,
+        windows=((2.5 * window_s, 10.0), (7.5 * window_s, 2.0))))
+    ctl.set_policy(policy)
+    reap = None
+    if spawner is not None:
+        spawn_one, reap_one = spawner
+
+        def spawn(i: int):
+            h = spawn_one(i)
+            fleet.procs.append(h)
+            return h
+
+        def reap(h) -> None:
+            reap_one(h)
+            if h in fleet.procs:
+                fleet.procs.remove(h)
+    else:
+        if shards is None:
+            shards = build_pull_shards(g, 1)
+
+        def spawn(i: int):
+            w = ReplicaWorker(
+                shards, worker_id=f"w{start_workers + i}", graph_id=gid,
+                q_buckets=tuple(buckets), method=method,
+                device=device).start()
+            fleet.thread_workers.append(w)
+            return w
+
+    scaler = Autoscaler(
+        ctl, spawn, reap=reap,
+        config=AutoscalerConfig(
+            min_workers=start_workers, max_workers=AUTOSCALE_MAX_WORKERS,
+            up_consecutive=AUTOSCALE_UP_TICKS,
+            down_consecutive=AUTOSCALE_DOWN_TICKS,
+            cooldown_s=float(cooldown_s), max_move_frac=0.95))
+    grace_s = AUTOSCALE_TIMEOUT_MS / 1e3 + 15.0
+    levels: List[dict] = []
+
+    def level(rate: float, phase: str) -> dict:
+        with obs.span("fleet.bench.autoscale.level", phase=phase,
+                      offered=round(rate, 1)):
+            lv = offered_level(ctl, sources, rate, window_s,
+                               timeout_ms=AUTOSCALE_TIMEOUT_MS,
+                               grace_s=grace_s)
+        lv["phase"] = phase
+        lv["t"] = time.monotonic()
+        act = scaler.tick()
+        if act is not None:
+            lv["scale_action"] = act
+        lv["alive"] = len(ctl.live_workers())
+        levels.append(lv)
+        return lv
+
+    try:
+        with obs.span("fleet.bench.autoscale", scale=scale,
+                      start_workers=start_workers,
+                      max_workers=AUTOSCALE_MAX_WORKERS):
+            scaler.set_capacity(float(knee_qps))
+            low_qps = float(knee_qps) * LOW_FACTOR
+            scaler.note_offered_qps(low_qps)
+            level(low_qps, "warm")
+            overload_qps = float(knee_qps) * OVERLOAD_FACTOR
+            scaler.note_offered_qps(overload_qps)
+            shed = submitted = 0
+            for _ in range(int(overload_levels)):
+                lv = level(overload_qps, "overload")
+                shed += lv["shed"]
+                submitted += lv["submitted"]
+                if len(ctl.live_workers()) >= AUTOSCALE_MAX_WORKERS:
+                    break
+            for _ in range(int(low_levels)):
+                scaler.note_offered_qps(low_qps)
+                lv = level(low_qps, "low")
+                if lv.get("scale_action", {}).get("action") == "scale_down":
+                    break
+            ctl_stats = ctl.stats()
+            slo_rows = ctl.slo_status()
+    finally:
+        scaler.stop()
+        fleet.close()
+    actions = scaler.actions()
+    shed_frac = round(shed / max(submitted, 1), 4)
+    workers_after = start_workers + sum(
+        1 for a in actions if a["action"] == "scale_up") - sum(
+        1 for a in actions if a["action"] == "scale_down")
+    on_card = str(device).split(":")[0] == "cuda"
+    row = {
+        "metric": (f"sssp_autoscale_w{start_workers}to{workers_after}"
+                   f"_rmat{scale}_{'cuda' if on_card else 'cpu'}"),
+        "value": workers_after,
+        "unit": "workers",
+        "knee_qps": float(knee_qps),
+        "workers_before": start_workers,
+        "workers_after": workers_after,
+        "scale_actions": actions,
+        "overload_qps": round(overload_qps, 1),
+        "low_qps": round(low_qps, 1),
+        "shed": shed,
+        "submitted": submitted,
+        "shed_frac": shed_frac,
+        "max_shed_frac": policy.max_shed_frac,
+        "shed_bounded": bool(shed_frac <= policy.max_shed_frac),
+        "policy": policy.to_dict(),
+        "pilot": ctl_stats.get("pilot"),
+        "app": "sssp",
+        "platform": "cuda" if on_card else "cpu",
+        "mode": mode,
+        "method": method,
+        "nv": int(g.nv),
+        "ne": int(g.ne),
+        "controller": ctl_stats,
+        "slo": slo_rows,
+        "run_id": obs.run_id(),
+    }
+    return {"rows": [row], "levels": levels, "graph": gid}

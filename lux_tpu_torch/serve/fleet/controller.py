@@ -37,8 +37,8 @@ Everything here is stdlib + numpy: the controller never imports torch
 (graph math lives in the workers, each a CUDA process of its own), so it
 stays responsive no matter what the engines are doing.  ``takeover``,
 ``serve_lease``, ``set_policy``/``policy_tick`` and ``rebalance_preview``
-are the seams the autopilot (failover election, admission policy,
-autoscaler) drives.
+are the seams the autopilot (``serve/autopilot``: failover election,
+admission policy, autoscaler) drives.
 """
 from __future__ import annotations
 
@@ -71,8 +71,8 @@ from lux_tpu_torch.serve.fleet.wire import (
 from lux_tpu_torch.utils.backoff import Backoff, retry_call
 from lux_tpu_torch.utils.config import env_float
 
-#: admission-policy modes and their prom gauge codes (the reference's
-#: serve/autopilot/policy.MODES, which the autopilot slice brings)
+#: admission-policy modes and their prom gauge codes (in the order of
+#: serve/autopilot/policy.MODES — test-pinned)
 _POLICY_MODE_CODE = {"serve": 0, "queue": 1, "stale_degrade": 2,
                      "shed": 3}
 

@@ -130,6 +130,24 @@ def launch(module: str, args: Sequence[str],
     (``CUDA_VISIBLE_DEVICES`` included) with ``env`` overrides applied
     last.
     """
+    return _launch_argv(["-m", module, *args], private_tmp, env,
+                        ready_timeout_s)
+
+
+def launch_script(path: str, args: Sequence[str] = (),
+                  private_tmp: bool = True,
+                  env: Optional[dict] = None,
+                  ready_timeout_s: float = 180.0) -> ProcHandle:
+    """Like :func:`launch` for a standalone script file that speaks the
+    READY-line protocol (tests write small incumbent/worker harness
+    scripts and run them as real processes)."""
+    return _launch_argv([str(path), *args], private_tmp, env,
+                        ready_timeout_s)
+
+
+def _launch_argv(argv: Sequence[str], private_tmp: bool,
+                 env: Optional[dict],
+                 ready_timeout_s: float) -> ProcHandle:
     child_env = dict(os.environ)
     # the package root on the child's path: ``-m`` must find this
     # checkout's lux_tpu_torch from any working directory
@@ -151,7 +169,7 @@ def launch(module: str, args: Sequence[str],
            if tmpdir is not None else subprocess.DEVNULL)
     try:
         proc = subprocess.Popen(
-            [sys.executable, "-m", module, *args],
+            [sys.executable, *argv],
             stdout=subprocess.PIPE, stderr=err,
             text=True, env=child_env,
             start_new_session=True)  # SIGINT to the parent never strays
@@ -224,3 +242,28 @@ def launch_fleet_worker(worker_id: str, extra_args: Sequence[str] = (),
                   ["--worker-id", str(worker_id), "--host", host,
                    "--port", str(int(port)), "--device", str(device),
                    *extra_args], **kw)
+
+
+def process_spawner(prefix: str = "pw", extra_args: Sequence[str] = (),
+                    pod: bool = False, device: str = "cuda",
+                    ready_timeout_s: float = 180.0,
+                    env: Optional[dict] = None):
+    """(spawn, reap) pair matching the Autoscaler contract: ``spawn(i)``
+    starts a real worker process on ``device`` and returns its handle
+    (exposing ``.worker_id`` and ``.port`` — the scaler then
+    add_worker()s it); ``reap(handle)`` SIGTERMs it and reclaims its
+    private tmpdir."""
+
+    def spawn(index: int) -> ProcHandle:
+        wid = f"{prefix}{int(index)}"
+        if pod:
+            return launch_pod_worker(wid, device=device, env=env,
+                                     ready_timeout_s=ready_timeout_s)
+        return launch_fleet_worker(wid, extra_args=extra_args,
+                                   device=device, env=env,
+                                   ready_timeout_s=ready_timeout_s)
+
+    def reap(handle: ProcHandle) -> None:
+        handle.terminate()
+
+    return spawn, reap

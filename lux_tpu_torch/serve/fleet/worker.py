@@ -19,6 +19,9 @@ Protocol (all frames are JSON dicts, answers carry one npy array)::
     prepare  {token, ...}       -> stage + prewarm a NEW engine cache
     commit   {token}            -> atomically swap the staged cache in
     discard                     -> drop a staged cache (aborted republish)
+    delta    {generation} + arr -> (live) journal + install one mutation batch
+    refresh                     -> (live) warm-refresh the standing states
+    read     {app}              -> (live) one standing state + its tag
     shutdown                    -> drain and exit
 
 **Zero-downtime republish** is the prepare/commit pair: ``prepare`` loads
@@ -37,16 +40,21 @@ answered by the responder thread when their ``ServeFuture`` resolves;
 it drops the sockets without draining, which is what a SIGKILL'd worker
 process looks like to the controller.
 
-Not here yet: the live hooks (``live=``, ``--live``, the ``delta`` /
-``refresh`` / ``read`` ops, the ``worker.before_delta_ack`` process
-point), which come with ``serve/live``.  Until then ``live=`` and
-``--live`` raise :class:`NotImplementedError` naming that slice, and the
-three ops answer with the same refusal.
+A LIVE worker (``live=`` a ``serve/live.LiveReplica``, ``--live`` on the
+command line) serves a MUTATING graph: every engine is the overlay twin,
+``delta`` batches install new overlays (never a snapshot swap),
+``refresh`` warms the standing states, and answers carry generation tags.
+``delta``, ``refresh`` and ``read`` run on op threads, serialized by
+``_live_lock`` (taken before ``_lock`` on every path); queries and
+``stats`` never take it, so a refresh that holds it for seconds delays
+no heartbeat.  The process point ``worker.before_delta_ack`` fires
+between a durable, installed delta and its ack.
 
 Run standalone (the multi-process fleet)::
 
     python -m lux_tpu_torch.serve.fleet.worker --worker-id w0 --port 0 \\
-        --graph g.lux [--device cuda|cpu]
+        --graph g.lux [--device cuda|cpu] \\
+        [--live --journal-dir d --standing sssp:0,components,pagerank]
 
 It prints one READY JSON line with the bound port.  ``--device cuda``
 (the default) without a card raises: there is no CPU fallback.
@@ -81,12 +89,6 @@ from lux_tpu_torch.serve.scheduler import (
 )
 from lux_tpu_torch.serve.warm import WarmEngineCache
 
-#: the refusal of the live hooks until serve/live is ported
-LIVE_NOT_PORTED = (
-    "live (mutation-aware) serving is not ported to lux_tpu_torch yet: the "
-    "fleet worker's live hooks (live=, --live, the delta/refresh/read ops) "
-    "come with the serve/live slice (ROADMAP Queue 1 item 4)")
-
 
 class ReplicaWorker:
     """One replica: engines + schedulers behind a loopback socket."""
@@ -104,8 +106,6 @@ class ReplicaWorker:
                  max_queue: int = 256, max_engines: Optional[int] = None,
                  live=None, placement: Optional[PlacementTree] = None,
                  placement_host: int = 0, device="cuda"):
-        if live is not None:
-            raise NotImplementedError(LIVE_NOT_PORTED)
         self.worker_id = str(worker_id)
         self.host = host
         self._req_port = int(port)
@@ -134,11 +134,21 @@ class ReplicaWorker:
         self._lock = threading.Lock()
         self._graph_id = str(graph_id)
         self._generation = 0
-        # (cache, graph_id, token): the token ties the staged cache to
-        # the ONE republish that requested it — a slow prepare finishing
-        # after an abort/discard (or after a newer prepare superseded it)
-        # must never stage, or a later commit would swap in the WRONG graph
-        self._staged: Optional[Tuple[WarmEngineCache, str, str]] = None
+        #: serve/live.LiveReplica -> this worker serves a MUTATING graph:
+        #: the cache holds overlay twins, ``delta`` batches install new
+        #: overlays, ``refresh`` warms the standing states, and answers
+        #: carry generation tags.  _live_lock serializes the write path
+        #: (delta apply, refresh, live commit) — queries never take it,
+        #: they read the cache's atomic overlay tuple.  Acquisition order
+        #: is _live_lock BEFORE _lock on every path
+        self._live = live
+        self._live_lock = threading.Lock()
+        # (cache, graph_id, token, staged LiveReplica | None): the token
+        # ties the staged cache to the ONE republish that requested it —
+        # a slow prepare finishing after an abort/discard (or after a
+        # newer prepare superseded it) must never stage, or a later
+        # commit would swap in the WRONG graph
+        self._staged: Optional[Tuple[WarmEngineCache, str, str, object]] = None
         self._publish_token: Optional[str] = None
         self._cache = self._make_cache(shards)
         self._scheds: Dict[str, MicroBatchScheduler] = {
@@ -152,16 +162,26 @@ class ReplicaWorker:
         self._threads: List[threading.Thread] = []
         self._conns: List[Conn] = []
         self._running = False
+        # a shutdown op's stop thread and the entrypoint's SIGTERM stop
+        # can overlap: the second waits for the first instead of racing
+        # it through the schedulers' and sockets' teardown
+        self._stop_lock = threading.Lock()
         # (conn, req_id, ServeFuture, ...) tuples the responder resolves
         self._resp_wake = threading.Condition(self._lock)
         self._unanswered: List[tuple] = []
 
-    def _make_cache(self, shards) -> WarmEngineCache:
-        return WarmEngineCache(
+    def _make_cache(self, shards, live=None) -> WarmEngineCache:
+        live = live if live is not None else self._live
+        cache = WarmEngineCache(
             shards, apps=self.apps, q_buckets=self.q_buckets,
             method=self._method, num_iters=self._num_iters,
             max_iters=self._max_iters, metrics=self.metrics,
-            max_engines=self._max_engines, device=self._device)
+            max_engines=self._max_engines, device=self._device,
+            overlay_static=None if live is None else live.overlay_static)
+        if live is not None:
+            oarr, deg = live.serving_overlay()
+            cache.set_overlay(live.servable_generation(), oarr, deg)
+        return cache
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -199,23 +219,23 @@ class ReplicaWorker:
         resolved answer, then close."""
         from lux_tpu_torch.utils.backoff import poll_until
 
-        for sched in self._scheds.values():
-            sched.stop(drain=True)
-
         def _flushed() -> bool:
             with self._resp_wake:
                 return not self._unanswered
 
-        poll_until(_flushed, timeout_s=2.0)
-        with self._resp_wake:
-            self._running = False
-            self._resp_wake.notify_all()
-        self._close_sockets()
-        for t in self._threads:
-            t.join(timeout=5.0)
-        self._threads = []
-        with self._stream_lock:
-            self._streams.clear()
+        with self._stop_lock:
+            for sched in self._scheds.values():
+                sched.stop(drain=True)
+            poll_until(_flushed, timeout_s=2.0)
+            with self._resp_wake:
+                self._running = False
+                self._resp_wake.notify_all()
+            self._close_sockets()
+            for t in self._threads:
+                t.join(timeout=5.0)
+            self._threads = []
+            with self._stream_lock:
+                self._streams.clear()
 
     def kill(self) -> None:
         """Fault drill: vanish abruptly — close every socket WITHOUT
@@ -248,20 +268,20 @@ class ReplicaWorker:
                        count=count, after=after)
 
     def _close_sockets(self) -> None:
-        if self._listener is not None:
+        with self._lock:
+            listener, self._listener = self._listener, None
+            conns, self._conns = self._conns, []
+        if listener is not None:
             try:
                 # shutdown() first: close() alone does not wake a
                 # thread blocked in accept()
-                self._listener.shutdown(socket.SHUT_RDWR)
+                listener.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
             try:
-                self._listener.close()
+                listener.close()
             except OSError:
                 pass
-            self._listener = None
-        with self._lock:
-            conns, self._conns = self._conns, []
         for c in conns:
             c.close()
 
@@ -272,9 +292,12 @@ class ReplicaWorker:
     def _accept_loop(self) -> None:
         # _running is a monotonic shutdown latch: a stale True costs one
         # accept() that _close_sockets' shutdown() interrupts
-        while self._running and self._listener is not None:
+        while self._running:
+            listener = self._listener
+            if listener is None:
+                break
             try:
-                sock, _addr = self._listener.accept()
+                sock, _addr = listener.accept()
             except OSError:
                 break  # listener closed: stop()/kill()
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -361,11 +384,44 @@ class ReplicaWorker:
                              "both environments"),
                         max_frame_bytes=mine)
                     return
+                ctl_gen = msg.get("journal_generation")
+                if (self._live is not None and ctl_gen is not None
+                        and self._live.generation() > int(ctl_gen)):
+                    # SPLIT-BRAIN GUARD: this worker's local journal
+                    # holds writes the hello'ing controller's journal
+                    # does not.  Enrolling would let a stale / wiped
+                    # controller re-sequence generations the fleet
+                    # already acked — refuse from OUR side too (the
+                    # controller-side add_worker check protects a good
+                    # controller from a bad worker; this protects a good
+                    # worker from a bad controller).
+                    hsp.set(refused="stale_controller")
+                    self._reply_err(
+                        conn, msg, "stale_controller",
+                        err=(f"worker {self.worker_id} is at journaled "
+                             f"generation {self._live.generation()}, ahead "
+                             f"of this controller's journal ({int(ctl_gen)})"
+                             " — refusing a controller behind my own "
+                             "journal; recover the controller from the "
+                             "authoritative journal dir"),
+                        journal_generation=self._live.generation())
+                    return
                 conn.send({"req_id": rid, "ok": True, **self.info()})
         elif op == "query":
             self._op_query(conn, msg)
         elif op in ("delta", "refresh", "read"):
-            self._reply_err(conn, msg, "error", err=LIVE_NOT_PORTED)
+            # every live op serializes on _live_lock, which a running
+            # refresh holds for engine-loop seconds — so ALL of them run
+            # off the connection reader: the reader keeps draining query
+            # frames and the schedulers keep answering while the write
+            # path waits its turn.  Ordering stays intact: the
+            # controller's single-writer admission never has two deltas
+            # in flight per worker.
+            fn = {"delta": self._op_delta, "refresh": self._op_refresh,
+                  "read": self._op_read}[op]
+            args = (conn, msg, arr) if op == "delta" else (conn, msg)
+            self._spawn_op(fn, args,
+                           name=f"lux-fleet-{self.worker_id}-{op}")
         elif op == "stats":
             conn.send({"req_id": rid, "ok": True, **self.heartbeat()})
         elif op == "prom":
@@ -418,8 +474,9 @@ class ReplicaWorker:
     def info(self) -> dict:
         with self._lock:
             cache, gid, gen = self._cache, self._graph_id, self._generation
+            live = self._live
         spec = cache.shards.spec
-        return {
+        out = {
             "worker_id": self.worker_id,
             "graph_id": gid,
             "generation": gen,
@@ -434,6 +491,12 @@ class ReplicaWorker:
             "placement_host": self.placement_host,
             "device": str(cache.device),
         }
+        if live is not None:
+            out["live"] = True
+            out["delta_generation"] = live.servable_generation()
+            out["journal_generation"] = live.generation()
+            out["standing"] = [[a, s] for a, s in live.standing_spec]
+        return out
 
     def heartbeat(self) -> dict:
         """The queue-depth/shed heartbeat the controller's backpressure
@@ -447,7 +510,7 @@ class ReplicaWorker:
         counts = self.metrics.counters()
         shed, completed = counts["rejected"], counts["completed"]
         depth = sum(s.pending() for s in self._scheds.values())
-        return {
+        out = {
             "queue_depth": depth,
             "max_queue": self._max_queue,
             # queue occupancy as a ready-made fraction: the autoscaler's
@@ -464,18 +527,42 @@ class ReplicaWorker:
             "launches": kernel_launches(),
             **device_memory(cache.device),
         }
+        live = self._live
+        if live is not None:
+            # read without _live_lock: a running refresh holds it for
+            # seconds, and a heartbeat that waited would convict us
+            out["delta_generation"] = live.servable_generation()
+        return out
 
     def prom_text(self) -> str:
         """This replica's scrape (the ``prom`` op): the full
         counter/histogram set via ``ServeMetrics.scrape`` plus the
-        warm-engine-cache occupancy, replica-labelled."""
+        warm-engine-cache occupancy and, on a live worker, the live-path
+        gauges (servable-vs-journaled generation lag, delta-overlay
+        occupancy), replica-labelled."""
         depth = sum(s.pending() for s in self._scheds.values())
         with self._lock:
             cache = self._cache
+            live = self._live
         stats = cache.stats()
         extra = [("lux_serve_engine_cache_occupancy",
                   stats.get("occupancy", 0.0),
                   "resident warm engines / LRU cap")]
+        if live is not None:
+            lag = max(live.generation() - live.servable_generation(), 0)
+            extra.extend([
+                ("lux_live_generation_lag", lag,
+                 "journaled minus servable generations (nonzero only "
+                 "in the overflow window)"),
+                ("lux_live_servable_generation",
+                 live.servable_generation(),
+                 "mutation generation the installed overlay serves"),
+                ("lux_live_delta_occupancy",
+                 round(float(
+                     live.stats()["delta_occupancy"]["frac"]), 4),
+                 "fraction of the per-part insert capacity in use "
+                 "(max part)"),
+            ])
         return self.metrics.scrape(queue_depth=depth, cache_stats=stats,
                                    replica=self.worker_id,
                                    extra_gauges=extra)
@@ -591,6 +678,158 @@ class ReplicaWorker:
             pass  # controller went away; nothing to tell it
 
     # ------------------------------------------------------------------
+    # live ops (mutation-aware serving, serve/live)
+    # ------------------------------------------------------------------
+
+    def _live_or_refuse(self, conn: Conn, msg: dict):
+        """The CURRENT replica, read by the CALLER inside _live_lock —
+        a capture taken before the lock could be a replica a concurrent
+        commit already retired, and applying to it while installing
+        into the new cache is the exact cross-epoch race the lock
+        exists to prevent."""
+        live = self._live
+        if live is None:
+            self._reply_err(conn, msg, "error",
+                            err="worker is not live (start it with a "
+                                "LiveReplica / --live)")
+        return live
+
+    def _op_delta(self, conn: Conn, msg: dict, arr) -> None:
+        """Apply ONE replicated mutation batch: journal it durably,
+        rebuild + install the serving overlay, ack the generation.
+        O(delta) host work on its own op thread (the conn reader must
+        keep draining query frames while this waits out a running
+        refresh's _live_lock); ordering comes from the controller's
+        single-writer admission, not the reader."""
+        from lux_tpu_torch import obs
+        from lux_tpu_torch.mutate.deltalog import DeltaOverflow
+        from lux_tpu_torch.serve.live.errors import GenerationGap
+
+        if arr is None:
+            self._reply_err(conn, msg, "error",
+                            err="delta op needs the (rows, 4) batch "
+                                "payload")
+            return
+        gen = msg.get("generation")
+        # the replication hop's span: child of the controller's replicate
+        # context, covering journal append + overlay rebuild + install.
+        # The fault points inside (torn writes, before-marker / before-ack
+        # kills) land within its time range.
+        ctx = dtrace.child_of(msg)
+        with dtrace.tspan("worker.delta", ctx, always=True,
+                          worker=self.worker_id,
+                          generation=int(gen) if gen is not None else None,
+                          rows=int(arr.shape[0])) as dsp:
+            with self._live_lock:
+                live = self._live_or_refuse(conn, msg)
+                if live is None:
+                    return
+                try:
+                    oarr, deg = live.apply_batch(arr, int(gen))
+                except GenerationGap as e:
+                    dsp.set(kind="gen_gap")
+                    self._reply_err(conn, msg, "gen_gap", have=e.have,
+                                    want=e.want)
+                    return
+                except DeltaOverflow as e:
+                    # the batch IS journaled (durable) but exceeds the
+                    # overlay capacity: escalate — the controller answers
+                    # with a fleet-wide compaction + republish
+                    obs.point("live.overflow", worker=self.worker_id,
+                              generation=int(gen))
+                    dsp.set(kind="overflow")
+                    self._reply_err(
+                        conn, msg, "overflow", err=str(e),
+                        generation=live.servable_generation(),
+                        journal_generation=live.generation())
+                    return
+                except ConnectionClosed:
+                    return
+                except Exception as e:  # noqa: BLE001 — an unanswered
+                    # delta would stall the controller's write path for
+                    # its full timeout
+                    dsp.set(kind="error")
+                    self._reply_err(conn, msg, "error", err=repr(e))
+                    return
+                with self._lock:
+                    cache = self._cache
+                cache.set_overlay(int(gen), oarr, deg)
+            obs.point("live.delta", worker=self.worker_id,
+                      generation=int(gen), rows=int(arr.shape[0]))
+            # applied + journaled + overlay installed, ack not yet sent:
+            # a kill here is the "durable but silent" window the
+            # controller's gen_gap/rejoin machinery must absorb
+            fault.ppoint("worker.before_delta_ack", generation=int(gen))
+            ack = {"req_id": msg.get("req_id"), "ok": True,
+                   "generation": int(gen)}
+            if ctx is not None:
+                ack["tc"] = ctx.to_wire()
+            try:
+                conn.send(ack)
+            except ConnectionClosed:
+                pass  # controller went away; the apply itself is durable
+
+    def _op_refresh(self, conn: Conn, msg: dict) -> None:
+        """Warm-refresh the standing states to the current servable
+        generation — BETWEEN queries: the schedulers keep answering
+        through the installed overlay while this runs."""
+        try:
+            with dtrace.tspan("worker.refresh", dtrace.child_of(msg),
+                              always=True, worker=self.worker_id):
+                with self._live_lock:
+                    live = self._live_or_refuse(conn, msg)
+                    if live is None:
+                        return
+                    res = live.refresh()
+        except ConnectionClosed:
+            return
+        except Exception as e:  # noqa: BLE001 — a failed refresh is an
+            # answer; the overlay path still serves every query
+            self._reply_err(conn, msg, "error", err=repr(e))
+            return
+        try:
+            conn.send({"req_id": msg.get("req_id"), "ok": True, **res})
+        except ConnectionClosed:
+            pass
+        except Exception as e:  # noqa: BLE001 — e.g. an over-bound
+            # frame: answer with the error, never hang the controller
+            self._reply_err(conn, msg, "error", err=repr(e))
+
+    def _op_read(self, conn: Conn, msg: dict) -> None:
+        """Serve a STANDING state (O(1): the refreshed array + its
+        generation tag)."""
+        app = msg.get("app", "sssp")
+        with dtrace.tspan("worker.read", dtrace.child_of(msg),
+                          worker=self.worker_id, app=app), \
+                self._live_lock:
+            live = self._live_or_refuse(conn, msg)
+            if live is None:
+                return
+            try:
+                ent = live.standing(app)
+            except KeyError:
+                self._reply_err(
+                    conn, msg, "error",
+                    err=f"no refreshed standing state for {app!r} "
+                        f"(configured: {[a for a, _ in live.standing_spec]};"
+                        " send a refresh first)")
+                return
+            state = ent["state"]
+            reply = {"req_id": msg.get("req_id"), "ok": True,
+                     "generation": int(ent["generation"]),
+                     "iters": int(ent["iters"]), "app": app,
+                     "arg": ent.get("arg"),
+                     # the tolerance tag: the declared served-error bound
+                     # the refresh quiesced under — 0.0 means the exact
+                     # fixpoint.  Rides every standing read, as the stale
+                     # tag rides degraded queries.
+                     "tolerance": float(ent.get("tolerance") or 0.0)}
+        try:
+            conn.send(reply, arr=state)
+        except ConnectionClosed:
+            pass
+
+    # ------------------------------------------------------------------
     # republish (prepare / commit)
     # ------------------------------------------------------------------
 
@@ -623,8 +862,22 @@ class ReplicaWorker:
         else:
             path = msg.get("path")
         gid = msg.get("graph_id") or str(msg.get("path") or path)
-        if msg.get("base_generation") is not None:
-            self._reply_err(conn, msg, "error", err=LIVE_NOT_PORTED)
+        base_gen = msg.get("base_generation")
+        if self._live is not None and base_gen is None:
+            # a live worker republished WITHOUT an epoch base would keep
+            # an old-epoch delta log under a new base — wrong answers
+            # forever after; refuse loudly (the live controller always
+            # sends the base generation)
+            if spooled is not None:
+                try:
+                    os.unlink(spooled)
+                except OSError:
+                    pass
+            self._reply_err(
+                conn, msg, "error",
+                err="live worker needs base_generation in prepare "
+                    "(republish through LiveFleetController.compact_fleet"
+                    " / republish(base_generation=...))")
             return
         with self._lock:
             # latest prepare wins from the start: an older in-flight
@@ -639,8 +892,22 @@ class ReplicaWorker:
 
                 g = read_lux(str(path), mmap=False)
                 shards = build_pull_shards(g, self._num_parts)
+                live2 = None
+                if self._live is not None:
+                    from lux_tpu_torch.serve.live.replica import LiveReplica
+
+                    # journal-less while staged: the dir still holds the
+                    # OLD epoch; rebind_journal rotates it at commit
+                    old = self._live
+                    live2 = LiveReplica(
+                        g, shards, cap=old.cap,
+                        base_generation=int(base_gen),
+                        standing=old.standing_spec, method=old.method,
+                        max_iters=old.max_iters,
+                        route_family=old.route_family,
+                        tolerance=old.tolerance, device=old.device)
                 del g
-                cache = self._make_cache(shards)
+                cache = self._make_cache(shards, live=live2)
                 cache.prewarm()  # old cache serves throughout this
                 if spooled is not None:
                     try:
@@ -655,7 +922,7 @@ class ReplicaWorker:
                     stale = True
                 else:
                     stale = False
-                    self._staged = (cache, gid, token)
+                    self._staged = (cache, gid, token, live2)
                 gen_next = self._generation + 1
             if stale:
                 self._reply_err(conn, msg, "error",
@@ -680,10 +947,19 @@ class ReplicaWorker:
             self._reply_err(conn, msg, "error", err=repr(e))
 
     def _op_commit(self, conn: Conn, msg: dict) -> None:
-        from lux_tpu_torch import obs
-
         rid = msg.get("req_id")
         want = msg.get("token")
+        # the WHOLE swap (cache + schedulers + live replica) happens under
+        # _live_lock so a racing delta can never apply to the old replica
+        # and then install its overlay into the new cache (the old
+        # epoch's edge slots under new engines = silent wrong answers).
+        # Lock order _live_lock -> _lock, as in _op_delta.
+        with self._live_lock:
+            self._op_commit_locked(conn, msg, rid, want)
+
+    def _op_commit_locked(self, conn: Conn, msg: dict, rid, want) -> None:
+        from lux_tpu_torch import obs
+
         with self._lock:
             if self._staged is None:
                 err = ERR_NOTHING_STAGED
@@ -712,7 +988,7 @@ class ReplicaWorker:
                 err = ERR_NOTHING_STAGED  # a discard won the race
             else:
                 self._staged = None
-                _c, gid, _tok = staged
+                _c, gid, _tok, live2 = staged
                 self._publish_token = None
                 self._cache = cache
                 self._graph_id = gid
@@ -726,13 +1002,26 @@ class ReplicaWorker:
         # both caches are fully warmed, so either answers correctly.
         for sched in self._scheds.values():
             sched.cache = cache
+        if live2 is not None:
+            # live epoch handover (caller holds _live_lock): the new base
+            # embeds every batch up to its base_generation, so
+            # epoch-boundary standing states carry over warm and the
+            # local journal rotates (crash order matches
+            # mutate/compact.py: the snapshot was durable first)
+            old = self._live
+            live2.inherit_standing(old)
+            live2.rebind_journal(old.journal_dir, prior=old)
+            self._live = live2
         ctx = dtrace.child_of(msg)
         obs.point("fleet.publish.commit", worker=self.worker_id,
                   graph=gid, generation=gen,
                   **(ctx.attrs() if ctx is not None and ctx.sampled
                      else {}))
-        conn.send({"req_id": rid, "ok": True, "generation": gen,
-                   "graph_id": gid})
+        reply = {"req_id": rid, "ok": True, "generation": gen,
+                 "graph_id": gid}
+        if live2 is not None:
+            reply["delta_generation"] = live2.servable_generation()
+        conn.send(reply)
 
 
 def kernel_launches() -> dict:
@@ -795,13 +1084,38 @@ def main(argv=None) -> int:
     ap.add_argument("--wait-ms", type=float, default=2.0)
     ap.add_argument("--max-queue", type=int, default=256)
     ap.add_argument("--live", action="store_true",
-                    help="serve a MUTATING graph (not ported yet: raises)")
+                    help="serve a MUTATING graph: overlay-twin engines, "
+                         "delta/refresh/read ops, answers tagged with "
+                         "mutation generations (serve/live)")
+    ap.add_argument("--journal-dir", default="",
+                    help="live mode: durable local delta journal "
+                         "(npz+.ok; a killed worker recovers its exact "
+                         "committed prefix and catches up on rejoin)")
+    ap.add_argument("--delta-cap", type=int, default=0,
+                    help="live mode: per-part insert capacity "
+                         "(0 = LUX_DELTA_CAP/default)")
+    ap.add_argument("--base-generation", type=int, default=0,
+                    help="live mode: the mutation generation the loaded "
+                         "snapshot embeds (the controller's epoch base)")
+    ap.add_argument("--standing", default="sssp:0",
+                    help="live mode: comma list of standing apps kept "
+                         "warm by refresh ops — sssp:<start>, pagerank, "
+                         "components")
+    ap.add_argument("--route-gather", default="",
+                    help="live mode: gather-plan family the standing "
+                         "PageRank refresh rides (fused-pf/fused-mx/"
+                         "fused/expand/expand-pf; 'none' = direct; "
+                         "'' = LUX_LIVE_ROUTE env, default fused-pf). "
+                         "All families are bitwise-equal — perf only")
+    ap.add_argument("--tolerance", type=float, default=0.0,
+                    help="live mode: frontier-tolerance band for the "
+                         "standing PageRank refresh — declared per-entry "
+                         "served-error bound, surfaced on every read as "
+                         "the tolerance tag (0 = exact fixpoint)")
     ap.add_argument("--cpus", default="",
                     help="pin this replica's host threads to these cores "
                          "(comma list); the engines stay on --device")
     args = ap.parse_args(argv)
-    if args.live:
-        raise NotImplementedError(LIVE_NOT_PORTED)
 
     from lux_tpu_torch.utils.device import resolve_device
 
@@ -822,6 +1136,18 @@ def main(argv=None) -> int:
         g = generate.rmat(scale, ef, seed=0)
         gid = args.graph_id or f"rmat{scale}"
     shards = build_pull_shards(g, args.parts)
+    live = None
+    if args.live:
+        from lux_tpu_torch.serve.live.replica import LiveReplica, parse_standing
+
+        live = LiveReplica(
+            g, shards, cap=args.delta_cap or None,
+            journal_dir=args.journal_dir or None,
+            base_generation=args.base_generation,
+            standing=parse_standing(args.standing),
+            method=args.method, max_iters=args.max_iters,
+            route_family=args.route_gather or None,
+            tolerance=args.tolerance, device=device)
     del g
     worker = ReplicaWorker(
         shards, worker_id=args.worker_id, graph_id=gid,
@@ -830,7 +1156,7 @@ def main(argv=None) -> int:
         host=args.host, port=args.port, method=args.method,
         num_iters=args.num_iters, max_iters=args.max_iters,
         max_wait_ms=args.wait_ms, max_queue=args.max_queue,
-        device=device,
+        live=live, device=device,
     )
     plan = fault.active_plan()  # LUX_FAULT_PLAN, when the drill set it
     if plan is not None:
@@ -842,9 +1168,11 @@ def main(argv=None) -> int:
     worker.start()
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    print(json.dumps({"ready": True, "worker_id": worker.worker_id,
-                      "port": worker.port, "pid": os.getpid(),
-                      "device": str(device)}), flush=True)
+    ready = {"ready": True, "worker_id": worker.worker_id,
+             "port": worker.port, "pid": os.getpid(), "device": str(device)}
+    if live is not None:
+        ready["delta_generation"] = live.servable_generation()
+    print(json.dumps(ready), flush=True)
     try:
         while not stop.is_set() and worker._running:
             stop.wait(0.2)

@@ -968,3 +968,68 @@ def test_pod_on_card_matches_single_process(cuda, app, tmp_path):
     # in-process members share the counters, so each sees at least its own)
     for w in res["workers"].values():
         assert w["launches"]["mxscan_segmented"] >= (w["hi"] - w["lo"]) * int(iters)
+
+
+# --- live serving and the autopilot on the card --------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused-pf", "none"])
+def test_live_fleet_on_card_matches_cpu(cuda, route):
+    """A 2-replica live fleet with its engines and standing refreshes on
+    the card (threads here; the smoke runs CUDA worker processes): after
+    churn and a refresh, standing SSSP and components bitwise a CPU
+    replica's and each other's, PageRank bitwise across the replicas and
+    within rtol 1e-5 of the CPU's; bounded reads bitwise the merged
+    graph's BFS; the standing rounds launched the scan kernel."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.models.sssp import bfs_reference
+    from lux_tpu_torch.serve.live.bench import churn_batch
+    from lux_tpu_torch.serve.live.controller import start_live_fleet
+    from lux_tpu_torch.serve.live.replica import LiveReplica
+
+    g = generate.rmat(12, 8, seed=6)
+    standing = (("sssp", int(np.argmax(g.out_degrees()))), ("components", None),
+                ("pagerank", None))
+    fleet = start_live_fleet(2, g, parts=1, cap=4096, standing=standing, device="cuda",
+                             route_family=route)
+    ctl = fleet.controller
+    rng = np.random.default_rng(0)
+    before = scan.mxscan_segmented.launches
+    try:
+        for _ in range(3):
+            s, d, o = churn_batch(ctl.journal.log, rng, 256)
+            gen = ctl.admit_writes(s, d, o)["generation"]
+        ctl.refresh_fleet()
+        merged = ctl.journal.log.merged_graph()
+        for src in (0, 5, 9):
+            f = ctl.submit(src, min_generation=gen)
+            np.testing.assert_array_equal(f.result(timeout=120), bfs_reference(merged, src))
+        solo = LiveReplica(g, shards.build_pull_shards(g, 1), cap=4096, standing=standing,
+                           device="cpu", route_family="none")
+        for gg, arr in ctl.journal.batches_since(0):
+            solo.apply_batch(arr, gg)
+        solo.refresh()
+        for app in ("sssp", "components", "pagerank"):
+            a, b = (ctl.read_standing(app, worker=w)["state"] for w in ("w0", "w1"))
+            np.testing.assert_array_equal(a, b)
+            want = solo.standing(app)["state"]
+            if app == "pagerank":
+                np.testing.assert_allclose(a, want, rtol=1e-5, atol=0)
+            else:
+                np.testing.assert_array_equal(a, want)
+        assert scan.mxscan_segmented.launches > before
+    finally:
+        fleet.close()
+
+
+@pytest.mark.gpu
+def test_autopilot_on_card(cuda):
+    """The soaks with their replicas on the card: autopilot_soak (scale-up,
+    election, overflow compaction) and chaos_soak at seed 0."""
+    from lux_tpu_torch.fault.chaos import autopilot_soak, chaos_soak
+
+    rep = autopilot_soak(0, device="cuda")
+    assert rep["scale_ups"] >= 1 and rep["elections"] == 1 and rep["compactions"] >= 1
+    rep = chaos_soak(0, device="cuda")
+    assert rep["writes"] >= 1 and rep["faults_injected"] > 0

@@ -7,7 +7,7 @@ machinery on the port alone: republish under load with zero shed,
 ``publish_to_fleet`` after a compaction, shedding at ``max_queue``,
 ``submit_retrying``, the ``worker_kill_mid_burst``, ``wire_chaos`` and
 ``controller_kill_at_heartbeat`` drills at their sites, the live hooks'
-refusal, no CPU fallback, and one worker process through the launcher."""
+refusals, no CPU fallback, and one worker process through the launcher."""
 import collections
 import json
 import os
@@ -39,7 +39,7 @@ from lux_tpu_torch.serve.batched import BatchedEngine
 from lux_tpu_torch.serve.fleet import hashring, pubproto, stream, wire
 from lux_tpu_torch.serve.fleet.controller import (FleetController, FleetError,
                                                   FleetRejectedError)
-from lux_tpu_torch.serve.fleet.worker import LIVE_NOT_PORTED, ReplicaWorker
+from lux_tpu_torch.serve.fleet.worker import ReplicaWorker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HASHRING_PATH = os.path.join(REPO, "lux_tpu_torch", "serve", "fleet", "hashring.py")
@@ -525,6 +525,42 @@ def test_hung_worker_is_convicted_alone(small):
         _teardown(ctl, workers)
 
 
+def test_overlapping_stops_run_one_at_a_time(small):
+    """A shutdown op's stop thread and a SIGTERM's stop in the worker
+    process can overlap. Each teardown step then runs once at a time and
+    neither raises (two at once met a listener the other had cleared)."""
+    _g, shards = small
+    (w,) = _cpu_workers(shards, n=1)
+    close, inside, most = w._close_sockets, [0], [0]
+
+    def slow_close():
+        inside[0] += 1
+        most[0] = max(most[0], inside[0])
+        time.sleep(0.2)
+        try:
+            close()
+        finally:
+            inside[0] -= 1
+
+    w._close_sockets = slow_close
+    errors = []
+
+    def stop():
+        try:
+            w.stop()
+        except Exception as e:  # noqa: BLE001 — the test reports it
+            errors.append(e)
+
+    threads = [threading.Thread(target=stop) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and most[0] == 1
+    assert w._listener is None and not w._running
+
+
 def test_republish_under_load_bitwise_and_zero_shed(small, tmp_path):
     """Every answer during a republish is the old graph's or the new
     one's, bitwise; every answer after the commit is the new one's (a
@@ -616,26 +652,33 @@ def test_publish_to_fleet_after_compaction(small, tmp_path):
 
 
 def test_live_hooks_refuse_naming_the_live_slice(small):
-    from lux_tpu_torch.serve.fleet import worker as worker_mod
+    """The live hooks are ported (serve/live): a STATIC worker answers
+    the delta/refresh/read ops with a refusal naming how to start a live
+    one (--live / a LiveReplica), and a LIVE worker refuses a prepare
+    without the epoch's base_generation, naming the live republish."""
+    from lux_tpu_torch.serve.live.replica import LiveReplica
 
-    _, shards = small
-    with pytest.raises(NotImplementedError, match="serve/live"):
-        ReplicaWorker(shards, "w0", live=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="serve/live"):
-        worker_mod.main(["--worker-id", "w0", "--live", "--device", "cpu"])
+    g, shards = small
     w = ReplicaWorker(shards, "w0", q_buckets=(1,), device="cpu").start()
+    live = LiveReplica(g, shards, standing=(), device="cpu")
+    lw = ReplicaWorker(shards, "w1", q_buckets=(1,), live=live, device="cpu").start()
     try:
         c = wire.Conn.connect("127.0.0.1", w.port)
         for op in ("delta", "refresh", "read"):
-            c.send({"op": op, "req_id": op})
+            c.send({"op": op, "req_id": op, "generation": 1},
+                   arr=np.zeros((1, 4), np.int64))
             reply, _ = c.recv()
-            assert not reply["ok"] and reply["err"] == LIVE_NOT_PORTED
-        c.send({"op": "prepare", "req_id": "p", "path": "x.lux", "base_generation": 3})
+            assert not reply["ok"] and "--live" in reply["err"]
+        c.close()
+        c = wire.Conn.connect("127.0.0.1", lw.port)
+        c.send({"op": "prepare", "req_id": "p", "path": "x.lux"})
         reply, _ = c.recv()
-        assert not reply["ok"] and "serve/live" in reply["err"]
+        assert not reply["ok"] and "base_generation" in reply["err"]
+        assert "compact_fleet" in reply["err"]
         c.close()
     finally:
         w.stop()
+        lw.stop()
 
 
 def test_no_cpu_fallback_without_a_card(small):

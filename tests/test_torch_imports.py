@@ -52,6 +52,12 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "serve.fleet.pubproto", "serve.fleet.wire", "serve.fleet.stream",
                  "serve.fleet.launcher", "serve.fleet.worker", "serve.fleet.controller",
                  "serve.fleet.pod", "serve.fleet.bench", "tools.fleet_bench",
-                 "tools.serve_bench"):
+                 "tools.serve_bench", "serve.live", "serve.live.errors",
+                 "serve.live.journal", "serve.live.replica", "serve.live.controller",
+                 "serve.live.bench", "serve.autopilot", "serve.autopilot.policy",
+                 "serve.autopilot.autoscaler", "serve.autopilot.election",
+                 "serve.autopilot.subscribe", "analysis", "analysis.proto",
+                 "analysis.proto.mc", "analysis.proto.election_model",
+                 "analysis.proto.export", "fault.chaos", "tools.autopilot_demo"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
-    assert len(res["modules"]) >= 50
+    assert len(res["modules"]) >= 70

@@ -12,9 +12,11 @@ recorder's event log, which every phase of the smoke and every worker
 process writes into one run directory under LUX_OBS_DIR), the serving
 fleet and a pod (serve/fleet: replica and pod workers as CUDA processes
 on the card), live serving (serve/live: live replica workers as CUDA
-processes taking writes, with standing queries) and the autopilot
+processes taking writes, with standing queries), the autopilot
 (serve/autopilot: the autoscaler over CUDA worker processes, the soaks,
-the election drill).
+the election drill) and big graphs from disk (the native host I/O
+library, a `.lux` file loaded by parts, the --sort-segments and
+--compact-gather gather relayouts).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -27,8 +29,9 @@ filtering (K = 20) that is the rating graph bipartite_ratings(2^19, 2^19,
 
 Phases, each printing one JSON line with its seconds:
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA.
-  2. build    nvcc of the seven kernel sources, all in parallel, and g++ of
-              the native route colorer; seconds of each.
+  2. build    nvcc of the seven kernel sources, all in parallel, g++ of the
+              native host I/O library and lux-convert beside them, then
+              g++ of the native route colorer; seconds of each.
   3. kernels  spmv_blockcsr and mxscan_segmented against their plain
               PyTorch versions, at a small ragged shape and at the main
               path's shape, for sum/min/max in f32 and int32 (and bf16
@@ -52,10 +55,11 @@ Phases, each printing one JSON line with its seconds:
               and threads, and the colorer's calls over all of them (the
               native one must have run).  The three chains (expand then
               expand-pf, fused then fused-pf, fused-mx) and the fused-pf
-              plan of phase 22's post-compaction base build at once, each
-              in a process of its own, beside each other only: no timed
-              phase runs until they are done; then this process loads
-              every family of the main graph from the cache.
+              plan of phase 22's post-compaction base and the
+              --sort-segments fused-pf plan of phase 24 (RMAT 18) build at
+              once, each in a process of its own, beside each other only:
+              no timed phase runs until they are done; then this process
+              loads every family of the main graph from the cache.
   5. routed   the four routed-pull kernels against their plain versions:
               lane_gather (u8/int32 indices, f32/bf16/int32 values, small
               row counts and the main path's (2^24/128, 128)),
@@ -295,9 +299,33 @@ Phases, each printing one JSON line with its seconds:
               policy's budget.  The scaler is told each level's offered
               load: the gates check its arithmetic and the join and
               retire, not overload detection.  autopilot_soak and chaos_soak at seed 0
-              with CUDA thread workers here; election_drill on the model
-              checker's unfenced counterexample: 2 elections unfenced, 1
-              fenced.
+              (chaos_soak at 8 steps) with CUDA thread workers here;
+              election_drill on the model checker's unfenced
+              counterexample: 2 elections unfenced, 1 fenced.  No
+              lux-launch-* directory of the launcher is left after it.
+  24. disk_main big graphs from disk (see disk_main): the streamed phase's
+              RMAT 22 / ef 16 graph (67.1 M edges) written once to a .lux
+              file by the native counting sort; native against NumPy,
+              each timed once and bitwise equal: the file's per-part
+              range reads (pread against a copy out of the memory map),
+              load_pull_shards at 8 parts, and on the main graph
+              build_pull_shards and build_push_shards at 8 parts and
+              build_blockcsr; PageRank (mxscan, 10 iterations, -file, -ng
+              8) in four layouts (default, --sort-segments,
+              --compact-gather, both): each within rtol 1e-4 of phase 15's
+              float64 oracle, compact bitwise the default and both
+              bitwise sorted, ms an iteration, GTEPS and peak device
+              bytes; the scan kernel's f32 sum on part 0 of the sorted and
+              of the compact layout against float64; SSSP and components
+              at RMAT 20 with --compact-gather and with --sort-segments,
+              bitwise phase 9-10's oracles, and the scan kernel's int32
+              min on one dense round of the compact push layout, bitwise
+              its plain version; --sort-segments --route-gather fused-pf
+              PageRank at RMAT 18 on phase 4's plan within rtol 1e-4 of
+              float64, then one iteration replayed with every lane_gather
+              and fused_pass_gather launch held bitwise to its plain
+              version.  The block-CSR of phase 3 (and of phase 6's pallas
+              run) is the native fill.
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -312,7 +340,8 @@ phase 18 up to the kernels' comparisons, the whole of phase 19, and in
 the fleet and pod worker processes of phases 20-21, which each report
 their own counters: ``launches_fleet``; in the live worker processes of
 phase 22, the killed one's last report included: ``launches_live``; the
-soaks of phase 23: ``launches_autopilot``), the smoke's seconds, the
+soaks of phase 23: ``launches_autopilot``; phase 24's runs:
+``launches_disk``), the smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -320,6 +349,7 @@ non-zero before the verdict; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import faulthandler
 import functools
@@ -1178,19 +1208,21 @@ def share_push_layouts(sssp_app) -> None:
     every run (apps/sssp.build_push_app_shards, seconds of host time at
     RMAT 20), and the smoke runs them tens of times on the same graph
     objects at the same part counts: a run gets the layout the last run
-    on its graph and part count built (host arrays that no run writes; the
-    engines copy them to the card).  A recut's layout is built as before."""
+    on its graph, part count and gather relayouts built (host arrays that
+    no run writes; the engines copy them to the card).  A recut's layout
+    is built as before."""
     build = sssp_app.build_push_shards
-    memo = []  # [(graph, parts, layout)], the last two
+    memo = []  # [(graph, parts, relayouts, layout)], the last two
 
-    def shared(g, num_parts, **kw):
-        if kw:
-            return build(g, num_parts, **kw)
-        for hg, parts, sh in memo:
-            if hg is g and parts == num_parts:
+    def shared(g, num_parts, cuts=None, **kw):
+        if cuts is not None:
+            return build(g, num_parts, cuts=cuts, **kw)
+        key = (kw.get("sort_segments", False), kw.get("compact_gather", False))
+        for hg, parts, k, sh in memo:
+            if hg is g and parts == num_parts and k == key:
                 return sh
-        sh = build(g, num_parts)
-        memo[:] = [(g, num_parts, sh)] + memo[:1]
+        sh = build(g, num_parts, **kw)
+        memo[:] = [(g, num_parts, key, sh)] + memo[:1]
         return sh
 
     sssp_app.build_push_shards = shared
@@ -2862,7 +2894,8 @@ REFRESH_SPAN_REL = 0.05  # mutate.refresh spans against the measured refresh sec
 TEL_RTOL = 1e-4  # the ring's f32 residual against its float64 recomputation
 SLEEP_CYCLES = 100_000_000  # ~50 ms of torch.cuda._sleep: the host's head start
 #: spans the smoke's event log must hold (phases 4, 17, 18, 19)
-OBS_SPANS = ("plan.load", "plan.build", "pull.chunk", "serve.dispatch", "mutate.refresh",
+OBS_SPANS = ("plan.load", "plan.build", "graph.build", "pull.chunk", "serve.dispatch",
+             "mutate.refresh",
              "xprof.trace", "fleet.start", "fleet.worker.start", "mutate.publish")
 
 
@@ -2896,6 +2929,12 @@ def obs_spans(events, name=None, since=None) -> list:
             if (name is None or b["n"] == name) and (since is None or b["t"] >= since):
                 out.append((b["n"], b.get("a", {}), b["t"], ev["t"], ev.get("a", {})))
     return out
+
+
+def launch_dirs() -> list:
+    """The launcher's private worker directories (serve/fleet/launcher:
+    lux-launch-* under the temporary directory) that exist now."""
+    return sorted(glob.glob(os.path.join(tempfile.gettempdir(), "lux-launch-*")))
 
 
 def launch_snapshot(kernels) -> dict:
@@ -3616,6 +3655,7 @@ LIVE_BURST = 16  # the kill drill's queries, all answered by the survivor
 LIVE_PR_RTOL = 1e-4  # standing PageRank against the float64 fixpoint
 #: the autopilot phase: measure_autoscale over CUDA worker processes
 PILOT_WINDOW_S = 2.0  # seconds an offered level lasts
+CHAOS_STEPS = 8  # chaos_soak's churn steps (the reference's 16: ~15 s of wire-fault delays)
 PILOT_OVERLOAD, PILOT_LOW = 4, 20  # levels at 1.5x, then 0.5x of the knee (after one at 0.5x)
 PILOT_COOLDOWN_S = 8.0
 
@@ -4021,8 +4061,11 @@ def live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir, live_oracl
         r2 = ctl.refresh_fleet(timeout_s=900.0)
         emit({"phase": "live", "run": "refresh", "kind": "warm (survivor)", **r2,
               "device": smi})
-        # the victim relaunched from the compaction snapshot and its own journal
+        # the victim relaunched from the compaction snapshot and its own
+        # journal; its dead handle is reaped first (kill() removes its
+        # private lux-launch-* directory)
         t0 = time.perf_counter()
+        procs[LIVE_VICTIM].kill()
         h = launch(LIVE_VICTIM, ctl.snapshot_path, {})
         procs[LIVE_VICTIM] = h
         replayed = h.ready["delta_generation"]
@@ -4087,6 +4130,8 @@ def live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir, live_oracl
         ctl.close(shutdown_workers=True)
         for p in procs.values():
             p.terminate(timeout_s=30.0)
+    left = launch_dirs()
+    require(not left, f"live: launcher directories left behind: {left}")
     total = {name: sum(c.get(name, 0) for c in worker_launches.values()) for name in kernels}
     require(dev.type != "cuda" or (total["mxscan_segmented"] > 0
                                    and total["fused_pass_gather"] > 0),
@@ -4111,8 +4156,9 @@ def autopilot_main(torch, np, kernels, smi, dev, snap, knee):
     retire of a CUDA worker process, not that the card's own signals
     detect the overload; each level's goodput, p99 and ``sustained`` are
     what the card measured, and are printed.  Then, with the replicas as
-    CUDA thread workers here, fault/chaos.autopilot_soak(seed=0) and
-    chaos_soak(seed=0) at the reference's sizes, and election_drill on
+    CUDA thread workers here, fault/chaos.autopilot_soak(seed=0) at the
+    reference's sizes and chaos_soak(seed=0) at CHAOS_STEPS steps (the
+    reference's 16 halved for the smoke's clock), and election_drill on
     the unfenced election counterexample that the model checker finds
     (analysis/proto): the unfenced group reproduces the split brain (2
     elections), the fenced group absorbs the same schedule (1).
@@ -4163,9 +4209,10 @@ def autopilot_main(torch, np, kernels, smi, dev, snap, knee):
     for fn in kernels.values():
         fn.launches = 0
     soaks = {}
-    for name, fn in (("autopilot_soak", autopilot_soak), ("chaos_soak", chaos_soak)):
+    for name, fn, kw in (("autopilot_soak", autopilot_soak, {}),
+                         ("chaos_soak", chaos_soak, {"steps": CHAOS_STEPS})):
         t0 = time.perf_counter()
-        rep = fn(0, device=dev)
+        rep = fn(0, device=dev, **kw)
         soaks[name] = {k: v for k, v in rep.items() if k not in ("events", "fault_counters")}
         soaks[name]["seconds"] = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in kernels.items()}
@@ -4190,6 +4237,264 @@ def autopilot_main(torch, np, kernels, smi, dev, snap, knee):
     return counts
 
 
+#: big graphs from disk (phase 24)
+DISK_PARTS = 8  # the file-loaded RMAT STREAM_SCALE graph's parts, stacked on the card
+DISK_LAYOUTS = (("default", []), ("sorted", ["--sort-segments"]),
+                ("compact", ["--compact-gather"]),
+                ("both", ["--sort-segments", "--compact-gather"]))
+DISK_PUSH = (("compact", ["--compact-gather"]), ("sorted", ["--sort-segments"]))
+SORTED_SCALE = 18  # the --sort-segments --route-gather fused-pf PageRank (plan: phase 4)
+
+
+def sorted_plan(plan_dir: str):
+    """Phase 4's fifth process: the fused-pf plan of the --sort-segments
+    one-part layout of RMAT SORTED_SCALE, built into the plan cache that
+    phase 24 loads.  Returns its seconds."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import expand
+
+    t0 = time.perf_counter()
+    g = generate.rmat(SORTED_SCALE, EF, seed=0)
+    expand.plan_fused_shards_cached(build_pull_shards(g, 1, sort_segments=True), "sum",
+                                    cache_dir=plan_dir, pf=True)
+    return {"scale": SORTED_SCALE, "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def held_kernels(torch, shuffle, names, calls: dict):
+    """Inside the block every launch of the named routed kernels also
+    runs its plain version on the same inputs (not a launch) and must
+    agree bitwise; ``calls[name]`` counts the launches held."""
+    orig = {n: getattr(shuffle, n) for n in names}
+
+    def hold(name):
+        plain = getattr(shuffle, f"{name}_plain")
+
+        def fn(*a, **kw):
+            got = orig[name](*a, **kw)
+            require(torch.equal(got, plain(*a, **kw)),
+                    f"disk_main: {name} differs from its plain version")
+            calls[name] = calls.get(name, 0) + 1
+            return got
+        # the wrapper counts its launches by its module name, which is this
+        # function's while held: the kernels' own counters stay untouched
+        fn.launches = 0
+        return fn
+
+    for n in names:
+        setattr(shuffle, n, hold(n))
+    try:
+        yield
+    finally:
+        for n, f in orig.items():
+            setattr(shuffle, n, f)
+
+
+def same_arrays(np, a, b) -> bool:
+    return all(x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def host_builds(np, native_io, g, path: str) -> dict:
+    """Phase 24a: the host builds, native against NumPy, each timed once
+    and bitwise equal: the RMAT STREAM_SCALE file through load_pull_shards
+    at DISK_PARTS parts (preads and the native fill, against the memory
+    map and numpy) and its per-part range reads alone (pread against a
+    copy out of the memory map); on the main graph build_pull_shards and
+    build_push_shards at DISK_PARTS parts and build_blockcsr."""
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.graph import sharded_load
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.graph.shards import build_pull_shards, shard_geometry
+    from lux_tpu_torch.ops import spmv
+
+    header = fmt.read_lux(path)
+    degrees = sharded_load.out_degrees_from_file(path, header=header)
+    cuts = shard_geometry(np.asarray(header.row_ptr), DISK_PARTS)[0]
+
+    def read_all():
+        n = 0
+        for p in range(DISK_PARTS):
+            rp, cols, _ = fmt.read_lux_range(path, int(cuts[p]), int(cuts[p + 1]),
+                                             header=header)
+            n += np.array(rp).nbytes + np.array(cols).nbytes
+        return n
+
+    out = {}
+    for name, fn, flat in (
+            ("read_ranges", read_all, None),
+            ("load_pull_shards", lambda: sharded_load.load_pull_shards(
+                path, DISK_PARTS, degrees=degrees), lambda r: r.arrays),
+            ("pull_build", lambda: build_pull_shards(g, DISK_PARTS), lambda r: r.arrays),
+            ("push_build", lambda: build_push_shards(g, DISK_PARTS),
+             lambda r: tuple(r.arrays) + tuple(r.parrays)),
+            ("blockcsr_build", lambda: spmv.build_blockcsr(g),
+             lambda r: (r.e_src_pos, r.e_dst_rel, r.chunk_block, r.chunk_first))):
+        t0 = time.perf_counter()
+        nat = fn()
+        nat_s = time.perf_counter() - t0
+        with native_io.numpy_path():
+            t0 = time.perf_counter()
+            npy = fn()
+            npy_s = time.perf_counter() - t0
+        row = {"native_s": nat_s, "numpy_s": npy_s}
+        if flat is None:
+            require(nat == npy, f"disk_main {name}: {nat} bytes against {npy}")
+            row["bytes"] = nat
+        else:
+            require((nat.host_io, npy.host_io) == ("native", "numpy"),
+                    f"disk_main {name}: host paths {nat.host_io}, {npy.host_io}")
+            require(same_arrays(np, flat(nat), flat(npy)),
+                    f"disk_main {name}: the native arrays differ from numpy's")
+        out[name] = row
+        del nat, npy
+    return out
+
+
+def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, long_s,
+              plan_dir, reps):
+    """Phase 24: big graphs from disk (see the module docstring).  Returns
+    (launches {run: counts}, kernel rows)."""
+    from lux_tpu_torch.apps import components as cc_app
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph import csc, generate
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.graph import sharded_load
+    from lux_tpu_torch.graph.shards import (ShardArrays, build_compact_mirror,
+                                            build_pull_shards, sort_segments_inplace,
+                                            to_device)
+    from lux_tpu_torch.models import sssp as sssp_model
+    from lux_tpu_torch.models.pagerank import PageRankProgram, pagerank_reference
+    from lux_tpu_torch.native import io as native_io
+    from lux_tpu_torch.ops import expand, scan, shuffle
+
+    t_phase = time.perf_counter()
+    require(native_io.host_path() == "native", "disk_main: the native host path is not on")
+    pr64, _ = long_s.result(timeout=60)
+    gs = load_saved_graph(np, csc, tmp, "stream")
+    path = os.path.join(tmp, "disk.lux")
+    t0 = time.perf_counter()
+    how = fmt.write_lux_edges(path, gs.nv, gs.col_idx, gs.dst_of_edges())
+    write_s = time.perf_counter() - t0
+    nv, ne = gs.nv, gs.ne
+    del gs
+    require(how == "native", f"disk_main: the file was written by {how}")
+    builds = host_builds(np, native_io, g, path)
+    emit({"phase": "disk_main", "run": "host", "file": {"scale": STREAM_SCALE, "nv": nv,
+          "ne": ne, "bytes": os.path.getsize(path), "write_s": write_s},
+          "parts": DISK_PARTS, "builds": builds, "device": smi})
+
+    launches, rows, ranks = {}, [], {}
+    argv = ["-file", path, "-ng", str(DISK_PARTS), "--method", "mxscan", "-ni", str(ITERS),
+            "--device", "cuda"]
+    for label, flags in DISK_LAYOUTS:
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, wall = counted(kernels, pr_app.run, argv + flags)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        launches[f"pagerank-{label}"] = counts
+        ranks[label] = res.ranks
+        rel = float(np.max(np.abs(res.ranks.astype(np.float64) - pr64) / np.abs(pr64)))
+        emit({"phase": "disk_main", "run": f"pagerank-{label}", "argv": flags, "rc": res.rc,
+              "ms_per_iter": res.seconds * 1e3 / ITERS, "gteps": res.gteps,
+              "max_rel_err_vs_f64": rel, "peak_bytes": peak, "launches": counts,
+              "wall_seconds": wall, "device": smi})
+        require(res.rc == 0 and bool(np.isfinite(res.ranks).all())
+                and res.ranks.shape == (nv,), f"disk_main pagerank {label}: bad ranks")
+        require(rel <= RANK_RTOL, f"disk_main pagerank {label}: off the f64 oracle by {rel}")
+        require(counts["mxscan_segmented"] >= ITERS * DISK_PARTS,
+                f"disk_main pagerank {label}: mxscan launched {counts['mxscan_segmented']}")
+    require(np.array_equal(ranks["compact"], ranks["default"]),
+            "disk_main: the compact layout's ranks differ from the direct layout's")
+    require(np.array_equal(ranks["both"], ranks["sorted"]),
+            "disk_main: sorted + compact differs from sorted")
+
+    # the scan kernel on one part of the sorted and of the compact layout,
+    # on the final ranks (the natively loaded part, relaid out here)
+    one = sharded_load.load_pull_shards(path, DISK_PARTS, parts_subset=[0])
+    full = torch.from_numpy(one.global_to_stacked(ranks["sorted"]).reshape(-1)).to(dev)
+    for case in ("sorted", "compact"):
+        arr = ShardArrays(*(a.copy() for a in one.arrays))
+        if case == "sorted":
+            sort_segments_inplace(arr)
+        else:
+            arr = build_compact_mirror(arr)
+        a = to_device(arr, dev).part(0)
+        vals = pull.gather_sources(a, full).contiguous()
+        rows.append(scan_case(torch, scan, f"disk part 0, {case} layout, f32 sum", vals,
+                              a.head_flag, a.row_ptr[-1:], "sum", reps))
+    del one, full, arr, a, vals
+
+    # SSSP and components on the main graph under the relayouts
+    push_argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "-check",
+                 "--device", "cuda", "--method", "mxscan"]
+    for app, name, extra, want in ((sssp_app, "sssp", ["-start", str(start)], o_dist),
+                                   (cc_app, "components", [], o_labels)):
+        for label, flags in DISK_PUSH:
+            res, counts, wall = counted(kernels, app.run, push_argv + extra + flags, graph=g)
+            launches[f"{name}-{label}"] = counts
+            emit({"phase": "disk_main", "run": f"{name}-{label}", "argv": flags, "rc": res.rc,
+                  "iters": res.iters, "dense_rounds": res.dense_rounds, "gteps": res.gteps,
+                  "ms": res.seconds * 1e3, "launches": counts, "wall_seconds": wall,
+                  "device": smi})
+            require(res.rc == 0, f"disk_main {name} {label}: -check failed")
+            require(np.array_equal(res.state, want),
+                    f"disk_main {name} {label}: differs from the push oracle")
+            require(counts["mxscan_segmented"] >= max(res.dense_rounds, 1),
+                    f"disk_main {name} {label}: mxscan launched {counts['mxscan_segmented']}")
+    # the scan kernel on one dense round of the compact push layout (int32 min)
+    psh = sssp_app.build_push_shards(g, 1, sort_segments=False, compact_gather=True)
+    a = to_device(psh.arrays, dev).part(0)
+    dist = torch.from_numpy(psh.pull.global_to_stacked(o_dist).reshape(-1)).to(dev)
+    prog = sssp_model.SSSPProgram(nv=g.nv, start=start)
+    vals = prog.relax(pull.gather_sources(a, dist), a.weights).contiguous()
+    rows.append(scan_case(torch, scan, "push dense round, compact layout, int32 min", vals,
+                          a.head_flag, a.row_ptr[-1:], "min", reps))
+    del psh, a, dist, vals
+
+    # --sort-segments --route-gather fused-pf on phase 4's plan, then one
+    # iteration replayed with every routed launch held to its plain version
+    g18 = generate.rmat(SORTED_SCALE, EF, seed=0)
+    sh18 = build_pull_shards(g18, 1, sort_segments=True)
+    t0 = time.perf_counter()
+    plan = expand.plan_fused_shards_cached(sh18, "sum", cache_dir=plan_dir, pf=True)
+    load_s = time.perf_counter() - t0
+    res, counts, wall = counted(kernels, pr_app.run, [
+        "--rmat-scale", str(SORTED_SCALE), "--rmat-ef", str(EF), "--seed", "0", "-ni",
+        str(ITERS), "-check", "--device", "cuda", "--sort-segments", "--route-gather",
+        "fused-pf"], route=plan, graph=g18)
+    launches["pagerank-sorted-fused-pf"] = counts
+    ref18 = pagerank_reference(g18, ITERS)
+    rel = float(np.max(np.abs(res.ranks.astype(np.float64) - ref18) / np.abs(ref18)))
+    held = {}
+    prog = PageRankProgram(nv=g18.nv)
+    arrays = to_device(sh18.arrays, dev)
+    with held_kernels(torch, shuffle, ("lane_gather", "fused_pass_gather"), held):
+        pull.run_pull_fixed(prog, sh18.spec, arrays, pull.init_state(prog, arrays), 1,
+                            route=plan)
+        torch.cuda.synchronize()
+    emit({"phase": "disk_main", "run": "pagerank-sorted-fused-pf", "scale": SORTED_SCALE,
+          "rc": res.rc, "route_gather": res.route_gather, "plan_load_s": load_s,
+          "ms_per_iter": res.seconds * 1e3 / ITERS, "gteps": res.gteps,
+          "max_rel_err_vs_f64": rel, "launches": counts, "held_launches": held,
+          "wall_seconds": wall, "device": smi})
+    require(res.rc == 0 and res.route_gather == "fused-pf",
+            "disk_main: the sorted fused-pf run failed")
+    require(rel <= RANK_RTOL, f"disk_main: sorted fused-pf off the f64 oracle by {rel}")
+    require(counts["fused_pass_gather"] >= ITERS and counts["lane_gather"] >= ITERS,
+            f"disk_main: sorted fused-pf launched {counts}")
+    require(held.get("fused_pass_gather", 0) > 0 and held.get("lane_gather", 0) > 0,
+            f"disk_main: the held replay launched {held}")
+    total = {k: sum(c[k] for c in launches.values()) for k in kernels}
+    emit({"phase": "disk_main", "kernels": rows, "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total, rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4212,6 +4517,7 @@ def main() -> int:
     from lux_tpu_torch.models import components as cc_model
     from lux_tpu_torch.models import sssp as sssp_model
     from lux_tpu_torch.models.pagerank import pagerank_reference
+    from lux_tpu_torch.native import io as native_io
     from lux_tpu_torch.ops import cuda_build, expand, scan, segment, shuffle, spmv
     from lux_tpu_torch.ops import route as route_mod
     from lux_tpu_torch.utils.config import parse_args
@@ -4251,14 +4557,29 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "numpy": np.__version__, "host": host_line(_TMP)})
 
-    # 2. build
+    # 2. build: nvcc of the kernels; beside it g++ of the native host I/O
+    # library and lux-convert (a thread: the compilers are processes)
     t0 = time.perf_counter()
+    io_build = {}
+
+    def build_io():
+        t = time.perf_counter()
+        io_build["ok"] = native_io.available() and native_io.converter() is not None
+        io_build["seconds"] = time.perf_counter() - t
+
+    io_thread = threading.Thread(target=build_io)
+    io_thread.start()
     built = cuda_build.build_all()
     t1 = time.perf_counter()
     require(native.available(), "the native route colorer did not build")
+    t2 = time.perf_counter()
+    io_thread.join()
+    require(io_build.get("ok", False), "the native host I/O library or lux-convert did not build")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": built,
-          "nvcc_wall": t1 - t0, "native_colorer_seconds": time.perf_counter() - t1,
-          "nvcc": cuda_build.nvcc_path(), "native": str(native.library_path().name)})
+          "nvcc_wall": t1 - t0, "native_colorer_seconds": t2 - t1,
+          "native_io_seconds": io_build["seconds"], "nvcc": cuda_build.nvcc_path(),
+          "native": str(native.library_path().name),
+          "native_io": str(native_io.library_path().name)})
     for name in cuda_build.SOURCES:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -4270,6 +4591,7 @@ def main() -> int:
     small_bc = spmv.build_blockcsr(small)
     g = generate.rmat(SCALE, EF, seed=0)
     bc = spmv.build_blockcsr(g)
+    require(bc.host_io == "native", f"kernels: the block-CSR was filled by {bc.host_io}")
     rows_spmv = (spmv_cases(torch, np, spmv, small_bc, dev, REPS, False)
                  + spmv_cases(torch, np, spmv, bc, dev, REPS, True))
     rng = np.random.default_rng(9)
@@ -4345,18 +4667,20 @@ def main() -> int:
     t0 = time.perf_counter()
     save_graph(np, _TMP, "main", g)
     with concurrent.futures.ProcessPoolExecutor(
-            len(PLAN_CHAINS) + 1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            len(PLAN_CHAINS) + 2, mp_context=multiprocessing.get_context("spawn")) as ex:
         live_plan_fut = ex.submit(live_plan, _TMP, plan_dir)
+        sorted_plan_fut = ex.submit(sorted_plan, plan_dir)
         built = list(ex.map(plan_chain, [_TMP] * len(PLAN_CHAINS),
                             [plan_dir] * len(PLAN_CHAINS), PLAN_CHAINS))
         live_plan_row = live_plan_fut.result()
+        sorted_plan_row = sorted_plan_fut.result()
     reports = [rep for reps, _ in built for rep in reps]
     calls = {k: sum(c.get(k, 0) for _, c in built) for k in ("native", "numpy")}
     t1 = time.perf_counter()
     plans = {mode: plan_family(sh, mode, plan_dir) for chain in PLAN_CHAINS for mode in chain}
     emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir,
           "parallel_chains": len(PLAN_CHAINS), "colorer_calls": calls,
-          "live_compaction_base": live_plan_row,
+          "live_compaction_base": live_plan_row, "sorted_fused_pf": sorted_plan_row,
           "load_seconds": time.perf_counter() - t1, "seconds": time.perf_counter() - t0})
     require(calls["native"] > 0 and calls["numpy"] == 0,
             f"plan: colorer {calls}, the native one must run for every family")
@@ -4629,10 +4953,17 @@ def main() -> int:
             "live: the planned compaction base is not the pool's")
     live_launches, live_err = live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir,
                                         live_oracle, live_sources, REPS)
-    del g
     torch.cuda.empty_cache()
     pilot_launches = autopilot_main(torch, np, kernels, smi, dev, snap,
                                     fleet_rows["saturation"][1]["knee_qps"])
+    torch.cuda.empty_cache()
+    left = launch_dirs()
+    require(not left, f"launcher directories left behind: {left}")
+
+    # 24. big graphs from disk
+    disk_launches, disk_rows = disk_main(torch, np, kernels, smi, dev, _TMP, g, start, o_dist,
+                                         o_labels, long_s, plan_dir, REPS)
+    del g
     torch.cuda.empty_cache()
     obs_log_main(smi)
 
@@ -4642,7 +4973,7 @@ def main() -> int:
             ("mxscan_segmented", rows_scan, scan_seg, "mxscan",
              "lux_tpu/ops/pallas_scan.py:193")):
         r = timed(rows)
-        extra = long_rows + pod_rows if name == "mxscan_segmented" else []
+        extra = long_rows + pod_rows + disk_rows if name == "mxscan_segmented" else []
         table.append({"name": name, "route": "cuda",
                       "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES[name]}",
                       "replaces": replaces, "launches": launches[run][name],
@@ -4686,6 +5017,7 @@ def main() -> int:
         row["launches_fleet"] = fleet_launches[row["name"]]
         row["launches_live"] = live_launches[row["name"]]
         row["launches_autopilot"] = pilot_launches[row["name"]]
+        row["launches_disk"] = disk_launches[row["name"]]
         for errs in (mutate_err, live_err):
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])

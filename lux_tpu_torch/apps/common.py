@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -62,9 +63,10 @@ def validate_exchange(cfg: RunConfig, prog, dev) -> None:
     message before any set-up, the methods that cannot reduce it: the
     prefix-difference strategies and ``pallas`` are sum-only.  The
     exchange, edge-shard and layout checks of the reference come with
-    multi-GPU."""
+    multi-GPU; the gather relayouts' are :func:`refuse_relayouts`."""
     cfg.method = methods.resolve_sum(cfg.method, prog.reduce,
                                      methods.default_platform(dev))
+    refuse_relayouts(cfg)
     if cfg.method in ("cumsum", "mxsum") and prog.reduce != "sum":
         raise SystemExit(
             f"--method {cfg.method} is a prefix-diff strategy: sum-reduce "
@@ -73,6 +75,36 @@ def validate_exchange(cfg: RunConfig, prog, dev) -> None:
         raise SystemExit(
             "--method pallas: sum-reduce programs only; min/max apps "
             "use scan/scatter")
+
+
+def refuse_relayouts(cfg: RunConfig) -> None:
+    """The reference's refusals of the gather relayouts, with a CLI
+    message before any set-up: both relay out the pull layout's src_pos,
+    which the block-CSR kernel path (--method pallas) does not use; the
+    routed plans and the streamed chunks replay src_pos itself, so they
+    take --sort-segments but not the --compact-gather mirror."""
+    if cfg.method == "pallas" and (cfg.sort_segments or cfg.compact_gather):
+        raise SystemExit(
+            "--sort-segments/--compact-gather relay out the pull layout's "
+            "gather; the block-CSR (--method pallas) layout has its own edge "
+            "order and gather")
+    if cfg.compact_gather and cfg.route_gather:
+        raise SystemExit(
+            "--route-gather plans replay the pull layout's src_pos; it does "
+            "not combine with --compact-gather (--sort-segments composes)")
+    if cfg.compact_gather and cfg.stream_hbm_gib:
+        raise SystemExit(
+            "--stream-hbm-gib streams the pull layout's src_pos chunk by "
+            "chunk; it does not combine with --compact-gather "
+            "(--sort-segments composes)")
+
+
+def report_layout(kind: str, layout, seconds: float) -> None:
+    """The apps' build line: which layout, how many parts, the host path
+    that built it (native or numpy) and its seconds."""
+    parts = getattr(getattr(layout, "spec", None), "num_parts", 1)
+    print(f"layout built: {kind}, {parts} part(s), host path {layout.host_io}, "
+          f"{seconds:.3f} s")
 
 
 def estimate_exchange(shards, cfg: RunConfig, state_width: int = 1,
@@ -128,7 +160,9 @@ def prepare(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, route=None,
     the device."""
     validate_exchange(cfg, prog, dev)
     if cfg.method == "pallas":
+        t0 = time.perf_counter()
         bc = spmv.build_blockcsr(g)
+        report_layout("block-CSR", bc, time.perf_counter() - t0)
         report_preflight(estimate_blockcsr(bc, state_width, cfg.dtype), dev)
         if dev.type == "cuda":
             cuda_build.load_all()  # building and loading are set-up, not iterations
@@ -162,9 +196,13 @@ class PullSetup:
 def setup_pull(cfg: RunConfig, g: HostGraph, dev, prog, route=None,
                state_width: int = 1) -> PullSetup:
     """The pull engine's part of :func:`prepare` (``cfg.method`` already
-    resolved): the shards, the printed estimate, the kernel build, the
-    device arrays and the routed plan."""
-    shards = build_pull_shards(g, cfg.num_parts)
+    resolved): the shards (with the gather relayouts of the flags), the
+    printed estimate, the kernel build, the device arrays and the routed
+    plan."""
+    t0 = time.perf_counter()
+    shards = build_pull_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments,
+                               compact_gather=cfg.compact_gather)
+    report_layout("pull", shards, time.perf_counter() - t0)
     report_preflight(estimate_exchange(shards, cfg, state_width,
                                        dst_state=prog.needs_dst_state), dev)
     if dev.type == "cuda":
@@ -311,7 +349,9 @@ def run_streamed(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1,
             "--repartition-every/--route-gather")
     validate_exchange(cfg, prog, dev)
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
-    shards = build_pull_shards(g, cfg.num_parts)
+    t0 = time.perf_counter()
+    shards = build_pull_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments)
+    report_layout("pull (streamed)", shards, time.perf_counter() - t0)
     budget = int(cfg.stream_hbm_gib * (1 << 30))
     chunk_e = stream_eng.chunk_edges_for_budget(shards.spec, budget, sbytes, state_width)
     resident = stream_eng.streamed_hbm_bytes(shards.spec, chunk_e, sbytes, state_width)

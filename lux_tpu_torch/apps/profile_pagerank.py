@@ -9,7 +9,8 @@ connected-components or k-core runs on the card.
         --rmat-ef 16 --method mxscan
 
 Takes the app's flags (``--route-gather`` included: its plan is built in
-set-up, before any window) and ``--app pagerank|colfilter|sssp|components|kcore``
+set-up, before any window; and the gather relayouts ``--sort-segments``
+and ``--compact-gather``) and ``--app pagerank|colfilter|sssp|components|kcore``
 (default pagerank).  PageRank and CF: times ``-ni`` iterations as the
 apps do (``apps.common.timed_iterations``), then runs ``-ni`` more under
 ``torch.profiler``.  SSSP (from ``-start``, else the vertex with the
@@ -202,7 +203,10 @@ def main(argv=None) -> int:
             raise SystemExit("profile_pagerank measures the card; --device cuda")
         print(json.dumps(profile_push(ns.app, rest, dev)), flush=True)
         return 0
-    cfg = parse_args(rest, description=__doc__)
+    cfg = parse_args(rest, description=__doc__, pull=True)
+    if cfg.verbose or cfg.ckpt_dir or cfg.ckpt_every:
+        raise SystemExit("profile_pagerank times the plain -ni window; drop "
+                         "-verbose and the checkpoint flags")
     dev = resolve_device(cfg.device)
     if dev.type != "cuda":
         raise SystemExit("profile_pagerank measures the card; --device cuda")

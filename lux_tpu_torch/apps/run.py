@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -100,7 +101,10 @@ def _pull_set_up(cfg: RunConfig, g: HostGraph, prog, dev, route,
         raise SystemExit("--method pallas runs the block-CSR kernel path of the "
                          "pagerank and colfilter apps; the spec workloads reduce "
                          "through the pull engine")
-    shards = build_pull_shards(g, cfg.num_parts)
+    t0 = time.perf_counter()
+    shards = build_pull_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments,
+                               compact_gather=cfg.compact_gather)
+    common.report_layout("pull", shards, time.perf_counter() - t0)
     est = common.estimate_exchange(shards, cfg, state_width, dst_state=dst_state)
     common.report_preflight(est, dev)
     if dev.type == "cuda":

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -70,13 +71,20 @@ class PushRunResult:
 
 
 def build_push_app_shards(g: HostGraph, cfg: RunConfig) -> PushShards:
-    """The push layout of the allgather exchange, -ng parts on one device."""
+    """The push layout of the allgather exchange, -ng parts on one device,
+    with the gather relayouts of the flags (the reference's refusals
+    first, common.refuse_relayouts)."""
+    common.refuse_relayouts(cfg)
     if cfg.method == "pallas":
         raise SystemExit(
             "--method pallas (push) runs on a device mesh in the reference "
             "(parallel/pallas_dist); the distributed push is not ported to "
             "lux_tpu_torch yet: use --method scan, scatter or mxscan")
-    return build_push_shards(g, cfg.num_parts)
+    t0 = time.perf_counter()
+    shards = build_push_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments,
+                               compact_gather=cfg.compact_gather)
+    common.report_layout("push", shards, time.perf_counter() - t0)
+    return shards
 
 
 def run_push_verbose(prog, shards: PushShards, cfg: RunConfig, arrays, parrays,
@@ -207,7 +215,8 @@ class _Final(NamedTuple):
 
 def _refuse(cfg: RunConfig, prog) -> None:
     """The reference's refusal matrix of the frontier apps, for the
-    options this package runs."""
+    options this package runs (the relayouts' refusals run before the
+    layout is built: build_push_app_shards)."""
     if cfg.route_gather and (cfg.ckpt_every or cfg.repartition_every or cfg.verbose):
         raise SystemExit(
             "--route-gather on the push apps routes the dense rounds of the "
@@ -298,7 +307,8 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
                 prog, g, cfg.num_parts, chunk=cfg.repartition_every,
                 threshold=cfg.repartition_threshold, max_iters=cfg.max_iters,
                 method=cfg.method, on_repartition=on_repartition, shards=shards,
-                device=dev, placed=(arrays, parrays))
+                device=dev, placed=(arrays, parrays), sort_segments=cfg.sort_segments,
+                compact_gather=cfg.compact_gather)
     elif cfg.delta:
         carry0 = delta_eng._init_carry(prog, arrays, cfg.delta)
 

@@ -88,9 +88,26 @@ def _dst_gather(arrays: ShardArrays, local_state: torch.Tensor, with_dst: bool):
 def pull_gather_part(arrays: ShardArrays, full_state: torch.Tensor,
                      local_state: torch.Tensor, with_dst: bool):
     """LOAD phase for ONE part: the per-edge source-state gather, and the
-    per-edge destination-state read when the program needs it."""
-    src_state = full_state.index_select(0, arrays.src_pos)  # int32 as is
+    per-edge destination-state read when the program needs it.
+
+    With the compact-gather layout (a non-zero mirror width) the read is
+    two-stage: one ascending (U,) gather fills the part's unique
+    in-source mirror, then the (E,) gather reads that mirror instead of
+    the (P*V,) state.  mirror_pos[mirror_rel] == src_pos exactly, so the
+    values are bitwise the direct gather's."""
+    src_state = gather_sources(arrays, full_state)
     return src_state, _dst_gather(arrays, local_state, with_dst)
+
+
+def gather_sources(arrays: ShardArrays, full_state: torch.Tensor) -> torch.Tensor:
+    """full_state[src_pos] for one part (or one streamed chunk, which
+    carries no mirror): direct, or through the compact-gather mirror when
+    the part has one."""
+    mirror_pos = getattr(arrays, "mirror_pos", None)
+    if mirror_pos is not None and mirror_pos.shape[-1] > 0:
+        mirror = full_state.index_select(0, mirror_pos)  # (U, ...)
+        return mirror.index_select(0, arrays.mirror_rel)  # (E, ...) from U
+    return full_state.index_select(0, arrays.src_pos)  # int32 as is
 
 
 def pull_gather_part_routed(arrays: ShardArrays, full_state: torch.Tensor,

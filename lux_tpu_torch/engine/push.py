@@ -103,8 +103,8 @@ def dense_part_step(prog, arr: ShardArrays, full_state, local, method="scan",
     absorbed by the min/max combiner."""
     if route is not None:
         src = expand.apply_expand(full_state, route[0], route[1])
-    else:
-        src = full_state.index_select(0, arr.src_pos)
+    else:  # direct, or through the compact-gather mirror
+        src = pull.gather_sources(arr, full_state)
     vals = prog.relax(src, arr.weights)
     if del_val is not None:
         vals = ovl.mask_deleted(vals, del_val, prog.reduce)

@@ -148,7 +148,8 @@ def run_push_adaptive(prog, g: HostGraph, num_parts: int, chunk: int = 32,
                       threshold: float = 1.25, max_iters: int = 10_000,
                       method: str = "auto", mesh=None, on_repartition=None,
                       shards=None, exchange: str = "allgather",
-                      device="cuda", placed=None) -> AdaptiveResult:
+                      device="cuda", placed=None, sort_segments: bool = False,
+                      compact_gather: bool = False) -> AdaptiveResult:
     """Direction-optimized push with window-based dynamic repartitioning
     on ``device``.
 
@@ -157,15 +158,21 @@ def run_push_adaptive(prog, g: HostGraph, num_parts: int, chunk: int = 32,
     weighted_cuts and resumes on the rebuilt layout.
     ``on_repartition(it, old_cuts, new_cuts, work)`` observes each
     recut; ``shards`` optionally supplies the initial layout, and
-    ``placed`` its (arrays, parrays) already on ``device``.  ``mesh`` and
+    ``placed`` its (arrays, parrays) already on ``device``.
+    ``sort_segments``/``compact_gather``: the gather relayouts of the
+    dense rounds' layout, which every recut rebuilds with.  ``mesh`` and
     ``exchange="ring"`` raise NotImplementedError (multi-GPU)."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     refuse_multi_gpu(mesh, exchange)
     dev = resolve_device(device)
     method = push._resolve(prog, method, dev)
+    def build(cuts=None):
+        return build_push_shards(g, num_parts, cuts=cuts, sort_segments=sort_segments,
+                                 compact_gather=compact_gather)
+
     if shards is None:
-        shards = build_push_shards(g, num_parts)
+        shards = build()
     arrays, parrays = placed if placed is not None else push.place(shards, dev)
     carry = push._init_carry(prog, shards.pspec, arrays)
     reparts, dense_rounds = 0, 0
@@ -196,7 +203,7 @@ def run_push_adaptive(prog, g: HostGraph, num_parts: int, chunk: int = 32,
                                               shards.pspec.f_cap, g.nv)
         if on_repartition is not None:
             on_repartition(carry.it, shards.cuts, new_cuts, work)
-        shards = build_push_shards(g, num_parts, cuts=new_cuts)
+        shards = build(new_cuts)
         _preflight_recut(shards, dev, num_parts)
         arrays, parrays = push.place(shards, dev)
         carry = _rebuild_carry(shards, arrays, state_g, changed_g, carry.it, carry.edges)

@@ -56,7 +56,13 @@ class HostGraph:
             raise ValueError("col_idx holds a vertex id out of range")
 
     def out_degrees(self) -> np.ndarray:
-        """Out-degree per vertex, counted from the in-edge lists."""
+        """Out-degree per vertex, counted from the in-edge lists (by the
+        native host library's histogram when it builds)."""
+        from lux_tpu_torch.native import io as native_io
+
+        deg = native_io.count_degrees(self.col_idx, self.nv)
+        if deg is not None:
+            return deg
         return np.bincount(self.col_idx, minlength=self.nv).astype(np.int32)
 
     def in_degrees(self) -> np.ndarray:

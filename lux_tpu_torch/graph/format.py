@@ -1,4 +1,4 @@
-"""Reader/writer for the `.lux` binary graph format (numpy path).
+"""Reader/writer for the `.lux` binary graph format.
 
 On-disk layout, little-endian:
 
@@ -11,6 +11,12 @@ On-disk layout, little-endian:
 
 Files from the original converter may carry a trailing int32 degree array
 (nv entries) that is never read; ``read_lux`` recognizes it by file size.
+
+``read_lux`` memory-maps the file.  The partial per-part read
+(``read_lux_range``), the edge-list writer (``write_lux_edges``) and the
+text parser (``read_edge_list_text``) go through the native host I/O
+library (lux_tpu_torch.native.io: pread, a counting sort, a line parser)
+when it builds, else through numpy; both give the same arrays.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from typing import Optional
 
 import numpy as np
 
-from lux_tpu_torch.graph.csc import HostGraph
+from lux_tpu_torch.graph.csc import HostGraph, from_edge_list
+from lux_tpu_torch.native import io as native_io
 
 LUX_HEADER_BYTES = 12  # sizeof(uint32) + sizeof(uint64)
 
@@ -105,12 +112,28 @@ def write_lux(path: str, g: HostGraph) -> None:
             f.write(g.weights.astype("<i4").tobytes())
 
 
+def write_lux_edges(path: str, nv: int, src: np.ndarray, dst: np.ndarray,
+                    weights: Optional[np.ndarray] = None) -> str:
+    """Write an edge list as a `.lux` file: CSC by a stable sort on the
+    destination (input order within a destination).  Returns the path
+    that ran, "native" (the counting sort) or "numpy"."""
+    if native_io.write_from_edges(path, nv, src, dst, weights):
+        return "native"
+    if len(src) and (int(np.max(src)) >= nv or int(np.max(dst)) >= nv
+                     or int(np.min(src)) < 0 or int(np.min(dst)) < 0):
+        raise ValueError(f"an edge endpoint lies outside [0, {nv})")
+    write_lux(path, from_edge_list(src, dst, nv,
+                                   None if weights is None else np.asarray(weights, np.int32)))
+    return "numpy"
+
+
 def read_lux_range(path: str, row_lo: int, row_hi: int,
                    weighted: Optional[bool] = None,
                    header: Optional[HostGraph] = None):
     """Read one partition's slice of a `.lux` file, vertices [row_lo,
     row_hi): the per-part partial load (counterpart of
-    ``lux_tpu.graph.format.read_lux_range``, its mmap path).
+    ``lux_tpu.graph.format.read_lux_range``), by pread through the
+    native library when it builds, else from the memory map.
 
     Returns (row_ptr_local (n+1,) int64 rebased to 0, col_idx (m,) int32,
     weights (m,) int32 | None).  Pass ``header`` (a prior mmap read_lux
@@ -121,8 +144,29 @@ def read_lux_range(path: str, row_lo: int, row_hi: int,
     col_lo, col_hi = int(g.row_ptr[row_lo]), int(g.row_ptr[row_hi])
     if weighted is None:
         weighted = g.weights is not None
+    rng = native_io.read_range(path, g.nv, g.ne, row_lo, row_hi, col_lo, col_hi,
+                               weighted)
+    if rng is not None:
+        rows_end, cols, w = rng
+        row_ptr = np.empty(row_hi - row_lo + 1, np.int64)
+        row_ptr[0] = 0
+        row_ptr[1:] = rows_end.astype(np.int64) - col_lo
+        return row_ptr, cols.view(np.int32), w
     row_ptr = (g.row_ptr[row_lo: row_hi + 1] - col_lo).astype(np.int64)
     cols = np.asarray(g.col_idx[col_lo:col_hi])
     w = (np.asarray(g.weights[col_lo:col_hi])
          if weighted and g.weights is not None else None)
     return row_ptr, cols, w
+
+
+def read_edge_list_text(path: str, weighted: bool = False):
+    """Parse a whitespace text edge list ("src dst [weight]" a line; blank
+    lines and '#' comments skipped): the converter's input.  Returns
+    (src, dst, weights | None); the native line parser when it builds
+    (uint32 ids), else ``np.loadtxt`` (int64 ids)."""
+    parsed = native_io.parse_edge_text(path, weighted)
+    if parsed is not None:
+        return parsed
+    data = np.loadtxt(path, dtype=np.int64, ndmin=2)
+    w = data[:, 2].astype(np.int32) if weighted else None
+    return data[:, 0], data[:, 1], w

@@ -3,9 +3,11 @@
 Vertices are split into contiguous edge-balanced ranges (partition.py);
 every part is padded to the same ``nv_pad`` vertices and ``e_pad`` edges
 (multiples of 128) and the parts are stacked along a leading axis.  The
-arrays are built in numpy exactly as ``lux_tpu.graph.shards`` builds them
-(byte-identical for the same graph), then moved to a torch device with
-:func:`to_device`.
+arrays are built on the host exactly as ``lux_tpu.graph.shards`` builds
+them (byte-identical for the same graph and options), then moved to a
+torch device with :func:`to_device`.  The source positions are filled by
+the native host library when it builds (native/io.fill_src_pos), else by
+numpy; the bundle's ``host_io`` says which ran.
 
 Key encodings:
   * ``src_pos`` is each edge's source position in the padded concatenated
@@ -14,10 +16,18 @@ Key encodings:
   * CSC edges are sorted by destination, so destination segments are
     encoded once as ``row_ptr``/``head_flag``, and padding slots carry the
     sentinel ``dst_local == nv_pad``.
+
+Two gather relayouts, the reference's answer to the gather's working set:
+``sort_segments`` orders each destination segment's sources ascending
+(float sums round differently, deterministically), and ``compact_gather``
+gathers through each part's sorted unique in-sources (``mirror_pos``,
+``mirror_rel``), bitwise the direct layout.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -25,6 +35,7 @@ import torch
 
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.partition import edge_balanced_cuts
+from lux_tpu_torch.native import io as native_io
 
 LANE = 128  # pad 1-D extents to multiples of this (layout parity)
 
@@ -63,8 +74,11 @@ class ShardArrays(NamedTuple):
       degree:    (P, V)   int32  out-degree of each local vertex.
       global_vid:(P, V)   int32  global vertex id (nv-1 on padding slots).
       weights:   (P, E)   float32 edge weights (zeros when unweighted).
-      mirror_pos:(P, 0)   int32  compact-gather mirror (not built here;
-      mirror_rel:(P, 0)   int32  kept zero-width for layout parity).
+      mirror_pos:(P, U)   int32  compact-gather mirror: the part's unique
+                 in-source positions, ascending (U = 0 without the layout).
+      mirror_rel:(P, E)   int32  each edge's index into its part's mirror
+                 (mirror_pos[mirror_rel] == src_pos on real edges); (P, 0)
+                 without the layout.
     """
 
     row_ptr: np.ndarray
@@ -91,6 +105,8 @@ class PullShards:
     spec: ShardSpec
     arrays: ShardArrays
     cuts: np.ndarray  # (P+1,) vertex cut points
+    #: the host path the source positions were filled by: "native" or "numpy"
+    host_io: str = "numpy"
 
     def scatter_to_global(self, stacked: np.ndarray) -> np.ndarray:
         """Collapse a (P, nv_pad, ...) stacked state to (nv, ...) order."""
@@ -183,9 +199,10 @@ def fill_part(
     rp = np.asarray(rp_local, np.int32)
     arrays.row_ptr[i, : n + 1] = rp
     arrays.row_ptr[i, n + 1 :] = m  # padded vertices: empty tail ranges
-    srcs64 = np.asarray(srcs, np.int64)
-    own = (np.searchsorted(cuts, srcs64, side="right") - 1).astype(np.int64)
-    arrays.src_pos[i, :m] = (own * nv_pad + (srcs64 - cuts[own])).astype(np.int32)
+    if native_io.fill_src_pos(srcs, cuts, nv_pad, arrays.src_pos[i, :m]) is None:
+        srcs64 = np.asarray(srcs, np.int64)
+        own = (np.searchsorted(cuts, srcs64, side="right") - 1).astype(np.int64)
+        arrays.src_pos[i, :m] = (own * nv_pad + (srcs64 - cuts[own])).astype(np.int32)
     arrays.dst_local[i, :m] = np.repeat(
         np.arange(n, dtype=np.int32), np.diff(rp[: n + 1])
     )
@@ -200,29 +217,137 @@ def fill_part(
         arrays.weights[i, :m] = np.asarray(w, np.float32)
 
 
+def sort_segments_inplace(arrays: ShardArrays) -> None:
+    """Order the edges WITHIN each destination segment by ascending
+    gather index (src_pos): the gather-locality relayout.
+
+    Every shipped combiner is commutative, so the order inside a segment
+    is free; float sums round differently from the unsorted layout, but
+    the choice is fixed, so reruns stay bitwise equal.  Only src_pos and
+    weights move: dst_local is the primary key, so row_ptr, head_flag,
+    edge_mask and the padding tail stay.  The permutation is the
+    reference's ``lexsort((src_pos, dst_local))`` (ties keep their
+    order), taken as stable argsorts of the key dst * G + src over
+    pieces of a part that begin at segment starts (nothing crosses a
+    segment start), sorted on threads of their own (numpy sorts outside
+    the interpreter lock)."""
+    if not arrays.src_pos.size:
+        return
+    g = int(arrays.src_pos.max()) + 1
+    P, E = arrays.src_pos.shape
+    pieces = max(1, (os.cpu_count() or 1) // P)
+    work = []
+    for r in range(P):
+        starts = arrays.row_ptr[r]  # segment starts; starts[-1] begins the padding
+        at = np.searchsorted(starts, np.arange(1, pieces) * (E // pieces))
+        cuts = np.unique(np.concatenate([[0, E], starts[np.minimum(at, len(starts) - 1)]]))
+        work += [(r, int(lo), int(hi)) for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]
+
+    def sort_piece(item):
+        r, lo, hi = item
+        key = arrays.dst_local[r, lo:hi].astype(np.int64) * g + arrays.src_pos[r, lo:hi]
+        order = np.argsort(key, kind="stable")
+        arrays.src_pos[r, lo:hi] = arrays.src_pos[r, lo:hi][order]
+        arrays.weights[r, lo:hi] = arrays.weights[r, lo:hi][order]
+
+    each_part(work, sort_piece)
+
+
+def build_compact_mirror(arrays: ShardArrays, u_pad: Optional[int] = None) -> ShardArrays:
+    """Attach the compact-gather mirror to filled pull-layout arrays.
+
+    Per part: ``mirror_pos`` = the sorted unique src_pos of the real
+    edges, padded to one lane-aligned width U by repeating position 0 (a
+    harmless gather of a valid slot), and ``mirror_rel`` = each edge's
+    index into it (padding edges map to 0; the dst_local sentinel drops
+    their contributions).  The remap is exact, so results are bitwise the
+    direct layout's.  Composes with :func:`sort_segments_inplace` (call
+    that first; the remap is monotone, so the sorted order survives).
+
+    ``u_pad`` fixes the width (a subset load passes the width of the
+    whole file, sharded_load.compact_width_from_file); raises ValueError
+    when a part needs more.  Same arrays as the reference's unique +
+    searchsorted, from one presence mark over the gathered state."""
+    P = arrays.src_pos.shape[0]
+    g = int(arrays.src_pos.max()) + 1 if arrays.src_pos.size else 1
+    marks = [np.zeros(g, bool) for _ in range(P)]
+
+    def mark_part(p):
+        marks[p][arrays.src_pos[p][arrays.edge_mask[p]]] = True
+
+    each_part(range(P), mark_part)
+    need = max((int(m.sum()) for m in marks), default=1) or 1
+    if u_pad is None:
+        u_pad = max(LANE, _round_up(need, LANE))
+    elif u_pad < need:
+        raise ValueError(f"compact u_pad {u_pad} < required width {need}")
+    mirror_pos = np.zeros((P, u_pad), np.int32)
+    mirror_rel = np.zeros_like(arrays.src_pos)
+
+    def fill_part_mirror(p):
+        u = np.flatnonzero(marks[p])
+        mirror_pos[p, : len(u)] = u
+        # the count of mirror entries below each position: searchsorted(u, s)
+        below = np.cumsum(marks[p], dtype=np.int64) - marks[p]
+        mirror_rel[p] = np.clip(below[arrays.src_pos[p]], 0, u_pad - 1)
+
+    each_part(range(P), fill_part_mirror)
+    return arrays._replace(mirror_pos=mirror_pos, mirror_rel=mirror_rel)
+
+
+def each_part(items, fn) -> None:
+    """fn(item) for every item, on up to one thread a core (the items
+    write disjoint slices)."""
+    items = list(items)
+    workers = min(len(items), os.cpu_count() or 1)
+    if workers <= 1:
+        for it in items:
+            fn(it)
+        return
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        list(ex.map(fn, items))
+
+
 def build_pull_shards(
     g: HostGraph,
     num_parts: int,
     degrees: Optional[np.ndarray] = None,
     cuts: Optional[np.ndarray] = None,
+    sort_segments: bool = False,
+    compact_gather: bool = False,
 ) -> PullShards:
     """Partition + pad a HostGraph into pull-model shards (numpy arrays;
     :func:`to_device` moves them).  ``cuts``: (P+1,) contiguous vertex
-    bounds instead of the edge-balanced ones."""
-    cuts, nv_pad, e_pad = shard_geometry(g.row_ptr, num_parts, cuts)
-    if degrees is None:
-        degrees = g.out_degrees()
-    arrays = alloc_arrays(num_parts, nv_pad, e_pad)
-    for p in range(num_parts):
-        vlo, vhi = int(cuts[p]), int(cuts[p + 1])
-        elo, ehi = int(g.row_ptr[vlo]), int(g.row_ptr[vhi])
-        fill_part(
-            arrays, p, vlo, vhi,
-            g.row_ptr[vlo : vhi + 1] - elo,
-            g.col_idx[elo:ehi],
-            None if g.weights is None else g.weights[elo:ehi],
-            cuts, nv_pad, g.nv, degrees[vlo:vhi],
-        )
+    bounds instead of the edge-balanced ones.  ``sort_segments`` applies
+    :func:`sort_segments_inplace`, ``compact_gather`` attaches
+    :func:`build_compact_mirror`.  The build is a ``graph.build``
+    recorder span that names the host path."""
+    from lux_tpu_torch import obs
+
+    host_io = native_io.host_path()
+    with obs.span("graph.build", kind="pull", parts=num_parts, host_io=host_io,
+                  sort_segments=sort_segments, compact_gather=compact_gather):
+        cuts, nv_pad, e_pad = shard_geometry(g.row_ptr, num_parts, cuts)
+        if degrees is None:
+            degrees = g.out_degrees()
+        arrays = alloc_arrays(num_parts, nv_pad, e_pad)
+
+        def fill(p):  # each part fills its own rows
+            vlo, vhi = int(cuts[p]), int(cuts[p + 1])
+            elo, ehi = int(g.row_ptr[vlo]), int(g.row_ptr[vhi])
+            fill_part(
+                arrays, p, vlo, vhi,
+                g.row_ptr[vlo : vhi + 1] - elo,
+                g.col_idx[elo:ehi],
+                None if g.weights is None else g.weights[elo:ehi],
+                cuts, nv_pad, g.nv, degrees[vlo:vhi],
+            )
+
+        each_part(range(num_parts), fill)
+        if sort_segments:
+            sort_segments_inplace(arrays)
+        if compact_gather:
+            arrays = build_compact_mirror(arrays)
     spec = ShardSpec(
         num_parts=num_parts,
         nv=g.nv,
@@ -231,7 +356,7 @@ def build_pull_shards(
         e_pad=e_pad,
         weighted=g.weights is not None,
     )
-    return PullShards(spec=spec, arrays=arrays, cuts=cuts)
+    return PullShards(spec=spec, arrays=arrays, cuts=cuts, host_io=host_io)
 
 
 def to_device(arrays: ShardArrays, device) -> ShardArrays:

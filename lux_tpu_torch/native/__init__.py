@@ -1,12 +1,16 @@
-"""ctypes binding of the native route colorer (``lux_route.cc``).
+"""ctypes binding of the native route colorer (``lux_route.cc``), and the
+build shared by every native source of the package.
 
 Counterpart of the route part of ``lux_tpu.native``: the batched
 Euler-split edge coloring under Benes route construction
-(:mod:`lux_tpu_torch.ops.route`).  The source is this package's own copy;
-it is compiled with ``g++ -O3 -std=c++17 -shared -fPIC -pthread`` at
-first use into ``lux_tpu_torch/native/build/`` (git-ignored), named by a
-hash of the source and flags, so an edit rebuilds and a rerun reuses.
-Nothing is built at import.
+(:mod:`lux_tpu_torch.ops.route`).  The host I/O library and the
+``lux-convert`` executable are bound in :mod:`lux_tpu_torch.native.io`.
+Each source is this package's own copy; it is compiled with g++ at first
+use into ``lux_tpu_torch/native/build/`` (git-ignored), named by a hash
+of the sources and flags, so an edit rebuilds and a rerun reuses.  A
+build writes a private temporary file and renames it into place, so
+processes that build at once never see a partial file.  Nothing is built
+at import.
 
 When no compiler is present or the build fails, :func:`route_color`
 returns None and the caller runs the numpy Euler walk instead
@@ -40,25 +44,36 @@ _tried = False
 _LIB_LOCK = threading.Lock()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"liblux_route-{h.hexdigest()[:16]}.so"
+def artifact_path(stem: str, sources, flags, suffix: str = "") -> Path:
+    """Where the build of ``sources`` under ``flags`` lives: a name
+    hashed from the sources' bytes and the flags."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}{suffix}"
 
 
-def _build(out: Path) -> bool:
+def build_artifact(sources, flags, out: Path) -> bool:
+    """Compile ``sources`` with ``flags`` into ``out`` (a private
+    temporary file renamed into place); False without a compiler or
+    when the compile fails."""
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         return False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}.{threading.get_ident()}")
+    proc = subprocess.run([cxx, *flags, "-o", str(tmp), *map(str, sources)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         return False
     os.replace(tmp, out)
     return True
+
+
+def library_path() -> Path:
+    return artifact_path("liblux_route", (SOURCE,), CXX_FLAGS, ".so")
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -72,7 +87,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True  # one failed attempt is final for the process
         out = library_path()
-        if not out.exists() and not _build(out):
+        if not out.exists() and not build_artifact((SOURCE,), CXX_FLAGS, out):
             return None
         try:
             lib = ctypes.CDLL(str(out))

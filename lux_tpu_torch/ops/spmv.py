@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.graph.csc import HostGraph
+from lux_tpu_torch.native import io as native_io
 from lux_tpu_torch.ops import cuda_build
 
 V_BLK = 512  # output vertex block
@@ -66,6 +67,8 @@ class BlockCSR:
     chunk_first: np.ndarray
     v_blk: int = V_BLK
     t_chunk: int = T_CHUNK
+    #: the host path the chunks were filled by: "native" or "numpy"
+    host_io: str = "numpy"
 
 
 def build_blockcsr(
@@ -74,12 +77,25 @@ def build_blockcsr(
     v_blk: int = V_BLK,
     t_chunk: int = T_CHUNK,
 ) -> BlockCSR:
-    """Re-lay out a CSC graph into chunk-aligned vertex blocks (numpy;
-    byte-identical to ``lux_tpu.ops.pallas_spmv.build_blockcsr``).
+    """Re-lay out a CSC graph into chunk-aligned vertex blocks
+    (byte-identical to ``lux_tpu.ops.pallas_spmv.build_blockcsr``).
 
     ``src_pos`` defaults to the raw source ids (single-part layout).
     Every block gets at least one chunk, so an empty block is one chunk
-    of padding."""
+    of padding.  The chunks are filled by the native host library's one
+    pass over row_ptr when it builds (native/io.blockcsr_fill), else by
+    numpy's flat scatters (the fallback and the oracle); the build is a
+    ``graph.build`` recorder span that names the host path."""
+    from lux_tpu_torch import obs
+
+    host_io = native_io.host_path()
+    with obs.span("graph.build", kind="blockcsr", host_io=host_io):
+        bc = _build_blockcsr(g, src_pos, v_blk, t_chunk)
+    bc.host_io = host_io
+    return bc
+
+
+def _build_blockcsr(g: HostGraph, src_pos, v_blk: int, t_chunk: int) -> BlockCSR:
     if src_pos is None:
         src_pos = g.col_idx.astype(np.int32)
     num_vblocks = _round_up(g.nv, v_blk) // v_blk
@@ -101,19 +117,24 @@ def build_blockcsr(
     if g.weights is not None:
         e_weight = np.zeros((num_chunks, t_chunk), np.float32)
 
-    # every edge's chunk and slot computed array-wise, then placed with one
-    # flat scatter per array (edges are CSC-ordered, blocks contiguous)
-    dst = g.dst_of_edges()
-    e_block = np.repeat(np.arange(num_vblocks, dtype=np.int64),
-                        block_hi - block_lo)
-    within = np.arange(ne, dtype=np.int64) - block_lo[e_block]
-    e_chunk = chunk_start[e_block] + within // t_chunk
-    flat = e_chunk * t_chunk + within % t_chunk
-    e_src_pos.reshape(-1)[flat] = src_pos[:ne]
-    e_dst_rel.reshape(-1)[flat] = (
-        dst[:ne].astype(np.int64) - e_block * v_blk).astype(np.int32)
-    if e_weight is not None:
-        e_weight.reshape(-1)[flat] = g.weights[:ne]
+    if native_io.blockcsr_fill(
+            g.row_ptr, src_pos[:ne], None if g.weights is None else g.weights[:ne],
+            v_blk, t_chunk, chunk_start[:-1], e_src_pos.reshape(-1),
+            e_dst_rel.reshape(-1),
+            None if e_weight is None else e_weight.reshape(-1)) is None:
+        # every edge's chunk and slot computed array-wise, then placed with
+        # one flat scatter per array (edges are CSC-ordered, blocks contiguous)
+        dst = g.dst_of_edges()
+        e_block = np.repeat(np.arange(num_vblocks, dtype=np.int64),
+                            block_hi - block_lo)
+        within = np.arange(ne, dtype=np.int64) - block_lo[e_block]
+        e_chunk = chunk_start[e_block] + within // t_chunk
+        flat = e_chunk * t_chunk + within % t_chunk
+        e_src_pos.reshape(-1)[flat] = src_pos[:ne]
+        e_dst_rel.reshape(-1)[flat] = (
+            dst[:ne].astype(np.int64) - e_block * v_blk).astype(np.int32)
+        if e_weight is not None:
+            e_weight.reshape(-1)[flat] = g.weights[:ne]
     chunk_block = np.repeat(np.arange(num_vblocks, dtype=np.int32),
                             chunks_per_block)
     chunk_first = np.zeros(num_chunks, np.int32)

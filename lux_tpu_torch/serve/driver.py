@@ -47,13 +47,15 @@ class ServeRunResult:
 def _validate(cfg: RunConfig) -> None:
     """The reference's refusals: --serve is the single-process batched
     service (allgather pull layout, unweighted programs).  The flags of
-    the distributed and layout features it also refuses never reach
-    here: parse_args rejects them as not ported."""
+    the distributed features it also refuses never reach here:
+    parse_args rejects them as not ported."""
     bad = []
     if cfg.method == "pallas":
         bad.append("--method pallas")
     if cfg.route_gather:
         bad.append("--route-gather")
+    if cfg.compact_gather or cfg.sort_segments:
+        bad.append("--compact-gather/--sort-segments")
     if cfg.ckpt_every or cfg.ckpt_dir:
         bad.append("checkpointing")
     if cfg.repartition_every:

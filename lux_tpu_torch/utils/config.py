@@ -7,7 +7,8 @@ on the one device (``--method pallas`` runs one).  The pull apps
 and the checkpoint flags; the push apps (``push=True``:
 SSSP, components and bfs) ``-verbose/-v``, ``--max-iters``, the checkpoint
 flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
-``--weighted`` and ``--delta``; the apps with a streamed driver
+``--weighted`` and ``--delta``; both the gather relayouts
+``--sort-segments`` and ``--compact-gather``; the apps with a streamed driver
 (``stream=True``) ``--stream-hbm-gib``; and the generic program driver
 (``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
 knobs and ``--max-iters``; SSSP and PageRank (``serve=True``) the
@@ -71,8 +72,7 @@ def env_float(name: str, default: Optional[float] = None, *,
 #: apps took them, the push flags on the apps that do not take them)
 NOT_PORTED = (
     "-start", "-verbose", "-v", "--max-iters", "--distributed",
-    "--exchange", "--edge-shards", "--feat-shards",
-    "--sort-segments", "--compact-gather", "--weighted",
+    "--exchange", "--edge-shards", "--feat-shards", "--weighted",
 )
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
@@ -116,6 +116,12 @@ class RunConfig:
     repartition_every: int = 0
     #: recut when the window's max/mean per-part load exceeds this
     repartition_threshold: float = 1.25
+    #: gather-locality relayout: each destination segment's edges ordered
+    #: by src_pos (graph/shards.sort_segments_inplace)
+    sort_segments: bool = False
+    #: compact-gather layout: each part gathers through its unique
+    #: in-sources (graph/shards.build_compact_mirror)
+    compact_gather: bool = False
     #: --serve: run the app as a batched query service (serve/): warm
     #: Q-bucket engines + the micro-batching scheduler instead of one
     #: whole-graph run
@@ -164,6 +170,27 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                         help="save state every N iterations")
     if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
+    if pull:
+        ap.add_argument("--sort-segments", action="store_true",
+                        help="reorder edges within each destination segment "
+                             "by gather index (gather locality; commutative "
+                             "reduces only: float sums round differently "
+                             "from the unsorted layout, deterministically)")
+        ap.add_argument("--compact-gather", action="store_true",
+                        help="two-stage gather through a per-part unique-"
+                             "in-source mirror (working set O(unique "
+                             "sources) instead of O(nv); bitwise-identical "
+                             "results)")
+    if push:
+        ap.add_argument("--sort-segments", action="store_true",
+                        help="reorder the dense-round pull layout's edges "
+                             "within each destination segment by gather "
+                             "index (gather locality; bitwise-free for "
+                             "min/max relaxation)")
+        ap.add_argument("--compact-gather", action="store_true",
+                        help="dense rounds gather through a per-part "
+                             "unique-in-source mirror (working set "
+                             "O(unique sources); bitwise-identical)")
     if push:
         ap.add_argument("--repartition-every", type=int, default=0,
                         help="rebalance vertex cuts from measured per-part "
@@ -304,6 +331,8 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         stream_hbm_gib=getattr(ns, "stream_hbm_gib", 0.0),
         repartition_every=getattr(ns, "repartition_every", 0),
         repartition_threshold=getattr(ns, "repartition_threshold", 1.25),
+        sort_segments=getattr(ns, "sort_segments", False),
+        compact_gather=getattr(ns, "compact_gather", False),
         serve=getattr(ns, "serve", False),
         serve_queries=getattr(ns, "serve_queries", 64),
         serve_sources=getattr(ns, "serve_sources", ""),

@@ -1033,3 +1033,136 @@ def test_autopilot_on_card(cuda):
     assert rep["scale_ups"] >= 1 and rep["elections"] == 1 and rep["compactions"] >= 1
     rep = chaos_soak(0, device="cuda")
     assert rep["writes"] >= 1 and rep["faults_injected"] > 0
+
+
+# --- the gather relayouts and the native host builds on the card ---------------
+
+
+def _relayout_shards(layout, parts=2, scale=12):
+    from lux_tpu_torch.graph import generate
+
+    g = generate.rmat(scale, 8, seed=41)
+    return g, shards.build_pull_shards(g, parts, sort_segments="sorted" in layout,
+                                       compact_gather="compact" in layout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["sorted", "compact", "sorted+compact"])
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.int32),
+                                      ("max", torch.int32)])
+def test_relayout_scan_kernel_matches_plain(cuda, layout, op, dtype):
+    """mxscan_segmented over each relayout's gathered values: int32
+    min/max bitwise the plain version, f32 sums within rtol 1e-5 of
+    float64; the compact gather bitwise the direct one on every real
+    slot."""
+    from lux_tpu_torch.engine import pull
+
+    _, sh = _relayout_shards(layout)
+    arrays = shards.to_device(sh.arrays, cuda)
+    rng = np.random.default_rng(42)
+    n = sh.spec.gathered_size
+    full = (torch.from_numpy(rng.integers(-10**6, 10**6, n).astype(np.int32))
+            if dtype == torch.int32 else torch.from_numpy(rng.random(n, dtype=np.float32) + 0.01))
+    full = full.to(cuda)
+    for p in range(sh.spec.num_parts):
+        a = arrays.part(p)
+        vals = pull.gather_sources(a, full).contiguous()
+        m = a.edge_mask  # padding slots read the mirror's slot 0 instead
+        assert torch.equal(vals[m], full.index_select(0, a.src_pos)[m])
+        end = a.row_ptr[-1:]
+        before = scan.mxscan_segmented.launches
+        got = scan.mxscan_segmented(vals, a.head_flag, op=op, valid_end=end)
+        assert scan.mxscan_segmented.launches == before + 1
+        k = int(end)
+        if op == "sum":
+            want = _seg_scan_sum_f64(vals, a.head_flag, k)
+            torch.testing.assert_close(got[:k].double(), want, rtol=1e-5, atol=0)
+        else:
+            plain = scan.mxscan_segmented_plain(vals, a.head_flag, op=op, valid_end=end)
+            assert torch.equal(got[:k], plain[:k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("app,extra", [("pagerank", ["-ni", "10", "--method", "mxscan"]),
+                                       ("sssp", ["--method", "mxscan"]),
+                                       ("components", ["--method", "mxscan"])])
+def test_compact_gather_bitwise_direct_on_card(cuda, app, extra):
+    """The apps on the card: --compact-gather bitwise the default layout,
+    --sort-segments --compact-gather bitwise --sort-segments, and the
+    build line names the native host path."""
+    import importlib
+
+    run = importlib.import_module(f"lux_tpu_torch.apps.{app}").run
+    base = ["--rmat-scale", "12", "--rmat-ef", "8", "-ng", "2", "--device", "cuda",
+            "-check"] + extra
+    out = {}
+    for layout in ([], ["--compact-gather"], ["--sort-segments"],
+                   ["--sort-segments", "--compact-gather"]):
+        res = run(base + layout)
+        assert res.rc == 0
+        out[tuple(layout)] = res.ranks if app == "pagerank" else res.state
+    assert np.array_equal(out[("--compact-gather",)], out[()])
+    assert np.array_equal(out[("--sort-segments", "--compact-gather")],
+                          out[("--sort-segments",)])
+    if app != "pagerank":  # min/max relaxation is order-free
+        assert np.array_equal(out[("--sort-segments",)], out[()])
+    else:
+        g = res.graph
+        np.testing.assert_allclose(out[("--sort-segments",)], pr.pagerank_reference(g, 10),
+                                   rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.int32)])
+def test_native_blockcsr_spmv_matches_plain(cuda, op, dtype):
+    """spmv_blockcsr on a block-CSR filled by the native host library
+    (bitwise the NumPy fill) against its plain version."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.native import io as native_io
+
+    g = generate.rmat(13, 8, seed=43, weighted=True)
+    bc = spmv.build_blockcsr(g)
+    with native_io.numpy_path():
+        npy = spmv.build_blockcsr(g)
+    assert bc.host_io == "native" and npy.host_io == "numpy"
+    for f in ("e_src_pos", "e_dst_rel", "e_weight", "chunk_block", "chunk_first"):
+        assert np.array_equal(getattr(bc, f), getattr(npy, f)), f
+    rng = np.random.default_rng(44)
+    state = (torch.from_numpy(rng.integers(-1000, 1000, g.nv).astype(np.int32))
+             if dtype == torch.int32 else torch.from_numpy(rng.random(g.nv, dtype=np.float32)
+                                                           + 0.01))
+    vals = state.to(cuda)[torch.from_numpy(bc.e_src_pos).to(cuda).long()].contiguous()
+    args = (torch.from_numpy(bc.e_dst_rel).to(cuda), torch.from_numpy(bc.chunk_block).to(cuda),
+            torch.from_numpy(bc.chunk_first).to(cuda))
+    kw = dict(op=op, v_blk=bc.v_blk, num_vblocks=bc.num_vblocks)
+    got = spmv.spmv_blockcsr(vals, *args, **kw)
+    if op == "sum":
+        want = _spmv_sum_f64(vals, args[0], args[1], bc.v_blk, bc.num_vblocks)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, spmv.spmv_blockcsr_plain(vals, *args, **kw))
+
+
+@pytest.mark.gpu
+def test_sorted_routed_kernels_match_plain(cuda):
+    """Plans over the sorted src_pos: the expand-pf replay (lane_gather,
+    fused_pass_gather) bitwise the direct gather on every real slot; the
+    app's --sort-segments --route-gather fused-pf within rtol 1e-5 of
+    float64."""
+    from lux_tpu_torch.apps import pagerank as app
+
+    g, sh = _relayout_shards("sorted", parts=1, scale=13)
+    st, arrs = expand.plan_to_device(expand.plan_expand_shards(sh, pf=True), cuda)
+    part = tuple(a[0] for a in arrs)
+    full = torch.from_numpy(np.random.default_rng(45).random(sh.spec.gathered_size,
+                                                             dtype=np.float32)).to(cuda)
+    lane0, fused0 = shuffle.lane_gather.launches, shuffle.fused_pass_gather.launches
+    got = expand.apply_expand(full, st, part)
+    assert shuffle.lane_gather.launches > lane0 and shuffle.fused_pass_gather.launches > fused0
+    m = torch.from_numpy(sh.arrays.edge_mask[0]).to(cuda)
+    want = full.index_select(0, torch.from_numpy(sh.arrays.src_pos[0]).to(cuda))
+    assert torch.equal(got[m], want[m])
+    res = app.run(["--rmat-scale", "13", "--rmat-ef", "8", "-ni", "10", "--sort-segments",
+                   "--route-gather", "fused-pf", "--device", "cuda", "-check"])
+    assert res.rc == 0 and res.route_gather == "fused-pf"
+    np.testing.assert_allclose(res.ranks, pr.pagerank_reference(res.graph, 10), rtol=1e-5)

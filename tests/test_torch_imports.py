@@ -15,12 +15,14 @@ names = sorted(m.name for m in pkgutil.walk_packages(lux_tpu_torch.__path__, "lu
 for n in names:
     importlib.import_module(n)
 from lux_tpu_torch import native
+from lux_tpu_torch.native import io as native_io
 recorder = importlib.import_module("lux_tpu_torch.obs.recorder")
 from lux_tpu_torch.ops import cuda_build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "lux_tpu" or m.startswith("lux_tpu."))
 print(json.dumps({"modules": names, "bad": bad, "libs": sorted(cuda_build._libs),
-                  "native": native._lib is not None or native._tried,
+                  "native": (native._lib is not None or native._tried
+                             or native_io._lib is not None or native_io._tried),
                   "recorder": recorder._RECORDER is not None}))
 """
 
@@ -58,6 +60,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "serve.autopilot.autoscaler", "serve.autopilot.election",
                  "serve.autopilot.subscribe", "analysis", "analysis.proto",
                  "analysis.proto.mc", "analysis.proto.election_model",
-                 "analysis.proto.export", "fault.chaos", "tools.autopilot_demo"):
+                 "analysis.proto.export", "fault.chaos", "tools.autopilot_demo",
+                 "native.io", "tools.converter", "tools.gen_graph",
+                 "tools.biggraph_check"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 70

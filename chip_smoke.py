@@ -9,7 +9,9 @@ the batched query service (--serve) through the apps, dynamic graphs
 the cold start and observability surface (the plan disk cache in the
 apps, overlapped planning, the telemetry ring, --profile-dir, the flight
 recorder's event log, which every phase of the smoke and every worker
-process writes into one run directory under LUX_OBS_DIR), the serving
+process writes into one run directory under LUX_OBS_DIR), the bf16 and
+weighted-edge forms of the scan, mx and spmv kernels (weighted SSSP on
+the pull-until fused-mx path), the serving
 fleet and a pod (serve/fleet: replica and pod workers as CUDA processes
 on the card), live serving (serve/live: live replica workers as CUDA
 processes taking writes, with standing queries), the autopilot
@@ -55,11 +57,21 @@ Phases, each printing one JSON line with its seconds:
               and threads, and the colorer's calls over all of them (the
               native one must have run).  The three chains (expand then
               expand-pf, fused then fused-pf, fused-mx) and the fused-pf
-              plan of phase 22's post-compaction base and the
-              --sort-segments fused-pf plan of phase 24 (RMAT 18) build at
-              once, each in a process of its own, beside each other only:
-              no timed phase runs until they are done; then this process
-              loads every family of the main graph from the cache.
+              plan of phase 22's post-compaction base, the
+              --sort-segments fused-pf plan of phase 24 (RMAT 18) and the
+              "min" fused-mx plan of phase 13b's weighted graph build at
+              once, each in a process of its own, started after phase 3.
+              The card works meanwhile: phases 17 and 9-14, which need of
+              these plans only the expand chain's (loaded from the cache
+              once that chain is done), run beside the builds, so their
+              host-clock times are taken under that load; every kernel
+              table timing (phases 3, 5, 7, 13b) and the CF runs run
+              outside it.  Then this process waits for the rest
+              (`wait_seconds`) and loads every family of the main graph
+              from the cache.  The order of the run: 1-3, 17, 9-14, 4,
+              5, 6, 13b, 7, 8, 16, 18, 19, cf_accuracy, 15, 20-24; the
+              oracles of cf_accuracy and phases 15, 18 and 22 start after
+              7, once the host's cores are free.
   5. routed   the four routed-pull kernels against their plain versions:
               lane_gather (u8/int32 indices, f32/bf16/int32 values, small
               row counts and the main path's (2^24/128, 128)),
@@ -148,6 +160,25 @@ Phases, each printing one JSON line with its seconds:
               edges, ms, GTEPS, launches; the scan kernel's int32 min at
               one dense round of the weighted layout against its plain
               version.
+  13b. variants the bf16 and weighted-edge forms at the main path's
+              shapes, each driven once through its entry point with every
+              counter 0 just before: mxscan_segmented bf16 sum, min and max
+              (ops/segment.segment_*_csc(method="mxscan") over the main pull
+              layout's slots), spmv_blockcsr bf16 min and max (the main
+              block-CSR; library: scatter_reduce_ amin/amax) and
+              mxreduce_pass_gather bf16 sum on phase 4's main fused-mx plan
+              and bf16 min on the weighted graph's "min" plan
+              (ops/expand.apply_fused).  min/max bitwise their plain twins
+              and the scatter reduce; bf16 scan sums within rtol / atol 2e-2
+              of float64, the mx sums' f32 totals within rtol 1e-5; each
+              timed (20 launches) beside its bound, its plain twin and its
+              launches.  Then weighted SSSP (library.SSSP_WEIGHTED, inf 2^30)
+              through engine/pull.run_pull_until on the "min" fused-mx plan
+              (loaded from phase 4's cache) from the hub: an untimed run,
+              then a timed one, bitwise phase 13's `apps.sssp --weighted`
+              distances with 0 violations of check_distances; iterations,
+              ms an iteration, GTEPS and every kernel's launches
+              (mxreduce_pass_gather at least once an iteration).
   14. repart_main SSSP (from the lowest-numbered vertex of out-degree 1:
               a BFS with a sparse start) and components with -ng 4 on the
               card, static and --repartition-every 2 (threshold 1.05), and
@@ -299,7 +330,7 @@ Phases, each printing one JSON line with its seconds:
               policy's budget.  The scaler is told each level's offered
               load: the gates check its arithmetic and the join and
               retire, not overload detection.  autopilot_soak and chaos_soak at seed 0
-              (chaos_soak at 8 steps) with CUDA thread workers here;
+              (chaos_soak at 4 steps) with CUDA thread workers here;
               election_drill on the model checker's unfenced
               counterexample: 2 elections unfenced, 1 fenced.  No
               lux-launch-* directory of the launcher is left after it.
@@ -341,7 +372,9 @@ the fleet and pod worker processes of phases 20-21, which each report
 their own counters: ``launches_fleet``; in the live worker processes of
 phase 22, the killed one's last report included: ``launches_live``; the
 soaks of phase 23: ``launches_autopilot``; phase 24's runs:
-``launches_disk``), the smoke's seconds, the
+``launches_disk``; phase 13b's driven calls: ``launches_variants``, and
+on rows 1, 2 and 6 ``variants``, the new forms' own records), the
+smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
 last.  Any failed phase exits
 non-zero before the verdict; so does a machine without a CUDA device.
@@ -371,6 +404,7 @@ SCALE, EF, ITERS = 20, 16, 10  # the main path: RMAT 20 / ef 16, 10 iterations
 REPS = 20  # timed launches per kernel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SUM_RTOL = 1e-5
+BF16_RTOL = BF16_ATOL = 2e-2  # bf16 sums (one rounding to bf16) against float64
 RANK_RTOL = 1e-4
 ROUTED = ("expand", "", "fused", "fused-pf", "fused-mx")  # "" = the bare flag
 #: the kernel each main-path run must have launched >= ITERS times
@@ -950,12 +984,13 @@ def timed_plan(native, shuffle, mode: str, build):
     spaces, digits, kernel and step counts, seconds and the colorer's
     threads.  Builds run concurrently, so which colorer ran is counted
     over all of them by the caller (ops/route.COLOR_STATS)."""
-    t0 = time.perf_counter()
+    t0, c0 = time.perf_counter(), time.process_time()
     plan = build()
     seconds = time.perf_counter() - t0
     static, arrays = plan
+    # cpu_seconds: this process's CPU time over the build, every thread's
     rep = {"mode": mode, "n": static.n, "n2": getattr(static, "n2", None),
-           "seconds": seconds, "arrays": len(arrays),
+           "seconds": seconds, "cpu_seconds": time.process_time() - c0, "arrays": len(arrays),
            "bytes": int(sum(a.nbytes for a in arrays)),
            "threads": native.route_threads()}
     for k in ("r1", "r2", "vr"):
@@ -1876,6 +1911,228 @@ def delta_main(torch, np, kernels, smi, dev, tmp, long_w, plan_pf, hub, reps):
           "kernel": row, "seconds": time.perf_counter() - t0, "device": smi})
     del a, full, vals, sh
     return gw, runs, launches, row
+
+
+def variants_plan(plan_dir: str):
+    """Phase 4's sixth process: the "min" fused-mx plan of the weighted main
+    graph (RMAT SCALE / EF / seed 0, integer weights 1..100, drawn here from
+    the seed as the pool's long_weighted_graph draws it), built into the
+    plan cache that phase 13b loads.  Returns its seconds."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import expand
+
+    t0 = time.perf_counter()
+    g = generate.rmat(SCALE, EF, seed=0, weighted=True)
+    expand.plan_fused_shards_cached(build_pull_shards(g, 1), "min", cache_dir=plan_dir,
+                                    mx=True)
+    return {"scale": SCALE, "reduce": "min", "weighted": True,
+            "seconds": time.perf_counter() - t0, "process_cpu_seconds": time.process_time()}
+
+
+def bf16_sum_err(torch, got, want64, what: str) -> float:
+    """A bf16 sum against the same sum in float64, at BF16_RTOL / BF16_ATOL
+    (one rounding to bf16's 8 bits); the max abs difference."""
+    g64 = got.double()
+    diff = (g64 - want64).abs()
+    bad = diff > BF16_ATOL + BF16_RTOL * want64.abs()
+    require(not bool(bad.any()), f"{what}: {int(bad.sum())} places outside rtol "
+            f"{BF16_RTOL} / atol {BF16_ATOL} of float64")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def variant_row(torch, form: str, entry: str, launches: int, err: float, kernel, plain,
+                nbytes: int, library, reps: int) -> dict:
+    """One new form's record: its launches through ``entry`` on the path's
+    run, its error, and the kernel, plain and library times (means between
+    CUDA events) beside the bound of ``nbytes``."""
+    return {"form": form, "entry": entry, "launches": launches, "max_abs_err": err,
+            "ms": time_ms(torch, kernel, reps), "plain_ms": time_ms(torch, plain, max(2, reps // 4)),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
+            "library_ms": None if library is None else time_ms(torch, library, reps)}
+
+
+def variants_main(torch, np, kernels, smi, dev, g, sh, gw, w_dist, hub, plan_dir, plan_sum,
+                  reps):
+    """Phase 13b: the bf16 and weighted-edge forms of the scan, mx and spmv
+    kernels at the main path's shapes, each driven once through its entry
+    point (counters 0 just before, read just after), held against its plain
+    twin (min/max bitwise) or float64 sums, and timed; then weighted SSSP
+    through run_pull_until on the "min" fused-mx plan of phase 4 from the
+    hub, bitwise phase 13's apps.sssp --weighted distances.  Returns
+    ({kernel: [variant rows]}, {kernel: launches on the phase's driven
+    calls})."""
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+    from lux_tpu_torch.models import sssp as sssp_model
+    from lux_tpu_torch.ops import expand, scan, segment, shuffle, spmv
+    from lux_tpu_torch.program import library, spec
+
+    t0 = time.perf_counter()
+    rows = {"mxscan_segmented": [], "mxreduce_pass_gather": [], "spmv_blockcsr": []}
+    total = {k: 0 for k in kernels}
+
+    def drive(fn, *a, **kw):
+        res, counts, _ = counted(kernels, fn, *a, **kw)
+        for k, n in counts.items():
+            total[k] += n
+        return res, counts
+
+    rng = np.random.default_rng(23)
+    state = torch.from_numpy(rng.random(sh.spec.gathered_size, dtype=np.float32)
+                             + 0.01).to(dev).to(torch.bfloat16)
+
+    # the scan: segment_*_csc(method="mxscan") on the main pull layout's slots
+    a = to_device(sh.arrays, dev).part(0)
+    vals = state.index_select(0, a.src_pos).contiguous()
+    n = vals.numel()
+    end = a.row_ptr[-1:]
+    valid = torch.arange(n, device=dev) < end
+    for op in ("sum", "min", "max"):
+        fn = {"sum": segment.segment_sum_csc, "min": segment.segment_min_csc,
+              "max": segment.segment_max_csc}[op]
+        out, counts = drive(fn, vals, a.row_ptr, a.head_flag, a.dst_local, method="mxscan")
+        what = f"variants: scan bf16 {op}"
+        require(out.dtype == torch.bfloat16 and counts["mxscan_segmented"] == 1,
+                f"{what}: {out.dtype}, {counts['mxscan_segmented']} launches")
+        kernel = functools.partial(scan.mxscan_segmented, vals, a.head_flag, op=op,
+                                   valid_end=end)
+        plain = functools.partial(scan.mxscan_segmented_plain, vals, a.head_flag, op=op,
+                                  valid_end=end)
+        got = kernel()
+        if op == "sum":
+            ends = fn(vals.double(), a.row_ptr, a.head_flag, a.dst_local, method="scatter")
+            err = max(bf16_sum_err(torch, got[valid], scan.segmented_scan(
+                vals.double(), a.head_flag, torch.add)[valid], what),
+                bf16_sum_err(torch, out, ends, f"{what} (segment ends)"))
+        else:
+            err = compare(torch, got, plain(), True, valid, what=what)
+            require(torch.equal(out, fn(vals, a.row_ptr, a.head_flag, a.dst_local,
+                                        method="scatter")), f"{what}: ends differ from scatter")
+        require(torch.equal(got, kernel()), f"{what}: two calls differ")
+        rows["mxscan_segmented"].append(variant_row(
+            torch, f"bf16 {op}", f"ops/segment.segment_{op}_csc(method='mxscan')",
+            counts["mxscan_segmented"], err, kernel, plain, n * 5, None, reps))
+    del vals, valid
+
+    # the spmv: bf16 min and max on the main block-CSR layout
+    bc = spmv.build_blockcsr(g)
+    C, T = bc.e_dst_rel.shape
+    nv_pad = bc.num_vblocks * bc.v_blk
+    e_dst = torch.from_numpy(bc.e_dst_rel).to(dev)
+    cb = torch.from_numpy(bc.chunk_block).to(dev)
+    cf = torch.from_numpy(bc.chunk_first).to(dev)
+    sv = state[: g.nv]
+    svals = torch.cat([sv, sv.new_zeros(nv_pad - g.nv)])[
+        torch.from_numpy(bc.e_src_pos).to(dev).long()].contiguous()
+    flat = torch.from_numpy(np.where(
+        bc.e_dst_rel < bc.v_blk, bc.chunk_block[:, None].astype(np.int64) * bc.v_blk
+        + bc.e_dst_rel, nv_pad).reshape(-1)).to(dev)
+    for op in ("min", "max"):
+        kw = dict(op=op, v_blk=bc.v_blk, num_vblocks=bc.num_vblocks)
+        got, counts = drive(spmv.spmv_blockcsr, svals, e_dst, cb, cf, **kw)
+        what = f"variants: spmv bf16 {op}"
+        require(got.dtype == torch.bfloat16, f"{what}: {got.dtype}")
+        err = compare(torch, got, spmv.spmv_blockcsr_plain(svals, e_dst, cb, cf, **kw), True,
+                      what=what)
+        red = "amin" if op == "min" else "amax"
+        vflat = svals.reshape(-1)
+        rows["spmv_blockcsr"].append(variant_row(
+            torch, f"bf16 {op}", "ops/spmv.spmv_blockcsr", counts["spmv_blockcsr"], err,
+            functools.partial(spmv.spmv_blockcsr, svals, e_dst, cb, cf, **kw),
+            functools.partial(spmv.spmv_blockcsr_plain, svals, e_dst, cb, cf, **kw),
+            C * T * 6 + nv_pad * 2,
+            lambda: torch.full((nv_pad + 1,), float("inf") if op == "min" else float("-inf"),
+                               dtype=torch.bfloat16, device=dev).scatter_reduce_(
+                                   0, flat, vflat, red), reps))
+    del bc, e_dst, cb, cf, svals, flat
+
+    # the mx kernel: bf16 sum on phase 4's main fused-mx plan, bf16 min on the
+    # weighted graph's "min" plan (loaded from phase 4's cache)
+    shw = build_pull_shards(gw, 1)
+    built0 = expand.plan_stats_snapshot()["built"]
+    plan_min = expand.plan_fused_shards_cached(shw, "min", cache_dir=plan_dir, mx=True)
+    require(expand.plan_stats_snapshot()["built"] == built0,
+            "variants: the min fused-mx plan was built here, not loaded from phase 4's cache")
+    on_dev = {"sum": expand.plan_to_device(plan_sum, dev),
+              "min": expand.plan_to_device(plan_min, dev)}
+    for op, layout in (("sum", sh), ("min", shw)):
+        static, arrays = on_dev[op]
+        part = tuple(x[0] for x in arrays)
+        acc, counts = drive(expand.apply_fused, state, static, part)
+        what = f"variants: mx bf16 {op}"
+        require(counts["mxreduce_pass_gather"] == 1,
+                f"{what}: {counts['mxreduce_pass_gather']} mx launches")
+        la = to_device(layout.arrays, dev).part(0)
+        src = state.index_select(0, la.src_pos)
+        if op == "sum":
+            want = segment.segment_sum_csc(src.double(), la.row_ptr, la.head_flag, la.dst_local,
+                                           method="scatter")
+            require(acc.dtype == torch.float32, f"{what}: totals {acc.dtype}")
+            compare(torch, acc, want, False, what=f"{what} (apply_fused)")
+        else:
+            want = segment.segment_min_csc(src, la.row_ptr, la.head_flag, la.dst_local,
+                                           method="scatter")
+            require(acc.dtype == torch.bfloat16 and torch.equal(acc, want),
+                    f"{what}: apply_fused differs from the scatter min")
+        *_, mxa = expand.split_fused_arrays(static, part, static.weighted)
+        g_mx = static.mx
+        k = len(g_mx.steps)
+        idx, dst_rel, tile_block = mxa[:k], mxa[k], mxa[k + 1]
+        total_slots = sum(c for _, c, _ in static.groups)
+        x = torch.from_numpy(rng.random(static.n2, dtype=np.float32) + 0.01).to(dev)
+        y = shuffle._relayout(x.to(torch.bfloat16), g_mx.view, g_mx.perm_axes).reshape(
+            g_mx.kshape)
+        kernel = functools.partial(shuffle.mxreduce_pass_gather, y, idx, dst_rel, tile_block,
+                                   g_mx)
+        plain = functools.partial(shuffle.mxreduce_pass_gather_plain, y, idx, dst_rel,
+                                  tile_block, g_mx)
+        got = kernel()
+        want = (mx_sum_f64(torch, shuffle, y, idx, dst_rel, tile_block, g_mx) if op == "sum"
+                else plain())
+        err = compare(torch, got[:total_slots], want[:total_slots], op != "sum", what=what)
+        require(torch.equal(got, kernel()), f"{what}: two calls differ")
+        nbytes = (static.n2 * (2 + k * idx[0].element_size() + dst_rel.element_size())
+                  + g_mx.num_blocks * g_mx.v_blk * got.element_size())
+        rows["mxreduce_pass_gather"].append(variant_row(
+            torch, f"bf16 {op}", "ops/expand.apply_fused", counts["mxreduce_pass_gather"], err,
+            kernel, plain, nbytes, None, reps))
+        del la, src, want, x, y, got
+    del on_dev["sum"]
+    emit({"phase": "variants", "kernels": rows, "seconds": time.perf_counter() - t0,
+          "device": smi})
+
+    # the weighted path: run_pull_until on the "min" fused-mx plan, from the hub
+    t1 = time.perf_counter()
+    arrays = to_device(shw.arrays, dev)
+    prog = spec.bind(library.SSSP_WEIGHTED, inf=1 << 30, start=hub)
+    s0 = pull.init_state(prog, arrays)
+
+    def run():
+        out = pull.run_pull_until(prog, shw.spec, arrays, s0, 10_000, spec.active_changed,
+                                  route=on_dev["min"])
+        torch.cuda.synchronize()
+        return out
+
+    run()  # untimed: lazy loading, clocks
+    t2 = time.perf_counter()
+    (state_w, iters), counts = drive(run)
+    seconds = time.perf_counter() - t2
+    dist = shw.scatter_to_global(state_w.cpu().numpy())
+    bad = sssp_model.check_distances(gw, dist, weighted=True)
+    row = {"phase": "variants", "run": "weighted sssp pull-until fused-mx", "hub": hub,
+           "iters": iters, "ms_per_iter": seconds * 1e3 / iters, "ms": seconds * 1e3,
+           "gteps": iters * gw.ne / seconds / 1e9, "idle_share": "not measured",
+           "launches": counts, "violations": int(bad), "ne": gw.ne,
+           "wall_seconds": time.perf_counter() - t1, "device": smi}
+    emit(row)
+    require(np.array_equal(dist, w_dist),
+            "variants: weighted SSSP pull-until differs from phase 13's apps.sssp --weighted")
+    require(bad == 0, f"variants: {bad} violations of the weighted distances")
+    require(counts["mxreduce_pass_gather"] >= iters,
+            f"variants: mxreduce launched {counts['mxreduce_pass_gather']} times in {iters}")
+    emit({"phase": "variants", "seconds": time.perf_counter() - t0, "device": smi})
+    return rows, total, row
 
 
 def repart_main(np, kernels, smi, g, o_tail, o_labels):
@@ -3654,10 +3911,10 @@ LIVE_READERS, LIVE_RMW, LIVE_MIN_WINDOW_S = 2, 0.25, 10.0
 LIVE_BURST = 16  # the kill drill's queries, all answered by the survivor
 LIVE_PR_RTOL = 1e-4  # standing PageRank against the float64 fixpoint
 #: the autopilot phase: measure_autoscale over CUDA worker processes
-PILOT_WINDOW_S = 2.0  # seconds an offered level lasts
-CHAOS_STEPS = 8  # chaos_soak's churn steps (the reference's 16: ~15 s of wire-fault delays)
+PILOT_WINDOW_S = 1.5  # seconds an offered level lasts
+CHAOS_STEPS = 4  # chaos_soak's churn steps (the reference's 16: ~15 s of wire-fault delays)
 PILOT_OVERLOAD, PILOT_LOW = 4, 20  # levels at 1.5x, then 0.5x of the knee (after one at 0.5x)
-PILOT_COOLDOWN_S = 8.0
+PILOT_COOLDOWN_S = 5.0
 
 
 def live_sequence(g, n: int):
@@ -3701,7 +3958,8 @@ def live_plan(tmp: str, plan_dir: str):
     base = log.base
     expand.plan_fused_shards_cached(build_pull_shards(base, 1), "sum", cache_dir=plan_dir,
                                     pf=True)
-    return {"sha": graph_sha(base), "ne": base.ne, "seconds": time.perf_counter() - t0}
+    return {"sha": graph_sha(base), "ne": base.ne, "seconds": time.perf_counter() - t0,
+            "process_cpu_seconds": time.process_time()}
 
 
 def live_oracles(scale: int):
@@ -4157,8 +4415,8 @@ def autopilot_main(torch, np, kernels, smi, dev, snap, knee):
     detect the overload; each level's goodput, p99 and ``sustained`` are
     what the card measured, and are printed.  Then, with the replicas as
     CUDA thread workers here, fault/chaos.autopilot_soak(seed=0) at the
-    reference's sizes and chaos_soak(seed=0) at CHAOS_STEPS steps (the
-    reference's 16 halved for the smoke's clock), and election_drill on
+    reference's sizes and chaos_soak(seed=0) at CHAOS_STEPS steps (a
+    quarter of the reference's 16, for the smoke's clock), and election_drill on
     the unfenced election counterexample that the model checker finds
     (analysis/proto): the unfenced group reproduces the split brain (2
     elections), the fenced group absorbs the same schedule (1).
@@ -4258,7 +4516,8 @@ def sorted_plan(plan_dir: str):
     g = generate.rmat(SORTED_SCALE, EF, seed=0)
     expand.plan_fused_shards_cached(build_pull_shards(g, 1, sort_segments=True), "sum",
                                     cache_dir=plan_dir, pf=True)
-    return {"scale": SORTED_SCALE, "seconds": time.perf_counter() - t0}
+    return {"scale": SORTED_SCALE, "seconds": time.perf_counter() - t0,
+            "process_cpu_seconds": time.process_time()}
 
 
 @contextlib.contextmanager
@@ -4523,7 +4782,8 @@ def main() -> int:
     from lux_tpu_torch.utils.config import parse_args
 
     share_push_layouts(sssp_app)
-    # the host oracles take minutes: start them now, beside the card
+    # the host oracles take minutes: those of phase 4's window start now, beside
+    # the card; the rest after phase 7
     global _POOL, _TMP
     _TMP = tempfile.mkdtemp(prefix="lux_smoke_")
     # one flight-recorder run for the whole smoke: this process, the pool
@@ -4534,15 +4794,11 @@ def main() -> int:
     os.environ.pop("LUX_OBS", None)
     _POOL = concurrent.futures.ProcessPoolExecutor(
         4, mp_context=multiprocessing.get_context("spawn"))
-    cf_oracle = _POOL.submit(cf_oracle_f64, SCALE)
     push_oracle = _POOL.submit(push_oracles, SCALE)
     spec_oracle_a = _POOL.submit(spec_oracles_bfs_labelprop, SCALE)
     spec_oracle_b = _POOL.submit(spec_oracles_kcore_triangles, SCALE, TRI_SCALE)
+    serve_oracle = _POOL.submit(serve_oracles, SCALE)  # early: phase 17 opens phase 4's window
     long_w = _POOL.submit(long_weighted_graph, _TMP, SCALE)
-    long_s = _POOL.submit(long_stream_graph, _TMP, STREAM_SCALE)
-    serve_oracle = _POOL.submit(serve_oracles, SCALE)
-    mutate_oracle = _POOL.submit(mutate_oracles, SCALE)
-    live_oracle = _POOL.submit(live_oracles, SCALE)
     plan_dir = os.path.join(_TMP, "main_plans")
 
     dev = torch.device("cuda", 0)
@@ -4658,30 +4914,107 @@ def main() -> int:
 
     # 4. the routed plans, each family built once, through the cached
     # planners the apps call, into a cache directory that phase 19 loads
-    # again.  The three chains and the live phase's post-compaction base
-    # build at once, each in a process of its own (threads of one process
-    # serialize on the interpreter lock); each -pf upgrade after the plan
-    # it upgrades, from the cache.  A family's seconds are its wall time
-    # beside the others; then this process loads every family of the
-    # main graph from the cache
-    t0 = time.perf_counter()
+    # again.  The three chains, the live phase's post-compaction base, the
+    # sorted layout's plan and the weighted "min" plan build at once, each
+    # in a process of its own (threads of one process serialize on the
+    # interpreter lock); each -pf upgrade after the plan it upgrades, from
+    # the cache.  The card does not wait for them: phases 17 and 9-14,
+    # which need no routed plan of the main graph but the expand chain's
+    # (loaded once that chain is in the cache), run here beside the
+    # builds, so their host clocks are taken under that load; the kernel
+    # table's timings (phases 3, 5, 7 and 13b) and the CF runs (whose host
+    # work slows 2-3x under it) stay outside.  A family's seconds are its
+    # wall time beside the others
+    t_plan = time.perf_counter()
     save_graph(np, _TMP, "main", g)
-    with concurrent.futures.ProcessPoolExecutor(
-            len(PLAN_CHAINS) + 2, mp_context=multiprocessing.get_context("spawn")) as ex:
-        live_plan_fut = ex.submit(live_plan, _TMP, plan_dir)
-        sorted_plan_fut = ex.submit(sorted_plan, plan_dir)
-        built = list(ex.map(plan_chain, [_TMP] * len(PLAN_CHAINS),
-                            [plan_dir] * len(PLAN_CHAINS), PLAN_CHAINS))
-        live_plan_row = live_plan_fut.result()
-        sorted_plan_row = sorted_plan_fut.result()
+    plan_pool = concurrent.futures.ProcessPoolExecutor(
+        len(PLAN_CHAINS) + 3, mp_context=multiprocessing.get_context("spawn"))
+    variants_plan_fut = plan_pool.submit(variants_plan, plan_dir)
+    live_plan_fut = plan_pool.submit(live_plan, _TMP, plan_dir)
+    sorted_plan_fut = plan_pool.submit(sorted_plan, plan_dir)
+    chain_futs = [plan_pool.submit(plan_chain, _TMP, plan_dir, chain) for chain in PLAN_CHAINS]
+
+    # 17. the batched query service (no routed plan), while the expand chain builds
+    serve_launches, served = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
+    torch.cuda.empty_cache()
+
+    # the expand chain's plans, which the push, spec and delta phases replay
+    chain_futs[0].result()
+    push_plans = {m: plan_family(sh, m, plan_dir) for m in PLAN_CHAINS[0]}
+
+    # 9. SSSP through the app from the vertex with the largest out-degree
+    t0 = time.perf_counter()
+    start = int(np.argmax(g.out_degrees()))
+    sssp_runs, sssp_launches = push_runs(np, sssp_app, "push_main", g, ["-start", str(start)],
+                                         push_plans, kernels, smi)
+    o_start, o_dist, o_labels, oracle_s, o_tail = push_oracle.result(timeout=900)
+    require(o_start == start, f"the oracle's start {o_start} is not {start}")
+    require(np.array_equal(sssp_runs["mxscan"].state, o_dist),
+            "SSSP distances differ from the scipy BFS oracle")
+    emit({"phase": "push_main", "start": start, "oracle": "scipy.sparse.csgraph BFS",
+          "oracle_seconds": oracle_s, "reached": int((o_dist < g.nv).sum()),
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # 10. connected components: the push form under the five modes, the pull form once
+    t0 = time.perf_counter()
+    cc_runs, cc_launches = push_runs(np, cc_app, "cc_main", g, [], push_plans, kernels, smi)
+    for fn in kernels.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    pull_labels = cc_model.connected_components(g, method="mxscan", device=dev)
+    pull_s = time.perf_counter() - t1
+    pull_counts = {name: fn.launches for name, fn in kernels.items()}
+    require(pull_counts["mxscan_segmented"] > 0, "the pull form launched no mxscan")
+    require(np.array_equal(pull_labels, cc_runs["mxscan"].state),
+            "the pull form's labels differ from the push form's")
+    require(np.array_equal(cc_runs["mxscan"].state, o_labels),
+            "labels differ from the max-label fixpoint oracle")
+    emit({"phase": "cc_main", "run": "pull", "method": "mxscan", "wall_seconds": pull_s,
+          "launches": pull_counts, "distinct_labels": int(len(np.unique(o_labels))),
+          "oracle": "max-label fixpoint (np.maximum.at)", "seconds": time.perf_counter() - t0})
+    race = push_race(torch, push, sh, (
+        ("sssp", sssp_model.SSSPProgram(nv=g.nv, start=start), sssp_runs["mxscan"].state),
+        ("components", cc_model.MaxLabelProgram(), cc_runs["mxscan"].state)), dev, REPS)
+    emit({"phase": "push_race", "ms_per_dense_round": race,
+          "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
+    cc_whole = cc_runs["mxscan"]  # phase 16's uninterrupted run
+    del sssp_runs, cc_runs
+    torch.cuda.empty_cache()
+
+    # 11-12. the spec workloads, their kernel callers, the sum race
+    spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
+                                spec_oracle_a, spec_oracle_b)
+    torch.cuda.empty_cache()
+
+    # 13-14. the long runs: delta-stepping and adaptive repartitioning
+    long_launches = {}
+    gw, delta_runs, long_launches["delta"], delta_row = delta_main(
+        torch, np, kernels, smi, dev, _TMP, long_w, push_plans["expand-pf"], start, REPS)
+    torch.cuda.empty_cache()
+    long_launches["repart"] = repart_main(np, kernels, smi, g, o_tail, o_labels)
+    torch.cuda.empty_cache()
+
+    # 4 (end): every plan family built; this process loads the rest of the
+    # main graph's from the cache
+    t1 = time.perf_counter()
+    built = [f.result() for f in chain_futs]
+    live_plan_row = live_plan_fut.result()
+    sorted_plan_row = sorted_plan_fut.result()
+    variants_plan_row = variants_plan_fut.result()
+    plan_pool.shutdown()
     reports = [rep for reps, _ in built for rep in reps]
     calls = {k: sum(c.get(k, 0) for _, c in built) for k in ("native", "numpy")}
-    t1 = time.perf_counter()
-    plans = {mode: plan_family(sh, mode, plan_dir) for chain in PLAN_CHAINS for mode in chain}
+    t2 = time.perf_counter()
+    plans = push_plans  # and the other families of the main graph
+    del push_plans
+    plans.update({mode: plan_family(sh, mode, plan_dir)
+                  for chain in PLAN_CHAINS for mode in chain if mode not in plans})
     emit({"phase": "plan", "plans": reports, "cache_dir": plan_dir,
           "parallel_chains": len(PLAN_CHAINS), "colorer_calls": calls,
           "live_compaction_base": live_plan_row, "sorted_fused_pf": sorted_plan_row,
-          "load_seconds": time.perf_counter() - t1, "seconds": time.perf_counter() - t0})
+          "weighted_fused_mx_min": variants_plan_row, "wait_seconds": t2 - t1,
+          "load_seconds": time.perf_counter() - t2, "seconds": time.perf_counter() - t_plan})
     require(calls["native"] > 0 and calls["numpy"] == 0,
             f"plan: colorer {calls}, the native one must run for every family")
     built_s = {r["mode"]: r["seconds"] for r in reports}
@@ -4754,13 +5087,17 @@ def main() -> int:
             require(mode == "expand-pf", f"the bare --route-gather ran {mode}")
     require(np.array_equal(ranks["fused-pf"], ranks["fused"]),
             "fused-pf ranks differ from fused")
-    # the push phases reuse the main graph, its pull layout and its expand
-    # plans; the dynamic-graph phase the pass-fused families
-    push_plans = {m: plans[m] for m in ("expand", "expand-pf")}
+    # the dynamic-graph phase reuses the pass-fused families
     mutate_plans = {m: plans[m] for m in ("expand-pf", "fused-pf", "fused-mx")}
     pr_ranks = ranks["mxscan"]  # phase 16's uninterrupted run
     main_pf = (ranks["expand-pf"], launches["expand-pf"])  # phase 19's cold runs
     del plans, ranks, ref, res, small, small_bc
+    torch.cuda.empty_cache()
+
+    # 13b. the bf16 and weighted-edge forms, and weighted SSSP on fused-mx
+    variant_rows, variants_launches, _ = variants_main(
+        torch, np, kernels, smi, dev, g, sh, gw, delta_runs["chaotic"].state, start, plan_dir,
+        mutate_plans["fused-mx"], REPS)
     torch.cuda.empty_cache()
 
     # 7. collaborative filtering's kernel against its plain version
@@ -4776,6 +5113,14 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     del bc_cf
     torch.cuda.empty_cache()
+
+    # the oracles that only the later phases read start here, after phase
+    # 4 and the kernel timings of phases 5, 13b and 7: from here on the
+    # host's cores are mostly idle beside the card
+    cf_oracle = _POOL.submit(cf_oracle_f64, SCALE)
+    long_s = _POOL.submit(long_stream_graph, _TMP, STREAM_SCALE)
+    mutate_oracle = _POOL.submit(mutate_oracles, SCALE)
+    live_oracle = _POOL.submit(live_oracles, SCALE)
 
     # 8. collaborative filtering through the app: the kernel path and the
     # engine at scale 20, the routed reads at CF_ROUTED_SCALE
@@ -4828,7 +5173,26 @@ def main() -> int:
     del plan_e, plan_pf, states, g_r
     torch.cuda.empty_cache()
 
-    # the libraries at gamma = CF_GAMMA against the f64 oracle
+    # 16. the checkpointed runs
+    long_launches["ckpt"] = ckpt_main(np, kernels, smi, _TMP, g, gw, start, pr_ranks,
+                                      delta_runs[f"delta-{DELTA_WIDTHS[0]}"], cc_whole)
+    del gw, delta_runs, cc_whole, pr_ranks
+    torch.cuda.empty_cache()
+
+    # 18. dynamic graphs
+    mutate_launches, mutate_err, mutate_out = mutate_main(
+        torch, np, kernels, smi, dev, g, _TMP, mutate_oracle, (g, sh, mutate_plans), REPS)
+    del mutate_plans
+    torch.cuda.empty_cache()
+
+    # 19. cold start and observability
+    cold_launches = cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf,
+                                  built_s, launches["pallas"])
+    del sh, main_pf
+    torch.cuda.empty_cache()
+
+    # 8 (end). the libraries at gamma = CF_GAMMA against the f64 oracle (started
+    # after phase 7)
     t0 = time.perf_counter()
     run_2d, s0 = cf_model.make_pallas_runner(g_cf, gamma=CF_GAMMA, device=dev)
     got = {"make_pallas_runner": run_2d(s0, ITERS)[: g_cf.nv].float().cpu().numpy()}
@@ -4853,82 +5217,10 @@ def main() -> int:
     del g_cf, got
     torch.cuda.empty_cache()
 
-    # 9. SSSP through the app from the vertex with the largest out-degree
-    t0 = time.perf_counter()
-    start = int(np.argmax(g.out_degrees()))
-    sssp_runs, sssp_launches = push_runs(np, sssp_app, "push_main", g, ["-start", str(start)],
-                                         push_plans, kernels, smi)
-    o_start, o_dist, o_labels, oracle_s, o_tail = push_oracle.result(timeout=900)
-    require(o_start == start, f"the oracle's start {o_start} is not {start}")
-    require(np.array_equal(sssp_runs["mxscan"].state, o_dist),
-            "SSSP distances differ from the scipy BFS oracle")
-    emit({"phase": "push_main", "start": start, "oracle": "scipy.sparse.csgraph BFS",
-          "oracle_seconds": oracle_s, "reached": int((o_dist < g.nv).sum()),
-          "seconds": time.perf_counter() - t0})
-    torch.cuda.empty_cache()
-
-    # 10. connected components: the push form under the five modes, the pull form once
-    t0 = time.perf_counter()
-    cc_runs, cc_launches = push_runs(np, cc_app, "cc_main", g, [], push_plans, kernels, smi)
-    for fn in kernels.values():
-        fn.launches = 0
-    t1 = time.perf_counter()
-    pull_labels = cc_model.connected_components(g, method="mxscan", device=dev)
-    pull_s = time.perf_counter() - t1
-    pull_counts = {name: fn.launches for name, fn in kernels.items()}
-    require(pull_counts["mxscan_segmented"] > 0, "the pull form launched no mxscan")
-    require(np.array_equal(pull_labels, cc_runs["mxscan"].state),
-            "the pull form's labels differ from the push form's")
-    require(np.array_equal(cc_runs["mxscan"].state, o_labels),
-            "labels differ from the max-label fixpoint oracle")
-    emit({"phase": "cc_main", "run": "pull", "method": "mxscan", "wall_seconds": pull_s,
-          "launches": pull_counts, "distinct_labels": int(len(np.unique(o_labels))),
-          "oracle": "max-label fixpoint (np.maximum.at)", "seconds": time.perf_counter() - t0})
-    race = push_race(torch, push, sh, (
-        ("sssp", sssp_model.SSSPProgram(nv=g.nv, start=start), sssp_runs["mxscan"].state),
-        ("components", cc_model.MaxLabelProgram(), cc_runs["mxscan"].state)), dev, REPS)
-    emit({"phase": "push_race", "ms_per_dense_round": race,
-          "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
-    cc_whole = cc_runs["mxscan"]  # phase 16's uninterrupted run
-    del sssp_runs, cc_runs
-    torch.cuda.empty_cache()
-
-    # 11-12. the spec workloads, their kernel callers, the sum race
-    spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
-                                spec_oracle_a, spec_oracle_b)
-    torch.cuda.empty_cache()
-
-    # 13-16. the long and out-of-core runs
-    long_launches = {}
-    gw, delta_runs, long_launches["delta"], delta_row = delta_main(
-        torch, np, kernels, smi, dev, _TMP, long_w, push_plans["expand-pf"], start, REPS)
-    del push_plans
-    torch.cuda.empty_cache()
-    long_launches["repart"] = repart_main(np, kernels, smi, g, o_tail, o_labels)
-    torch.cuda.empty_cache()
+    # 15. the streamed runs (their oracle started after phase 7)
     long_launches["stream"], stream_rows = stream_main(torch, np, kernels, smi, dev, _TMP,
                                                        long_s, REPS)
-    torch.cuda.empty_cache()
-    long_launches["ckpt"] = ckpt_main(np, kernels, smi, _TMP, g, gw, start, pr_ranks,
-                                      delta_runs[f"delta-{DELTA_WIDTHS[0]}"], cc_whole)
     long_rows = [delta_row] + stream_rows
-    del gw, delta_runs, cc_whole, pr_ranks
-    torch.cuda.empty_cache()
-
-    # 17. the batched query service
-    serve_launches, served = serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle)
-    torch.cuda.empty_cache()
-
-    # 18. dynamic graphs
-    mutate_launches, mutate_err, mutate_out = mutate_main(
-        torch, np, kernels, smi, dev, g, _TMP, mutate_oracle, (g, sh, mutate_plans), REPS)
-    del mutate_plans
-    torch.cuda.empty_cache()
-
-    # 19. cold start and observability
-    cold_launches = cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf,
-                                  built_s, launches["pallas"])
-    del sh, main_pf
     torch.cuda.empty_cache()
 
     # 20-21. the serving fleet and a pod: worker processes on the card
@@ -5018,6 +5310,9 @@ def main() -> int:
         row["launches_live"] = live_launches[row["name"]]
         row["launches_autopilot"] = pilot_launches[row["name"]]
         row["launches_disk"] = disk_launches[row["name"]]
+        row["launches_variants"] = variants_launches[row["name"]]
+        if row["name"] in variant_rows:  # the bf16 and weighted forms, rows 1, 2 and 6
+            row["variants"] = variant_rows[row["name"]]
         for errs in (mutate_err, live_err):
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])

@@ -101,10 +101,32 @@ def route_plan_from_numpy(static, arrays, device="cuda"):
     tuple of tensors on ``device``), ready for ``run_pull_fixed(route=)``
     or ops/expand's replays.  ``static`` is read by field name, never
     through the reference's classes; ``arrays`` keep their dtypes (uint8
-    indices stay uint8)."""
+    indices stay uint8); a weighted mx plan's weights move from the
+    reference's final layout to the mx group's entry layout."""
     dev = resolve_device(device)
     port = _port_static(static, _route_static_types())
-    return port, tuple(array_to_tensor(np.asarray(a), dev) for a in arrays)
+    arrays = [np.asarray(a) for a in arrays]
+    _mx_weights_from_final(port, arrays)
+    return port, tuple(array_to_tensor(a, dev) for a in arrays)
+
+
+def _mx_weights_from_final(port, arrays: list) -> None:
+    """A weighted mx plan of the reference keeps its weights in the final
+    layout (its kernel applies the edge function there); this package's
+    apply_fused reads them in the mx group's entry layout.  Converts the
+    slot in place, part by part for stacked (P, R, 128) arrays."""
+    from lux_tpu_torch.ops import expand
+
+    slot = expand.mx_weights_slot(port)
+    if slot is None:
+        return
+    k = len(port.mx.steps)
+    steps, w = arrays[slot - 3 - k:slot - 3], arrays[slot]
+    if w.ndim == 2:
+        arrays[slot] = expand.mx_weights_to_entry(port.mx, steps, w)
+    else:
+        arrays[slot] = np.stack([expand.mx_weights_to_entry(port.mx, [a[p] for a in steps], w[p])
+                                 for p in range(w.shape[0])])
 
 
 def _host(a) -> np.ndarray:

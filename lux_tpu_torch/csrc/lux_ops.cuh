@@ -9,7 +9,8 @@
 //   * int32 sums accumulate in uint32, so overflow wraps as in the plain
 //     version and the reference (two's complement, no UB);
 //   * min/max keep the storage type and propagate NaN like torch.minimum /
-//     torch.maximum (a NaN operand gives NaN).
+//     torch.maximum (a NaN operand gives NaN); bf16 values compare after
+//     an exact widening to f32 and are stored back as bf16.
 #pragma once
 
 #include <cstdint>
@@ -62,6 +63,21 @@ template <> __device__ __forceinline__ float load_as<float, __nv_bfloat16>(const
 template <> __device__ __forceinline__ int32_t load_as<int32_t, int32_t>(const int32_t* p) { return *p; }
 template <> __device__ __forceinline__ uint32_t load_as<uint32_t, int32_t>(const int32_t* p) {
   return static_cast<uint32_t>(*p);
+}
+
+// Narrowing stores: accumulation type -> storage type.  A bf16 output
+// rounds its f32 value to nearest even, once; for min/max of widened bf16
+// values that is exact (the value was a bf16 to begin with).
+template <typename TOut, typename TAcc>
+__device__ __forceinline__ TOut narrow(TAcc v) {
+  if constexpr (std::is_same<TOut, __nv_bfloat16>::value) return __float2bfloat16_rn(v);
+  else return static_cast<TOut>(v);
+}
+
+// The bf16 whose bits are b (a bf16 is the high half of the f32 it widens to).
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t b) { return __uint_as_float(b << 16); }
+__device__ __forceinline__ uint32_t float_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // --- sixteen elements a thread ---------------------------------------------

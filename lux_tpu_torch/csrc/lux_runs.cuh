@@ -11,7 +11,8 @@
 // deterministic, with no atomics.  Three launches on the caller's stream:
 // runs_fill_kernel (every output starts as the neutral value, so keys no
 // real slot touches come out neutral), the kernel's own span kernel, and
-// runs_fold_kernel.
+// runs_fold_kernel.  Runs accumulate in TAcc and are written as TOut
+// (narrow: a bf16 min/max widened to f32 is stored back as bf16, exactly).
 #pragma once
 
 #include "lux_ops.cuh"
@@ -21,6 +22,12 @@ namespace {
 constexpr int kFoldThreads = 1024;
 constexpr int kFillThreads = 256;
 constexpr int kFillMaxCtas = 1056;  // 8 CTAs of 256 threads on each of 132 SMs
+
+// Write the complete run value v of key k.
+template <typename TAcc, int OP, typename TOut>
+__device__ __forceinline__ void put_run(TOut* __restrict__ out, int k, TAcc v) {
+  out[k] = narrow<TOut>(Combine<TAcc, OP>::apply(Combine<TAcc, OP>::neutral(), v));
+}
 
 // Runs of equal key seen in order: the first run (kept, it may continue a
 // run that began before), the open last run, and every run in between,
@@ -32,10 +39,11 @@ struct Runs {
   int fk, lk, n;
   TAcc fv, lv;
   __device__ void init() { fk = -1; lk = -1; n = 0; fv = Combine<TAcc, OP>::neutral(); lv = fv; }
-  __device__ void add(int k, TAcc v, TAcc* out) {
+  template <typename TOut>
+  __device__ void add(int k, TAcc v, TOut* out) {
     if (n > 0 && k == lk) { lv = Combine<TAcc, OP>::apply(lv, v); return; }
     if (n == 1) { fk = lk; fv = lv; }
-    else if (n > 1) out[lk] = Combine<TAcc, OP>::apply(Combine<TAcc, OP>::neutral(), lv);
+    else if (n > 1) put_run<TAcc, OP>(out, lk, lv);
     lk = k; lv = v; ++n;
   }
   __device__ void finish() { if (n == 1) { fk = lk; fv = lv; } }
@@ -45,9 +53,9 @@ struct Runs {
 // last and b's first, joined or not, unless it is the result's first or
 // last run — is complete and is written to out.  Associative, so a fixed
 // tree of these combinations is deterministic.
-template <typename TAcc, int OP>
+template <typename TAcc, int OP, typename TOut>
 __device__ Runs<TAcc, OP> combine(const Runs<TAcc, OP>& a, const Runs<TAcc, OP>& b,
-                                  TAcc* __restrict__ out) {
+                                  TOut* __restrict__ out) {
   using C = Combine<TAcc, OP>;
   if (a.n == 0) return b;
   if (b.n == 0) return a;
@@ -57,19 +65,19 @@ __device__ Runs<TAcc, OP> combine(const Runs<TAcc, OP>& a, const Runs<TAcc, OP>&
     r.n -= 1;
     if (a.n == 1) r.fv = joined;
     if (b.n == 1) r.lv = joined;
-    if (a.n > 1 && b.n > 1) out[a.lk] = C::apply(C::neutral(), joined);
+    if (a.n > 1 && b.n > 1) put_run<TAcc, OP>(out, a.lk, joined);
   } else {
-    if (a.n > 1) out[a.lk] = C::apply(C::neutral(), a.lv);
-    if (b.n > 1) out[b.fk] = C::apply(C::neutral(), b.fv);
+    if (a.n > 1) put_run<TAcc, OP>(out, a.lk, a.lv);
+    if (b.n > 1) put_run<TAcc, OP>(out, b.fk, b.fv);
   }
   return r;
 }
 
 // Combine the summaries of lanes [0, width) of a warp in a fixed tree;
 // lane 0 returns the whole.  Every lane of the warp must call it.
-template <typename TAcc, int OP>
+template <typename TAcc, int OP, typename TOut>
 __device__ Runs<TAcc, OP> warp_combine(Runs<TAcc, OP> s, int lane, int width,
-                                       TAcc* __restrict__ out) {
+                                       TOut* __restrict__ out) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     Runs<TAcc, OP> b;
@@ -87,8 +95,8 @@ __device__ Runs<TAcc, OP> warp_combine(Runs<TAcc, OP> s, int lane, int width,
 // warp's lanes, then the warps' results in warp 0.  Thread 0 returns the
 // whole.  Every thread of the CTA must call it (it holds a barrier), and
 // the CTA's size must be a multiple of 32.
-template <typename TAcc, int OP>
-__device__ Runs<TAcc, OP> cta_combine(const Runs<TAcc, OP>& s, TAcc* __restrict__ out) {
+template <typename TAcc, int OP, typename TOut>
+__device__ Runs<TAcc, OP> cta_combine(const Runs<TAcc, OP>& s, TOut* __restrict__ out) {
   __shared__ int w_fk[32], w_lk[32], w_n[32];
   __shared__ TAcc w_fv[32], w_lv[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
@@ -134,12 +142,13 @@ struct Parts {
   }
 };
 
-template <typename TAcc, int OP>
+template <typename TAcc, int OP, typename TOut>
 __global__ void __launch_bounds__(kFillThreads)
-runs_fill_kernel(TAcc* __restrict__ out, long long n) {
+runs_fill_kernel(TOut* __restrict__ out, long long n) {
+  const TOut neutral = narrow<TOut>(Combine<TAcc, OP>::neutral());
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    out[i] = Combine<TAcc, OP>::neutral();
+    out[i] = neutral;
 }
 
 // Fold the span summaries in span order, in one CTA: each thread combines
@@ -147,10 +156,9 @@ runs_fill_kernel(TAcc* __restrict__ out, long long n) {
 // combined in a fixed tree (cta_combine).  Every run that crosses a span
 // boundary closes in some combination and is written there; the whole
 // array's first and last runs are written at the end.
-template <typename TAcc, int OP>
+template <typename TAcc, int OP, typename TOut>
 __global__ void __launch_bounds__(kFoldThreads)
-runs_fold_kernel(void* scratch, int num_spans, TAcc* __restrict__ out) {
-  using C = Combine<TAcc, OP>;
+runs_fold_kernel(void* scratch, int num_spans, TOut* __restrict__ out) {
   const Parts<TAcc> parts(scratch, num_spans);
   const int tid = threadIdx.x;
   const int per = (num_spans + kFoldThreads - 1) / kFoldThreads;
@@ -160,17 +168,17 @@ runs_fold_kernel(void* scratch, int num_spans, TAcc* __restrict__ out) {
   for (int c = lo; c < hi; ++c) s = combine(s, parts.template get<OP>(c), out);
   const Runs<TAcc, OP> all = cta_combine(s, out);
   if (tid == 0 && all.n > 0) {
-    out[all.fk] = C::apply(C::neutral(), all.fv);
-    if (all.n > 1) out[all.lk] = C::apply(C::neutral(), all.lv);
+    put_run<TAcc, OP>(out, all.fk, all.fv);
+    if (all.n > 1) put_run<TAcc, OP>(out, all.lk, all.lv);
   }
 }
 
 // The fill launch: every output starts as the neutral value.
-template <typename TAcc, int OP>
-void launch_fill(TAcc* out, long long n_out, cudaStream_t stream) {
+template <typename TAcc, int OP, typename TOut>
+void launch_fill(TOut* out, long long n_out, cudaStream_t stream) {
   const long long ctas = (n_out + kFillThreads - 1) / kFillThreads;
-  runs_fill_kernel<TAcc, OP><<<(unsigned)(ctas < kFillMaxCtas ? ctas : kFillMaxCtas),
-                               kFillThreads, 0, stream>>>(out, n_out);
+  runs_fill_kernel<TAcc, OP, TOut><<<(unsigned)(ctas < kFillMaxCtas ? ctas : kFillMaxCtas),
+                                     kFillThreads, 0, stream>>>(out, n_out);
 }
 
 }  // namespace

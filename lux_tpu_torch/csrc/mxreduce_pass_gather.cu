@@ -10,7 +10,8 @@
 //
 // What bounds it on the H100: memory.  Per group-space element it reads the
 // value, one index per step and one rank, and it writes the totals once:
-// n2 * (esize + steps * isize + isize) + num_blocks * v_blk * 4 bytes — at
+// n2 * (esize + steps * isize + isize) + num_blocks * v_blk * osize bytes
+// (osize 4, 2 for a bf16 min/max) — at
 // the main path's plan (n2 = 2^25, f32, 2 steps of uint8) 203.5 MB, 0.061 ms
 // over 3.35 TB/s.  The one-hot contraction would multiply the work by v_blk
 // for nothing here.
@@ -49,7 +50,15 @@
 // Every combination has a fixed order, so results are deterministic, with
 // no atomics.  Float sums accumulate in f32 (out f32); int32 sums wrap
 // through uint32; min/max keep the type (NaN propagates like
-// torch.minimum/maximum).
+// torch.minimum/maximum).  bf16 values move through the steps as raw
+// 16-bit words (half the tile: 16 KB a chunk) and widen to f32 when the
+// final step hands them to the runs: sums accumulate in f32 and come out
+// f32, min/max compare the exact widening and come out bf16.
+//
+// The program's edge function is not in the kernel: the caller applies it
+// to the entry layout beforehand (ops/expand.apply_fused), with the plan's
+// weights laid out in that entry layout at plan time.  The steps only
+// permute within a tile, so the values the runs see are the same.
 #include "lux_runs.cuh"
 #include "lux_shuffle.cuh"
 
@@ -58,11 +67,19 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kChunk = kThreads * kUnit;  // 8192 = ops/shuffle.MX_MAX_TILE_ELEMS
 
-template <typename T, typename TAcc, int OP, typename I>
+// A stepped element widened to the accumulation type: T is f32, int32, or
+// the raw bits of a bf16 (uint16_t).
+template <typename TAcc, typename T>
+__device__ __forceinline__ TAcc widen(T v) {
+  if constexpr (sizeof(T) == 2) return bf16_bits_to_float(v);
+  else return static_cast<TAcc>(v);
+}
+
+template <typename T, typename TAcc, typename TOut, int OP, typename I>
 __global__ void __launch_bounds__(kThreads, 2)
 mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ranks,
                 const int32_t* __restrict__ tile_block, int num_tiles, int tile_elems,
-                int v_blk, TAcc* __restrict__ out, void* scratch, int num_chunks) {
+                int v_blk, TOut* __restrict__ out, void* scratch, int num_chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
   __shared__ uint16_t lut[kMaxSteps * kLane];
@@ -107,7 +124,7 @@ mx_chunk_kernel(const T* __restrict__ x, StepPlan plan, const I* __restrict__ ra
 #pragma unroll
     for (int j = 0; j < kUnit; ++j) {
       const int k = rk[j];
-      if (k < v_blk) runs.add(kbase + k, static_cast<TAcc>(v[j]), out);
+      if (k < v_blk) runs.add(kbase + k, widen<TAcc>(v[j]), out);
     }
   }
   runs.finish();
@@ -120,30 +137,36 @@ int num_chunks_of(int num_tiles, int tile_elems) {
   return (num_tiles + per_chunk - 1) / per_chunk;
 }
 
-template <typename T, typename TAcc, int OP, typename I>
+template <typename T, typename TAcc, typename TOut, int OP, typename I>
 int launch(const void* x, const StepPlan& plan, const void* ranks, const int32_t* tile_block,
            int num_tiles, int tile_elems, int v_blk, int num_blocks, void* out, void* scratch,
            cudaStream_t stream) {
   const int num_chunks = num_chunks_of(num_tiles, tile_elems);
-  TAcc* o = static_cast<TAcc*>(out);
+  TOut* o = static_cast<TOut*>(out);
   launch_fill<TAcc, OP>(o, (long long)num_blocks * v_blk, stream);
-  mx_chunk_kernel<T, TAcc, OP, I><<<num_chunks, kThreads, kChunk * sizeof(T), stream>>>(
+  mx_chunk_kernel<T, TAcc, TOut, OP, I><<<num_chunks, kThreads, kChunk * sizeof(T), stream>>>(
       static_cast<const T*>(x), plan, static_cast<const I*>(ranks), tile_block, num_tiles,
       tile_elems, v_blk, o, scratch, num_chunks);
-  runs_fold_kernel<TAcc, OP><<<1, kFoldThreads, 0, stream>>>(scratch, num_chunks, o);
+  runs_fold_kernel<TAcc, OP, TOut><<<1, kFoldThreads, 0, stream>>>(scratch, num_chunks, o);
   return 0;
 }
 
-// The instantiation of (kind, op, I), handed to f as template arguments.
+// The instantiation of (kind, op, I), handed to f as template arguments:
+// the stepped element type, the accumulation type, the totals' type.
 template <typename I, typename F>
 int dispatch(int kind, int op, F&& f) {
+  using BF = __nv_bfloat16;
   switch (kind * 3 + op) {
-    case LUX_F32 * 3 + LUX_SUM: return f.template run<float, float, LUX_SUM, I>();
-    case LUX_F32 * 3 + LUX_MIN: return f.template run<float, float, LUX_MIN, I>();
-    case LUX_F32 * 3 + LUX_MAX: return f.template run<float, float, LUX_MAX, I>();
-    case LUX_I32 * 3 + LUX_SUM: return f.template run<int32_t, uint32_t, LUX_SUM, I>();
-    case LUX_I32 * 3 + LUX_MIN: return f.template run<int32_t, int32_t, LUX_MIN, I>();
-    case LUX_I32 * 3 + LUX_MAX: return f.template run<int32_t, int32_t, LUX_MAX, I>();
+    case LUX_F32 * 3 + LUX_SUM: return f.template run<float, float, float, LUX_SUM, I>();
+    case LUX_F32 * 3 + LUX_MIN: return f.template run<float, float, float, LUX_MIN, I>();
+    case LUX_F32 * 3 + LUX_MAX: return f.template run<float, float, float, LUX_MAX, I>();
+    case LUX_BF16 * 3 + LUX_SUM: return f.template run<uint16_t, float, float, LUX_SUM, I>();
+    case LUX_BF16 * 3 + LUX_MIN: return f.template run<uint16_t, float, BF, LUX_MIN, I>();
+    case LUX_BF16 * 3 + LUX_MAX: return f.template run<uint16_t, float, BF, LUX_MAX, I>();
+    case LUX_I32 * 3 + LUX_SUM:
+      return f.template run<int32_t, uint32_t, uint32_t, LUX_SUM, I>();
+    case LUX_I32 * 3 + LUX_MIN: return f.template run<int32_t, int32_t, int32_t, LUX_MIN, I>();
+    case LUX_I32 * 3 + LUX_MAX: return f.template run<int32_t, int32_t, int32_t, LUX_MAX, I>();
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -164,22 +187,22 @@ struct Launch {
   void* out;
   void* scratch;
   cudaStream_t stream;
-  template <typename T, typename TAcc, int OP, typename I>
+  template <typename T, typename TAcc, typename TOut, int OP, typename I>
   int run() const {
-    return launch<T, TAcc, OP, I>(x, *plan, ranks, tile_block, num_tiles, tile_elems, v_blk,
-                                  num_blocks, out, scratch, stream);
+    return launch<T, TAcc, TOut, OP, I>(x, *plan, ranks, tile_block, num_tiles, tile_elems,
+                                        v_blk, num_blocks, out, scratch, stream);
   }
 };
 
 }  // namespace
 
-// x: (rows, 128) values of `kind` (LUX_F32 or LUX_I32) in the group's entry
-// layout; idx: a host array of kMaxSteps device pointers to the (rows, 128)
+// x: (rows, 128) values of `kind` (LUX_F32, LUX_BF16 or LUX_I32) in the
+// group's entry layout; idx: a host array of kMaxSteps device pointers to the (rows, 128)
 // index tiles; desc: the host step table; ranks: (rows, 128) rank map of the
 // final layout (v_blk = sentinel), same element size as the index tiles
 // (isize 1 or 4); tile_block: (rows / block_rows,) nondecreasing output block
-// of each tile.  out: (num_blocks * v_blk,) f32 for float sums, else the
-// value type.  scratch: at least 20 * num_chunks bytes of device memory for
+// of each tile.  out: (num_blocks * v_blk,) f32 for float sums (bf16
+// included), else the value type.  scratch: at least 20 * num_chunks bytes of device memory for
 // the chunk summaries, num_chunks = ceil(tiles / (8192 / (block_rows *
 // 128))) (ops/shuffle.mx_num_chunks).  Every array 16-byte aligned.
 // Returns cudaGetLastError() after the launches (0 = launched);

@@ -30,16 +30,24 @@
 //      again) and writes each tile's carry-in.
 //   3. apply_carries: one CTA per tile combines its carry-in into the
 //      elements before its first head, the only ones pass 1 could not
-//      finish (on a tile with no head, all of them).
+//      finish (on a tile with no head, all of them).  A bf16 sum cannot
+//      take its pass-1 output there (that is the tile-local sum already
+//      rounded to bf16; adding the carry and rounding again would round
+//      twice), so its pass 3 is scan_tiles again in carry mode: the tile
+//      rescans its values before its first head in f32, adds its f32
+//      carry-in, and rounds each sum once.
 // Every pass has a fixed combine order, so results are deterministic.
 // Invalid slots are replaced by the neutral element before any arithmetic
 // (their outputs are unspecified, as in the reference); float sums
-// accumulate in f32; int32 sums wrap (uint32 arithmetic); min/max are
-// order-insensitive, so they match the plain ladder scan bitwise.  An
+// accumulate in f32 through every pass (tile sums, carries, carry-in), so
+// a bf16 sum is rounded to bf16 once, on its way out; int32 sums wrap
+// (uint32 arithmetic); min/max are order-insensitive, so they match the
+// plain ladder scan bitwise (bf16 compares its exact f32 widening).  An
 // array whose base is not 16-byte aligned, and the last thread's elements
-// past the end, take scalar loads and stores.
+// past the end, take scalar loads and stores.  A bf16 element is 2 bytes,
+// so bf16 moves n * 5 bytes where f32 moves n * 9.
 //
-// Supported: f32 and int32 values for sum, min and max.
+// Supported: f32, bf16 and int32 values for sum, min and max.
 #include "lux_ops.cuh"
 
 namespace {
@@ -95,6 +103,18 @@ __device__ __forceinline__ T cta_exclusive(T x, int f, T* s_val, int* s_flag) {
 
 template <typename TIn, typename T>
 __device__ __forceinline__ void store16_as(TIn* __restrict__ p, const T (&v)[kUnit]) {
+  if constexpr (sizeof(TIn) == 2) {  // bf16 from f32: two 16-byte stores
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = float_to_bf16_bits(v[8 * m + 2 * e]) |
+               (float_to_bf16_bits(v[8 * m + 2 * e + 1]) << 16);
+      reinterpret_cast<uint4*>(p)[m] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    return;
+  }
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     uint4 w;
@@ -108,21 +128,29 @@ __device__ __forceinline__ void store16_as(TIn* __restrict__ p, const T (&v)[kUn
   }
 }
 
-template <typename TIn, typename T, int OP>
+// CARRY = false: pass 1.  CARRY = true: pass 3 of a bf16 sum: the CTA
+// takes tile blockIdx.x + 1, loads only the elements before the tile's
+// first head (limit), scans them as pass 1 did, and writes each one as its
+// carry-in plus its f32 tile-local sum, rounded once.
+template <typename TIn, typename T, int OP, bool CARRY>
 __global__ void __launch_bounds__(kThreads, 2)
 scan_tiles(const TIn* __restrict__ vals, const uint8_t* __restrict__ head,
            const uint8_t* __restrict__ invalid, const int32_t* __restrict__ valid_end,
            long long n, bool vec, TIn* __restrict__ out, T* __restrict__ agg_val,
-           int32_t* __restrict__ agg_head, int32_t* __restrict__ first_head) {
+           int32_t* __restrict__ agg_head, int32_t* __restrict__ first_head,
+           const T* __restrict__ carry_in) {
   using C = Combine<T, OP>;
   __shared__ T s_val[kWarps];
   __shared__ int s_flag[kWarps];
   __shared__ int s_first[kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long tile = blockIdx.x;
+  const long long tile = CARRY ? blockIdx.x + 1LL : blockIdx.x;
+  const int limit = CARRY ? first_head[tile] : kTile;
+  if (limit == 0) return;  // the whole CTA: pass 1 finished this tile
   const long long p0 = tile * kTile + (long long)tid * kUnit;
   const long long vend = valid_end ? (long long)__ldg(valid_end) : n;
-  const bool full = vec && p0 + kUnit <= n;
+  const long long nn = CARRY && tid * kUnit >= limit ? p0 : n;  // past limit: load nothing
+  const bool full = vec && p0 + kUnit <= nn;
   T v[kUnit];
   unsigned hm = 0, bad = 0;  // bit j: element j is a head / is invalid
   if (full) {
@@ -141,7 +169,7 @@ scan_tiles(const TIn* __restrict__ vals, const uint8_t* __restrict__ head,
 #pragma unroll
     for (int j = 0; j < kUnit; ++j) {
       const long long i = p0 + j;
-      const bool in = i < n;
+      const bool in = i < nn;
       v[j] = in ? load_as<T>(vals + i) : C::neutral();
       hm |= (in && head[i] != 0) << j;
       bad |= (!in || (invalid && invalid[i] != 0)) << j;
@@ -167,12 +195,25 @@ scan_tiles(const TIn* __restrict__ vals, const uint8_t* __restrict__ head,
     for (int j = 0; j < kUnit; ++j)
       if (j < fh) v[j] = C::apply(px, v[j]);
   }
+  if constexpr (CARRY) {  // every element before the first head: carry + v
+    const T c = carry_in[tile];
+#pragma unroll
+    for (int j = 0; j < kUnit; ++j) v[j] = C::apply(c, v[j]);
+    if (full && tid * kUnit + kUnit <= limit) {
+      store16_as(out + p0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kUnit; ++j)
+        if (tid * kUnit + j < limit && p0 + j < n) out[p0 + j] = narrow<TIn>(v[j]);
+    }
+    return;
+  }
   if (full) {
     store16_as(out + p0, v);
   } else {
 #pragma unroll
     for (int j = 0; j < kUnit; ++j)
-      if (p0 + j < n) out[p0 + j] = static_cast<TIn>(v[j]);
+      if (p0 + j < n) out[p0 + j] = narrow<TIn>(v[j]);
   }
   if (tid == 0) {
     int first = kTile;
@@ -233,7 +274,7 @@ apply_carries(TIn* __restrict__ out, long long n, const T* __restrict__ carry_in
   const long long base = tile * kTile;
   const long long end = min(n, base + first_head[tile]);
   for (long long i = base + threadIdx.x; i < end; i += kApplyThreads)
-    out[i] = static_cast<TIn>(C::apply(c, load_as<T>(out + i)));
+    out[i] = narrow<TIn>(C::apply(c, load_as<T>(out + i)));
 }
 
 template <typename TIn, typename T, int OP>
@@ -247,14 +288,22 @@ void launch(const void* vals, const void* head, const void* invalid, const void*
   const bool vec = ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(head) |
                      reinterpret_cast<uintptr_t>(invalid) | reinterpret_cast<uintptr_t>(out)) &
                     15) == 0;
-  scan_tiles<TIn, T, OP><<<(unsigned)ntiles, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(vals), static_cast<const uint8_t*>(head),
-      static_cast<const uint8_t*>(invalid), static_cast<const int32_t*>(valid_end), n, vec,
-      static_cast<TIn*>(out), agg_val, agg_head, first_head);
+  const TIn* v = static_cast<const TIn*>(vals);
+  const uint8_t* h = static_cast<const uint8_t*>(head);
+  const uint8_t* bad = static_cast<const uint8_t*>(invalid);
+  const int32_t* ve = static_cast<const int32_t*>(valid_end);
+  TIn* o = static_cast<TIn*>(out);
+  scan_tiles<TIn, T, OP, false><<<(unsigned)ntiles, kThreads, 0, stream>>>(
+      v, h, bad, ve, n, vec, o, agg_val, agg_head, first_head, nullptr);
   if (ntiles < 2) return;  // one tile: pass 1 finished it
   scan_carries<T, OP><<<1, kCarryThreads, 0, stream>>>(agg_val, agg_head, ntiles, carry_in);
-  apply_carries<TIn, T, OP><<<(unsigned)(ntiles - 1), kApplyThreads, 0, stream>>>(
-      static_cast<TIn*>(out), n, carry_in, first_head);
+  if constexpr (OP == LUX_SUM && sizeof(TIn) < sizeof(T)) {  // a bf16 sum: round once
+    scan_tiles<TIn, T, OP, true><<<(unsigned)(ntiles - 1), kThreads, 0, stream>>>(
+        v, h, bad, ve, n, vec, o, nullptr, nullptr, first_head, carry_in);
+  } else {
+    apply_carries<TIn, T, OP><<<(unsigned)(ntiles - 1), kApplyThreads, 0, stream>>>(
+        o, n, carry_in, first_head);
+  }
 }
 
 }  // namespace
@@ -263,7 +312,7 @@ void launch(const void* vals, const void* head, const void* invalid, const void*
 // 4 words of 4 bytes per tile.
 extern "C" int lux_mxscan_tile_elems() { return kTile; }
 
-// vals/out: n elements of `kind` (f32 or int32); head: n bytes (0/1);
+// vals/out: n elements of `kind` (f32, bf16 or int32); head: n bytes (0/1);
 // invalid: n bytes or null; valid_end: one device int32 or null (slots at or
 // past it are invalid).  Returns cudaGetLastError() after the launches; an
 // unsupported (kind, op) pair or n outside [1, 2^31 * 8192) returns
@@ -282,6 +331,15 @@ extern "C" int lux_mxscan_segmented(const void* vals, int kind, const void* head
       break;
     case LUX_F32 * 3 + LUX_MAX:
       launch<float, float, LUX_MAX>(vals, head, invalid, valid_end, n, out, scratch, s);
+      break;
+    case LUX_BF16 * 3 + LUX_SUM:
+      launch<__nv_bfloat16, float, LUX_SUM>(vals, head, invalid, valid_end, n, out, scratch, s);
+      break;
+    case LUX_BF16 * 3 + LUX_MIN:
+      launch<__nv_bfloat16, float, LUX_MIN>(vals, head, invalid, valid_end, n, out, scratch, s);
+      break;
+    case LUX_BF16 * 3 + LUX_MAX:
+      launch<__nv_bfloat16, float, LUX_MAX>(vals, head, invalid, valid_end, n, out, scratch, s);
       break;
     case LUX_I32 * 3 + LUX_SUM:
       launch<int32_t, uint32_t, LUX_SUM>(vals, head, invalid, valid_end, n, out, scratch, s);

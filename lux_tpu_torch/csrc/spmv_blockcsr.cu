@@ -6,8 +6,9 @@
 //
 // What bounds it on the H100: memory.  Per padded edge slot it must read 4
 // bytes of value (2 for bf16) and 4 bytes of e_dst_rel, and it writes 4
-// bytes per output vertex; there is one add per slot, so at 3.35 TB/s and
-// 67 TFLOP/s (fp32) the bytes dominate by two orders of magnitude.  At the
+// bytes per output vertex (2 for a bf16 min/max); there is one add or
+// compare per slot, so at 3.35 TB/s and 67 TFLOP/s (fp32) the bytes
+// dominate by two orders of magnitude.  At the
 // main path's layout (RMAT 20: 33,790 chunks of 512 slots) that is 142.6
 // MB, 0.0426 ms.  The one-hot contraction is a TPU idiom (it turns a
 // scatter into MXU work) and would multiply the arithmetic by V_BLK here
@@ -42,8 +43,9 @@
 // no atomics.  An array whose base is not 16-byte aligned, and the last
 // thread's slots past the end, take scalar loads.
 //
-// Supported: sum of f32 or bf16 values into f32; min/max of f32 or int32
-// keeping the type.
+// Supported: sum of f32 or bf16 values into f32; min/max of f32, bf16 or
+// int32 keeping the type (bf16 compares widened to f32, exactly, and is
+// stored back as bf16; its neutral is bf16 +-inf).
 #include "lux_runs.cuh"
 
 namespace {
@@ -59,11 +61,11 @@ __device__ __forceinline__ int chunk_key(const int32_t* __restrict__ chunk_block
   return (unsigned)b < (unsigned)num_vblocks ? b * v_blk : -1;
 }
 
-template <typename TIn, typename TAcc, int OP>
+template <typename TIn, typename TAcc, typename TOut, int OP>
 __global__ void __launch_bounds__(kThreads, 2)
 spmv_span_kernel(const TIn* __restrict__ vals, const int32_t* __restrict__ dst_rel,
                  const int32_t* __restrict__ chunk_block, long long num_chunks, int t_chunk,
-                 int v_blk, int num_vblocks, bool vec, TAcc* __restrict__ out, void* scratch,
+                 int v_blk, int num_vblocks, bool vec, TOut* __restrict__ out, void* scratch,
                  int num_spans) {
   const long long n_slots = num_chunks * t_chunk;
   const long long p0 = (long long)blockIdx.x * kSpan + threadIdx.x * kUnit;
@@ -107,21 +109,21 @@ spmv_span_kernel(const TIn* __restrict__ vals, const int32_t* __restrict__ dst_r
 
 long long num_spans_of(long long n_slots) { return (n_slots + kSpan - 1) / kSpan; }
 
-template <typename TIn, typename TAcc, int OP>
+template <typename TIn, typename TAcc, int OP, typename TOut = TAcc>
 void launch(const void* vals, const void* dst_rel, const void* chunk_block, long long num_chunks,
             int t_chunk, int v_blk, int num_vblocks, void* out, void* scratch,
             cudaStream_t stream) {
-  TAcc* o = static_cast<TAcc*>(out);
+  TOut* o = static_cast<TOut*>(out);
   launch_fill<TAcc, OP>(o, (long long)num_vblocks * v_blk, stream);
   const int num_spans = (int)num_spans_of(num_chunks * t_chunk);
   if (num_spans == 0) return;
   const bool vec = ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(dst_rel)) &
                     15) == 0;
-  spmv_span_kernel<TIn, TAcc, OP><<<num_spans, kThreads, 0, stream>>>(
+  spmv_span_kernel<TIn, TAcc, TOut, OP><<<num_spans, kThreads, 0, stream>>>(
       static_cast<const TIn*>(vals), static_cast<const int32_t*>(dst_rel),
       static_cast<const int32_t*>(chunk_block), num_chunks, t_chunk, v_blk, num_vblocks, vec, o,
       scratch, num_spans);
-  runs_fold_kernel<TAcc, OP><<<1, kFoldThreads, 0, stream>>>(scratch, num_spans, o);
+  runs_fold_kernel<TAcc, OP, TOut><<<1, kFoldThreads, 0, stream>>>(scratch, num_spans, o);
 }
 
 }  // namespace
@@ -156,6 +158,12 @@ extern "C" int lux_spmv_blockcsr(const void* vals, int kind, const void* dst_rel
       break;
     case LUX_F32 * 3 + LUX_MAX:
       launch<float, float, LUX_MAX>(vals, dst_rel, chunk_block, num_chunks, t_chunk, v_blk, num_vblocks, out, scratch, s);
+      break;
+    case LUX_BF16 * 3 + LUX_MIN:
+      launch<__nv_bfloat16, float, LUX_MIN, __nv_bfloat16>(vals, dst_rel, chunk_block, num_chunks, t_chunk, v_blk, num_vblocks, out, scratch, s);
+      break;
+    case LUX_BF16 * 3 + LUX_MAX:
+      launch<__nv_bfloat16, float, LUX_MAX, __nv_bfloat16>(vals, dst_rel, chunk_block, num_chunks, t_chunk, v_blk, num_vblocks, out, scratch, s);
       break;
     case LUX_I32 * 3 + LUX_MIN:
       launch<int32_t, int32_t, LUX_MIN>(vals, dst_rel, chunk_block, num_chunks, t_chunk, v_blk, num_vblocks, out, scratch, s);

@@ -533,7 +533,9 @@ class FusedStatic:
     v_pad: int          # accumulator slots (local part state size)
     nv_route: int       # pow2 routing space for the accumulator
     reduce: str         # "sum" | "min" | "max"
-    weighted: bool      # plan carries pre-routed f32 weights
+    #: plan carries pre-routed f32 weights: in the group layout, or on an
+    #: mx plan in the mx kernel's ENTRY layout (mx_weights_to_entry)
+    weighted: bool
     #: (offset, count, 2**k) per width class.  ``offset`` is a GROUP-
     #: SPACE element offset for the plain layout, a RANK offset for the
     #: mxreduce layout (whose element offsets carry per-rank-block
@@ -580,7 +582,11 @@ def plan_fused(src_pos: np.ndarray, dst_local: np.ndarray, m: int,
     = v_blk), tile_block/tile_first (each tile's output block).
     Arrays become r1 + ff + r2-prefix + mx-steps + (dst_rel,
     tile_block, tile_first) + (weights?) + vr; no group mask (the
-    sentinel subsumes it).  r1/vr freeze pass-fused directly."""
+    sentinel subsumes it).  r1/vr freeze pass-fused directly.  The mx
+    weights sit where the reference keeps its final-layout weights, but
+    in the mx group's ENTRY layout (sent back through the steps here, at
+    plan time): apply_fused applies the program's edge function before
+    the kernel, which takes no edge function."""
     n, csr, perm1, ff_static, ff_arrays = _plan_expand_half(
         src_pos, m, state_size)
 
@@ -764,7 +770,7 @@ def plan_fused(src_pos: np.ndarray, dst_local: np.ndarray, m: int,
             vra = tuple(_narrow_idx(a) for a in vra)
         else:
             dst_rel = dst_rel.astype(np.int32)
-        warr = ((np.ascontiguousarray(gweights.reshape(R, LANE)),)
+        warr = ((mx_weights_to_entry(mxs, mxa, gweights),)
                 if weights is not None else ())
         arrays = (idx_groups + (dst_rel, tile_block, tile_first) + warr
                   + (gslot_full,) + tuple(vra))
@@ -787,6 +793,54 @@ def plan_fused(src_pos: np.ndarray, dst_local: np.ndarray, m: int,
     warr = (gweights,) if weights is not None else ()
     arrays = idx_groups + (gmask,) + warr + (gslot_full,) + tuple(vra)
     return static, arrays
+
+
+def mx_entry_positions(mxg, step_idx) -> np.ndarray:
+    """(R * 128,) int32: for each position of the mx group's FINAL layout,
+    the position of its ENTRY layout (the kernel's ``x``, flat) that the
+    chained steps bring there: the plain chain (shuffle._steps_plain) run
+    on an iota of entry positions.  ``step_idx``: the group's step index
+    tiles, as numpy (any index dtype)."""
+    r = mxg.kshape[0]
+    iota = torch.arange(r * LANE, dtype=torch.int32).reshape(r, LANE)
+    idx = [torch.from_numpy(np.array(t)) for t in step_idx]
+    return shuf._steps_plain(iota, mxg.steps, idx).reshape(-1).numpy()
+
+
+def mx_weights_to_entry(mxg, step_idx, w_final) -> np.ndarray:
+    """Final-layout per-slot weights (the reference's mx ``gweights``) ->
+    (R, 128) f32 in the mx group's entry layout, so that the program's edge
+    function can run before the kernel: entry position src[p] takes the
+    weight of final position p.  The steps only permute within a tile
+    (each is a relayout and a gather by a per-row permutation), so every
+    entry position is taken once; a plan whose steps duplicate a position
+    raises ValueError."""
+    src = mx_entry_positions(mxg, step_idx)
+    seen = np.zeros(src.size, bool)
+    seen[src] = True
+    if not seen.all():
+        raise ValueError("the mx steps are not a permutation: "
+                         f"{int((~seen).sum())} entry positions are never read")
+    w = np.empty(src.size, np.float32)
+    w[src] = np.asarray(w_final, np.float32).reshape(-1)
+    return w.reshape(mxg.kshape)
+
+
+def mx_weights_slot(static) -> int | None:
+    """The index of the weights in a weighted mx plan's flat arrays (its
+    step index tiles are the len(static.mx.steps) arrays ending 3 before
+    it), else None."""
+    if getattr(static, "mx", None) is None or not static.weighted:
+        return None
+    return (shuf.route_num_arrays(static.r1) + _ff_array_count(static.ff)
+            + shuf.route_num_arrays(static.r2) + len(static.mx.steps) + 3)
+
+
+def mx_weights_to_final(mxg, step_idx, w_entry) -> np.ndarray:
+    """The inverse of :func:`mx_weights_to_entry`: (R, 128) entry-layout
+    weights sent through the steps (the reference's final layout)."""
+    src = mx_entry_positions(mxg, step_idx)
+    return np.asarray(w_entry, np.float32).reshape(-1)[src].reshape(mxg.kshape)
 
 
 def split_fused_arrays(static: FusedStatic, arrays, weighted: bool):
@@ -840,7 +894,8 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
     ``edge_value(src_vals, weights)`` is applied elementwise in GROUP
     layout (destination-state-dependent programs are unsupported here —
     use the expand path); ``weighted`` (default ``static.weighted``)
-    says whether it is given the plan's group-space weights or None.
+    says whether it is given the plan's weights (in the layout of the
+    values it is given) or None.
     Sum association follows the group layout — a deterministic,
     method-specific order, like mxsum's.  An MXREDUCE plan
     (``static.mx``) runs the final pass group and the segmented
@@ -849,10 +904,12 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
     kernel (the gathers only permute, so those are the same values; an
     edge function that is the identity on the dtype, as PageRank's
     ``f32(src)`` on f32 state, returns its input and launches nothing),
-    float sums accumulate in f32, min/max and integer ops keep their
-    dtype bitwise, and the group-space array is read once, never written
-    back.  A weighted edge function on an mx plan raises
-    NotImplementedError.
+    float sums (bf16 state included) accumulate in f32, min/max and
+    integer ops keep their dtype bitwise (bf16 too), and the group-space
+    array is read once, never written back.  A weighted edge function
+    reads the plan's weights in the same entry layout
+    (mx_weights_to_entry).  The neutral fill of the totals and the
+    accumulator route follow the totals' dtype.
 
     ``del_val``: optional (e_pad,) bool CSC-order tombstones (a mutation
     overlay's deletions), scattered through the plan's ``gslot`` route
@@ -884,12 +941,7 @@ def apply_fused(full_state: torch.Tensor, static: FusedStatic, arrays,
         # kernel chains the suffix gathers with the reduction
         y = shuf._relayout(y, mxg.view, mxg.perm_axes).reshape(mxg.kshape)
         if edge_value is not None:
-            if weighted:
-                raise NotImplementedError(
-                    "a weighted edge function in the mx kernel is not "
-                    "ported yet (ROADMAP Queue 2, weighted edge "
-                    "functions); run --route-gather fused-pf or expand-pf")
-            y = edge_value(y, None).contiguous()
+            y = edge_value(y, gweights if weighted else None).contiguous()
         n_steps = len(mxg.steps)
         dst_rel, tile_block, _tile_first = mxa[n_steps:]
         if g_del is not None:
@@ -1122,7 +1174,7 @@ def plan_to_device(plan, device):
 #: mxreduce families on top of it
 PLAN_FORMAT = 1
 PF_FORMAT = 1
-MX_FORMAT = 1
+MX_FORMAT = 2  # 2: the weights in the mx group's entry layout
 FUSED_FORMAT = 1
 #: the key salt's prefix: keeps the port's entry names disjoint from the
 #: reference's even in one directory

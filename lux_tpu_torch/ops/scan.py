@@ -13,11 +13,13 @@ version on a CPU tensor.  The kernel is a blocked scan: each thread scans
 CTA scans the tiles' carries and each tile folds its carry into the
 elements before its first head (three deterministic passes, one on an
 array of a single tile).  ``mxscan_segmented.launches`` counts kernel
-launches (one per call).
+launches (one per call).  bf16 values scan in f32 and round once on the
+way out, in the kernel and in its plain twin alike.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -25,7 +27,7 @@ import torch
 from lux_tpu_torch.ops import cuda_build
 from lux_tpu_torch.ops.spmv import reduce_neutral
 
-_KIND = {torch.float32: 0, torch.int32: 2}
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OPS = {"sum": 0, "min": 1, "max": 2}
 COMBINERS: dict[str, Callable] = {
     "sum": torch.add, "min": torch.minimum, "max": torch.maximum,
@@ -61,12 +63,17 @@ def segmented_scan(vals: torch.Tensor, head_flag: torch.Tensor,
 
 def mxscan_segmented_plain(vals, head_flag, invalid=None, op: str = "sum",
                            valid_end=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`mxscan_segmented`."""
+    """Plain PyTorch version of :func:`mxscan_segmented`.  bf16 values are
+    widened to f32 (exactly), scanned there and rounded once, as the kernel
+    does; the ladder in bf16 would round at every level."""
+    out_dtype = vals.dtype
+    if out_dtype == torch.bfloat16:
+        vals = vals.float()
     neutral = reduce_neutral(op, vals.dtype)
     bad = _invalid_mask(vals, invalid, valid_end)
     if bad is not None:
         vals = torch.where(bad, torch.full_like(vals, neutral), vals)
-    return segmented_scan(vals, head_flag, COMBINERS[op])
+    return segmented_scan(vals, head_flag, COMBINERS[op]).to(out_dtype)
 
 
 def _invalid_mask(vals, invalid, valid_end) -> Optional[torch.Tensor]:
@@ -79,21 +86,23 @@ def _invalid_mask(vals, invalid, valid_end) -> Optional[torch.Tensor]:
 
 _lib_bound = None
 _tile_elems = 0
+_LIB_LOCK = threading.Lock()  # a planner thread and the caller may bind at once
 
 
 def _lib():
     global _lib_bound, _tile_elems
-    if _lib_bound is None:
-        lib = cuda_build.load("mxscan_segmented")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lux_mxscan_segmented.argtypes = [vp, ci, vp, vp, vp, ctypes.c_longlong,
-                                             ci, vp, vp, vp]
-        lib.lux_mxscan_segmented.restype = ci
-        lib.lux_mxscan_tile_elems.argtypes = []
-        lib.lux_mxscan_tile_elems.restype = ci
-        _tile_elems = lib.lux_mxscan_tile_elems()
-        _lib_bound = lib
-    return _lib_bound
+    with _LIB_LOCK:
+        if _lib_bound is None:
+            lib = cuda_build.load("mxscan_segmented")
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.lux_mxscan_segmented.argtypes = [vp, ci, vp, vp, vp, ctypes.c_longlong,
+                                                 ci, vp, vp, vp]
+            lib.lux_mxscan_segmented.restype = ci
+            lib.lux_mxscan_tile_elems.argtypes = []
+            lib.lux_mxscan_tile_elems.restype = ci
+            _tile_elems = lib.lux_mxscan_tile_elems()
+            _lib_bound = lib
+        return _lib_bound
 
 
 def _check(vals, head_flag, invalid, op, valid_end):
@@ -103,12 +112,9 @@ def _check(vals, head_flag, invalid, op, valid_end):
         raise ValueError(
             "mxscan_segmented is a 1-D kernel; (E, K)-valued reductions "
             "keep the plain scan (ops/segment dispatches the fallback)")
-    if vals.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "mxscan_segmented takes float32 or int32 values; bfloat16 is "
-            "not ported yet")
     if vals.dtype not in _KIND:
-        raise TypeError(f"mxscan_segmented takes float32 or int32, got {vals.dtype}")
+        raise TypeError(f"mxscan_segmented takes float32, bfloat16 or int32, "
+                        f"got {vals.dtype}")
     n = vals.shape[0]
     if head_flag.shape != (n,) or head_flag.dtype != torch.bool:
         raise ValueError(f"head_flag must be bool of shape ({n},)")
@@ -130,9 +136,10 @@ def mxscan_segmented(vals: torch.Tensor, head_flag: torch.Tensor,
     ``head_flag`` slots.  Invalid slots — ``invalid`` (E,) bool, and/or
     every slot at or past the device scalar ``valid_end`` (one int32) —
     are neutralized before any arithmetic; their outputs are unspecified.
-    Returns (E,) in ``vals.dtype``.  f32 and int32 values (int32 sums
-    wrap); bf16 raises NotImplementedError.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel."""
+    Returns (E,) in ``vals.dtype``.  f32, bf16 and int32 values: int32
+    sums wrap; bf16 sums accumulate in f32 through every pass and round to
+    bf16 once; bf16 min/max are exact.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
     _check(vals, head_flag, invalid, op, valid_end)
     n = vals.shape[0]
     if n == 0:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
@@ -58,7 +59,7 @@ MX_PART_BYTES = 20
 
 _GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _INDEX_DTYPES = (torch.uint8, torch.int32)
-_MX_KIND = {torch.float32: 0, torch.int32: 2}
+_MX_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _MX_OPS = {"sum": 0, "min": 1, "max": 2}
 
 
@@ -67,6 +68,8 @@ _MX_OPS = {"sum": 0, "min": 1, "max": 2}
 # ---------------------------------------------------------------------------
 
 _bound: dict[str, ctypes.CDLL] = {}
+#: guards _bound and _DESC_CACHE: planner threads and the caller may reach them at once
+_LOCK = threading.Lock()
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
@@ -83,13 +86,14 @@ _ARGTYPES = {
 
 def _fn(name: str):
     """The bound C entry point of kernel ``name`` (built on first use)."""
-    lib = _bound.get(name)
-    if lib is None:
-        lib = cuda_build.load(name)
-        sym, argtypes = _ARGTYPES[name]
-        getattr(lib, sym).argtypes = argtypes
-        getattr(lib, sym).restype = ctypes.c_int
-        _bound[name] = lib
+    with _LOCK:
+        lib = _bound.get(name)
+        if lib is None:
+            lib = cuda_build.load(name)
+            sym, argtypes = _ARGTYPES[name]
+            getattr(lib, sym).argtypes = argtypes
+            getattr(lib, sym).restype = ctypes.c_int
+            _bound[name] = lib
     return getattr(lib, _ARGTYPES[name][0])
 
 
@@ -868,10 +872,11 @@ _DESC_CACHE: dict = {}
 
 
 def _desc_of(steps) -> np.ndarray:
-    d = _DESC_CACHE.get(steps)
-    if d is None:
-        d = _DESC_CACHE[steps] = _relayout_desc(steps)
-    return d
+    with _LOCK:
+        d = _DESC_CACHE.get(steps)
+        if d is None:
+            d = _DESC_CACHE[steps] = _relayout_desc(steps)
+        return d
 
 
 def _check_chain(name, x, idx, steps, block_rows, kshape):
@@ -985,17 +990,12 @@ def mxreduce_pass_gather(x: torch.Tensor, idx, dst_rel: torch.Tensor,
     each tile, nondecreasing (the planner's rank-block alignment).  The
     program's edge function is applied to ``x`` by the caller
     (apply_fused): the gathers only permute, so that is the same values.
-    float32 sums accumulate and come out in float32; min/max and int32
-    ops keep the dtype.  CPU tensors run the plain version; CUDA tensors
-    launch ``csrc/mxreduce_pass_gather.cu``."""
+    Float sums (bf16 included) accumulate and come out in float32; min/max
+    and int32 ops keep the dtype, bitwise.  CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/mxreduce_pass_gather.cu``."""
     idx = tuple(idx)
     if x.dtype not in _MX_KIND:
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "mxreduce_pass_gather takes float32 or int32 values; "
-                "bfloat16 is not ported yet (an f32 edge function, as "
-                "PageRank's, widens bf16 state before the kernel)")
-        raise TypeError(f"mxreduce_pass_gather takes float32 or int32, "
+        raise TypeError(f"mxreduce_pass_gather takes float32, bfloat16 or int32, "
                         f"got {x.dtype}")
     if group.op not in _MX_OPS:
         raise ValueError(f"mx op must be sum|min|max, got {group.op!r}")

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Optional
 
 import numpy as np
@@ -180,7 +181,8 @@ def spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
                         num_vblocks: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`spmv_blockcsr`: a scatter of every
     real slot into its global vertex (padding goes to a dump slot that is
-    cut off).  Sums accumulate in f32; min/max keep the dtype."""
+    cut off).  Sums accumulate in f32; min/max keep the dtype (bf16
+    included: a scatter-min of bf16 values is exact)."""
     del chunk_first  # block starts are implied by chunk_block
     n = num_vblocks * v_blk
     dst = _flat_dst(e_dst_rel, chunk_block, v_blk, n)
@@ -196,17 +198,20 @@ def spmv_blockcsr_plain(edge_vals, e_dst_rel, chunk_block, chunk_first,
 
 
 _lib_bound = None
+_LIB_LOCK = threading.Lock()  # a planner thread and the caller may bind at once
 
 
 def _lib():
     global _lib_bound
-    if _lib_bound is None:
-        lib = cuda_build.load("spmv_blockcsr")
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lux_spmv_blockcsr.argtypes = [vp, ci, vp, vp, cl, ci, ci, ci, ci, vp, vp, cl, vp]
-        lib.lux_spmv_blockcsr.restype = ci
-        _lib_bound = lib
-    return _lib_bound
+    with _LIB_LOCK:
+        if _lib_bound is None:
+            lib = cuda_build.load("spmv_blockcsr")
+            vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.lux_spmv_blockcsr.argtypes = [vp, ci, vp, vp, cl, ci, ci, ci, ci, vp, vp, cl,
+                                              vp]
+            lib.lux_spmv_blockcsr.restype = ci
+            _lib_bound = lib
+        return _lib_bound
 
 
 def _check(edge_vals, e_dst_rel, chunk_block, chunk_first, op, v_blk,
@@ -226,7 +231,7 @@ def _check(edge_vals, e_dst_rel, chunk_block, chunk_first, op, v_blk,
     if e_dst_rel.dtype != torch.int32:
         raise ValueError("e_dst_rel must be int32")
     allowed = ((torch.float32, torch.bfloat16) if op == "sum"
-               else (torch.float32, torch.int32))
+               else (torch.float32, torch.bfloat16, torch.int32))
     if edge_vals.dtype not in allowed:
         raise TypeError(f"spmv_blockcsr op={op} takes {allowed}, got {edge_vals.dtype}")
     devices = {t.device for t in (edge_vals, e_dst_rel, chunk_block, chunk_first)}
@@ -240,7 +245,8 @@ def spmv_blockcsr(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
                   num_vblocks: int = 0) -> torch.Tensor:
     """Segmented reduction of (C, T) per-slot values by destination ->
     (num_vblocks * v_blk,).  sum takes f32 or bf16 and returns f32;
-    min/max take f32 or int32 and keep the dtype.  Vertices with no edge
+    min/max take f32, bf16 or int32 and keep the dtype, bitwise (bf16's
+    neutral is bf16 +-inf).  Vertices with no edge
     get the neutral element.  CPU tensors run the plain version; CUDA
     tensors launch the kernel."""
     _check(edge_vals, e_dst_rel, chunk_block, chunk_first, op, v_blk,

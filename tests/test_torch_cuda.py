@@ -87,6 +87,7 @@ def _spmv_sum_f64(vals, e_dst, cb, v_blk, num_vblocks):
 @pytest.mark.parametrize("v_blk", [128, 512])
 @pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("sum", torch.bfloat16),
                                       ("min", torch.float32), ("max", torch.float32),
+                                      ("min", torch.bfloat16), ("max", torch.bfloat16),
                                       ("min", torch.int32), ("max", torch.int32)])
 def test_spmv_kernel_matches_plain(cuda, layout, v_blk, op, dtype):
     """min/max bitwise against the plain version; sums within rtol 1e-5 of
@@ -307,8 +308,12 @@ def _mx_plan(seed, nv=3000, ne=40000, hub=True):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.float32),
                                       ("max", torch.float32), ("sum", torch.int32),
-                                      ("min", torch.int32), ("max", torch.int32)])
+                                      ("min", torch.int32), ("max", torch.int32),
+                                      ("sum", torch.bfloat16), ("min", torch.bfloat16),
+                                      ("max", torch.bfloat16)])
 def test_mxreduce_kernel_matches_plain(cuda, op, dtype):
+    """Sums of f32 and of bf16 values (f32 totals) within rtol 1e-5 of the
+    plain version; min/max and int32 bitwise, bf16 min/max in bf16."""
     _, static, arrays = _mx_plan(8)
     mxg = dataclasses.replace(static.mx, op=op)
     r1a, ffa, r2a, _, _, _, _, mxa = expand.split_fused_arrays(static, [a[0] for a in arrays],
@@ -319,7 +324,7 @@ def test_mxreduce_kernel_matches_plain(cuda, op, dtype):
     if dtype == torch.int32:
         x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, n2, dtype=np.int64).astype(np.int32))
     else:
-        x = torch.from_numpy(rng.random(n2, dtype=np.float32) + 0.01)
+        x = torch.from_numpy(rng.random(n2, dtype=np.float32) + 0.01).to(dtype)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in mxa]
     y = shuffle._relayout(x.to(cuda), mxg.view, mxg.perm_axes).reshape(mxg.kshape)
     before = shuffle.mxreduce_pass_gather.launches
@@ -327,7 +332,8 @@ def test_mxreduce_kernel_matches_plain(cuda, op, dtype):
     assert shuffle.mxreduce_pass_gather.launches == before + 1
     want = shuffle.mxreduce_pass_gather_plain(y, t[:k], t[k], t[k + 1], mxg)
     total = sum(c for _, c, _ in static.groups)
-    if op == "sum" and dtype == torch.float32:
+    assert got.dtype == want.dtype
+    if op == "sum" and dtype.is_floating_point:
         torch.testing.assert_close(got[:total], want[:total], rtol=1e-5, atol=0)
     else:
         assert torch.equal(got[:total], want[:total])
@@ -382,7 +388,8 @@ def _mx_split_case(case):
 @pytest.mark.parametrize("idx_dtype", [torch.uint8, torch.int32])
 @pytest.mark.parametrize("op,dtype", [("sum", torch.float32), ("min", torch.float32),
                                       ("max", torch.float32), ("sum", torch.int32),
-                                      ("min", torch.int32), ("max", torch.int32)])
+                                      ("min", torch.int32), ("max", torch.int32),
+                                      ("sum", torch.bfloat16), ("min", torch.bfloat16)])
 def test_mxreduce_kernel_split_edges(cuda, case, idx_dtype, op, dtype):
     """The mx kernel's chunk-and-fold split on its edges: one rank whose
     run spans five chunks and crosses chunk boundaries mid-run (hub); a
@@ -402,7 +409,7 @@ def test_mxreduce_kernel_split_edges(cuda, case, idx_dtype, op, dtype):
         x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, 128), dtype=np.int64)
                              .astype(np.int32))
     else:
-        x = torch.from_numpy(rng.random((rows, 128), dtype=np.float32) + 0.01)
+        x = torch.from_numpy(rng.random((rows, 128), dtype=np.float32) + 0.01).to(dtype)
     idx = [torch.from_numpy(rng.integers(0, 128, (rows, 128)).astype(np.int32))
            .to(idx_dtype).to(cuda) for _ in mxg.steps]
     dst_rel = torch.from_numpy(ranks.reshape(rows, 128).astype(np.int32)).to(idx_dtype).to(cuda)
@@ -412,7 +419,7 @@ def test_mxreduce_kernel_split_edges(cuda, case, idx_dtype, op, dtype):
     got = shuffle.mxreduce_pass_gather(x, idx, dst_rel, tb, mxg)
     assert shuffle.mxreduce_pass_gather.launches == before + 1
     want = shuffle.mxreduce_pass_gather_plain(x, idx, dst_rel, tb, mxg)
-    if op == "sum" and dtype == torch.float32:
+    if op == "sum" and dtype.is_floating_point:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     else:
         assert torch.equal(got, want)
@@ -1166,3 +1173,86 @@ def test_sorted_routed_kernels_match_plain(cuda):
                    "--route-gather", "fused-pf", "--device", "cuda", "-check"])
     assert res.rc == 0 and res.route_gather == "fused-pf"
     np.testing.assert_allclose(res.ranks, pr.pagerank_reference(res.graph, 10), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", ["sparse", "none", "one_segment"])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("n", [2047, 70001])
+def test_scan_kernel_bf16_matches_plain(cuda, heads, op, n):
+    """bf16 values: min/max bitwise against the plain version (f32 widening,
+    one rounding); sums, carried in f32 through the tiles, the carries and
+    the rescanning carry pass and rounded once, within rtol 2e-2 / atol
+    2e-2 of float64 segmented sums.  The launch counter rises."""
+    rng = np.random.default_rng(39)
+    head = torch.from_numpy(_scan_heads(heads, n, rng)).to(cuda)
+    vals = torch.from_numpy(rng.random(n).astype(np.float32) + 0.01).to(torch.bfloat16).to(cuda)
+    end = torch.tensor([n - 5], dtype=torch.int32, device=cuda)
+    before = scan.mxscan_segmented.launches
+    got = scan.mxscan_segmented(vals, head, op=op, valid_end=end)
+    assert scan.mxscan_segmented.launches == before + 1 and got.dtype == torch.bfloat16
+    k = n - 5
+    if op == "sum":
+        want = _seg_scan_sum_f64(vals.float(), head, k)
+        torch.testing.assert_close(got[:k].double(), want, rtol=2e-2, atol=2e-2)
+    else:
+        want = scan.mxscan_segmented_plain(vals, head, op=op, valid_end=end)
+        assert torch.equal(got[:k], want[:k])
+    assert torch.equal(got, scan.mxscan_segmented(vals, head, op=op, valid_end=end))
+
+
+def _weighted_mx_case(scale, reduce):
+    from lux_tpu_torch.graph import generate
+
+    g = generate.rmat(scale, 8, seed=3, weighted=True)
+    sh = shards.build_pull_shards(g, 1)
+    return g, sh, expand.plan_fused_shards(sh, reduce, mx=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_apply_fused_mx_bf16_state_on_card(cuda, op):
+    """bf16 state through apply_fused on a fused-mx plan: the card's totals
+    against the CPU's (sums f32 within rtol 1e-5, min/max bf16 bitwise); the
+    mx kernel launches."""
+    _, sh, plan = _weighted_mx_case(11, op)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(sh.spec.gathered_size)
+                         .astype(np.float32)).to(torch.bfloat16)
+    part = tuple(torch.from_numpy(np.ascontiguousarray(a[0])) for a in plan[1])
+    want = expand.apply_fused(x, plan[0], part)
+    before = shuffle.mxreduce_pass_gather.launches
+    got = expand.apply_fused(x.to(cuda), plan[0], tuple(a.to(cuda) for a in part))
+    assert shuffle.mxreduce_pass_gather.launches == before + 1
+    assert got.dtype == want.dtype == (torch.float32 if op == "sum" else torch.bfloat16)
+    if op == "sum":
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_weighted_sssp_pull_until_fused_mx_on_card(cuda):
+    """Weighted SSSP through run_pull_until on a "min" fused-mx plan: the
+    card bitwise the CPU and the push engine's --weighted run, the mx kernel
+    launched every iteration."""
+    from lux_tpu_torch.apps import sssp as sssp_app
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.program import library, spec
+
+    g, sh, plan = _weighted_mx_case(12, "min")
+    hub = int(np.argmax(g.out_degrees()))
+    prog = spec.bind(library.SSSP_WEIGHTED, inf=1 << 30, start=hub)
+
+    def run(dev):
+        arr = shards.to_device(sh.arrays, dev)
+        return pull.run_pull_until(prog, sh.spec, arr, pull.init_state(prog, arr), 1000,
+                                   spec.active_changed, route=plan)
+
+    before = shuffle.mxreduce_pass_gather.launches
+    got, iters = run(cuda)
+    assert shuffle.mxreduce_pass_gather.launches - before == iters > 2
+    want, want_iters = run("cpu")
+    assert iters == want_iters and torch.equal(got.cpu(), want)
+    push = sssp_app.run(["--weighted", "-start", str(hub), "--device", "cuda"], graph=g)
+    assert push.rc == 0
+    np.testing.assert_array_equal(sh.scatter_to_global(got.cpu().numpy()), push.state)

@@ -55,10 +55,21 @@ def _assert_static_equal(a, b):
 
 
 def _assert_plans_equal(mine, ref):
+    """Statics field by field, arrays byte for byte.  A weighted mx plan
+    keeps its weights in the mx group's entry layout where the reference
+    keeps them in the final layout: that slot is compared after sending
+    the port's weights through the plain chain (mx_weights_to_final)."""
     _assert_static_equal(mine[0], ref[0])
     assert len(mine[1]) == len(ref[1])
-    for x, y in zip(mine[1], ref[1]):
+    slot = expand.mx_weights_slot(mine[0])
+    for i, (x, y) in enumerate(zip(mine[1], ref[1])):
         y = np.asarray(y)
+        if i == slot:
+            k = len(mine[0].mx.steps)
+            steps = mine[1][slot - 3 - k:slot - 3]
+            x = (np.stack([expand.mx_weights_to_final(mine[0].mx, [a[p] for a in steps], x[p])
+                           for p in range(x.shape[0])]) if x.ndim == 3
+                 else expand.mx_weights_to_final(mine[0].mx, steps, x))
         assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
 
 
@@ -293,8 +304,15 @@ def test_fused_rejects_what_it_cannot_run(graphs):
     full = torch.zeros(sh.spec.gathered_size)
     mx_plan = expand.plan_fused_shards(sh, "sum", mx=True)
     part = (mx_plan[0], tuple(_t(a[0]) for a in mx_plan[1]))
-    with pytest.raises(NotImplementedError, match="weighted edge function"):
-        expand.apply_fused(full, *part, edge_value=lambda s, w: s + w, weighted=True)
+    # a weighted edge function on an mx plan runs now: the reference's
+    # in-kernel form on its own plan, within rtol 1e-5
+    x = np.random.default_rng(41).random(sh.spec.gathered_size).astype(np.float32)
+    got = expand.apply_fused(_t(x), *part, edge_value=lambda s, w: s + w, weighted=True)
+    rplan = ref_expand.plan_fused_shards(ref_shards.build_pull_shards(graphs[1], 1), "sum",
+                                         mx=True)
+    want = ref_expand.apply_fused(jnp.asarray(x), rplan[0], _jj(a[0] for a in rplan[1]),
+                                  edge_value=lambda s, w: s + w, weighted=True, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
     prog = pr.PageRankProgram(nv=g.nv)
     with pytest.raises(AssertionError, match="reduce"):
         pull.local_pull_step(spec.bind(library.SSSP, inf=g.nv, start=0), arrays.part(0),

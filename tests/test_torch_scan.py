@@ -91,9 +91,27 @@ def test_valid_end_equals_invalid_mask():
 
 
 def test_mxscan_rejects_what_it_does_not_take():
+    """bf16 is taken now (the reference's kernel, interpret mode, gives the
+    same min/max bits and sums at rtol 2e-2); float16, (E, K) values, a
+    misshaped head_flag and an unknown op are refused."""
+    rng = np.random.default_rng(34)
+    head, invalid = _geometry("mixed", rng)
+    vals = rng.standard_normal(N).astype(np.float32)
+    vb = torch.from_numpy(vals).to(torch.bfloat16)
+    for op in ("sum", "min", "max"):
+        got = scan.mxscan_segmented(vb, torch.from_numpy(head), torch.from_numpy(invalid), op=op)
+        want = ref_scan.mxscan_segmented(jnp.asarray(vals).astype(jnp.bfloat16),
+                                         jnp.asarray(head), jnp.asarray(invalid), op=op)
+        assert got.dtype == torch.bfloat16
+        ok = ~invalid
+        g32, w32 = got.float().numpy()[ok], np.asarray(want.astype(jnp.float32))[ok]
+        if op == "sum":
+            np.testing.assert_allclose(g32, w32, rtol=2e-2, atol=2e-2)
+        else:
+            np.testing.assert_array_equal(g32, w32)
     h = torch.zeros(8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        scan.mxscan_segmented(torch.zeros(8, dtype=torch.bfloat16), h)
+    with pytest.raises(TypeError, match="bfloat16"):
+        scan.mxscan_segmented(torch.zeros(8, dtype=torch.float16), h)
     with pytest.raises(ValueError, match="1-D"):
         scan.mxscan_segmented(torch.zeros(8, 2), h)
     with pytest.raises(ValueError, match="head_flag"):

@@ -279,14 +279,37 @@ def test_mxreduce_plain_matches_reference(op, dtype):
 
 
 def test_mxreduce_wrapper_rejects():
+    """bf16 values are taken now: the reference's kernel on the same
+    values gives f32 sums within rtol 1e-5 and bf16 min/max bitwise.
+    float16 and a misshaped tile_block are refused."""
     src, dst = _mx_case(13)
     st, arr = expand.plan_fused(src, dst, len(src), 500, 64, "sum", mx=True)
+    rmxg = ref_expand.plan_fused(src, dst, len(src), 500, 64, "sum", mx=True)[0].mx
     *_, mxa = expand.split_fused_arrays(st, arr, st.weighted)
     mxg, k = st.mx, len(st.mx.steps)
-    y = torch.zeros(mxg.kshape, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        shuffle.mxreduce_pass_gather(y, [_t(a) for a in mxa[:k]], _t(mxa[k]),
-                                     _t(mxa[k + 1]), mxg)
+    xv = np.random.default_rng(14).standard_normal(st.n2).astype(np.float32)
+    y = shuffle._relayout(_t(xv).to(torch.bfloat16), mxg.view,
+                          mxg.perm_axes).reshape(mxg.kshape)
+    yr = jnp.asarray(xv).astype(jnp.bfloat16).reshape(mxg.view)
+    yr = (yr.transpose(mxg.perm_axes) if mxg.perm_axes else yr).reshape(mxg.kshape)
+    total = sum(c for _, c, _ in st.groups)
+    for op in ("sum", "min", "max"):
+        g = dataclasses.replace(mxg, op=op)
+        got = shuffle.mxreduce_pass_gather(y, [_t(a) for a in mxa[:k]], _t(mxa[k]),
+                                           _t(mxa[k + 1]), g)
+        want = ref_shuf.mxreduce_pass_gather(
+            yr, tuple(jnp.asarray(a) for a in mxa[:k]), jnp.asarray(mxa[k]),
+            jnp.asarray(mxa[k + 1]), jnp.asarray(mxa[k + 2]),
+            group=dataclasses.replace(rmxg, op=op), interpret=True)
+        assert got.dtype == (torch.float32 if op == "sum" else torch.bfloat16)
+        g32, w32 = got.float().numpy()[:total], np.asarray(want.astype(jnp.float32))[:total]
+        if op == "sum":
+            np.testing.assert_allclose(g32, w32, rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g32, w32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        shuffle.mxreduce_pass_gather(y.to(torch.float16), [_t(a) for a in mxa[:k]],
+                                     _t(mxa[k]), _t(mxa[k + 1]), mxg)
     with pytest.raises(ValueError, match="tile_block"):
         shuffle.mxreduce_pass_gather(y.float(), [_t(a) for a in mxa[:k]], _t(mxa[k]),
                                      _t(mxa[k + 1][:-1]), mxg)

@@ -16,9 +16,10 @@ fleet and a pod (serve/fleet: replica and pod workers as CUDA processes
 on the card), live serving (serve/live: live replica workers as CUDA
 processes taking writes, with standing queries), the autopilot
 (serve/autopilot: the autoscaler over CUDA worker processes, the soaks,
-the election drill) and big graphs from disk (the native host I/O
+the election drill), big graphs from disk (the native host I/O
 library, a `.lux` file loaded by parts, the --sort-segments and
---compact-gather gather relayouts).
+--compact-gather gather relayouts) and the distributed pull engine
+(parallel/: ranks of torch.distributed that share the card).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -60,7 +61,11 @@ Phases, each printing one JSON line with its seconds:
               plan of phase 22's post-compaction base, the
               --sort-segments fused-pf plan of phase 24 (RMAT 18) and the
               "min" fused-mx plan of phase 13b's weighted graph build at
-              once, each in a process of its own, started after phase 3.
+              once, each in a process of its own, started after phase 3;
+              they share one plan cache, whose route memo
+              (ops/route.build_route_memo) colours each permutation they
+              have in common once (the expand half of the main graph's
+              families, the group half of fused-mx and "min").
               The card works meanwhile: phases 17 and 9-14, which need of
               these plans only the expand chain's (loaded from the cache
               once that chain is done), run beside the builds, so their
@@ -357,6 +362,26 @@ Phases, each printing one JSON line with its seconds:
               and fused_pass_gather launch held bitwise to its plain
               version.  The block-CSR of phase 3 (and of phase 6's pallas
               run) is the native fill.
+  25. dist    the distributed pull engine (see dist_main) as spawned rank
+              processes on the card (parallel/spawn.run_ranks, each rank
+              loading only its parts of phase 24's file): (a) NCCL, one
+              rank with all 8 parts, allgather + mxscan PageRank bitwise
+              phase 24's single-process -ng 8 run; (b) gloo, 2 ranks of 4
+              parts, the collectives staged through pinned host buffers:
+              allgather + mxscan bitwise the same run, ring and scatter
+              (--method scatter) within rtol 1e-4 of its float64 oracle; (c)
+              gloo, 2 ranks, --method pallas on the main graph at 2 parts
+              within rtol 1e-4 of float64; (d) gloo, 2 ranks,
+              apps.colfilter --distributed --method pallas -ng 2 -check on
+              the 2-D kernel within 1e-4 of phase 8's single-process
+              pallas run, then the CF library on the 2-D kernel at gamma
+              1e-3 within 1e-4 of the float64 CF oracle.  Each run's ms an
+              iteration and its split into compute, staging and
+              collective (a further fenced run); each rank's launches
+              (kernels 2, 1, 7 at least once a part an iteration); the
+              block-CSR kernels held on each rank's part against float64,
+              timed beside their plain versions and index_add_; no rank
+              process left.  NCCL across cards is not exercised (one card).
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -372,7 +397,8 @@ the fleet and pod worker processes of phases 20-21, which each report
 their own counters: ``launches_fleet``; in the live worker processes of
 phase 22, the killed one's last report included: ``launches_live``; the
 soaks of phase 23: ``launches_autopilot``; phase 24's runs:
-``launches_disk``; phase 13b's driven calls: ``launches_variants``, and
+``launches_disk``; phase 25's ranks, summed: ``launches_dist``; phase
+13b's driven calls: ``launches_variants``, and
 on rows 1, 2 and 6 ``variants``, the new forms' own records), the
 smoke's seconds, the
 nvidia-smi line, and the verdict line {"ok": true, "device": {...}}
@@ -413,7 +439,7 @@ RUN_KERNEL = {"pallas": "spmv_blockcsr", "mxscan": "mxscan_segmented",
               "fused": "lane_gather", "fused-pf": "fused_pass_gather",
               "fused-mx": "mxreduce_pass_gather"}
 CF_K = 20  # latent features (models/colfilter.K)
-CF_ROUTED_SCALE = 18  # the routed CF runs: two expand plans each
+CF_ROUTED_SCALE = 17  # the routed CF runs: two expand plans each
 CF_GAMMA = 1e-3  # the accuracy runs' step (the app's 3.5e-7 barely moves)
 CF_RTOL = 1e-4  # against the f64 oracle: 10 iterations of f32 sums
 #: the kernel each CF run must have launched >= ITERS times
@@ -3414,9 +3440,10 @@ def cold_telemetry(torch, np, kernels, smi, dev, g, sh, arrays, prog, s0):
     emit({"phase": "cold_obs", "leg": "telemetry", **tel, "device": smi})
 
 
-def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts):
+def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts, snap):
     """Phase 19d: `apps.pagerank --method pallas -ni 10 --profile-dir` in a
-    subprocess (one profiler session a process): its event log's one
+    subprocess (one profiler session a process) on the main graph's .lux
+    snapshot ``snap`` (read, not generated again): its event log's one
     xprof.kernels point counts spmv's span kernel as often as the counters
     count an app run (phase 6, and the same work here), and its device
     total is within PROFILE_REL of the CUDA-event time of that work
@@ -3425,9 +3452,8 @@ def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts):
     from lux_tpu_torch.models.pagerank import make_pallas_runner
 
     prof_dir = os.path.join(_TMP, "profile")
-    cmd = [sys.executable, "-m", "lux_tpu_torch.apps.pagerank", "--rmat-scale", str(SCALE),
-           "--rmat-ef", str(EF), "--method", "pallas", "-ni", str(ITERS), "--profile-dir",
-           prof_dir]
+    cmd = [sys.executable, "-m", "lux_tpu_torch.apps.pagerank", "-file", snap,
+           "--method", "pallas", "-ni", str(ITERS), "--profile-dir", prof_dir]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -3481,7 +3507,7 @@ def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts):
 
 
 def cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf, built_s,
-                  pallas_counts):
+                  pallas_counts, snap):
     """Phase 19: cold start and observability on the main graph, four legs
     (cold_app_runs, cold_overlapped, cold_telemetry, cold_profile_dir).
     Every launch counter is set to 0 at the start and read at the end:
@@ -3503,7 +3529,7 @@ def cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf, built_
     cold_telemetry(torch, np, kernels, smi, dev, g, sh, arrays, prog, s0)
     del arrays, s0
     torch.cuda.empty_cache()
-    cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts)
+    cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts, snap)
     counts = launch_snapshot(kernels)
     for name in ("mxscan_segmented", "lane_gather", "fused_pass_gather", "spmv_blockcsr"):
         require(counts[name] > 0, f"cold_obs: {name} was never launched")
@@ -4504,16 +4530,20 @@ DISK_PUSH = (("compact", ["--compact-gather"]), ("sorted", ["--sort-segments"]))
 SORTED_SCALE = 18  # the --sort-segments --route-gather fused-pf PageRank (plan: phase 4)
 
 
-def sorted_plan(plan_dir: str):
+def sorted_plan(tmp: str, plan_dir: str):
     """Phase 4's fifth process: the fused-pf plan of the --sort-segments
     one-part layout of RMAT SORTED_SCALE, built into the plan cache that
-    phase 24 loads.  Returns its seconds."""
+    phase 24 loads; the graph is handed to phase 24 under ``tmp``.
+    Returns its seconds."""
+    import numpy as np
+
     from lux_tpu_torch.graph import generate
     from lux_tpu_torch.graph.shards import build_pull_shards
     from lux_tpu_torch.ops import expand
 
     t0 = time.perf_counter()
     g = generate.rmat(SORTED_SCALE, EF, seed=0)
+    save_graph(np, tmp, f"rmat{SORTED_SCALE}", g)
     expand.plan_fused_shards_cached(build_pull_shards(g, 1, sort_segments=True), "sum",
                                     cache_dir=plan_dir, pf=True)
     return {"scale": SORTED_SCALE, "seconds": time.perf_counter() - t0,
@@ -4614,12 +4644,13 @@ def host_builds(np, native_io, g, path: str) -> dict:
 def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, long_s,
               plan_dir, reps):
     """Phase 24: big graphs from disk (see the module docstring).  Returns
-    (launches {run: counts}, kernel rows)."""
+    (launches {run: counts}, kernel rows, {the .lux path, the default
+    layout's ranks, the float64 oracle}: phase dist's inputs)."""
     from lux_tpu_torch.apps import components as cc_app
     from lux_tpu_torch.apps import pagerank as pr_app
     from lux_tpu_torch.apps import sssp as sssp_app
     from lux_tpu_torch.engine import pull
-    from lux_tpu_torch.graph import csc, generate
+    from lux_tpu_torch.graph import csc
     from lux_tpu_torch.graph import format as fmt
     from lux_tpu_torch.graph import sharded_load
     from lux_tpu_torch.graph.shards import (ShardArrays, build_compact_mirror,
@@ -4717,7 +4748,7 @@ def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, lon
 
     # --sort-segments --route-gather fused-pf on phase 4's plan, then one
     # iteration replayed with every routed launch held to its plain version
-    g18 = generate.rmat(SORTED_SCALE, EF, seed=0)
+    g18 = load_saved_graph(np, csc, tmp, f"rmat{SORTED_SCALE}")  # phase 4's fifth process
     sh18 = build_pull_shards(g18, 1, sort_segments=True)
     t0 = time.perf_counter()
     plan = expand.plan_fused_shards_cached(sh18, "sum", cache_dir=plan_dir, pf=True)
@@ -4751,6 +4782,242 @@ def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, lon
     total = {k: sum(c[k] for c in launches.values()) for k in kernels}
     emit({"phase": "disk_main", "kernels": rows, "launches": total,
           "seconds": time.perf_counter() - t_phase})
+    return total, rows, {"path": path, "ranks": ranks["default"], "pr64": pr64}
+
+
+DIST_RANKS = 2  # gloo ranks that share the card in runs (b)-(d)
+DIST_PALLAS_PARTS = 2  # the block-CSR runs keep one part a rank
+DIST_DEADLINE_S = 240.0  # a spawn group that outlives this is killed and fails the phase
+DIST_KERNEL = {"allgather": "mxscan_segmented", "pallas": "spmv_blockcsr",
+               "cf-app": "spmv_blockcsr_2d", "cf": "spmv_blockcsr_2d"}
+
+
+def dist_hold(torch, got, want64, what: str) -> float:
+    """A kernel's f32 sum in a rank against the same sum in float64:
+    rtol SUM_RTOL, else PhaseFailure.  Returns the max abs error."""
+    diff = (got.double() - want64).abs()
+    bad = diff > SUM_RTOL * want64.abs()
+    require(not bool(bad.any()), f"dist: {what} outside rtol {SUM_RTOL} of float64 at "
+                                 f"{int(bad.sum())} places")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def dist_hold_kernels(torch, pg, pp, block, two_d: bool, reps: int) -> dict:
+    """This rank's block-CSR kernel on its own part's slots, the values of
+    the exchanged ``block``: the kernel against the same sum in float64
+    (not a main-path launch: the caller read its counters before), and
+    timed against its plain version and one index_add_."""
+    from lux_tpu_torch.ops import spmv
+    from lux_tpu_torch.parallel.mesh import shard_stacked
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    a = shard_stacked(pg, pp.arrays)
+    e_dst, cb, cf = a.e_dst_rel[0], a.chunk_block[0], a.chunk_first[0]
+    full = halo_all_gather(block, pg)
+    vals = full.index_select(0, a.e_src_pos[0].reshape(-1)).float()
+    n = pp.num_vblocks * pp.v_blk
+    dst = spmv._flat_dst(e_dst, cb, pp.v_blk, n)
+    if two_d:
+        vals = vals.view(*e_dst.shape, -1).contiguous()
+        k = vals.shape[-1]
+        kern = lambda: spmv.spmv_blockcsr_2d(vals, e_dst, cb, cf, v_blk=pp.v_blk,  # noqa: E731
+                                             num_vblocks=pp.num_vblocks)
+        plain = lambda: spmv.spmv_blockcsr_2d_plain(vals, e_dst, cb, cf, pp.v_blk,  # noqa: E731
+                                                    pp.num_vblocks)
+        want = torch.zeros((n + 1, k), dtype=torch.float64, device=vals.device)
+        want.index_add_(0, dst, vals.reshape(-1, k).double())
+        lib = lambda: torch.zeros((n + 1, k), device=vals.device).index_add_(  # noqa: E731
+            0, dst, vals.reshape(-1, k))
+        name, nbytes = "spmv_blockcsr_2d", vals.numel() * 4 + e_dst.numel() * 4 + n * k * 4
+    else:
+        vals = vals.view(e_dst.shape).contiguous()
+        kern = lambda: spmv.spmv_blockcsr(vals, e_dst, cb, cf, op="sum",  # noqa: E731
+                                          v_blk=pp.v_blk, num_vblocks=pp.num_vblocks)
+        plain = lambda: spmv.spmv_blockcsr_plain(vals, e_dst, cb, cf, "sum",  # noqa: E731
+                                                 pp.v_blk, pp.num_vblocks)
+        want = torch.zeros(n + 1, dtype=torch.float64, device=vals.device)
+        want.index_add_(0, dst, vals.reshape(-1).double())
+        lib = lambda: torch.zeros(n + 1, device=vals.device).index_add_(  # noqa: E731
+            0, dst, vals.reshape(-1))
+        name, nbytes = "spmv_blockcsr", vals.numel() * 8 + n * 4
+    err = dist_hold(torch, kern(), want[:n], f"{name} on rank {pg.rank}'s part")
+    return {"kernel": name, "shape": list(vals.shape), "max_abs_err": err,
+            "kernel_ms": time_ms(torch, kern, reps), "plain_ms": time_ms(torch, plain, reps),
+            "library_ms": time_ms(torch, lib, reps), "bound_ms": bound_ms(nbytes)}
+
+
+def dist_rank(pg, runs, tmp):
+    """One rank of phase dist: each run of ``runs`` in order, with this
+    process's launch counters set to 0 just before and read just after.
+    A "pagerank" run is ``apps.pagerank.run(argv)`` (with -file each rank
+    loads only its parts' byte ranges); "pallas" the same on the main
+    graph, handed over from the smoke's scratch directory, then the
+    kernel held on this rank's part; "cf-app" ``apps.colfilter.run(argv)``
+    on the rating graph; "cf" the distributed CF library
+    (parallel/pallas_dist.run_cf_pallas_dist at gamma CF_GAMMA, through
+    apps/common.DistSetup) on the rating graph, timed after an untimed
+    run as the apps time, then its kernel held.  After each run (its
+    launches read) DistSetup.exchange_split times ITERS more iterations.
+    Returns {label: {"state" (rank 0), "seconds", "launches", ...}}."""
+    import numpy as np
+    import torch
+
+    from lux_tpu_torch.apps import colfilter as cf_app
+    from lux_tpu_torch.apps import common
+    from lux_tpu_torch.apps import pagerank as pr_app
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.models import colfilter as cf_model
+    from lux_tpu_torch.parallel import multihost, pallas_dist, spawn
+    from lux_tpu_torch.parallel.mesh import make_parts_group, shard_stacked
+
+    out = {}
+    for label, kind, argv in runs:
+        torch.cuda.synchronize()
+        spawn.reset_launches()
+        t0 = time.perf_counter()
+        row = {}
+        if kind in ("pagerank", "pallas", "cf-app"):
+            g = (load_saved_graph(np, csc, tmp, {"pallas": "main", "cf-app": "cf"}[kind])
+                 if kind != "pagerank" else None)
+            res = (cf_app if kind == "cf-app" else pr_app).run(argv, graph=g)
+            ds, block = res.dist
+            row.update(state=res.state if kind == "cf-app" else res.ranks,
+                       seconds=res.seconds, gteps=res.gteps, rc=res.rc)
+            del res
+        else:
+            g = load_saved_graph(np, csc, tmp, "cf")
+            cpg = make_parts_group(DIST_PALLAS_PARTS, pg.device)
+            pp = pallas_dist.build_pallas_parts(g, DIST_PALLAS_PARTS, parts_subset=[pg.rank])
+            pp = dataclasses.replace(pp, arrays=shard_stacked(cpg, pp.arrays))
+            prog = cf_model.CFProgram(gamma=CF_GAMMA)
+            ds = common.DistSetup(prog, cpg, pp, "allgather", "pallas", True)
+            block = pallas_dist.init_state_pallas(prog, pp).to(pg.device)
+            secs = common.timed_iterations(ds.iterate, block, ITERS, pg.device, cpg.barrier)
+            st = multihost.assemble_global(cpg, block)
+            row.update(state=None if st is None else pp.scatter_to_global(st), seconds=secs,
+                       gteps=ITERS * g.ne / secs / 1e9, rc=0)
+        torch.cuda.synchronize()
+        row["launches"] = spawn.kernel_launches()
+        row["wall_s"] = time.perf_counter() - t0
+        row["exchange"] = ds.exchange_split(block, ITERS)
+        if kind == "pallas":
+            hpg = make_parts_group(DIST_PALLAS_PARTS, pg.device)
+            pp = pallas_dist.build_pallas_parts(g, DIST_PALLAS_PARTS, parts_subset=[pg.rank])
+            from lux_tpu_torch.models.pagerank import PageRankProgram
+
+            s0 = pallas_dist.init_state_pallas(PageRankProgram(nv=g.nv), pp).to(pg.device)
+            row["held"] = dist_hold_kernels(torch, hpg, pp, s0, False, REPS)
+        elif kind == "cf":
+            row["held"] = dist_hold_kernels(torch, cpg, pp, block, True, REPS)
+        del ds, block
+        out[label] = row
+    return out
+
+
+def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
+    """Phase dist: the distributed pull engine (parallel/) as ranks that
+    share the card.  (a) NCCL, one rank holding the 8 parts of the RMAT
+    22 file: allgather + mxscan PageRank, bitwise the single-process
+    ``-ng 8`` run of disk_main; (b) gloo, 2 ranks, 4 parts each:
+    allgather + mxscan (bitwise the same run), ring and scatter (--method
+    scatter; within RANK_RTOL of the float64 oracle); (c) gloo, 2 ranks,
+    ``--method pallas`` on the main graph at 2 parts (within RANK_RTOL of
+    float64); (d) gloo, 2 ranks, ``apps.colfilter --distributed --method
+    pallas -ng 2 -check`` on the 2-D kernel (within CF_RTOL of phase 8's
+    single-process pallas run, ``cf_pallas20``), then the CF library at
+    gamma CF_GAMMA (within CF_RTOL of cf_oracle_f64).  Every rank's
+    counters must show its kernel launched on the run and every rank's
+    exit code must be 0; each run prints ms an iteration and its split
+    into compute, staging and collective.
+    Returns (launches summed over every rank and run, kernel rows)."""
+    from lux_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    before = {pid for pid, _ in child_processes()}
+    path, want_default, pr64 = disk["path"], disk["ranks"], disk["pr64"]
+    file_argv = ["-file", path, "-ng", str(DISK_PARTS), "-ni", str(ITERS), "--distributed",
+                 "--device", "cuda"]
+    pallas_argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "-ni",
+                   str(ITERS), "-ng", str(DIST_PALLAS_PARTS), "--method", "pallas",
+                   "--distributed", "--device", "cuda"]
+    groups = (
+        ("a", "nccl", 1, [("allgather-nccl", "pagerank", file_argv + ["--method", "mxscan"])]),
+        ("b-d", "gloo", DIST_RANKS, [
+            ("allgather", "pagerank", file_argv + ["--method", "mxscan"]),
+            ("ring", "pagerank", file_argv + ["--exchange", "ring", "--method", "scatter"]),
+            ("scatter", "pagerank", file_argv + ["--exchange", "scatter",
+                                                  "--method", "scatter"]),
+            ("pallas", "pallas", pallas_argv),
+            ("cf-app", "cf-app", cf_argv(SCALE) + [
+                "-ng", str(DIST_PALLAS_PARTS), "--method", "pallas", "--distributed"]),
+            ("cf", "cf", [])]))
+    total = {k: 0 for k in kernels}
+    rows = []
+    for name, backend, world, runs in groups:
+        t0 = time.perf_counter()
+        try:
+            res = spawn.run_ranks(world, dist_rank, (runs, tmp), num_parts=world,
+                                  device="cuda", backend=backend,
+                                  deadline_s=DIST_DEADLINE_S, threads=4,
+                                  env={"LUX_DIST_BACKEND": backend})
+        except spawn.RankFailure as e:
+            raise PhaseFailure(f"dist {name}: {e}")
+        for label, kind, argv in runs:
+            per_rank = [r["result"][label] for r in res]
+            lead = per_rank[0]
+            launches = [r["launches"] for r in per_rank]
+            for c in launches:
+                for k in total:
+                    total[k] += c.get(k, 0)
+            state = lead["state"]
+            require(state is not None and bool(np.isfinite(state).all()),
+                    f"dist {label}: no finite state on rank 0")
+            if label.startswith("allgather"):
+                exact = bool(np.array_equal(state, want_default))
+                require(exact, f"dist {label}: ranks differ from the single-process -ng 8 run")
+                err = {"bitwise_single_process": exact}
+            elif kind == "pagerank":
+                rel = float(np.max(np.abs(state.astype(np.float64) - pr64) / np.abs(pr64)))
+                require(rel <= RANK_RTOL, f"dist {label}: off the float64 oracle by {rel}")
+                err = {"max_rel_err_vs_f64": rel}
+            elif kind == "pallas":
+                rel = float(np.max(np.abs(state.astype(np.float64) - pr_ref20)
+                                   / np.abs(pr_ref20.astype(np.float64))))
+                require(rel <= RANK_RTOL, f"dist {label}: off the float64 oracle by {rel}")
+                err = {"max_rel_err_vs_f64": rel}
+            elif kind == "cf-app":
+                rel = float(np.max(np.abs(state - cf_pallas20) / np.abs(cf_pallas20)))
+                require(rel <= CF_RTOL, f"dist {label}: off the single-process pallas run "
+                                        f"by {rel}")
+                err = {"max_rel_err_vs_single_process": rel,
+                       "max_abs_err_vs_single_process": float(np.max(np.abs(
+                           state - cf_pallas20)))}
+            else:
+                rel = float(np.max(np.abs(state - v64) / np.abs(v64)))
+                require(rel <= CF_RTOL, f"dist {label}: off the float64 oracle by {rel}")
+                err = {"max_rel_err_vs_f64": rel}
+            require(all(r["rc"] == 0 for r in per_rank), f"dist {label}: a rank's -check failed")
+            kernel = DIST_KERNEL.get(kind if kind != "pagerank" else
+                                     ("allgather" if label.startswith("allgather") else ""))
+            if kernel:
+                need = ITERS * (DISK_PARTS // world if kind == "pagerank" else 1)
+                require(all(c[kernel] >= need for c in launches),
+                        f"dist {label}: {kernel} launched {[c[kernel] for c in launches]} "
+                        f"times in the ranks (need {need} each)")
+            held = [r["held"] for r in per_rank if "held" in r]
+            rows += held
+            emit({"phase": "dist", "run": label, "group": name, "backend": backend,
+                  "ranks": world, "argv": argv, **err,
+                  "ms_per_iter": lead["seconds"] * 1e3 / ITERS, "gteps": lead["gteps"],
+                  "split": lead.get("exchange"), "launches": launches, "held": held,
+                  "wall_s": [r["wall_s"] for r in per_rank],
+                  "rank_devices": [r["device"] for r in res], "device": smi})
+        emit({"phase": "dist", "group": name, "backend": backend, "ranks": world,
+              "seconds": time.perf_counter() - t0})
+    left = [c for pid, c in child_processes()
+            if pid not in before and "resource_tracker" not in c]
+    require(not left, f"dist: rank processes left behind: {left}")
+    emit({"phase": "dist", "launches": total, "seconds": time.perf_counter() - t_phase})
     return total, rows
 
 
@@ -4931,7 +5198,7 @@ def main() -> int:
         len(PLAN_CHAINS) + 3, mp_context=multiprocessing.get_context("spawn"))
     variants_plan_fut = plan_pool.submit(variants_plan, plan_dir)
     live_plan_fut = plan_pool.submit(live_plan, _TMP, plan_dir)
-    sorted_plan_fut = plan_pool.submit(sorted_plan, plan_dir)
+    sorted_plan_fut = plan_pool.submit(sorted_plan, _TMP, plan_dir)
     chain_futs = [plan_pool.submit(plan_chain, _TMP, plan_dir, chain) for chain in PLAN_CHAINS]
 
     # 17. the batched query service (no routed plan), while the expand chain builds
@@ -5091,6 +5358,7 @@ def main() -> int:
     mutate_plans = {m: plans[m] for m in ("expand-pf", "fused-pf", "fused-mx")}
     pr_ranks = ranks["mxscan"]  # phase 16's uninterrupted run
     main_pf = (ranks["expand-pf"], launches["expand-pf"])  # phase 19's cold runs
+    pr_ref20 = ref  # phase dist's pallas run
     del plans, ranks, ref, res, small, small_bc
     torch.cuda.empty_cache()
 
@@ -5103,6 +5371,7 @@ def main() -> int:
     # 7. collaborative filtering's kernel against its plain version
     t0 = time.perf_counter()
     g_cf = common.load_graph(parse_args(cf_argv(SCALE)), weighted=True, bipartite=True)
+    save_graph(np, _TMP, "cf", g_cf)  # phase dist's ranks load it
     bc_cf = spmv.build_blockcsr(g_cf)
     rows_2d = (spmv_2d_cases(torch, np, spmv, spmv.build_blockcsr(ragged_graph(np, csc)), dev,
                              (1, 3, CF_K), REPS, False)
@@ -5141,7 +5410,6 @@ def main() -> int:
     for scale, label, extra, route in (
             (SCALE, "pallas", ["--method", "pallas"], None),
             (SCALE, "scatter", ["--method", "scatter"], None),
-            (SCALE, "auto", [], None),
             (CF_ROUTED_SCALE, "direct", [], None),
             (CF_ROUTED_SCALE, "expand-pf", ["--route-gather", "expand-pf"], plan_pf),
             (CF_ROUTED_SCALE, "expand", ["--route-gather", "expand"], plan_e)):
@@ -5170,6 +5438,7 @@ def main() -> int:
             require(np.array_equal(res.state, states["direct"]),
                     f"cf {label}: state differs from the direct run at scale {scale}")
         del res
+    cf_pallas20 = states["pallas"]  # phase dist's CF app run
     del plan_e, plan_pf, states, g_r
     torch.cuda.empty_cache()
 
@@ -5186,8 +5455,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 19. cold start and observability
+    # the main graph's .lux snapshot: the --profile-dir subprocess here and
+    # the fleet, pod and live workers read it (phases 20-22)
+    from lux_tpu_torch.graph.format import write_lux
+
+    snap = os.path.join(_TMP, "fleet_main.lux")
+    write_lux(snap, g)
     cold_launches = cold_obs_main(torch, np, kernels, smi, dev, g, sh, plan_dir, main_pf,
-                                  built_s, launches["pallas"])
+                                  built_s, launches["pallas"], snap)
     del sh, main_pf
     torch.cuda.empty_cache()
 
@@ -5224,10 +5499,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 20-21. the serving fleet and a pod: worker processes on the card
-    from lux_tpu_torch.graph.format import write_lux
-
-    snap = os.path.join(_TMP, "fleet_main.lux")
-    write_lux(snap, g)
     fleet_launches, fleet_rows = fleet_main(torch, np, kernels, smi, dev, snap, served,
                                             mutate_out["churn_snapshot"])
     live_sources = served[0]
@@ -5253,10 +5524,15 @@ def main() -> int:
     require(not left, f"launcher directories left behind: {left}")
 
     # 24. big graphs from disk
-    disk_launches, disk_rows = disk_main(torch, np, kernels, smi, dev, _TMP, g, start, o_dist,
-                                         o_labels, long_s, plan_dir, REPS)
+    disk_launches, disk_rows, disk = disk_main(torch, np, kernels, smi, dev, _TMP, g, start,
+                                               o_dist, o_labels, long_s, plan_dir, REPS)
     del g
     torch.cuda.empty_cache()
+
+    # 25. the distributed pull engine: ranks that share the card
+    dist_launches, dist_rows = dist_main(torch, np, kernels, smi, _TMP, disk, pr_ref20,
+                                         cf_pallas20, v64)
+    del disk, pr_ref20, cf_pallas20, v64
     obs_log_main(smi)
 
     table = []
@@ -5311,6 +5587,9 @@ def main() -> int:
         row["launches_autopilot"] = pilot_launches[row["name"]]
         row["launches_disk"] = disk_launches[row["name"]]
         row["launches_variants"] = variants_launches[row["name"]]
+        row["launches_dist"] = dist_launches[row["name"]]
+        held = [r["max_abs_err"] for r in dist_rows if r["kernel"] == row["name"]]
+        row["max_abs_err"] = max([row["max_abs_err"]] + held)
         if row["name"] in variant_rows:  # the bf16 and weighted forms, rows 1, 2 and 6
             row["variants"] = variant_rows[row["name"]]
         for errs in (mutate_err, live_err):

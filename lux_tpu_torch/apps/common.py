@@ -1,10 +1,13 @@
-"""Shared app-driver scaffolding: load graph, the method checks and the
-memory preflight, pull-engine set-up, routed-pull planning, the timed
-window, the step-wise and checkpointed pull loop, the streamed runner,
-report, check verdict."""
+"""Shared app-driver scaffolding: load graph, the method and exchange
+checks and the memory preflight, pull-engine set-up, routed-pull
+planning, the timed window, the step-wise and checkpointed pull loop,
+the distributed runner (--distributed: the parts spread over the ranks
+of torch.distributed, parallel/), the streamed runner, report, check
+verdict."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import time
 from typing import Optional
@@ -16,7 +19,7 @@ from lux_tpu_torch.engine import methods, pull
 from lux_tpu_torch.graph import generate
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.format import read_lux
-from lux_tpu_torch.graph.shards import build_pull_shards, to_device
+from lux_tpu_torch.graph.shards import build_pull_shards, global_to_stacked, to_device
 from lux_tpu_torch.ops import cuda_build, expand, spmv
 from lux_tpu_torch.ops import shuffle as shuf
 from lux_tpu_torch.utils import checkpoint, preflight, profiling
@@ -62,8 +65,9 @@ def validate_exchange(cfg: RunConfig, prog, dev) -> None:
     reduce on ``dev`` (engine/methods.resolve_sum) and refuse, with a CLI
     message before any set-up, the methods that cannot reduce it: the
     prefix-difference strategies and ``pallas`` are sum-only.  The
-    exchange, edge-shard and layout checks of the reference come with
-    multi-GPU; the gather relayouts' are :func:`refuse_relayouts`."""
+    exchange checks are the reference's (:func:`check_distributed`); the
+    gather relayouts' are :func:`refuse_relayouts`."""
+    was_auto = cfg.method == "auto"
     cfg.method = methods.resolve_sum(cfg.method, prog.reduce,
                                      methods.default_platform(dev))
     refuse_relayouts(cfg)
@@ -75,6 +79,56 @@ def validate_exchange(cfg: RunConfig, prog, dev) -> None:
         raise SystemExit(
             "--method pallas: sum-reduce programs only; min/max apps "
             "use scan/scatter")
+    check_distributed(cfg, prog, was_auto)
+
+
+def check_distributed(cfg: RunConfig, prog, was_auto: bool) -> None:
+    """The reference's --exchange rules (``lux_tpu.apps.common
+    .validate_exchange``), before any set-up: ring and scatter need
+    --distributed and run --method scan or scatter
+    (parallel/ring.bucketed_method: an ``auto`` winner they cannot run
+    falls back to scan, with a note; an explicit one is refused), scatter
+    needs a sum program without destination reads, pallas runs on the
+    allgather exchange, and the relayouts bind to the allgather pull
+    layout."""
+    import sys
+
+    if cfg.exchange != "allgather" and not cfg.distributed:
+        raise SystemExit(f"--exchange {cfg.exchange} requires --distributed")
+    if not cfg.distributed:
+        return
+    if cfg.stream_hbm_gib:
+        raise SystemExit("--distributed runs the resident pull engines; it does not "
+                         "combine with --stream-hbm-gib")
+    if cfg.method == "pallas" and cfg.exchange != "allgather":
+        raise SystemExit("--method pallas runs on the allgather exchange, 1-D mesh")
+    if cfg.method == "pallas" and (cfg.verbose or cfg.ckpt_every or cfg.ckpt_dir):
+        raise SystemExit(
+            "--method pallas: -verbose/checkpointing are not wired to the "
+            "kernel path; use --method scan, scatter or mxscan for those")
+    if cfg.exchange == "allgather":
+        return
+    if cfg.sort_segments or cfg.compact_gather:
+        raise SystemExit(
+            "--sort-segments/--compact-gather relay out the allgather pull "
+            "layout; the bucket (ring/scatter) layouts have their own edge "
+            "orders and ship their own slices")
+    from lux_tpu_torch.parallel.ring import bucketed_method
+
+    try:
+        method = bucketed_method(cfg.method, was_auto)
+    except ValueError as e:
+        raise SystemExit(f"--exchange {cfg.exchange}: {e}")
+    if method != cfg.method:
+        print(f"# --method auto: the {cfg.method} winner falls back to {method} on "
+              f"--exchange {cfg.exchange} (bucketed reductions run scan/scatter)",
+              file=sys.stderr)
+        cfg.method = method
+    if cfg.exchange == "scatter" and (
+            prog.reduce != "sum" or getattr(prog, "needs_dst_state", False)):
+        raise SystemExit(
+            "--exchange scatter needs a sum-reducible program without "
+            "per-edge destination reads; use --exchange ring or allgather")
 
 
 def refuse_relayouts(cfg: RunConfig) -> None:
@@ -221,8 +275,9 @@ def run_pull_app(cfg: RunConfig, g: HostGraph, dev, prog, pallas_runner, app: st
     """A fixed-iteration pull app's run (PageRank, CF): set-up, then the
     timed ``-ni`` iterations, or with ``-verbose``/``--ckpt-every`` the
     step-wise loop, from the latest checkpoint of ``--ckpt-dir`` when it
-    holds one.  Returns (the (nv, ...) float32 state on the host, the
-    timed seconds, the iterations this run executed)."""
+    holds one (``--distributed`` runs :func:`run_dist_app` instead).
+    Returns (the (nv, ...) float32 state on the host, the timed seconds,
+    the iterations this run executed)."""
     stepwise = cfg.verbose or cfg.ckpt_every
     if cfg.method == "pallas" and (stepwise or cfg.ckpt_dir):
         raise SystemExit(
@@ -291,10 +346,11 @@ def run_pull_stepwise(pl: PullSetup, state, start_it: int, num_iters: int,
     return state, stats
 
 
-def resume_or_init(cfg: RunConfig, app: str, shards, state, nv: int):
+def resume_or_init(cfg: RunConfig, app: str, shards, state, nv: int, pg=None):
     """Elastic resume: restack the latest global checkpoint of
-    ``--ckpt-dir`` (any previous -ng) onto THIS run's layout, cast to this
-    run's state dtype; returns (state, start_iteration)."""
+    ``--ckpt-dir`` (any previous -ng, exchange or rank count) onto THIS
+    run's layout, cast to this run's state dtype; under --distributed
+    (``pg``) this rank's parts of it.  Returns (state, start_iteration)."""
     if not cfg.ckpt_dir:
         return state, 0
     saved, start_it, prev = checkpoint.load_resume(cfg.ckpt_dir, app, nv)
@@ -302,21 +358,12 @@ def resume_or_init(cfg: RunConfig, app: str, shards, state, nv: int):
         return state, 0
     if isinstance(saved, torch.Tensor):  # bfloat16: restack its f32 widening
         saved = saved.float().numpy()
-    stacked = shards.global_to_stacked(np.asarray(saved))
-    print(f"resumed from {prev} at iteration {start_it}")
+    stacked = global_to_stacked(shards.cuts, shards.spec.nv_pad, np.asarray(saved))
+    if pg is not None:
+        stacked = stacked[pg.lo:pg.hi]
+    if main_rank():
+        print(f"resumed from {prev} at iteration {start_it}")
     return torch.from_numpy(stacked).to(device=state.device, dtype=state.dtype), start_it
-
-
-def save_global(cfg: RunConfig, app: str, shards, iteration: int, state) -> str:
-    """Checkpoint the stacked device state as the layout-independent
-    global vector (elastic: any later -ng can resume it)."""
-    host = state.cpu()
-    if host.dtype == torch.bfloat16:
-        glob = torch.from_numpy(shards.scatter_to_global(host.float().numpy()))
-        glob = glob.to(torch.bfloat16)
-    else:
-        glob = shards.scatter_to_global(host.numpy())
-    return checkpoint.save_iteration(cfg.ckpt_dir, iteration, glob, app)
 
 
 @dataclasses.dataclass
@@ -382,13 +429,16 @@ def run_streamed(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1,
                        n_chunks, resident, budget, total, ssh)
 
 
-def timed_iterations(iterate, state, n: int, dev) -> float:
+def timed_iterations(iterate, state, n: int, dev, barrier=None) -> float:
     """Seconds of ``n`` iterations in place on ``state``, device-fenced:
     the apps' one definition of the iteration time.  The same ``n``
     iterations run first on a copy of the state, untimed, so first-launch
     costs (kernel module loading, allocator growth, the card's clocks
-    rising from idle) stay out of it."""
+    rising from idle) stay out of it.  ``barrier`` (distributed runs)
+    lines the ranks up before the timer starts."""
     iterate(state.clone(), n)
+    if barrier is not None:
+        barrier()
     timer = Timer(dev)
     iterate(state, n)
     return timer.stop()
@@ -520,3 +570,325 @@ def check_route_mode(cfg: RunConfig, plan) -> None:
     if got != want:
         raise ValueError(f"the plan handed in replays {got!r}, but "
                          f"--route-gather is {cfg.route_gather!r}")
+
+
+# ---------------------------------------------------------------------------
+# --distributed: the parts spread over the ranks of torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def main_rank() -> bool:
+    """Whether this process prints the run's result lines: rank 0 of a
+    distributed run, or the only process."""
+    import torch.distributed as tdist
+
+    return not (tdist.is_available() and tdist.is_initialized()) or tdist.get_rank() == 0
+
+
+def make_mesh_if(cfg: RunConfig, dev):
+    """This rank's parallel.mesh.PartsGroup under --distributed (joining
+    the process group: parallel/multihost.initialize reads the launcher's
+    environment and LUX_DIST_BACKEND), else None."""
+    if not cfg.distributed:
+        return None
+    from lux_tpu_torch.parallel import multihost
+
+    try:
+        return multihost.initialize(cfg.num_parts, dev)
+    except ValueError as e:
+        raise SystemExit(f"--distributed: {e}")
+
+
+def require_parts_fit_devices(cfg: RunConfig, pg, what: str) -> None:
+    """One part a rank: the block-CSR engine keeps no k resident parts
+    (allgather, ring and scatter do)."""
+    if cfg.num_parts != pg.world:
+        raise SystemExit(
+            f"{what} keeps one part a rank; -ng must equal the rank count "
+            f"({pg.world} ranks; allgather/ring/scatter support several resident "
+            "parts a rank)")
+
+
+def build_exchange_shards(g: HostGraph, cfg: RunConfig, pg):
+    """This rank's layout for the selected exchange: the block-CSR parts
+    (--method pallas, its one part), the pull shards (allgather: this
+    rank's parts from the file's byte ranges with -file, else built), or
+    the ring / reduce-scatter buckets of its parts over the same pull
+    geometry."""
+    from lux_tpu_torch.graph import sharded_load
+
+    P, mine = cfg.num_parts, list(pg.parts)
+    if cfg.method == "pallas":
+        from lux_tpu_torch.parallel import pallas_dist
+
+        return pallas_dist.build_pallas_parts(g, P, parts_subset=mine)
+    if cfg.file:
+        pull_sh = sharded_load.load_pull_shards(
+            cfg.file, P, parts_subset=mine, sort_segments=cfg.sort_segments,
+            compact_gather=cfg.compact_gather)
+    else:
+        pull_sh = build_pull_shards(g, P, sort_segments=cfg.sort_segments,
+                                    compact_gather=cfg.compact_gather)
+    if cfg.exchange == "allgather":
+        return pull_sh
+    if cfg.exchange == "ring":
+        from lux_tpu_torch.parallel.ring import build_ring_shards
+
+        return build_ring_shards(g, P, parts_subset=mine, pull=pull_sh)
+    from lux_tpu_torch.parallel.scatter import build_scatter_shards
+
+    return build_scatter_shards(g, P, parts_subset=mine, pull=pull_sh)
+
+
+def estimate_dist(layout, cfg: RunConfig, pg, state_width: int = 1,
+                  dst_state: bool = False) -> preflight.MemoryEstimate:
+    """One rank's memory estimate: its k resident parts of the exchange's
+    layout, plus the gathered (P*V, ...) state of the allgather and the
+    block-CSR pull."""
+    sbytes = 2 if cfg.dtype == "bfloat16" else 4
+    spec = layout.spec
+    gathered = spec.gathered_size * state_width * sbytes
+    if cfg.method == "pallas":
+        a = layout.arrays
+        wide = state_width > 1
+        est = preflight.estimate_pallas_pull(
+            a.e_src_pos.shape[1], layout.t_chunk, layout.num_vblocks * layout.v_blk,
+            state_width, weighted=wide, degree=not wide, dst_state=wide,
+            state_dtype_bytes=sbytes)
+        return preflight.add_gathered_bytes(est, gathered)
+    if cfg.exchange == "ring":
+        return preflight.scale_residency(preflight.estimate_ring(
+            spec, layout.e_bucket_pad, state_width, sbytes), pg.k)
+    if cfg.exchange == "scatter":
+        return preflight.scale_residency(preflight.estimate_scatter(
+            spec, layout.e_bucket_pad, state_width, sbytes), pg.k)
+    est = preflight.estimate_pull(spec, state_width, sbytes, dst_state=dst_state,
+                                  method=cfg.method)
+    return preflight.add_gathered_bytes(preflight.scale_residency(est, pg.k), gathered)
+
+
+@dataclasses.dataclass
+class DistSetup:
+    """One rank's distributed run: its layout with the arrays it reads
+    placed on its device once, the exchange and the method."""
+
+    prog: object
+    pg: object
+    layout: object
+    exchange: str
+    method: str
+    pallas: bool
+    arrays: object = None  # allgather: this rank's (k, ...) ShardArrays
+
+    def iterate(self, state, n: int) -> None:
+        """n iterations in place on this rank's (k, V, ...) block."""
+        from lux_tpu_torch.parallel import dist, pallas_dist, ring, scatter
+
+        prog, pg, lay = self.prog, self.pg, self.layout
+        if self.pallas:
+            run = (pallas_dist.run_cf_pallas_dist if prog.needs_dst_state
+                   else pallas_dist.run_pull_fixed_pallas_dist)
+            out = run(prog, lay, state, n, pg)
+        elif self.exchange == "ring":
+            out = ring.run_pull_fixed_ring(prog, lay, state, n, pg, self.method)
+        elif self.exchange == "scatter":
+            out = scatter.run_pull_fixed_scatter(prog, lay, state, n, pg, self.method)
+        else:
+            out = dist.run_pull_fixed_dist(prog, lay.spec, self.arrays, state, n, pg,
+                                           self.method)
+        state.copy_(out)
+
+    def read(self, state) -> Optional[np.ndarray]:
+        """The (nv, ...) global state on rank 0 (float32), None elsewhere."""
+        from lux_tpu_torch.parallel import multihost
+
+        stacked = multihost.assemble_global(self.pg, state)
+        return None if stacked is None else self.layout.scatter_to_global(stacked)
+
+    def exchange_split(self, state, n: int) -> dict:
+        """ms an iteration of n more iterations on a copy of ``state``,
+        split into compute, staging (device blocks through the pinned
+        host buffers) and collective, with every exchange fenced; the
+        fences make the whole slower than the unfenced run."""
+        from lux_tpu_torch.parallel.mesh import ExchangeTimes
+
+        pg = self.pg
+        work = state.clone()
+        pg.timed, pg.times = True, ExchangeTimes()
+        try:
+            t0 = pg.fence()
+            self.iterate(work, n)
+            total = pg.fence() - t0
+        finally:
+            pg.timed = False
+        t = pg.times
+        per = 1e3 / max(n, 1)
+        return {"ms_per_iter": total * per,
+                "compute_ms": (total - t.stage_s - t.collective_s) * per,
+                "staging_ms": t.stage_s * per, "collective_ms": t.collective_s * per,
+                "exchanges": t.calls, "backend": pg.backend, "ranks": pg.world,
+                "resident_parts": pg.k, "staged": pg.staged}
+
+
+def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
+    """This rank's set-up: join the group, build its layout (printed on
+    rank 0), check its memory estimate against its device, build the
+    kernels, place the arrays; returns (DistSetup, its initial (k, V, ...)
+    block on the device)."""
+    from lux_tpu_torch.parallel import pallas_dist
+    from lux_tpu_torch.parallel.mesh import shard_stacked
+    from lux_tpu_torch.parallel.ring import vertex_view
+
+    pg = make_mesh_if(cfg, dev)
+    pallas = cfg.method == "pallas"
+    if pallas:
+        require_parts_fit_devices(cfg, pg, "--method pallas")
+    t0 = time.perf_counter()
+    layout = build_exchange_shards(g, cfg, pg)
+    kind = "block-CSR" if pallas else cfg.exchange
+    est = estimate_dist(layout, cfg, pg, state_width, dst_state=prog.needs_dst_state)
+    if main_rank():
+        report_layout(f"{kind} (rank 0 of {pg.world})", layout, time.perf_counter() - t0)
+        print(est)
+    preflight.check_fits(est, device=pg.device)
+    if pg.device.type == "cuda":
+        cuda_build.load_all()
+    arrays = None
+    if pallas:
+        layout = dataclasses.replace(layout, arrays=shard_stacked(pg, layout.arrays))
+        state = pallas_dist.init_state_pallas(prog, layout).to(pg.device)
+    elif cfg.exchange == "allgather":
+        arrays = shard_stacked(pg, layout.arrays)
+        state = pull.init_state(prog, arrays)
+    else:
+        # the buckets and the per-vertex view go to the device; the pull
+        # layout's O(E) arrays never do
+        view = vertex_view(pg, layout.pull.arrays)
+        layout = dataclasses.replace(
+            layout, pull=dataclasses.replace(layout.pull, arrays=view),
+            **{f: shard_stacked(pg, getattr(layout, f)) for f in ("rarrays", "sarrays")
+               if hasattr(layout, f)})
+        state = pull.init_state(prog, view)
+    return DistSetup(prog, pg, layout, cfg.exchange, cfg.method, pallas, arrays), state
+
+
+def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width: int = 1):
+    """:func:`run_pull_app` under --distributed: this rank's set-up, then
+    the timed ``-ni`` iterations (an untimed run first, the ranks lined
+    up by a barrier before the timer), or with ``-verbose`` (allgather)
+    the fenced load/comp/update loop, or with ``--ckpt-every`` chunks
+    with a checkpoint between them, from the latest checkpoint when
+    ``--ckpt-dir`` holds one.  With ``-verbose`` rank 0 also prints the
+    exchange's split of an iteration (compute, staging, collective) from
+    a further fenced run (DistSetup.exchange_split).  Returns (the (nv,
+    ...) state on rank 0, else None; seconds; the iterations this run
+    executed; (this rank's DistSetup, its final (k, V, ...) block))."""
+    validate_exchange(cfg, prog, dev)
+    ds, state = setup_dist(cfg, g, dev, prog, state_width)
+    state, start_it = resume_or_init(cfg, app, ds.layout, state, g.nv, ds.pg)
+    n = max(cfg.num_iters - start_it, 0)
+    stepwise = cfg.verbose and cfg.exchange == "allgather"
+    if cfg.verbose and not stepwise and main_rank():
+        print("note: -verbose per-iteration stepping is an allgather-exchange mode; "
+              "this run stays fused")
+    # rank 0 traces (one trace directory, one event-log table)
+    with profiling.trace(cfg.profile_dir if main_rank() else None, ds.pg.device):
+        if stepwise:
+            ds.iterate(state.clone(), n)
+            state, stats = run_pull_stepwise_dist(ds, state, start_it, cfg, g.nv, app)
+            elapsed = stats.seconds
+        elif cfg.ckpt_every:
+            state, elapsed = run_fixed_dist_chunked(ds, state, start_it, cfg, app)
+        else:
+            elapsed = timed_iterations(ds.iterate, state, n, ds.pg.device, ds.pg.barrier)
+    if cfg.verbose and n:
+        split = ds.exchange_split(state, n)
+        if main_rank():
+            print("exchange: " + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                                             for k, v in split.items()}))
+    return ds.read(state), elapsed, n, (ds, state)
+
+
+def save_global(cfg: RunConfig, app: str, shards, iteration: int, state, pg=None):
+    """Checkpoint the stacked device state as the layout-independent
+    global vector (elastic: any later -ng can resume it); under
+    --distributed ``state`` is this rank's block, gathered to rank 0,
+    which writes."""
+    if pg is not None:
+        from lux_tpu_torch.parallel import multihost
+
+        stacked = multihost.assemble_global(pg, state)
+        if stacked is None:
+            return None
+        glob = shards.scatter_to_global(stacked)
+        if state.dtype == torch.bfloat16:
+            glob = torch.from_numpy(glob).to(torch.bfloat16)
+        return checkpoint.save_iteration(cfg.ckpt_dir, iteration, glob, app)
+    host = state.cpu()
+    if host.dtype == torch.bfloat16:
+        glob = torch.from_numpy(shards.scatter_to_global(host.float().numpy()))
+        glob = glob.to(torch.bfloat16)
+    else:
+        glob = shards.scatter_to_global(host.numpy())
+    return checkpoint.save_iteration(cfg.ckpt_dir, iteration, glob, app)
+
+
+def run_pull_stepwise_dist(ds: DistSetup, state, start_it: int, cfg: RunConfig, nv: int,
+                           app: str):
+    """The -verbose distributed loop: each iteration fenced into the
+    load (with the exchange) / comp / update phases of
+    parallel/dist.compile_pull_phases_dist, times printed by rank 0;
+    checkpoints between iterations as run_pull_stepwise takes them.
+    Returns (final block, IterStats)."""
+    from lux_tpu_torch.parallel import dist
+
+    stats = IterStats(verbose=cfg.verbose and main_rank())
+    load, comp, update = dist.compile_pull_phases_dist(ds.prog, ds.pg, ds.method)
+    for it in range(start_it, cfg.num_iters):
+        t = Timer(ds.pg.device)
+        gath = load(ds.arrays, state)
+        lt = t.stop()
+        t = Timer(ds.pg.device)
+        acc = comp(ds.arrays, gath)
+        ct = t.stop()
+        t = Timer(ds.pg.device)
+        state = update(ds.arrays, state, acc)
+        stats.record_phases(it, nv, lt, ct, t.stop())
+        if cfg.ckpt_every and (it + 1) % cfg.ckpt_every == 0:
+            save_global(cfg, app, ds.layout, it + 1, state, ds.pg)
+    return state, stats
+
+
+def run_fixed_dist_chunked(ds: DistSetup, state, start_it: int, cfg: RunConfig, app: str):
+    """The distributed run in --ckpt-every-sized chunks with a checkpoint
+    between them (rank 0 writes).  Returns (state, compute seconds): the
+    checkpoint I/O stays out of the reported time."""
+    compute = 0.0
+    it = start_it
+    while it < cfg.num_iters:
+        n = min(cfg.ckpt_every, cfg.num_iters - it)
+        t = Timer(ds.pg.device)
+        ds.iterate(state, n)
+        compute += t.stop()
+        it += n
+        if it < cfg.num_iters or cfg.num_iters % cfg.ckpt_every == 0:
+            save_global(cfg, app, ds.layout, it, state, ds.pg)
+    return state, compute
+
+
+def finish_dist(cfg: RunConfig, rc: int) -> int:
+    """Under --distributed every rank returns the largest rank's exit
+    code (a -check failure on rank 0 fails them all)."""
+    if not cfg.distributed:
+        return rc
+    from lux_tpu_torch.parallel import multihost
+
+    return multihost.agree_max(rc)
+
+
+def leave_group() -> None:
+    """The CLI's exit: leave the process group a --distributed run
+    joined."""
+    from lux_tpu_torch.parallel import multihost
+
+    multihost.shutdown()

@@ -11,8 +11,13 @@ and resume from the latest checkpoint; ``--stream-hbm-gib`` keeps the
 edge arrays in pinned host memory and streams them through that device
 budget (engine/stream.py); ``--serve`` answers a burst of
 personalized-PageRank queries through the batched query service instead
-(serve/driver.py; ``-ni`` is each query's iteration count).  Runs on the
-card unless ``--device cpu``.
+(serve/driver.py; ``-ni`` is each query's iteration count).
+``--distributed`` spreads the -ng parts over the ranks of
+torch.distributed (``python -m torch.distributed.run --nproc-per-node W
+-m lux_tpu_torch.apps.pagerank --distributed ...``; LUX_DIST_BACKEND=gloo
+for ranks that share a card) with ``--exchange allgather|ring|scatter``,
+or one part a rank on the block-CSR kernel (``--method pallas``); rank 0
+prints the results.  Runs on the card unless ``--device cpu``.
 The elapsed time covers the iterations only: graph load, layout build,
 the routed plan's construction, the host-to-device copy and an untimed
 warm-up run of the same iterations on a copy of the state come before
@@ -40,12 +45,15 @@ from lux_tpu_torch.utils.timing import report_elapsed
 class RunResult:
     rc: int  # 0, or 1 when -check failed
     graph: HostGraph
-    ranks: np.ndarray  # (nv,) pre-divided ranks, float32
+    ranks: Optional[np.ndarray]  # (nv,) pre-divided ranks, float32; None off rank 0
     seconds: float  # iterations only, device-fenced
     gteps: float
     route_gather: str = ""  # the routed mode that ran ("" = direct)
     iters: int = 0  # iterations this run executed (a resume runs fewer)
     streamed: Optional[common.StreamedRun] = None  # --stream-hbm-gib's geometry
+    #: --distributed: (this rank's apps/common.DistSetup, its final (k, V)
+    #: block), which DistSetup.exchange_split times further iterations on
+    dist: Optional[tuple] = None
 
 
 def prepare(cfg, g, dev, route=None):
@@ -72,26 +80,33 @@ def run(argv=None, route=None, graph: Optional[HostGraph] = None):
     common.resolve_route_auto(cfg)
     g = graph if graph is not None else common.load_graph(cfg)
     prog = PageRankProgram(nv=g.nv, dtype=cfg.dtype)
-    streamed = None
+    streamed = dist = None
     if cfg.stream_hbm_gib:
         streamed = common.run_streamed(cfg, g, prog, dev)
         ranks, elapsed, iters = streamed.state, streamed.seconds, streamed.iters
+    elif cfg.distributed:
+        ranks, elapsed, iters, dist = common.run_dist_app(cfg, g, dev, prog, "pagerank")
     else:
         ranks, elapsed, iters = common.run_pull_app(cfg, g, dev, prog, make_pallas_runner,
                                                     "pagerank", route)
-    gteps = report_elapsed(elapsed, g.ne, iters)
-    common.top_k("rank (pre-divided)", ranks)
-    rc = 0
-    if cfg.check:
-        ok = common.print_check(
-            "pagerank (fixed-point residual)",
-            check_ranks(g, ranks, num_iters=cfg.num_iters, dtype=cfg.dtype))
-        rc = 0 if ok else 1
-    return RunResult(rc, g, ranks, elapsed, gteps, cfg.route_gather, iters, streamed)
+    rc, gteps = 0, iters * g.ne / elapsed / 1e9 if elapsed > 0 else float("nan")
+    if ranks is not None:  # the only process, or rank 0
+        gteps = report_elapsed(elapsed, g.ne, iters)
+        common.top_k("rank (pre-divided)", ranks)
+        if cfg.check:
+            ok = common.print_check(
+                "pagerank (fixed-point residual)",
+                check_ranks(g, ranks, num_iters=cfg.num_iters, dtype=cfg.dtype))
+            rc = 0 if ok else 1
+    rc = common.finish_dist(cfg, rc)
+    return RunResult(rc, g, ranks, elapsed, gteps, cfg.route_gather, iters, streamed, dist)
 
 
 def main(argv=None) -> int:
-    return run(argv).rc
+    try:
+        return run(argv).rc
+    finally:
+        common.leave_group()
 
 
 if __name__ == "__main__":

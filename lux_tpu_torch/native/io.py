@@ -4,7 +4,8 @@
 Counterpart of the I/O part of ``lux_tpu.native``: partial ``.lux``
 reads by pread, the counting-sort ``.lux`` writer, the text edge-list
 parser, the per-part push-CSR build, the pull layout's source-position
-fill, the block-CSR chunk fill and the out-degree histogram.  The
+fill, the block-CSR chunk fill, the out-degree histogram, and the ring
+and reduce-scatter layouts' owner split and bucket fill.  The
 sources are this package's own copies, built like the route colorer
 (:func:`lux_tpu_torch.native.build_artifact`) at first use; nothing is
 built at import.
@@ -73,6 +74,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "lux_fill_src_pos": ([i32p, c_u64, u32p, c_u32, c_u32, i32p], ctypes.c_int),
         "lux_blockcsr_fill": ([i64p, c_u32, i32p, f32p, c_u64, c_u32, c_u32, i64p,
                                i32p, i32p, f32p], ctypes.c_int),
+        "lux_bucket_split": ([u32p, c_u64, u32p, c_u32, u64p, u64p], ctypes.c_int),
+        "lux_bucket_fill": ([u32p, i64p, i32p, c_u64, c_u32, u32p, c_u32, c_u64, i64p,
+                             c_u64, i32p, i32p, ctypes.POINTER(ctypes.c_uint8), f32p],
+                            ctypes.c_int),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -359,4 +364,64 @@ def blockcsr_fill(row_ptr: np.ndarray, src_pos: np.ndarray,
         _ptr(e_w, ctypes.c_float) if weights is not None else None)
     if rc != 0:
         raise ValueError("inconsistent row_ptr for block-CSR fill")
+    return True
+
+
+def bucket_split(srcs: np.ndarray, cuts: np.ndarray):
+    """Stable owner-bucketing of an edge slice by a counting sort: the
+    permutation grouping the edges by the part that owns their source
+    (original order within a part) and the edges a part.  Returns (order
+    int64, counts int64), the same as ``np.argsort(searchsorted(cuts,
+    srcs, "right") - 1, kind="stable")`` and its bincount, or None without
+    the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    srcs = _as_u32_ids(srcs, "source")
+    cuts = np.ascontiguousarray(cuts, np.uint32)
+    num_parts = len(cuts) - 1
+    order = np.empty(len(srcs), np.uint64)
+    counts = np.zeros(num_parts, np.uint64)
+    if lib.lux_bucket_split(_ptr(srcs, ctypes.c_uint32), len(srcs),
+                            _ptr(cuts, ctypes.c_uint32), num_parts,
+                            _ptr(order, ctypes.c_uint64),
+                            _ptr(counts, ctypes.c_uint64)) != 0:
+        raise ValueError("source id beyond the last cut")
+    return order.astype(np.int64), counts.astype(np.int64)
+
+
+def bucket_fill(srcs, row_ptr_slice, weights, cuts, B: int, row_map, row_stride: int,
+                src_flat, dst_flat, hf_flat, w_flat):
+    """One pass over a part's edge slice that writes every materialized
+    owner bucket of the ring and reduce-scatter layouts (src_local,
+    dst_local, head_flag, weights) in place.  ``*_flat`` are flat
+    contiguous int32 / int32 / uint8 / float32 views whose origin is the
+    part's (or column's) first slot, pre-filled with the padding values;
+    ``row_map[q]`` is owner q's target row (-1: not built here) and
+    ``row_stride`` the slots between rows.  True, or None without the
+    library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    srcs = _as_u32_ids(srcs, "source")
+    rp = np.ascontiguousarray(row_ptr_slice, np.int64)
+    cuts = np.ascontiguousarray(cuts, np.uint32)
+    row_map = np.ascontiguousarray(row_map, np.int64)
+    wp = None
+    if weights is not None:
+        if w_flat is None or w_flat.dtype != np.float32 or not w_flat.flags.c_contiguous:
+            raise ValueError("w_flat must be a flat contiguous float32 view")
+        weights = np.ascontiguousarray(weights, np.int32)
+        wp = _ptr(weights, ctypes.c_int32)
+    for a, dt in ((src_flat, np.int32), (dst_flat, np.int32), (hf_flat, np.uint8)):
+        if a.dtype != dt or not a.flags.c_contiguous:
+            raise ValueError(f"bucket target views must be contiguous {np.dtype(dt)}")
+    rc = lib.lux_bucket_fill(
+        _ptr(srcs, ctypes.c_uint32), _ptr(rp, ctypes.c_int64), wp, len(srcs), len(rp) - 1,
+        _ptr(cuts, ctypes.c_uint32), len(cuts) - 1, B, _ptr(row_map, ctypes.c_int64),
+        row_stride, _ptr(src_flat, ctypes.c_int32), _ptr(dst_flat, ctypes.c_int32),
+        _ptr(hf_flat, ctypes.c_uint8),
+        _ptr(w_flat, ctypes.c_float) if w_flat is not None else None)
+    if rc != 0:
+        raise ValueError(f"bucket fill failed (rc={rc}): bad cuts/row_ptr or bucket overflow")
     return True

@@ -314,12 +314,16 @@ def _build_routes(*perms):
     planning pool allows: a plan's r1/r2 (and fused's vr) share no
     state, and the Euler coloring under build_route releases the GIL in
     the native layer — so even a single-part (P=1) plan build uses the
-    host's cores.  Pure functions: the schedule can't change bytes."""
+    host's cores.  Pure functions: the schedule can't change bytes.
+    Inside a cached planner's build each route goes through the plan
+    cache's route memo (ops/route.build_route_memo)."""
+    memo = route_mod.memo_dir()
     if _plan_threads() <= 1 or len(perms) <= 1:
-        return tuple(route_mod.build_route(p) for p in perms)
+        return tuple(route_mod.build_route_memo(p, memo) for p in perms)
     return tuple(_parallel_map(
-        len(perms), lambda i: route_mod.build_route(perms[i]),
+        len(perms), lambda i: route_mod.build_route_memo(perms[i], memo),
         min(len(perms), _plan_threads())))
+
 
 def _plan_expand_half(src_pos: np.ndarray, m: int, state_size: int):
     """Shared expand-half construction (state -> filled CSR-run slots):
@@ -1249,6 +1253,19 @@ def _cache_dir_trusted(cache_dir: str) -> bool:
     return not st.st_mode & 0o022
 
 
+def _routes_dir(cache_dir: str):
+    """The route memo of a trusted plan cache (ops/route.build_route_memo),
+    its ``routes`` directory: the families of one graph route the same
+    expand half, so a build colours what another build already coloured
+    only once.  None when it cannot be made."""
+    path = os.path.join(cache_dir, "routes")
+    try:
+        os.makedirs(path, mode=0o700, exist_ok=True)
+    except OSError:
+        return None
+    return path
+
+
 #: the dataclasses a cached static may contain: the decoder builds only
 #: these (nothing in an entry can name other code)
 _STATIC_TYPES = {
@@ -1322,6 +1339,7 @@ def _cached_part_fn(tag: str, num_parts: int, key_one, build_one,
     trusted = _cache_dir_trusted(cache_dir)
     if paths is None and trusted:
         paths = [_entry_path(cache_dir, tag, key_one, i) for i in range(num_parts)]
+    routes = _routes_dir(cache_dir) if trusted else None
 
     def one(i):
         path = paths[i] if trusted else None
@@ -1340,7 +1358,7 @@ def _cached_part_fn(tag: str, num_parts: int, key_one, build_one,
             except (OSError, ValueError, KeyError, TypeError) as e:
                 print(f"# plan cache ignored ({path}): {e}", file=sys.stderr, flush=True)
         sp = obs.span("plan.build", tag=tag, part=i)
-        with sp:
+        with sp, route_mod.memo_in(routes):
             static, arrays = build_one(i)
         _stats_add("cold", sp.dur)
         if path is not None:

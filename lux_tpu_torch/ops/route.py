@@ -28,7 +28,13 @@ much faster at benchmark scale.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import fcntl
+import hashlib
+import os
+import sys
 import threading
 
 import numpy as np
@@ -370,6 +376,91 @@ def build_route(perm: np.ndarray, dims: list[int] | None = None) -> Route:
         passes.append(Pass(shape=shape, axis=axis,
                            idx=idx.reshape(shape)))
     return Route(n=n, dims=shape, passes=passes)
+
+
+# ---------------------------------------------------------------------------
+# the route memo: a route is a pure function of its permutation, so the
+# planners of one graph (whose families all route the same expand half)
+# colour each permutation once, across threads and processes
+# ---------------------------------------------------------------------------
+
+#: route memo entry layout version (bump on any change to build_route's output)
+MEMO_FORMAT = 1
+_MEMO_DIR: contextvars.ContextVar = contextvars.ContextVar("lux_route_memo_dir",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def memo_in(path):
+    """Within the block, :func:`build_route_memo` of this context memoizes
+    under ``path`` (a directory the caller has vetted; None: no memo).
+    ops/expand's cached planners set their plan cache's ``routes``
+    directory while they build."""
+    token = _MEMO_DIR.set(path)
+    try:
+        yield
+    finally:
+        _MEMO_DIR.reset(token)
+
+
+def memo_dir():
+    """The memo directory :func:`memo_in` set in this context, or None."""
+    return _MEMO_DIR.get()
+
+
+def _save_route(path: str, r: Route) -> None:
+    small = max(r.dims) <= 256  # idx values lie in [0, dim): one byte each
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, n=r.n, dims=np.asarray(r.dims),
+                     axes=np.asarray([q.axis for q in r.passes]),
+                     **{f"p{j}": q.idx.astype(np.uint8) if small else q.idx
+                        for j, q in enumerate(r.passes)})
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _load_route(path: str) -> Route:
+    with np.load(path, allow_pickle=False) as z:
+        dims = tuple(int(d) for d in z["dims"])
+        return Route(n=int(z["n"]), dims=dims, passes=[
+            Pass(shape=dims, axis=int(a), idx=z[f"p{j}"].astype(np.int32))
+            for j, a in enumerate(z["axes"])])
+
+
+def build_route_memo(perm: np.ndarray, path_dir=None) -> Route:
+    """:func:`build_route` of ``perm`` (default digits), memoized under
+    ``path_dir`` (None: built directly).  The entry is named by the
+    permutation's digest; an exclusive lock on its lock file makes a
+    second builder of the same permutation, in this process or another,
+    wait for the first one's entry instead of colouring it again (the
+    lock dies with its holder).  A failed load or store costs the memo,
+    never the route."""
+    if path_dir is None:
+        return build_route(perm)
+    p = np.ascontiguousarray(perm, np.int64)
+    h = hashlib.sha256(f"lux_tpu_torch:route{MEMO_FORMAT}:{p.shape}:".encode())
+    h.update(p.tobytes())
+    path = os.path.join(path_dir, f"route_{h.hexdigest()[:32]}.npz")
+    with open(path + ".lock", "ab") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(path):
+                try:
+                    return _load_route(path)
+                except (OSError, ValueError, KeyError) as e:
+                    print(f"# route memo ignored ({path}): {e}", file=sys.stderr, flush=True)
+            r = build_route(p)
+            try:
+                _save_route(path, r)
+            except OSError as e:
+                print(f"# route memo not written ({path}): {e}", file=sys.stderr, flush=True)
+            return r
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def apply_route_np(route: Route, x: np.ndarray) -> np.ndarray:

@@ -1,0 +1,127 @@
+"""The distributed pull engine over the allgather exchange.
+
+Counterpart of ``lux_tpu.parallel.dist``.  The reference runs one
+shard_map program over a 1-D mesh: each iteration all-gathers every
+part's state (``lax.all_gather``) and runs the single-device per-part
+step on its resident parts, with convergence decided by a ``psum`` of the
+per-part active counts.  Here each rank is a process holding k = P/W
+parts: every iteration gathers the whole state with
+``placement.halo_all_gather`` and runs ``engine/pull.local_pull_step`` on
+each resident part, one after another, exactly as the single-process
+engine runs them.  Only the exchange differs, so the result is bitwise
+the single-process ``run_pull_fixed`` at the same P and method.
+
+The method resolves through ``engine/methods`` on the rank's device, as
+on one card: an f32 sum is ``mxscan`` on the card (the segmented-scan
+kernel).  The routed gather under the distributed engines is not ported.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from lux_tpu_torch.engine import methods
+from lux_tpu_torch.engine.pull import (PullProgram, local_pull_step, pull_gather_part,
+                                       pull_reduce_part)
+from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec
+from lux_tpu_torch.parallel.mesh import PartsGroup, shard_stacked
+from lux_tpu_torch.parallel.placement import halo_all_gather
+
+
+def _method(prog, method: str, pg: PartsGroup) -> str:
+    return methods.resolve_sum(method, prog.reduce, methods.default_platform(pg.device))
+
+
+def _place(pg: PartsGroup, spec: ShardSpec, arrays, state0):
+    if spec.num_parts != pg.num_parts:
+        raise ValueError(f"the shards have {spec.num_parts} parts, the group "
+                         f"{pg.num_parts}")
+    return shard_stacked(pg, arrays), shard_stacked(pg, state0)
+
+
+def dist_iteration(prog: PullProgram, arrays: ShardArrays, block: torch.Tensor,
+                   pg: PartsGroup, method: str) -> torch.Tensor:
+    """One iteration on this rank: gather the whole state, then each
+    resident part's local_pull_step.  Returns the new (k, V, ...) block."""
+    full = halo_all_gather(block, pg)
+    return torch.stack([local_pull_step(prog, arrays.part(j), full, block[j], method)
+                        for j in range(pg.k)])
+
+
+def run_pull_fixed_dist(prog: PullProgram, spec: ShardSpec, arrays, state0,
+                        num_iters: int, pg: PartsGroup, method: str = "auto") -> torch.Tensor:
+    """Fixed-iteration distributed pull (PageRank, CF).  ``arrays`` and
+    ``state0`` are stacked by part: all P parts (this rank takes its
+    rows) or this rank's k (a subset build).  Returns this rank's final
+    (k, V, ...) block."""
+    method = _method(prog, method, pg)
+    arrays, block = _place(pg, spec, arrays, state0)
+    for _ in range(num_iters):
+        block = dist_iteration(prog, arrays, block, pg, method)
+    return block
+
+
+def compile_pull_phases_dist(prog: PullProgram, pg: PartsGroup, method: str = "auto"):
+    """One distributed pull iteration as three separately callable phases
+    (the reference's -verbose load/comp/update split on a mesh):
+
+      load(arrays, block)       -> per-part gathered (src, dst) states;
+                                   carries the exchange
+      comp(arrays, gathered)    -> (k, V, ...) reduced accumulators
+      update(arrays, block, acc)-> the new (k, V, ...) block (apply)
+
+    ``arrays`` are this rank's (k, ...) device tensors.  The per-part
+    bodies are those of the fused engine, so the three phases compose to
+    its result bit for bit."""
+    m = _method(prog, method, pg)
+
+    def load(arrays: ShardArrays, block: torch.Tensor) -> list:
+        full = halo_all_gather(block, pg)
+        return [pull_gather_part(arrays.part(j), full, block[j], prog.needs_dst_state)
+                for j in range(pg.k)]
+
+    def comp(arrays: ShardArrays, gathered: list) -> torch.Tensor:
+        return torch.stack([pull_reduce_part(prog, arrays.part(j), gathered[j], m)
+                            for j in range(pg.k)])
+
+    def update(arrays: ShardArrays, block: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+        return torch.stack([prog.apply(block[j], acc[j], arrays.part(j))
+                            for j in range(pg.k)])
+
+    return load, comp, update
+
+
+def global_active(pg: PartsGroup, count: torch.Tensor) -> int:
+    """The sum of every rank's active count: this rank's count is read on
+    the host once (the iteration's one host read), then summed over the
+    ranks (on the card under NCCL)."""
+    import torch.distributed as dist
+
+    if pg.backend == "nccl":
+        t = count.reshape(1).to(torch.int64)
+    else:
+        t = torch.tensor([int(count)], dtype=torch.int64)
+    dist.all_reduce(t, group=pg.group)
+    return int(t.item())
+
+
+def run_pull_until_dist(prog: PullProgram, spec: ShardSpec, arrays, state0,
+                        max_iters: int,
+                        active_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                        pg: PartsGroup, method: str = "auto"):
+    """Convergence-driven distributed pull (CC, SSSP): iterate until the
+    global active count, the sum over the ranks of ``active_fn(old,
+    new)`` of their resident parts, is 0, or ``max_iters`` ran.
+    Returns (this rank's final (k, V, ...) block, iterations run)."""
+    method = _method(prog, method, pg)
+    arrays, block = _place(pg, spec, arrays, state0)
+    it = 0
+    while it < max_iters:
+        new = dist_iteration(prog, arrays, block, pg, method)
+        active = global_active(pg, active_fn(block, new).sum())
+        block = new
+        it += 1
+        if active == 0:
+            break
+    return block, it

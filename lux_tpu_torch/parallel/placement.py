@@ -14,10 +14,20 @@ owns parts [lo, hi) of an N-part graph is routed exactly like a worker
 that owns all of it.  The tree is small and wire-friendly: a contiguous
 part range per host (the balanced split), serialized as plain JSON lists.
 
-Not here yet: the device meshes (``mesh``/``local_mesh``) and the halo
-collectives (``halo_all_gather``, ``halo_reduce_scatter``) come with
-multi-GPU, on ``torch.distributed``; :func:`local_tree` is the
-single-host tree until then.
+The multi-process runtime (parallel/multihost.py) takes its ranks' parts
+from :func:`local_tree`, and the two halo collectives every distributed
+engine uses live here, named for what they move:
+
+* :func:`halo_all_gather`     — each rank's resident (k, V, ...) block
+  → the full (P*V, ...) gathered state (the allgather engines);
+* :func:`halo_reduce_scatter` — per-destination (P, V, ...) partials →
+  this rank's summed (k, V, ...) block (the reduce-scatter engine).
+
+Both rely on the ``mesh.shard_stacked`` ordering invariant (rank r holds
+parts [r*k, (r+1)*k)); the collectives concatenate and split in rank
+order, so the flattened axis is in global part order.  Under gloo a
+block on a card is staged through pinned host buffers
+(:func:`host_staged`); under NCCL the collectives take device tensors.
 """
 from __future__ import annotations
 
@@ -167,10 +177,82 @@ class PlacementTree:
 
 
 def local_tree(num_parts: int) -> PlacementTree:
-    """The tree for the CURRENT runtime: one host (the port has no
-    multi-process runtime yet, so this is always the single-host tree),
-    with the visible CUDA device count as its capacity hint."""
+    """The tree for the CURRENT runtime: one host a rank of the
+    initialized torch.distributed group (the single-host tree when none
+    is), with the visible CUDA device count as its capacity hint."""
+    import torch
+    import torch.distributed as dist
+
+    hosts = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return PlacementTree.build(num_parts, hosts, devices_per_host=torch.cuda.device_count())
+
+
+# ---------------------------------------------------------------- halo
+def _wire(t):
+    """The tensor a collective that only copies moves: a bf16 block as
+    its bytes (not every gloo build has bfloat16 kernels; a copy needs
+    none)."""
     import torch
 
-    return PlacementTree.single_host(num_parts,
-                                     devices=torch.cuda.device_count())
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+
+
+def host_staged(pg, collective, out, inp) -> None:
+    """Run ``collective(out, inp)`` on ``pg``.  Under gloo with tensors on
+    a card the inputs are copied into a pinned host buffer, the
+    collective runs on host buffers and the result is copied back (the
+    exchange of ranks that share a card); otherwise it takes the tensors
+    as they are.  With ``pg.timed`` the device is fenced first, and the
+    copies' and the collective's seconds add to ``pg.times``."""
+    t0 = pg.fence() if pg.timed else 0.0
+    if pg.staged:
+        h_in = pg.pinned("in", inp)
+        h_in.copy_(inp)
+        h_out = pg.pinned("out", out)
+        t1 = pg.fence() if pg.timed else 0.0
+        collective(h_out, h_in)
+        t2 = pg.fence() if pg.timed else 0.0
+        out.copy_(h_out)
+    else:
+        t1 = t0
+        collective(out, inp)
+        t2 = pg.fence() if pg.timed else 0.0
+    if pg.timed:
+        t3 = pg.fence()
+        pg.times.stage_s += (t1 - t0) + (t3 - t2)
+        pg.times.collective_s += t2 - t1
+        pg.times.calls += 1
+
+
+def halo_all_gather(block, pg):
+    """The (P*V, ...) gathered state of every rank's resident (k, V, ...)
+    block, in global part order (rank r's block lands at rows
+    [r*k*V, (r+1)*k*V)).  A fresh tensor: the resident block may be
+    overwritten afterwards."""
+    import torch
+    import torch.distributed as dist
+
+    block = block.contiguous()
+    k, V = block.shape[0], block.shape[1]
+    out = torch.empty((pg.world * k * V,) + tuple(block.shape[2:]), dtype=block.dtype,
+                      device=block.device)
+    host_staged(pg, lambda o, i: dist.all_gather_into_tensor(o, i, group=pg.group),
+                _wire(out), _wire(block.reshape((k * V,) + tuple(block.shape[2:]))))
+    return out
+
+
+def halo_reduce_scatter(partials, k: int, pg):
+    """Sum the (P, V, ...) per-destination partials over the ranks and
+    hand this rank its own (k, V, ...) destination block, parts [r*k,
+    (r+1)*k).  Sum-reducible programs only (callers check
+    ``prog.reduce == "sum"``)."""
+    import torch
+    import torch.distributed as dist
+
+    P, V = partials.shape[0], partials.shape[1]
+    flat = partials.contiguous().reshape((P * V,) + tuple(partials.shape[2:]))
+    out = torch.empty((k * V,) + tuple(partials.shape[2:]), dtype=partials.dtype,
+                      device=partials.device)
+    host_staged(pg, lambda o, i: dist.reduce_scatter_tensor(o, i, group=pg.group),
+                out, flat)
+    return out.reshape((k, V) + tuple(partials.shape[2:]))

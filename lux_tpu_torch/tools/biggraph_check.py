@@ -17,14 +17,17 @@ about 1.1 GB at scale 24), written by the native counting sort, then:
      resident on the card, beside the card's memory,
   4. PageRank (``--iters`` iterations, ``--method``) with the parts stacked
      on the card (``-ng``), timed after an untimed run,
-  5. the push layout and SSSP from the largest out-degree to
+  5. PageRank over the ring and reduce_scatter exchanges (the
+     reference's legs): ``--ranks`` ranks (parallel/spawn.run_ranks;
+     LUX_DIST_BACKEND, gloo unless set: the ranks share the card), each
+     loading only its parts' byte ranges and building only their
+     buckets, timed after an untimed run and held to step 4's ranks
+     (rtol 1e-4),
+  6. the push layout and SSSP from the largest out-degree to
      convergence, timed after an untimed run,
 
 printing one JSON line a step with the host's peak RSS and the card's
-peak allocated bytes so far.  The reference's ring and reduce_scatter
-PageRank legs need several cards (the port's multi-GPU work, ROADMAP
-Queue 1 item 7); this tool says so in its last line instead of running
-them.  Runs on the card unless ``--device cpu``.
+peak allocated bytes so far.  Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -52,6 +55,10 @@ def main(argv=None) -> int:
     ap.add_argument("--file", default=None, help=".lux path (default: the temporary "
                                                  "directory; generated when missing)")
     ap.add_argument("--skip-sssp", action="store_true")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="ranks of the ring and reduce_scatter legs (--parts must be a "
+                         "multiple); their backend is LUX_DIST_BACKEND, gloo unless "
+                         "set (ranks that share a card)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -143,6 +150,28 @@ def main(argv=None) -> int:
     if cuda:
         torch.cuda.empty_cache()
 
+    from lux_tpu_torch.parallel import multihost, spawn
+
+    backend = os.environ.get(multihost.BACKEND_ENV, "").strip() or "gloo"
+    for kind in ("ring", "scatter"):
+        res = spawn.run_ranks(args.ranks, "lux_tpu_torch.tools.biggraph_check:exchange_leg",
+                              (path, P, kind, args.iters), num_parts=P, device=args.device,
+                              backend=backend, deadline_s=3000.0, threads=4,
+                              env={multihost.BACKEND_ENV: backend})
+        lead = res[0]["result"]
+        rel = float(np.max(np.abs(lead["ranks"].astype(np.float64) - ranks)
+                           / np.maximum(np.abs(ranks), 1e-30)))
+        note(f"pagerank_{kind}", parts=P, ranks=args.ranks, backend=backend,
+             k_resident=P // args.ranks, build_s=lead["build_s"],
+             estimate_bytes=lead["estimate_bytes"], bucket_pad=lead["bucket_pad"],
+             seconds=lead["seconds"], ms_per_iter=lead["seconds"] * 1e3 / args.iters,
+             gteps=args.iters * ne / lead["seconds"] / 1e9, split=lead["split"],
+             max_rel_err_vs_allgather=rel, agrees=rel <= 1e-4)
+        if rel > 1e-4:
+            print(f"pagerank over {kind} differs from the allgather run by {rel}",
+                  file=sys.stderr)
+            return 1
+
     if not args.skip_sssp:
         t0 = time.monotonic()
         psh = build_push_shards(header, P)
@@ -163,9 +192,37 @@ def main(argv=None) -> int:
         note("sssp", start=start, iters=res.it, dense_rounds=res.dense_rounds,
              traversed=res.edges, seconds=secs, gteps=res.edges / secs / 1e9,
              reached=int((dist < inf_value(nv)).sum()))
-    note("done", not_run="PageRank over the ring and reduce_scatter exchanges: "
-                         "several cards (ROADMAP Queue 1 item 7)")
+    note("done")
     return 0
+
+
+def exchange_leg(pg, path: str, parts: int, kind: str, iters: int) -> dict:
+    """One rank of a distributed PageRank leg: this rank's parts of the
+    file (byte-range loads, its buckets only), the memory estimate against
+    its device, an untimed run, then a timed one (the ranks lined up by a
+    barrier).  Rank 0 returns the ranks and the timings."""
+    import torch
+
+    from lux_tpu_torch.apps import common
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.models.pagerank import PageRankProgram
+    from lux_tpu_torch.utils.config import RunConfig
+
+    header = fmt.read_lux(path, mmap=True)
+    cfg = RunConfig(file=path, num_parts=parts, num_iters=iters, method="scan",
+                    distributed=True, exchange=kind, device=pg.device.type)
+    prog = PageRankProgram(nv=header.nv)
+    t0 = time.monotonic()
+    ds, state = common.setup_dist(cfg, header, pg.device, prog)
+    build_s = time.monotonic() - t0
+    est = common.estimate_dist(ds.layout, cfg, ds.pg)
+    seconds = common.timed_iterations(ds.iterate, state, iters, ds.pg.device, ds.pg.barrier)
+    split = ds.exchange_split(state, iters)
+    ranks = ds.read(state)
+    if pg.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"ranks": ranks, "seconds": seconds, "build_s": build_s, "split": split,
+            "estimate_bytes": est.total_bytes, "bucket_pad": ds.layout.e_bucket_pad}
 
 
 if __name__ == "__main__":

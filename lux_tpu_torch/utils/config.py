@@ -13,9 +13,11 @@ flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
 (``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
 knobs and ``--max-iters``; SSSP and PageRank (``serve=True``) the
 ``--serve`` group of the batched query service, as the reference's flag
-sets do.  The reference flags of the multi-GPU and layout features
-(``NOT_PORTED``) are rejected with a message that they are not ported
-yet, never silently ignored.
+sets do; the pull apps also ``--distributed`` and ``--exchange`` (the
+parts spread over the ranks of torch.distributed, parallel/).  The
+reference flags of the features not ported (``NOT_PORTED``: the 2-D edge
+and feature meshes; ``PULL_DISTRIBUTED`` on the other apps) are rejected
+with a message that they are not ported yet, never silently ignored.
 """
 from __future__ import annotations
 
@@ -71,9 +73,12 @@ def env_float(name: str, default: Optional[float] = None, *,
 #: reference flags this package does not run yet (and, as before the push
 #: apps took them, the push flags on the apps that do not take them)
 NOT_PORTED = (
-    "-start", "-verbose", "-v", "--max-iters", "--distributed",
-    "--exchange", "--edge-shards", "--feat-shards", "--weighted",
+    "-start", "-verbose", "-v", "--max-iters", "--edge-shards", "--feat-shards",
+    "--weighted",
 )
+#: the pull apps' multi-GPU flags: the other apps do not run distributed yet
+PULL_DISTRIBUTED = ("--distributed", "--exchange")
+EXCHANGES = ("allgather", "ring", "scatter")
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
 
@@ -108,6 +113,11 @@ class RunConfig:
     ckpt_every: int = 0  # save every N iterations (0 = off)
     #: >0 = delta-stepping bucket width for weighted SSSP (engine/delta.py)
     delta: int = 0
+    #: --distributed: the parts spread over the ranks of torch.distributed
+    #: (parallel/; one process a rank, k = num_parts / ranks parts each)
+    distributed: bool = False
+    #: the distributed state exchange: allgather | ring | scatter
+    exchange: str = "allgather"
     #: >0 = host-offload streaming under this device-byte budget in GiB
     #: (engine/stream.py; pagerank/colfilter fixed, components until)
     stream_hbm_gib: float = 0.0
@@ -156,8 +166,9 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         prog=f"python -m lux_tpu_torch.apps.run {prog}" if prog else None)
     ap.add_argument("-file", help=".lux graph file (default: synthetic RMAT)")
     ap.add_argument("-ng", "--num-parts", type=int, default=1,
-                    help="number of graph parts, stacked on the one device "
-                         "(--method pallas runs one)")
+                    help="number of graph parts, stacked on the one device, "
+                         "or with --distributed spread over the ranks "
+                         "(--method pallas runs one a rank)")
     ap.add_argument("-ni", "--num-iters", type=int, default=10)
     if sssp:
         ap.add_argument("-start", type=int, default=0, help="source vertex")
@@ -171,6 +182,18 @@ def parse_args(argv=None, description: str = "", push: bool = False,
     if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
     if pull:
+        ap.add_argument("--distributed", action="store_true",
+                        help="spread the -ng parts over the ranks of "
+                             "torch.distributed (launch with python -m "
+                             "torch.distributed.run --nproc-per-node W; "
+                             "LUX_DIST_BACKEND=gloo for ranks that share a "
+                             "card)")
+        ap.add_argument("--exchange", default="allgather", choices=EXCHANGES,
+                        help="distributed state exchange: allgather (every "
+                             "rank gathers the whole state), ring (blocks "
+                             "stream rank to rank) or scatter (partials "
+                             "summed by a reduce-scatter; sum programs "
+                             "without destination reads)")
         ap.add_argument("--sort-segments", action="store_true",
                         help="reorder edges within each destination segment "
                              "by gather index (gather locality; commutative "
@@ -295,16 +318,25 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED:
             ap.error(f"{flag} is not ported to lux_tpu_torch yet")
+        if flag in PULL_DISTRIBUTED:
+            ap.error(f"{flag} is not ported to lux_tpu_torch yet for this app "
+                     "(the distributed engines run the pull apps: pagerank, "
+                     "colfilter)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if ns.num_parts < 1:
         ap.error(f"-ng must be positive, got {ns.num_parts}")
-    if ns.num_parts != 1 and ns.method == "pallas":
+    if ns.num_parts != 1 and ns.method == "pallas" and not getattr(ns, "distributed", False):
         ap.error("-ng: --method pallas runs one part (-ng 1) on one device; "
-                 "its multi-part form is distributed, which is not ported "
-                 "to lux_tpu_torch yet")
+                 "its multi-part form is --distributed (one part a rank)")
     if getattr(ns, "ckpt_every", 0) and not ns.ckpt_dir:
         ap.error("--ckpt-every requires --ckpt-dir")
+    if getattr(ns, "serve", False) and getattr(ns, "distributed", False):
+        ap.error("--serve answers queries in one process; it does not combine with "
+                 "--distributed")
+    if ns.route_gather and getattr(ns, "distributed", False):
+        ap.error("--route-gather under --distributed is not ported to lux_tpu_torch "
+                 "yet (the distributed engines gather directly)")
     if ns.route_gather and ns.method == "pallas":
         ap.error("--route-gather does not combine with --method pallas: the "
                  "block-CSR runner has its own gather and no routed form")
@@ -328,6 +360,8 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         ckpt_dir=getattr(ns, "ckpt_dir", None),
         ckpt_every=getattr(ns, "ckpt_every", 0),
         delta=getattr(ns, "delta", 0),
+        distributed=getattr(ns, "distributed", False),
+        exchange=getattr(ns, "exchange", "allgather"),
         stream_hbm_gib=getattr(ns, "stream_hbm_gib", 0.0),
         repartition_every=getattr(ns, "repartition_every", 0),
         repartition_threshold=getattr(ns, "repartition_threshold", 1.25),

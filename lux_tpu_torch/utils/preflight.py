@@ -10,8 +10,11 @@ are one byte, the sparse walk's entry index and the scatter method's
 destination index are int64.  The tests pin each estimate to the ``nbytes``
 of what the port builds.
 
-The ring, scatter, 2-D edge, feature-sharded and distributed block-CSR
-estimates come with multi-GPU.
+The distributed engines (parallel/) are estimated per rank, against that
+rank's device: the allgather pull's k resident parts plus the gathered
+(P*V) state, the ring and reduce-scatter bucket layouts, and the
+distributed block-CSR pull.  The 2-D edge and feature-sharded estimates
+come with those meshes.
 """
 from __future__ import annotations
 
@@ -129,6 +132,43 @@ def add_routed_bytes(est: MemoryEstimate, extra: int) -> MemoryEstimate:
     )
 
 
+def add_gathered_bytes(est: MemoryEstimate, extra: int) -> MemoryEstimate:
+    """The estimate with ``extra`` exchange-buffer bytes (the gathered
+    state of the distributed allgather) counted as gathered bytes."""
+    return MemoryEstimate(est.shard_bytes, est.state_bytes, est.gathered_bytes + extra,
+                          est.total_bytes + extra)
+
+
+def estimate_ring(spec: ShardSpec, e_bucket_pad: int, state_width: int = 1,
+                  state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """One resident part of the ring exchange (parallel/ring.py): its P
+    buckets of edge-aligned arrays (src/dst int32, head bool, weight f32:
+    13 B a slot; no (V+1) row_ptr a bucket), its vertex view (global_vid
+    and degree int32, vtx_mask bool), and the resident block, the block in flight,
+    the fold accumulator and the new state.  No nv-sized exchange
+    buffer: that is the point of the ring."""
+    Pn, V = spec.num_parts, spec.nv_pad
+    shard = Pn * e_bucket_pad * 13 + V * 9
+    blk = V * state_width * state_dtype_bytes
+    state = 4 * blk
+    return MemoryEstimate(shard, state, 0, shard + state)
+
+
+def estimate_scatter(spec: ShardSpec, e_bucket_pad: int, state_width: int = 1,
+                     state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """One resident part of the reduce-scatter exchange
+    (parallel/scatter.py): the ring's bucket layout, the state and the
+    new state, and the (P, V, ...) partials the collective consumes
+    (reported as gathered bytes: the O(nv) term this exchange still
+    pays)."""
+    Pn, V = spec.num_parts, spec.nv_pad
+    shard = Pn * e_bucket_pad * 13 + V * 9
+    blk = V * state_width * state_dtype_bytes
+    state = 2 * blk
+    partials = Pn * blk
+    return MemoryEstimate(shard, state, partials, shard + state + partials)
+
+
 def add_routed(est: MemoryEstimate, plan) -> MemoryEstimate:
     """The estimate with a built routed plan's arrays counted in."""
     return add_routed_bytes(est, routed_plan_bytes(plan))
@@ -239,8 +279,8 @@ def check_fits(est: MemoryEstimate, hbm_bytes: Optional[int] = None,
     if est.total_bytes > hbm_bytes:
         print(
             f"WARNING: estimated {est.total_bytes/(1<<30):.2f} GiB exceeds "
-            f"device memory {hbm_bytes/(1<<30):.2f} GiB — increase num_parts "
-            "(multi-GPU runs are not ported yet)"
+            f"device memory {hbm_bytes/(1<<30):.2f} GiB — spread the parts "
+            "over more ranks (--distributed), or use --exchange ring"
         )
         return False
     return True

@@ -1256,3 +1256,69 @@ def test_weighted_sssp_pull_until_fused_mx_on_card(cuda):
     push = sssp_app.run(["--weighted", "-start", str(hub), "--device", "cuda"], graph=g)
     assert push.rc == 0
     np.testing.assert_array_equal(sh.scatter_to_global(got.cpu().numpy()), push.state)
+
+
+def _pallas_single_process(g, parts: int, iters: int, dev):
+    """The distributed block-CSR PageRank's per-part steps in one process
+    (every part's state gathered by concatenation, not a collective): the
+    single-process twin the ranks must equal bit for bit."""
+    from lux_tpu_torch.parallel import pallas_dist as pd
+
+    pp = pd.build_pallas_parts(g, parts)
+    prog = pr.PageRankProgram(nv=g.nv)
+    state = pd.init_state_pallas(prog, pp).to(dev)
+    a = [shards_part(pp.arrays, p, dev) for p in range(parts)]
+    for _ in range(iters):
+        full = state.reshape(-1)
+        new = []
+        for p in range(parts):
+            vals = prog.edge_value(full.index_select(0, a[p]["e_src"]).view(a[p]["shape"]),
+                                   a[p]["e_w"])
+            acc = spmv.spmv_blockcsr(vals.contiguous(), a[p]["e_dst"], a[p]["cb"], a[p]["cf"],
+                                     op="sum", v_blk=pp.v_blk,
+                                     num_vblocks=pp.num_vblocks)[: pp.spec.nv_pad]
+            new.append(prog.apply(state[p], acc, a[p]["view"]))
+        state = torch.stack(new)
+    return pp.scatter_to_global(state.cpu().numpy())
+
+
+def shards_part(arr, p: int, dev) -> dict:
+    from lux_tpu_torch.parallel.ring import _RingView
+
+    t = {f: torch.from_numpy(np.ascontiguousarray(getattr(arr, f)[p])).to(dev)
+         for f in arr._fields}
+    return {"e_src": t["e_src_pos"].reshape(-1), "shape": t["e_dst_rel"].shape,
+            "e_dst": t["e_dst_rel"], "e_w": t["e_weight"], "cb": t["chunk_block"],
+            "cf": t["chunk_first"],
+            "view": _RingView(t["global_vid"], t["degree"], t["vtx_mask"])}
+
+
+@pytest.mark.gpu
+def test_dist_ranks_sharing_the_card(cuda):
+    """Two gloo ranks on the one card (collectives staged through pinned
+    host buffers): allgather + mxscan PageRank at 4 parts bitwise the
+    single-process card run, and the block-CSR PageRank at one part a
+    rank bitwise its single-process twin; each rank launched its kernel
+    every iteration."""
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.parallel import spawn
+
+    spec = ("rmat", 12, 8, 7)
+    cases = {"allgather": {"graph": spec, "prog": "pagerank", "parts": 4,
+                           "exchange": "allgather", "iters": 6, "method": "mxscan"},
+             "pallas": {"graph": spec, "prog": "pagerank", "parts": 2, "exchange": "pallas",
+                        "iters": 6}}
+    res = spawn.run_ranks(2, "torch_dist_jobs:run_cases", (cases,), num_parts=2,
+                          device="cuda", backend="gloo", deadline_s=300,
+                          env={"LUX_DIST_BACKEND": "gloo"})
+    assert all(r["backend"] == "gloo" and r["device"].startswith("cuda") for r in res)
+    for r in res:
+        assert r["launches"]["mxscan_segmented"] >= 6 * 2
+        assert r["launches"]["spmv_blockcsr"] >= 6
+    g = generate.rmat(12, 8, seed=7)
+    single = pr.pagerank(g, 6, num_parts=4, method="mxscan", device="cuda")
+    np.testing.assert_array_equal(res[0]["result"]["allgather"], single)
+    np.testing.assert_array_equal(res[0]["result"]["pallas"],
+                                  _pallas_single_process(g, 2, 6, cuda))
+    np.testing.assert_allclose(res[0]["result"]["pallas"], pr.pagerank_reference(g, 6),
+                               rtol=1e-4)

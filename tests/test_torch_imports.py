@@ -62,6 +62,8 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "analysis.proto.mc", "analysis.proto.election_model",
                  "analysis.proto.export", "fault.chaos", "tools.autopilot_demo",
                  "native.io", "tools.converter", "tools.gen_graph",
-                 "tools.biggraph_check"):
+                 "tools.biggraph_check", "parallel.mesh", "parallel.multihost",
+                 "parallel.dist", "parallel.pallas_dist", "parallel.ring",
+                 "parallel.scatter", "parallel.spawn"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 70

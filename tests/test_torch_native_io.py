@@ -396,3 +396,65 @@ def test_sharded_load_native_equals_numpy(tmp_path):
         for field, a, b, r in zip(got.arrays._fields, got.arrays, npy.arrays, ref.arrays):
             _same(a, b, field)
             _same(a, np.asarray(r), field)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("parts", [1, 3, 8])
+def test_bucket_split_binding(name, parts):
+    """lux_bucket_split: the stable owner permutation and the counts of
+    NumPy's argsort / bincount, bitwise."""
+    from lux_tpu_torch.parallel import ring
+
+    g = GRAPHS[name]()
+    sh = shards.build_pull_shards(g, parts)
+    for p in range(parts):
+        lo, hi = int(g.row_ptr[sh.cuts[p]]), int(g.row_ptr[sh.cuts[p + 1]])
+        srcs = g.col_idx[lo:hi]
+        order, counts = nio.bucket_split(srcs, sh.cuts)
+        with nio.numpy_path():
+            want_order, want_counts = ring._owner_split(srcs.astype(np.int64), sh.cuts)
+        np.testing.assert_array_equal(order, want_order)
+        np.testing.assert_array_equal(counts, want_counts)
+        assert order.dtype == np.int64 and counts.dtype == np.int64
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("parts", [2, 5])
+@pytest.mark.parametrize("kind", ["ring", "scatter"])
+def test_bucket_fill_binding(name, parts, kind):
+    """lux_bucket_fill under the ring and reduce-scatter builders, full
+    and subset: bitwise their NumPy paths (integer weights take the
+    native fill)."""
+    from lux_tpu_torch.parallel import ring, scatter
+
+    g = GRAPHS[name]()
+    build = ring.build_ring_shards if kind == "ring" else scatter.build_scatter_shards
+    for subset in (None, [parts - 1]):
+        native_sh = build(g, parts, parts_subset=subset)
+        with nio.numpy_path():
+            numpy_sh = build(g, parts, parts_subset=subset)
+        assert (native_sh.host_io, numpy_sh.host_io) == ("native", "numpy")
+        a = native_sh.rarrays if kind == "ring" else native_sh.sarrays
+        b = numpy_sh.rarrays if kind == "ring" else numpy_sh.sarrays
+        for field, x, y in zip(a._fields, a, b):
+            np.testing.assert_array_equal(x, y, err_msg=field)
+
+
+def test_bucket_bindings_refuse_bad_input():
+    cuts = np.array([0, 4, 8], np.int64)
+    with pytest.raises(ValueError, match="beyond the last cut"):
+        nio.bucket_split(np.array([1, 9], np.int32), cuts)
+    with pytest.raises(ValueError, match="out of uint32 range"):
+        nio.bucket_split(np.array([-1], np.int64), cuts)
+    B = 2
+    src = np.zeros(2 * B, np.int32)
+    dst = np.full(2 * B, 4, np.int32)
+    hf = np.zeros(2 * B, np.uint8)
+    w = np.zeros(2 * B, np.float32)
+    # three edges from part 0's sources overflow a bucket of 2
+    with pytest.raises(ValueError, match="overflow"):
+        nio.bucket_fill(np.array([0, 1, 2], np.int32), np.array([0, 3], np.int64), None, cuts,
+                        B, np.arange(2, dtype=np.int64), B, src, dst, hf, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        nio.bucket_fill(np.array([0], np.int32), np.array([0, 1], np.int64), None, cuts, B,
+                        np.arange(2, dtype=np.int64), B, src.astype(np.int64), dst, hf, w)

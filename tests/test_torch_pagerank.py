@@ -171,8 +171,10 @@ def test_app_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--edge-shards", "2"], "not ported"), (["--distributed"], "not ported"),
-    (["--exchange", "ring"], "not ported"), (["-ng", "2", "--method", "pallas"], "-ng"),
+    (["--edge-shards", "2"], "not ported"),
+    (["--distributed", "--route-gather", "expand"], "not ported"),
+    (["--exchange", "ring", "--distributed", "--feat-shards", "2"], "not ported"),
+    (["-ng", "2", "--method", "pallas"], "-ng"),
     (["--frobnicate"], "unrecognized")])
 def test_app_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):

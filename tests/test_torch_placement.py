@@ -154,3 +154,62 @@ def test_sharded_load_helpers_match_reference(snapshot):
     ref = ref_sharded.load_pull_shards(path, 2, sort_segments=True, compact_gather=True)
     for name, a, r in zip(got.arrays._fields, got.arrays, ref.arrays):
         assert a.dtype == np.asarray(r).dtype and np.array_equal(a, np.asarray(r)), name
+
+
+@pytest.fixture(scope="module")
+def halo_ranks():
+    from lux_tpu_torch.parallel import spawn
+
+    return {w: spawn.run_ranks(w, "torch_dist_jobs:halo_case", (8, 4, 3, 5), num_parts=8,
+                               device="cpu", deadline_s=240)
+            for w in (2, 4)}
+
+
+@pytest.mark.parametrize("world", [2, 4])  # k = 4 and k = 2 parts a rank
+def test_halo_all_gather_flattens_in_global_part_order(world, halo_ranks):
+    """The all-gather of every rank's (k, V, F) block is the (P, V, F)
+    array flattened in global part order (the NumPy oracle of the
+    reference's test, tests/test_placement.py: x.reshape(P*V, F)), on
+    every rank, for f32, bf16 bit patterns and int32."""
+    x = np.random.default_rng(5).standard_normal((8, 4, 3)).astype(np.float32)
+    for r in halo_ranks[world]:
+        out = r["result"]
+        k = 8 // world
+        assert (out["lo"], out["hi"]) == (out["rank"] * k, (out["rank"] + 1) * k)
+        np.testing.assert_array_equal(out["gathered"], x.reshape(32, 3))
+        np.testing.assert_array_equal(
+            out["bf16"], torch_bf16(x).reshape(32, 3))
+        np.testing.assert_array_equal(out["int32"], (x * 1000).astype(np.int32).reshape(32, 3))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_halo_reduce_scatter_sums_per_destination(world, halo_ranks):
+    """Each rank contributes x * (rank + 1); rank r gets the sum over the
+    contributors of its own k parts' rows."""
+    x = np.random.default_rng(5).standard_normal((8, 4, 3)).astype(np.float64)
+    total = x * sum(range(1, world + 1))
+    for r in halo_ranks[world]:
+        out = r["result"]
+        np.testing.assert_allclose(out["reduced"], total[out["lo"]:out["hi"]], rtol=1e-6)
+
+
+def torch_bf16(x):
+    import torch
+
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def test_local_tree_follows_the_process_group(monkeypatch):
+    """Under an initialized process group the tree has one host a rank,
+    and multihost.local_part_range is this rank's slice."""
+    import torch.distributed as tdist
+
+    from lux_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(tdist, "is_initialized", lambda: True)
+    monkeypatch.setattr(tdist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(tdist, "get_rank", lambda group=None: 2)
+    t = placement.local_tree(8)
+    assert t.num_hosts == 4 and tuple(t.parts_of(2)) == (4, 5)
+    assert tuple(multihost.local_part_range(8)) == (4, 5)
+    assert t.to_wire() == ref_placement.PlacementTree.build(8, 4, t.slices[0].devices).to_wire()

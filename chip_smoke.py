@@ -361,8 +361,9 @@ Phases, each printing one JSON line with its seconds:
               float64, then one iteration replayed with every lane_gather
               and fused_pass_gather launch held bitwise to its plain
               version.  The block-CSR of phase 3 (and of phase 6's pallas
-              run) is the native fill.
-  25. dist    the distributed pull engine (see dist_main) as spawned rank
+              run) is the native fill.  Last, SSSP of the file at 8 parts
+              (mxscan, from its hub): phase dist's NCCL push run's twin.
+  25. dist    the distributed pull and push engines (see dist_main) as spawned rank
               processes on the card (parallel/spawn.run_ranks, each rank
               loading only its parts of phase 24's file): (a) NCCL, one
               rank with all 8 parts, allgather + mxscan PageRank bitwise
@@ -381,7 +382,26 @@ Phases, each printing one JSON line with its seconds:
               (kernels 2, 1, 7 at least once a part an iteration); the
               block-CSR kernels held on each rank's part against float64,
               timed beside their plain versions and index_add_; no rank
-              process left.  NCCL across cards is not exercised (one card).
+              process left.  The distributed push inside the same two
+              spawn groups, through apps.sssp / apps.components
+              --distributed -check: (a) SSSP of phase 24's file at 8 parts
+              on the NCCL rank (mxscan), bitwise phase 24's single-process
+              run; (b) on the 2 gloo ranks at RMAT 20: SSSP allgather +
+              mxscan at 4 parts, again under LUX_MERGE_MODE=tree,
+              components over the allgather (mxscan) and over the ring
+              (--method scatter), SSSP and
+              components on the block-CSR kernel (--method pallas, 2
+              parts), --weighted --delta 25 on delta_main's graph and
+              --repartition-every 1 from repart_main's tail source (it
+              must recut), each bitwise phase 9's, 10's, 13's or 14's
+              single-process run in
+              state, iterations and traversed edges; kernel 2 (mxscan) or
+              1 (pallas) launched at least once a dense round in every
+              rank; in each rank kernel 1's int32 min (SSSP) and max
+              (components) on its push part and kernel 2's int32 min at a
+              dense round held bitwise to their plain versions and timed
+              beside them (and scatter_reduce_ for kernel 1).  NCCL across
+              cards is not exercised (one card).
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -2175,7 +2195,7 @@ def repart_main(np, kernels, smi, g, o_tail, o_labels):
     from lux_tpu_torch.engine import repartition
 
     t0 = time.perf_counter()
-    launches = {}
+    launches, tail = {}, None
     for name, mod, extra, oracle, every in (
             ("sssp", sssp_app, ["-start", str(tail_start(np, g))], o_tail, REPART_EVERY),
             ("sssp", sssp_app, ["-start", str(tail_start(np, g))], o_tail, 1),
@@ -2185,6 +2205,9 @@ def repart_main(np, kernels, smi, g, o_tail, o_labels):
                 "--device", "cuda"] + extra
         if every == REPART_EVERY:
             static, _, _ = counted(kernels, mod.run, base, graph=g)
+            if name == "sssp":  # phase dist's adaptive run must equal it
+                tail = {"start": tail_start(np, g), "iters": static.iters,
+                        "traversed": static.traversed}
         res, counts, wall = counted(kernels, mod.run,
                                     base + ["--repartition-every", str(every),
                                             "--repartition-threshold", str(REPART_THRESHOLD)],
@@ -2217,7 +2240,7 @@ def repart_main(np, kernels, smi, g, o_tail, o_labels):
         if every == 1:  # a one-vertex first window: its uneven work must recut
             require(recuts, "repart_main sssp: --repartition-every 1 made no recut")
     emit({"phase": "repart_main", "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, tail
 
 
 def stream_main(torch, np, kernels, smi, dev, tmp, long_s, reps):
@@ -4779,10 +4802,28 @@ def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, lon
             f"disk_main: sorted fused-pf launched {counts}")
     require(held.get("fused_pass_gather", 0) > 0 and held.get("lane_gather", 0) > 0,
             f"disk_main: the held replay launched {held}")
+    # SSSP of the file at DISK_PARTS parts from its hub: phase dist's NCCL
+    # push run must equal it bitwise
+    hub22 = int(np.argmax(sharded_load.out_degrees_from_file(path)))
+    res, counts, wall = counted(kernels, sssp_app.run, [
+        "-file", path, "-ng", str(DISK_PARTS), "--method", "mxscan", "-start", str(hub22),
+        "-check", "--device", "cuda"])
+    launches["sssp-file"] = counts
+    emit({"phase": "disk_main", "run": "sssp-file", "start": hub22, "rc": res.rc,
+          "iters": res.iters, "dense_rounds": res.dense_rounds,
+          "traversed_edges": res.traversed, "gteps": res.gteps, "ms": res.seconds * 1e3,
+          "launches": counts, "wall_seconds": wall, "device": smi})
+    require(res.rc == 0, "disk_main sssp-file: -check failed")
+    require(counts["mxscan_segmented"] >= max(res.dense_rounds, 1),
+            f"disk_main sssp-file: mxscan launched {counts['mxscan_segmented']}")
+    sssp_file = {"start": hub22, "state": res.state, "iters": res.iters,
+                 "traversed": res.traversed}
+    del res
     total = {k: sum(c[k] for c in launches.values()) for k in kernels}
     emit({"phase": "disk_main", "kernels": rows, "launches": total,
           "seconds": time.perf_counter() - t_phase})
-    return total, rows, {"path": path, "ranks": ranks["default"], "pr64": pr64}
+    return total, rows, {"path": path, "ranks": ranks["default"], "pr64": pr64,
+                         "sssp": sssp_file}
 
 
 DIST_RANKS = 2  # gloo ranks that share the card in runs (b)-(d)
@@ -4790,6 +4831,8 @@ DIST_PALLAS_PARTS = 2  # the block-CSR runs keep one part a rank
 DIST_DEADLINE_S = 240.0  # a spawn group that outlives this is killed and fails the phase
 DIST_KERNEL = {"allgather": "mxscan_segmented", "pallas": "spmv_blockcsr",
                "cf-app": "spmv_blockcsr_2d", "cf": "spmv_blockcsr_2d"}
+DIST_PUSH_PARTS = 4  # the gloo push runs: 2 ranks of 2 resident parts (pallas: 2 parts)
+DIST_DELTA = 25  # the distributed --delta run's width (delta_main's first)
 
 
 def dist_hold(torch, got, want64, what: str) -> float:
@@ -4846,6 +4889,73 @@ def dist_hold_kernels(torch, pg, pp, block, two_d: bool, reps: int) -> dict:
             "library_ms": time_ms(torch, lib, reps), "bound_ms": bound_ms(nbytes)}
 
 
+def dist_hold_push_spmv(torch, lay, block, reps: int) -> dict:
+    """Kernel 1 in the program's int32 min or max on this rank's part of
+    the block-CSR push layout ``lay`` (the dense round's relaxed slot
+    values of the exchanged final ``block``): bitwise its plain version,
+    timed beside it and one scatter_reduce_ amin / amax; bound C*T*8 +
+    nv_pad*4 bytes."""
+    from lux_tpu_torch.ops import spmv
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    pg, sh, prog, part = lay.pg, lay.shards, lay.prog, lay.statics
+    full = halo_all_gather(block, pg)
+    shape = part.e_dst_rel.shape
+    vals = prog.relax(full.index_select(0, part.e_src_flat).view(shape),
+                      part.e_weight).contiguous()
+    op, n = prog.reduce, sh.num_vblocks * sh.v_blk
+    args = (vals, part.e_dst_rel, part.chunk_block, part.chunk_first)
+    kern = functools.partial(spmv.spmv_blockcsr, *args, op=op, v_blk=sh.v_blk,
+                             num_vblocks=sh.num_vblocks)
+    plain = functools.partial(spmv.spmv_blockcsr_plain, *args, op, sh.v_blk, sh.num_vblocks)
+    dst = spmv._flat_dst(part.e_dst_rel, part.chunk_block, sh.v_blk, n)
+    neutral = spmv.reduce_neutral(op, torch.int32)
+    lib = lambda: torch.full((n + 1,), neutral, dtype=torch.int32,  # noqa: E731
+                             device=vals.device).scatter_reduce_(
+        0, dst, vals.reshape(-1), reduce="amin" if op == "min" else "amax")
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and torch.equal(got, lib()[:n]),
+            f"dist: spmv_blockcsr int32 {op} on rank {pg.rank}'s push part differs from "
+            "its plain version")
+    nbytes = vals.numel() * 8 + sh.spec.nv_pad * 4
+    return {"kernel": "spmv_blockcsr", "case": f"push part, int32 {op}", "op": op,
+            "dtype": "int32", "shape": list(shape), "max_abs_err": 0.0,
+            "kernel_ms": time_ms(torch, kern, reps), "plain_ms": time_ms(torch, plain, reps),
+            "library_ms": time_ms(torch, lib, reps), "bound_ms": bound_ms(nbytes),
+            "bytes": nbytes}
+
+
+def dist_hold_push_scan(torch, lay, block, reps: int) -> dict:
+    """Kernel 2 in int32 min at a rank's dense round of the allgather
+    push layout ``lay``: its first resident part's relaxed in-edge values
+    of the exchanged final ``block``, through scan_case (bitwise its
+    plain version, timed beside it and its bound)."""
+    from lux_tpu_torch.engine import pull
+    from lux_tpu_torch.ops import scan
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    pg = lay.pg
+    full = halo_all_gather(block, pg)
+    a = lay.arrays.part(0)
+    vals = lay.prog.relax(pull.gather_sources(a, full), a.weights).contiguous()
+    return scan_case(torch, scan, f"rank {pg.rank} push part, dense round int32 min", vals,
+                     a.head_flag, a.row_ptr[-1:], "min", reps)
+
+
+def dist_push_split(lay, delta: int):
+    """ms an iteration of one more fenced run of the push app's placed
+    layout ``lay`` to convergence (``delta``: the delta-stepping width, or
+    0), split into compute, staging and collective."""
+    from lux_tpu_torch.apps import common
+    from lux_tpu_torch.engine import delta as delta_eng
+
+    if delta:
+        return common.push_exchange_split(lay.pg, lambda: delta_eng.run_window(
+            lay, delta, delta_eng.init_on(lay, delta), 10_000))
+    return common.push_exchange_split(lay.pg, lambda: lay.loop(lay.init(), 10_000))
+
+
 def dist_rank(pg, runs, tmp):
     """One rank of phase dist: each run of ``runs`` in order, with this
     process's launch counters set to 0 just before and read just after.
@@ -4858,6 +4968,11 @@ def dist_rank(pg, runs, tmp):
     apps/common.DistSetup) on the rating graph, timed after an untimed
     run as the apps time, then its kernel held.  After each run (its
     launches read) DistSetup.exchange_split times ITERS more iterations.
+    A "sssp" or "components" run is the push app's ``run(argv)`` on the
+    graph its options name (``graph``: a saved one, else -file), under
+    their ``env``, then (``split``) one more fenced run to convergence for
+    the exchange's split, then the kernel its ``hold`` names held on this
+    rank's part.
     Returns {label: {"state" (rank 0), "seconds", "launches", ...}}."""
     import numpy as np
     import torch
@@ -4870,12 +4985,48 @@ def dist_rank(pg, runs, tmp):
     from lux_tpu_torch.parallel import multihost, pallas_dist, spawn
     from lux_tpu_torch.parallel.mesh import make_parts_group, shard_stacked
 
+    from lux_tpu_torch.apps import components as cc_app
+    from lux_tpu_torch.apps import sssp as sssp_app
+
     out = {}
-    for label, kind, argv in runs:
+    for label, kind, argv, *opt in runs:
+        opt = opt[0] if opt else {}
         torch.cuda.synchronize()
         spawn.reset_launches()
         t0 = time.perf_counter()
         row = {}
+        if kind in ("sssp", "components"):
+            # the distributed push through the app; the graph handed over
+            # from the smoke's scratch directory (or -file)
+            g = load_saved_graph(np, csc, tmp, opt["graph"]) if opt.get("graph") else None
+            saved = {k: os.environ.get(k) for k in opt.get("env", {})}
+            os.environ.update(opt.get("env", {}))
+            try:
+                res = (sssp_app if kind == "sssp" else cc_app).run(argv, graph=g)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            torch.cuda.synchronize()
+            row.update(state=res.state, seconds=res.seconds, gteps=res.gteps, rc=res.rc,
+                       iters=res.iters, traversed=res.traversed,
+                       dense_rounds=res.dense_rounds, recuts=len(res.recuts or ()),
+                       launches=spawn.kernel_launches(), wall_s=time.perf_counter() - t0)
+            lay, final = res.dist[0], res.dist[1]
+            row["exchange"] = None
+            if opt.get("split"):
+                delta_w = int(argv[argv.index("--delta") + 1]) if "--delta" in argv else 0
+                row["exchange"] = dist_push_split(lay, delta_w)
+            hold = opt.get("hold")
+            if hold == "spmv":
+                row["held"] = dist_hold_push_spmv(torch, lay, final.state, REPS)
+            elif hold == "scan":
+                row["held"] = dist_hold_push_scan(torch, lay, final.state, REPS)
+            del res, lay, final
+            out[label] = row
+            continue
         if kind in ("pagerank", "pallas", "cf-app"):
             g = (load_saved_graph(np, csc, tmp, {"pallas": "main", "cf-app": "cf"}[kind])
                  if kind != "pagerank" else None)
@@ -4914,9 +5065,35 @@ def dist_rank(pg, runs, tmp):
     return out
 
 
-def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
-    """Phase dist: the distributed pull engine (parallel/) as ranks that
-    share the card.  (a) NCCL, one rank holding the 8 parts of the RMAT
+def dist_push_check(np, label: str, kind: str, argv: list, per_rank: list, want: dict):
+    """A distributed push run against its single-process counterpart: rank
+    0's state bitwise, every rank's iterations and traversed edges equal
+    to it, every rank's exit code 0, and the run's kernel launched at
+    least once a dense round in every rank (mxscan, or the block-CSR
+    kernel under --method pallas; the ring's scatter method runs none)."""
+    lead = per_rank[0]
+    require(lead["state"] is not None and np.array_equal(lead["state"], want["state"]),
+            f"dist {label}: rank 0's state differs from the single-process run")
+    for r in per_rank:
+        require((r["iters"], r["traversed"]) == (want["iters"], want["traversed"]),
+                f"dist {label}: (iterations, edges) {(r['iters'], r['traversed'])} differ "
+                f"from the single-process run's {(want['iters'], want['traversed'])}")
+        require(r["rc"] == 0, f"dist {label}: a rank's -check failed")
+    kernel = ("spmv_blockcsr" if "pallas" in argv else
+              "mxscan_segmented" if "mxscan" in argv else None)
+    if kernel:
+        need = max(lead["dense_rounds"], 1)
+        require(all(r["launches"][kernel] >= need for r in per_rank),
+                f"dist {label}: {kernel} launched {[r['launches'][kernel] for r in per_rank]} "
+                f"times in the ranks over {need} dense rounds")
+    return {"bitwise_single_process": True, "iters": lead["iters"],
+            "traversed_edges": lead["traversed"], "dense_rounds": lead["dense_rounds"],
+            "kernel": kernel}
+
+
+def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, push_ref):
+    """Phase dist: the distributed pull and push engines (parallel/,
+    engine/push) as ranks that share the card.  (a) NCCL, one rank holding the 8 parts of the RMAT
     22 file: allgather + mxscan PageRank, bitwise the single-process
     ``-ng 8`` run of disk_main; (b) gloo, 2 ranks, 4 parts each:
     allgather + mxscan (bitwise the same run), ring and scatter (--method
@@ -4925,10 +5102,13 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
     float64); (d) gloo, 2 ranks, ``apps.colfilter --distributed --method
     pallas -ng 2 -check`` on the 2-D kernel (within CF_RTOL of phase 8's
     single-process pallas run, ``cf_pallas20``), then the CF library at
-    gamma CF_GAMMA (within CF_RTOL of cf_oracle_f64).  Every rank's
-    counters must show its kernel launched on the run and every rank's
-    exit code must be 0; each run prints ms an iteration and its split
-    into compute, staging and collective.
+    gamma CF_GAMMA (within CF_RTOL of cf_oracle_f64).  Then the push
+    runs of each group (the module docstring, phase 25), each held by
+    dist_push_check to its single-process twin in ``push_ref`` (or
+    ``disk["sssp"]``).  Every rank's counters must show its kernel
+    launched on the run and every rank's exit code must be 0; each run
+    prints ms an iteration, and one push run of each exchange (and every
+    pull run) its split into compute, staging and collective.
     Returns (launches summed over every rank and run, kernel rows)."""
     from lux_tpu_torch.parallel import spawn
 
@@ -4940,8 +5120,24 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
     pallas_argv = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "-ni",
                    str(ITERS), "-ng", str(DIST_PALLAS_PARTS), "--method", "pallas",
                    "--distributed", "--device", "cuda"]
+    # the distributed push: SSSP and components through the apps
+    hub, tail = str(push_ref["sssp"]["start"]), push_ref["tail"]
+    sf = disk["sssp"]
+    main = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
+            "--distributed", "--device", "cuda", "-check"]
+    ng = ["-ng", str(DIST_PUSH_PARTS)]
+    ngp = ["-ng", str(DIST_PALLAS_PARTS), "--method", "pallas"]
+    push_want = {
+        "push-nccl": sf, "push-allgather": push_ref["sssp"], "push-tree": push_ref["sssp"],
+        "cc-allgather": push_ref["components"], "cc-ring": push_ref["components"],
+        "sssp-pallas": push_ref["sssp"], "cc-pallas": push_ref["components"], "push-delta": push_ref["delta"],
+        "push-repart": tail}
     groups = (
-        ("a", "nccl", 1, [("allgather-nccl", "pagerank", file_argv + ["--method", "mxscan"])]),
+        ("a", "nccl", 1, [
+            ("allgather-nccl", "pagerank", file_argv + ["--method", "mxscan"]),
+            ("push-nccl", "sssp", ["-file", path, "-ng", str(DISK_PARTS), "--distributed",
+                                   "--device", "cuda", "--method", "mxscan", "-start",
+                                   str(sf["start"]), "-check"], {})]),
         ("b-d", "gloo", DIST_RANKS, [
             ("allgather", "pagerank", file_argv + ["--method", "mxscan"]),
             ("ring", "pagerank", file_argv + ["--exchange", "ring", "--method", "scatter"]),
@@ -4950,7 +5146,28 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
             ("pallas", "pallas", pallas_argv),
             ("cf-app", "cf-app", cf_argv(SCALE) + [
                 "-ng", str(DIST_PALLAS_PARTS), "--method", "pallas", "--distributed"]),
-            ("cf", "cf", [])]))
+            ("cf", "cf", []),
+            # the fenced split on one run of each exchange: allgather, ring, pallas
+            ("push-allgather", "sssp", main + ng + ["--method", "mxscan", "-start", hub],
+             {"graph": "main", "hold": "scan", "split": True}),
+            ("push-tree", "sssp", main + ng + ["--method", "mxscan", "-start", hub],
+             {"graph": "main", "env": {"LUX_MERGE_MODE": "tree"}}),
+            ("cc-allgather", "components", main + ng + ["--method", "mxscan"],
+             {"graph": "main"}),
+            ("cc-ring", "components", main + ng + ["--exchange", "ring", "--method",
+                                                   "scatter"], {"graph": "main", "split": True}),
+            ("sssp-pallas", "sssp", main + ngp + ["-start", hub],
+             {"graph": "main", "hold": "spmv", "split": True}),
+            ("cc-pallas", "components", main + ngp, {"graph": "main", "hold": "spmv"}),
+            ("push-delta", "sssp", main + ng + ["--method", "mxscan", "--weighted", "--delta",
+                                                str(DIST_DELTA), "-start", hub],
+             {"graph": "weighted"}),
+            # windows of one round, whose first (one vertex's out-edges)
+            # recuts, as repart_main's second SSSP run
+            ("push-repart", "sssp", main + ng + [
+                "--method", "mxscan", "-start", str(tail["start"]), "--repartition-every",
+                "1", "--repartition-threshold", str(REPART_THRESHOLD)],
+             {"graph": "main"})]))
     total = {k: 0 for k in kernels}
     rows = []
     for name, backend, world, runs in groups:
@@ -4962,13 +5179,28 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64):
                                   env={"LUX_DIST_BACKEND": backend})
         except spawn.RankFailure as e:
             raise PhaseFailure(f"dist {name}: {e}")
-        for label, kind, argv in runs:
+        for label, kind, argv, *_ in runs:
             per_rank = [r["result"][label] for r in res]
             lead = per_rank[0]
             launches = [r["launches"] for r in per_rank]
             for c in launches:
                 for k in total:
                     total[k] += c.get(k, 0)
+            if kind in ("sssp", "components"):
+                err = dist_push_check(np, label, kind, argv, per_rank, push_want[label])
+                require(label != "push-repart" or lead["recuts"] > 0,
+                        "dist push-repart: --repartition-every 1 made no recut")
+                held = [r["held"] for r in per_rank if "held" in r]
+                rows += held
+                emit({"phase": "dist", "run": label, "group": name, "backend": backend,
+                      "ranks": world, "app": kind, "argv": argv, **err,
+                      "ms_per_iter": lead["seconds"] * 1e3 / max(lead["iters"], 1),
+                      "seconds": lead["seconds"], "gteps": lead["gteps"],
+                      "recuts": lead["recuts"], "split": lead.get("exchange"),
+                      "launches": launches, "held": held,
+                      "wall_s": [r["wall_s"] for r in per_rank],
+                      "rank_devices": [r["device"] for r in res], "device": smi})
+                continue
             state = lead["state"]
             require(state is not None and bool(np.isfinite(state).all()),
                     f"dist {label}: no finite state on rank 0")
@@ -5246,6 +5478,10 @@ def main() -> int:
     emit({"phase": "push_race", "ms_per_dense_round": race,
           "winner": {name: min(ms, key=ms.get) for name, ms in race.items()}, "device": smi})
     cc_whole = cc_runs["mxscan"]  # phase 16's uninterrupted run
+    # phase dist's push runs must equal these bitwise
+    push_ref = {app: {"state": r["mxscan"].state, "iters": r["mxscan"].iters,
+                      "traversed": r["mxscan"].traversed, "start": start}
+                for app, r in (("sssp", sssp_runs), ("components", cc_runs))}
     del sssp_runs, cc_runs
     torch.cuda.empty_cache()
 
@@ -5258,8 +5494,14 @@ def main() -> int:
     long_launches = {}
     gw, delta_runs, long_launches["delta"], delta_row = delta_main(
         torch, np, kernels, smi, dev, _TMP, long_w, push_plans["expand-pf"], start, REPS)
+    d0 = delta_runs[f"delta-{DIST_DELTA}"]
+    push_ref["delta"] = {"state": d0.state, "iters": d0.iters, "traversed": d0.traversed,
+                         "start": start}
+    del d0
     torch.cuda.empty_cache()
-    long_launches["repart"] = repart_main(np, kernels, smi, g, o_tail, o_labels)
+    long_launches["repart"], push_ref["tail"] = repart_main(np, kernels, smi, g, o_tail,
+                                                            o_labels)
+    push_ref["tail"]["state"] = o_tail
     torch.cuda.empty_cache()
 
     # 4 (end): every plan family built; this process loads the rest of the
@@ -5531,8 +5773,8 @@ def main() -> int:
 
     # 25. the distributed pull engine: ranks that share the card
     dist_launches, dist_rows = dist_main(torch, np, kernels, smi, _TMP, disk, pr_ref20,
-                                         cf_pallas20, v64)
-    del disk, pr_ref20, cf_pallas20, v64
+                                         cf_pallas20, v64, push_ref)
+    del disk, pr_ref20, cf_pallas20, v64, push_ref
     obs_log_main(smi)
 
     table = []

@@ -892,3 +892,83 @@ def leave_group() -> None:
     from lux_tpu_torch.parallel import multihost
 
     multihost.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# --distributed on the push apps (SSSP, components): the distributed push
+# ---------------------------------------------------------------------------
+
+
+def push_exchange_split(pg, converge) -> dict:
+    """ms an iteration of one more ``converge()`` (which returns the final
+    carry) with every exchange of the group ``pg`` fenced, split into
+    compute, staging (device blocks through the pinned host buffers) and
+    collective; the fences make it slower than the unfenced run."""
+    from lux_tpu_torch.parallel.mesh import ExchangeTimes
+
+    pg.timed, pg.times = True, ExchangeTimes()
+    try:
+        t0 = pg.fence()
+        out = converge()
+        total = pg.fence() - t0
+    finally:
+        pg.timed = False
+    t, n = pg.times, max(out.it, 1)
+    per = 1e3 / n
+    return {"ms_per_iter": total * per,
+            "compute_ms": (total - t.stage_s - t.collective_s) * per,
+            "staging_ms": t.stage_s * per, "collective_ms": t.collective_s * per,
+            "exchanges": t.calls, "iterations": out.it, "backend": pg.backend,
+            "ranks": pg.world, "resident_parts": pg.k, "staged": pg.staged}
+
+
+def estimate_push_dist(shards, cfg: RunConfig, pg) -> preflight.MemoryEstimate:
+    """One rank's memory estimate of the distributed push: its k resident
+    parts of the exchange's layout (the allgather push shards, the ring
+    push buckets, the block-CSR push's one part), plus the exchanged
+    frontier queues, and for the allgather the gathered (P*V) state."""
+    spec, pspec = shards.spec, shards.pspec
+    if cfg.method == "pallas":
+        return preflight.estimate_push_pallas(spec, pspec, shards.pl.e_src_pos.shape[1],
+                                              shards.t_chunk)
+    if cfg.exchange == "ring":
+        return preflight.scale_residency(
+            preflight.estimate_push_ring(spec, pspec, shards.e_bucket_pad), pg.k)
+    est = preflight.scale_residency(preflight.estimate_push(spec, pspec), pg.k)
+    return preflight.add_gathered_bytes(
+        est, spec.gathered_size * 4 + preflight.push_exchange_bytes(spec, pspec))
+
+
+def setup_push_dist(cfg: RunConfig, g: HostGraph, dev, prog):
+    """This rank's set-up of a distributed push app: join the group, build
+    its layout (the block-CSR and ring layouts only its own parts' chunks
+    and buckets; printed on rank 0 with the memory estimate), check the
+    estimate against its device before anything lands there, build the
+    kernels, place its statics.  Returns (engine/push.PushLayout, the
+    estimate)."""
+    from lux_tpu_torch.engine import push
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.parallel import pallas_dist, ring
+
+    pg = make_mesh_if(cfg, dev)
+    P, mine = cfg.num_parts, list(pg.parts)
+    t0 = time.perf_counter()
+    if cfg.method == "pallas":
+        require_parts_fit_devices(cfg, pg, "--method pallas")
+        shards, kind = pallas_dist.build_push_pallas_shards(g, P, parts_subset=mine), \
+            "push + block-CSR"
+    elif cfg.exchange == "ring":
+        shards, kind = ring.build_push_ring_shards(g, P, parts_subset=mine), "push + ring"
+    else:
+        shards = build_push_shards(g, P, sort_segments=cfg.sort_segments,
+                                   compact_gather=cfg.compact_gather)
+        kind = "push"
+    est = estimate_push_dist(shards, cfg, pg)
+    if main_rank():
+        report_layout(f"{kind} (rank 0 of {pg.world})", getattr(shards, "push", shards),
+                      time.perf_counter() - t0)
+        print(est)
+    preflight.check_fits(est, device=pg.device)
+    if pg.device.type == "cuda":
+        cuda_build.load_all()
+    return push.place_layout(prog, shards, pg, cfg.method), est

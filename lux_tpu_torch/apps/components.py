@@ -4,6 +4,9 @@ Max-label propagation on the push engine over -ng parts stacked on one
 device: everyone starts active, the direction-optimized loop runs to
 convergence, -check validates label dominance on the host, -verbose
 prints per-iteration active counts and load/comp/update times.
+``--distributed`` (with ``--exchange allgather|ring`` or ``--method
+pallas``) spreads the parts over the ranks as in apps/sssp.py; rank 0
+prints and checks.
 ``--route-gather expand|expand-pf`` routes the dense rounds' gather;
 ``--ckpt-dir``/``--ckpt-every`` and ``--repartition-every`` as in
 apps/sssp.py.  ``--stream-hbm-gib`` runs the pull form to convergence
@@ -20,7 +23,8 @@ from typing import Optional
 import numpy as np
 
 from lux_tpu_torch.apps import common
-from lux_tpu_torch.apps.sssp import PushRunResult, build_push_app_shards, run_convergence_app
+from lux_tpu_torch.apps.sssp import (PushRunResult, build_push_app_shards,
+                                     run_convergence_app)
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.models import components as cc_model
 from lux_tpu_torch.utils.config import parse_args
@@ -35,6 +39,9 @@ def run(argv=None, route=None, graph: Optional[HostGraph] = None) -> PushRunResu
     dev = resolve_device(cfg.device)
     g = graph if graph is not None else common.load_graph(cfg)
     prog = cc_model.MaxLabelProgram()
+    if cfg.stream_hbm_gib and cfg.distributed:
+        raise SystemExit("--distributed runs the resident push engines; it does not "
+                         "combine with --stream-hbm-gib")
     if cfg.stream_hbm_gib:
         st = common.run_streamed(cfg, g, prog, dev, active_fn=cc_model.active_count)
         print(f"components converged in {st.iters} iterations")
@@ -42,17 +49,22 @@ def run(argv=None, route=None, graph: Optional[HostGraph] = None) -> PushRunResu
         res = PushRunResult(0, g, st.state, st.iters, st.iters * g.ne, st.iters,
                             st.seconds, gteps, cfg.method, streamed=st)
     else:
-        shards = build_push_app_shards(g, cfg)
+        shards = None if cfg.distributed else build_push_app_shards(g, cfg)
         res = run_convergence_app(prog, shards, cfg, "components", g, route)
-    print(f"{len(np.unique(res.state))} distinct labels")
-    if cfg.check:
-        ok = common.print_check("components", cc_model.check_labels(g, res.state))
-        res.rc = 0 if ok else 1
+    if res.state is not None:  # the only process, or rank 0
+        print(f"{len(np.unique(res.state))} distinct labels")
+        if cfg.check:
+            ok = common.print_check("components", cc_model.check_labels(g, res.state))
+            res.rc = 0 if ok else 1
+    res.rc = common.finish_dist(cfg, res.rc)
     return res
 
 
 def main(argv=None) -> int:
-    return run(argv).rc
+    try:
+        return run(argv).rc
+    finally:
+        common.leave_group()
 
 
 if __name__ == "__main__":

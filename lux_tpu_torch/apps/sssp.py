@@ -4,6 +4,13 @@ BFS-flavored single-source shortest paths on the push engine over -ng
 parts stacked on one device: -start source, the direction-optimized loop
 to convergence, -check triangle-inequality validation on the host,
 -verbose per-iteration active counts and load/comp/update times.
+``--distributed`` spreads the parts over the ranks of torch.distributed
+(``python -m torch.distributed.run --nproc-per-node W -m
+lux_tpu_torch.apps.sssp --distributed ...``; LUX_DIST_BACKEND=gloo for
+ranks that share a card): ``--exchange allgather|ring`` for the dense
+rounds, ``--method pallas`` for the block-CSR kernel's (one part a
+rank), with --delta, --repartition-every, the checkpoints and -verbose
+(allgather) as on one device; rank 0 prints and checks.
 ``--route-gather expand|expand-pf`` routes the dense rounds' gather;
 ``--weighted`` relaxes with integer edge weights, and ``--delta N`` runs
 delta-stepping with bucket width N (engine/delta.py).
@@ -24,6 +31,7 @@ a sparse one.
 from __future__ import annotations
 
 import dataclasses
+import json
 import sys
 import time
 from typing import NamedTuple, Optional
@@ -68,6 +76,10 @@ class PushRunResult:
     recuts: Optional[list] = None
     shards: Optional[PushShards] = None  # the final layout (a recut changes it)
     streamed: Optional[common.StreamedRun] = None  # components --stream-hbm-gib
+    #: --distributed: (this rank's engine/push.PushLayout, its final
+    #: carry, the -verbose fenced run's exchange split or None); ``state``
+    #: is None off rank 0
+    dist: Optional[tuple] = None
 
 
 def build_push_app_shards(g: HostGraph, cfg: RunConfig) -> PushShards:
@@ -77,9 +89,10 @@ def build_push_app_shards(g: HostGraph, cfg: RunConfig) -> PushShards:
     common.refuse_relayouts(cfg)
     if cfg.method == "pallas":
         raise SystemExit(
-            "--method pallas (push) runs on a device mesh in the reference "
-            "(parallel/pallas_dist); the distributed push is not ported to "
-            "lux_tpu_torch yet: use --method scan, scatter or mxscan")
+            "--method pallas (push) runs on ranks: add --distributed (one part "
+            "a rank; one card = -ng 1 --distributed)")
+    if cfg.exchange != "allgather":
+        raise SystemExit(f"--exchange {cfg.exchange} requires --distributed")
     t0 = time.perf_counter()
     shards = build_push_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments,
                                compact_gather=cfg.compact_gather)
@@ -88,11 +101,14 @@ def build_push_app_shards(g: HostGraph, cfg: RunConfig) -> PushShards:
 
 
 def run_push_verbose(prog, shards: PushShards, cfg: RunConfig, arrays, parrays,
-                     carry, dev):
+                     carry, dev, split=None, show: bool = True):
     """The phase-split loop: each phase fenced on the device and timed,
-    one line per iteration.  Returns (final carry, phase seconds)."""
-    load, comp, update = push.push_phases(prog, shards.pspec, shards.spec,
-                                          cfg.method, device=dev)
+    one line per iteration (when ``show``).  ``split`` is the (load,
+    comp, update) triple (default: push.push_phases on one device; a
+    rank passes push.compile_push_phases_dist's).  Returns (final carry,
+    phase seconds)."""
+    load, comp, update = split or push.push_phases(prog, shards.pspec, shards.spec,
+                                                   cfg.method, device=dev)
     phases = {"load": 0.0, "dense": 0.0, "sparse": 0.0, "update": 0.0}
     c = carry
     while c.it < cfg.max_iters:
@@ -111,16 +127,17 @@ def run_push_verbose(prog, shards: PushShards, cfg: RunConfig, arrays, parrays,
         phases["load"] += lt
         phases[mode] += ct
         phases["update"] += ut
-        print(f"iter {c.it - 1:4d}: activeNodes({int(c.active)}) mode({mode}) "
-              f"loadTime({lt * 1e3:.3f} ms) compTime({ct * 1e3:.3f} ms) "
-              f"updateTime({ut * 1e3:.3f} ms)")
+        if show:
+            print(f"iter {c.it - 1:4d}: activeNodes({int(c.active)}) mode({mode}) "
+                  f"loadTime({lt * 1e3:.3f} ms) compTime({ct * 1e3:.3f} ms) "
+                  f"updateTime({ut * 1e3:.3f} ms)")
     return c, phases
 
 
 def _save_frontier_ckpt(cfg: RunConfig, name: str, shards: PushShards,
                         carry: push.PushCarry) -> str:
-    """One elastic frontier checkpoint from the in-flight carry: global
-    state, changed-vertex mask, exact edge count."""
+    """One elastic frontier checkpoint from the in-flight stacked carry:
+    global state, changed-vertex mask, exact edge count."""
     state_g = shards.scatter_to_global(carry.state.cpu().numpy())
     counts = carry.count.cpu().numpy()
     f_cap = shards.pspec.f_cap
@@ -136,72 +153,48 @@ def _save_frontier_ckpt(cfg: RunConfig, name: str, shards: PushShards,
                               name)
 
 
-def push_resume(prog, shards: PushShards, cfg: RunConfig, name: str,
-                arrays) -> push.PushCarry:
-    """The push carry to start from: rebuilt from the latest frontier
-    checkpoint of ``--ckpt-dir`` (any part count can resume any other's:
-    the queues rebuild from the saved mask), else the initial one."""
-    s_g, c_g, e_acc, it0, prev = ckpt.load_resume_frontier(cfg.ckpt_dir, name,
-                                                           shards.spec.nv)
-    if s_g is None:
-        return push._init_carry(prog, shards.pspec, arrays)
-    print(f"resumed from {prev} at iteration {it0}")
-    return repartition._rebuild_carry(shards, arrays, s_g, c_g, it0, e_acc)
+def _save_ckpt(cfg: RunConfig, name: str, lay: push.PushLayout, carry) -> None:
+    """The checkpoint of a window: the frontier (or delta) carry of every
+    part (stitched over the ranks under --distributed, a collective),
+    written by rank 0 or the only process."""
+    sh = lay.shards
+    if cfg.delta:
+        state, pend = lay.stack(carry.state), lay.stack(carry.pending)
+        if lay.lead:
+            ckpt.save_delta(cfg.ckpt_dir, carry.it, sh.scatter_to_global(state.cpu().numpy()),
+                            sh.scatter_to_global(pend.cpu().numpy()), carry.edges,
+                            int(carry.thr), name)
+        return
+    full = lay.full(carry)
+    if lay.lead:
+        _save_frontier_ckpt(cfg, name, sh, full)
 
 
-def run_push_checkpointed(prog, shards: PushShards, cfg: RunConfig, name: str,
-                          arrays, parrays, carry0, dev, save: bool = True):
-    """Windowed push run from ``carry0`` with an elastic frontier
-    checkpoint after every window of --ckpt-every iterations (``save``).
-    Returns (final carry, compute seconds): the seconds EXCLUDE the
-    checkpoint I/O, so the reported GTEPS stays an engine number."""
-    compute, c = 0.0, carry0
-    while int(c.active) > 0 and c.it < cfg.max_iters:
-        it_stop = min(c.it + cfg.ckpt_every, cfg.max_iters)
-        t = Timer(dev)
-        c = push.run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays, c,
-                                it_stop, cfg.method)
-        compute += t.stop()
-        if save:
-            _save_frontier_ckpt(cfg, name, shards, c)
-    return c, compute
-
-
-def delta_resume(prog, shards: PushShards, cfg: RunConfig, name: str,
-                 arrays) -> delta_eng.DeltaCarry:
-    """The delta carry to start from: the latest delta checkpoint of
-    ``--ckpt-dir`` restacked onto this layout, else the initial one."""
-    s_g, p_g, e_acc, thr, it0, prev = ckpt.load_resume_delta(cfg.ckpt_dir, name,
-                                                             shards.spec.nv)
-    if s_g is None:
-        return delta_eng._init_carry(prog, arrays, cfg.delta)
-    dev = arrays.vtx_mask.device
-    st = torch.from_numpy(shards.pull.global_to_stacked(s_g)).to(dev)
-    pend = torch.from_numpy(shards.pull.global_to_stacked(p_g)).to(dev)
-    print(f"resumed from {prev} at iteration {it0}")
-    return delta_eng.DeltaCarry(st, pend, torch.tensor(thr, dtype=torch.int32, device=dev),
-                                it0, pend.sum(dtype=torch.int32), e_acc)
-
-
-def run_delta_checkpointed(prog, shards: PushShards, cfg: RunConfig, name: str,
-                           arrays, parrays, carry0, dev, save: bool = True):
-    """Windowed delta-stepping from ``carry0`` with an elastic checkpoint
-    (global state, pending mask, exact edge count, bucket threshold)
-    after every window of --ckpt-every rounds (``save``).  Returns (final
-    carry, compute seconds), checkpoint I/O excluded."""
-    compute, c = 0.0, carry0
-    while int(c.active) > 0 and c.it < cfg.max_iters:
-        it_stop = min(c.it + cfg.ckpt_every, cfg.max_iters)
-        t = Timer(dev)
-        c = delta_eng.run_delta_chunk(prog, shards.pspec, shards.spec, cfg.delta, arrays,
-                                      parrays, c, it_stop, cfg.method)
-        compute += t.stop()
-        if save:
-            ckpt.save_delta(cfg.ckpt_dir, c.it,
-                            shards.scatter_to_global(c.state.cpu().numpy()),
-                            shards.scatter_to_global(c.pending.cpu().numpy()),
-                            c.edges, int(c.thr), name)
-    return c, compute
+def _resume(cfg: RunConfig, name: str, lay: push.PushLayout):
+    """The carry a checkpointed run starts from: the latest frontier (or
+    delta) checkpoint of ``--ckpt-dir`` restacked onto this layout's
+    resident parts (any part or rank count resumes any other's: the
+    queues rebuild from the saved mask), else the initial one."""
+    sh, pg = lay.shards, lay.pg
+    if cfg.delta:
+        s_g, p_g, e_acc, thr, it0, prev = ckpt.load_resume_delta(cfg.ckpt_dir, name,
+                                                                 sh.spec.nv)
+        if s_g is None:
+            return delta_eng.init_on(lay, cfg.delta)
+        dev = lay.view.vtx_mask.device
+        st, pend = (torch.from_numpy(sh.pull.global_to_stacked(x)[lay.rows]).to(dev)
+                    for x in (s_g, p_g))
+        c = delta_eng.DeltaCarry(st, pend, torch.tensor(thr, dtype=torch.int32, device=dev),
+                                 it0, None if pg else pend.sum(dtype=torch.int32), e_acc)
+    else:
+        s_g, c_g, e_acc, it0, prev = ckpt.load_resume_frontier(cfg.ckpt_dir, name,
+                                                               sh.spec.nv)
+        if s_g is None:
+            return lay.init()
+        c = repartition._rebuild_carry(sh, lay.view, s_g, c_g, it0, e_acc, pg)
+    if lay.lead:
+        print(f"resumed from {prev} at iteration {it0}")
+    return push.settle_active(pg, c)
 
 
 class _Final(NamedTuple):
@@ -256,22 +249,46 @@ def _refuse(cfg: RunConfig, prog) -> None:
                 "does not combine with -verbose or --repartition-every")
 
 
-def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
-                        g: HostGraph, route=None) -> PushRunResult:
-    """The frontier apps' shared driver (SSSP, components and bfs): method
-    and route resolution with the reference's refusals, the memory
-    estimate, the routed plan (set-up; ``route`` is one already built for
-    the same layout), the resume from ``--ckpt-dir``, an untimed run to
-    convergence, then the timed one: the plain loop, delta-stepping, the
-    checkpointed windows, the adaptive repartitioning, or the -verbose
-    phase split.  Returns the result with rc 0 (the caller checks)."""
-    dev = resolve_device(cfg.device)
-    cfg.method = methods.resolve_sum(cfg.method, prog.reduce,
-                                     methods.default_platform(dev))
-    common.resolve_route_auto(cfg)
-    _refuse(cfg, prog)
+def _refuse_dist(cfg: RunConfig, was_auto: bool) -> None:
+    """The reference's refusals of the distributed push arms (after
+    :func:`_refuse`): pallas runs one part a rank on the allgather exchange,
+    without -verbose, checkpoints, repartitioning or delta; the ring runs the bucketed methods (an ``auto`` winner it
+    cannot run falls back, with a note), without delta or the allgather
+    relayouts."""
+    if cfg.method == "pallas":
+        if cfg.exchange != "allgather":
+            raise SystemExit("--method pallas has its own dense path; it cannot "
+                             "combine with --exchange ring")
+        if cfg.verbose or cfg.repartition_every or cfg.ckpt_every or cfg.delta:
+            raise SystemExit(
+                "--method pallas (push): -verbose/--repartition-every/checkpointing/"
+                "--delta are not wired to the kernel path; use --method scan, "
+                "scatter or mxscan")
+    if cfg.exchange != "ring":
+        return
     if cfg.delta:
-        delta_eng._validate(prog, cfg.delta)
+        raise SystemExit("--delta is the allgather bucketed driver: it does not "
+                         "combine with --exchange ring")
+    if cfg.sort_segments or cfg.compact_gather:
+        raise SystemExit("--sort-segments/--compact-gather relay out the allgather "
+                         "dense-round layout; the ring buckets have their own order")
+    from lux_tpu_torch.parallel.ring import bucketed_method
+
+    try:
+        method = bucketed_method(cfg.method, was_auto)
+    except ValueError as e:
+        raise SystemExit(f"--exchange ring: {e}")
+    if method != cfg.method:
+        print(f"# --method auto: the {cfg.method} winner falls back to {method} on "
+              "--exchange ring (bucketed reductions run scan/scatter)", file=sys.stderr)
+        cfg.method = method
+
+
+def _place_one_device(prog, shards: PushShards, cfg: RunConfig, dev, route):
+    """The -ng parts on one device: the memory estimate (printed and
+    checked), the kernels, the routed plan (set-up; ``route`` is one
+    already built for the same layout), the statics.  Returns
+    (engine/push.PushLayout, the estimate)."""
     est = preflight.scale_residency(
         preflight.estimate_push(shards.spec, shards.pspec), shards.spec.num_parts)
     if cfg.route_gather:
@@ -289,50 +306,90 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
         raise ValueError("a routed plan was handed in, but --route-gather is not set")
     if route is not None:
         route = expand.plan_to_device(route, dev)
-    arrays, parrays = push.place(shards, dev)
-    phases, recuts, compute = None, None, None
-    if cfg.ckpt_every:
+    return push.place_layout(prog, shards, None, cfg.method, dev, route=route), est
+
+
+def run_convergence_app(prog, shards: Optional[PushShards], cfg: RunConfig, name: str,
+                        g: HostGraph, route=None) -> PushRunResult:
+    """The frontier apps' one driver (SSSP, components and bfs), on one
+    device or, under ``--distributed``, on each rank: method and route
+    resolution with the reference's refusals, the layout placed with its
+    memory estimate (``shards``: the -ng parts on one device; None under
+    --distributed, where each rank builds its own, apps/common
+    .setup_push_dist), the resume from ``--ckpt-dir``, an untimed run to
+    convergence (the static layout's under --repartition-every: the
+    recuts' host rebuilds are part of the adaptive run, not first-launch
+    costs), then, the ranks lined up, the timed one: the plain loop,
+    delta-stepping, the checkpointed windows, the adaptive repartitioning,
+    or the -verbose phase split (one device and the allgather exchange;
+    the ring runs fused, with a note).  Under --distributed -verbose rank 0
+    also prints the exchange's split of a further fenced run.  Returns the
+    result with rc 0 (the caller checks), its ``state`` on rank 0 only."""
+    dev = resolve_device(cfg.device)
+    was_auto = cfg.method == "auto"
+    if cfg.method != "pallas":
+        cfg.method = methods.resolve_sum(cfg.method, prog.reduce,
+                                         methods.default_platform(dev))
+    common.resolve_route_auto(cfg)
+    if cfg.distributed:
+        common.refuse_relayouts(cfg)
+    _refuse(cfg, prog)
+    if cfg.distributed:
+        _refuse_dist(cfg, was_auto)
+    if cfg.delta:
+        delta_eng._validate(prog, cfg.delta)
+    if cfg.distributed:
+        if route is not None:
+            raise ValueError("a routed plan was handed in, but --distributed gathers "
+                             "directly")
+        lay, est = common.setup_push_dist(cfg, g, dev, prog)
+    else:
+        lay, est = _place_one_device(prog, shards, cfg, dev, route)
+    shards, pg, show = lay.shards, lay.pg, lay.lead
+    phases, recuts, compute, split = None, None, None, None
+
+    def window(c, it_stop):
         if cfg.delta:
-            carry0 = delta_resume(prog, shards, cfg, name, arrays)
-            windows = run_delta_checkpointed
-        else:
-            carry0 = push_resume(prog, shards, cfg, name, arrays)
-            windows = run_push_checkpointed
+            return delta_eng.run_window(lay, cfg.delta, c, it_stop)
+        return lay.loop(c, it_stop)
+
+    if cfg.ckpt_every:
+        carry0 = _resume(cfg, name, lay)
 
         def converge(save=False):
-            return windows(prog, shards, cfg, name, arrays, parrays, carry0, dev, save)
+            c, secs = carry0, 0.0
+            while int(c.active) > 0 and c.it < cfg.max_iters:
+                t = Timer(dev)
+                c = window(c, min(c.it + cfg.ckpt_every, cfg.max_iters))
+                secs += t.stop()
+                if save:
+                    _save_ckpt(cfg, name, lay, c)
+            return c, secs
     elif cfg.repartition_every:
         def converge(on_repartition=None):
             return repartition.run_push_adaptive(
                 prog, g, cfg.num_parts, chunk=cfg.repartition_every,
                 threshold=cfg.repartition_threshold, max_iters=cfg.max_iters,
-                method=cfg.method, on_repartition=on_repartition, shards=shards,
-                device=dev, placed=(arrays, parrays), sort_segments=cfg.sort_segments,
+                method=cfg.method, mesh=pg, on_repartition=on_repartition, device=dev,
+                placed=lay, exchange=lay.exchange, sort_segments=cfg.sort_segments,
                 compact_gather=cfg.compact_gather)
-    elif cfg.delta:
-        carry0 = delta_eng._init_carry(prog, arrays, cfg.delta)
-
-        def converge():
-            return delta_eng.run_delta_chunk(prog, shards.pspec, shards.spec, cfg.delta,
-                                             arrays, parrays, carry0, cfg.max_iters,
-                                             cfg.method, route)
     else:
-        carry0 = push._init_carry(prog, shards.pspec, arrays)
+        carry0 = delta_eng.init_on(lay, cfg.delta) if cfg.delta else lay.init()
 
         def converge():
-            return push.run_push_chunk(prog, shards.pspec, shards.spec, arrays,
-                                       parrays, carry0, cfg.max_iters, cfg.method,
-                                       route)
-
-    with profiling.trace(cfg.profile_dir, dev):
+            return window(carry0, cfg.max_iters)
+    stepwise = cfg.verbose and lay.exchange == "allgather"
+    if cfg.verbose and not stepwise and show:
+        print("note: -verbose per-iteration stepping is an allgather-exchange mode; "
+              f"{lay.exchange} runs fused")
+    # rank 0 traces (one trace directory, one event-log table)
+    with profiling.trace(cfg.profile_dir if show else None, dev):
         if cfg.repartition_every:
-            # warm-up on the static layout: the recuts' host rebuilds are part
-            # of the adaptive run, not first-launch costs
-            push.run_push_chunk(prog, shards.pspec, shards.spec, arrays, parrays,
-                                push._init_carry(prog, shards.pspec, arrays),
-                                cfg.max_iters, cfg.method)
+            lay.loop(lay.init(), cfg.max_iters)
         else:
             converge()
+        if pg is not None:
+            pg.barrier()
         timer = Timer(dev)
         if cfg.ckpt_every:
             out, compute = converge(save=True)
@@ -341,29 +398,44 @@ def run_convergence_app(prog, shards: PushShards, cfg: RunConfig, name: str,
 
             def note(it, old_cuts, new_cuts, work):
                 recuts.append((it, old_cuts.tolist(), new_cuts.tolist(), work.tolist()))
-                moved = int(np.abs(new_cuts - old_cuts).max())
-                print(f"iter {it}: repartition (imbalance "
-                      f"{repartition.imbalance(work):.2f}, max boundary move "
-                      f"{moved} vertices)")
+                if show:
+                    moved = int(np.abs(new_cuts - old_cuts).max())
+                    print(f"iter {it}: repartition (imbalance "
+                          f"{repartition.imbalance(work):.2f}, max boundary move "
+                          f"{moved} vertices)")
 
             res = converge(note)
-            print(f"{res.reparts} repartition(s)")
+            if show:
+                print(f"{res.reparts} repartition(s)")
             out = _Final(res.stacked, res.iters, res.edges, res.dense_rounds)
             shards = res.shards
-        elif cfg.verbose:
-            out, phases = run_push_verbose(prog, shards, cfg, arrays, parrays, carry0, dev)
+        elif stepwise:
+            steps = None if pg is None else push.compile_push_phases_dist(
+                prog, pg, shards.pspec, shards.spec, lay.method)
+            out, phases = run_push_verbose(prog, shards, cfg, lay.arrays, lay.parrays,
+                                           carry0, dev, steps, show)
         else:
             out = converge()
         elapsed = timer.stop()
     if compute is not None:
         elapsed = compute  # checkpoint I/O (device reads + disk) is not engine time
-    state = shards.scatter_to_global(out.state.cpu().numpy())
-    print(f"{name} converged in {out.it} iterations "
-          f"({out.dense_rounds} dense rounds)")
-    gteps = report_elapsed(elapsed, shards.spec.ne, out.it, traversed=out.edges)
-    return PushRunResult(0, g, state, out.it, out.edges, out.dense_rounds,
-                         elapsed, gteps, cfg.method, cfg.route_gather, phases,
-                         est.total_bytes, recuts, shards)
+    if pg is not None and cfg.verbose and not (cfg.ckpt_every or cfg.repartition_every):
+        split = common.push_exchange_split(pg, converge)
+        if show:
+            print("exchange: " + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                                             for k, v in split.items()}))
+    if cfg.repartition_every:
+        state = res.state if show else None
+    else:
+        state = lay.read(out.state)
+    gteps = out.edges / elapsed / 1e9 if elapsed > 0 else float("nan")
+    if show:
+        print(f"{name} converged in {out.it} iterations "
+              f"({out.dense_rounds} dense rounds)")
+        gteps = report_elapsed(elapsed, shards.spec.ne, out.it, traversed=out.edges)
+    return PushRunResult(0, g, state, out.it, out.edges, out.dense_rounds, elapsed, gteps,
+                         cfg.method, cfg.route_gather, phases, est.total_bytes, recuts,
+                         shards, dist=None if pg is None else (lay, out, split))
 
 
 def run(argv=None, route=None, graph: Optional[HostGraph] = None):
@@ -387,21 +459,26 @@ def run(argv=None, route=None, graph: Optional[HostGraph] = None):
     if cfg.delta and cfg.weighted and int(g.weights.min()) < 0:
         raise SystemExit("--delta needs non-negative edge weights "
                          "(bucket order breaks under negative costs)")
-    shards = build_push_app_shards(g, cfg)
     cls = sssp_model.WeightedSSSPProgram if cfg.weighted else sssp_model.SSSPProgram
-    prog = cls(nv=shards.spec.nv, start=cfg.start)
+    prog = cls(nv=g.nv, start=cfg.start)
+    shards = None if cfg.distributed else build_push_app_shards(g, cfg)
     res = run_convergence_app(prog, shards, cfg, "sssp", g, route)
-    reached = int(np.sum(res.state < prog.inf))
-    print(f"reached {reached}/{g.nv} vertices from {cfg.start}")
-    if cfg.check:
-        ok = common.print_check(
-            "sssp", sssp_model.check_distances(g, res.state, weighted=cfg.weighted))
-        res.rc = 0 if ok else 1
+    if res.state is not None:  # the only process, or rank 0
+        reached = int(np.sum(res.state < prog.inf))
+        print(f"reached {reached}/{g.nv} vertices from {cfg.start}")
+        if cfg.check:
+            ok = common.print_check(
+                "sssp", sssp_model.check_distances(g, res.state, weighted=cfg.weighted))
+            res.rc = 0 if ok else 1
+    res.rc = common.finish_dist(cfg, res.rc)
     return res
 
 
 def main(argv=None) -> int:
-    return run(argv).rc
+    try:
+        return run(argv).rc
+    finally:
+        common.leave_group()
 
 
 if __name__ == "__main__":

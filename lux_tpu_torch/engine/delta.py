@@ -1,6 +1,6 @@
-"""Delta-stepping weighted SSSP: bucketed priority frontiers, on one device.
+"""Delta-stepping weighted SSSP: bucketed priority frontiers.
 
-Counterpart of the single-device half of ``lux_tpu.engine.delta``.  The
+Counterpart of ``lux_tpu.engine.delta``.  The
 chaotic weighted SSSP (models/sssp.WeightedSSSPProgram on the plain push
 engine) expands every improved vertex at once, so a vertex whose tentative
 distance later improves is expanded again.  Delta-stepping (Meyer &
@@ -20,8 +20,13 @@ round relaxes every edge, which is still exact (min-relaxation is
 monotone), and clears ALL pending work.  Rounds, traversed edges and state
 are bitwise the reference's.
 
-The distributed driver (``run_push_delta_dist``) waits for the multi-GPU
-port.
+The distributed driver (``run_push_delta_dist``) runs the same rounds
+on each rank's k resident parts.  The bucket-occupancy vote is a sum and
+the threshold's jump a min, so each rank's (in-bucket count, smallest
+pending distance, pending count) cross in ONE all-gather and every rank
+folds them alike; the expansion is then the distributed push engine's
+own round (exchange, one all-reduce of the votes, the dense or sparse
+step) through a synthesized PushCarry.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ class DeltaCarry(NamedTuple):
     """Device tensors: ``state`` (P, V) tentative distances, ``pending``
     (P, V) bool (improved but not yet expanded), ``thr`` the int32 scalar
     EXCLUSIVE upper bound of the current bucket, ``active`` the int32
-    pending count (0 = converged).  Host ints: ``it`` the expansion
+    pending count (0 = converged; None after a distributed round, summed
+    over the ranks by push.settle_active).  Host ints: ``it`` the expansion
     rounds run (advances are fused into them), ``edges`` the exact
     traversed-edge count, ``dense_rounds``."""
 
@@ -156,4 +162,97 @@ def run_push_delta(prog, shards: PushShards, delta: int, max_iters: int = 100_00
     arrays, parrays, c0 = delta_init(prog, shards, delta, device)
     out = run_delta_chunk(prog, shards.pspec, shards.spec, delta, arrays, parrays,
                           c0, max_iters, method, route)
+    return out.state, out.it, out.edges
+
+
+def _spmd_delta_prep(prog, pspec: PushSpec, spec: ShardSpec, delta: int, view, parrays,
+                     c: DeltaCarry, pg):
+    """The distributed round's LOAD phase: the global bucket vote, the
+    threshold (jumped past the global smallest pending distance when the
+    bucket is empty everywhere) and the global pending count from one
+    all-gather of (in-bucket, smallest pending, pending) a rank; then
+    the bucket's queues and the push engine's distributed plan of them,
+    whose ``active`` is the global pending count.  Returns (thr,
+    in_bucket, tmp PushCarry, plan)."""
+    from lux_tpu_torch.parallel.dist import gather_small
+
+    dev = c.state.device
+    in_bucket = c.pending & (c.state < c.thr)
+    inf = torch.tensor(prog.inf, dtype=c.state.dtype, device=dev)
+    local_min = torch.where(c.pending, c.state, inf).min()
+    i64 = torch.int64
+    votes = gather_small(pg, torch.stack([_count(in_bucket).to(i64), local_min.to(i64),
+                                          c.pending.sum(dtype=i64)])).to(dev)
+    n_in, min_pend = votes[:, 0].sum(), votes[:, 1].min().to(c.state.dtype)
+    thr = _advanced_thr(prog, delta, c, n_in, min_pend)
+    in_bucket = c.pending & (c.state < thr)
+    q_vid, q_val, cnt = push.queues_of(pspec, view, in_bucket, c.state)
+    pending = votes[:, 2].sum().to(torch.int32)
+    tmp = push.PushCarry(c.state, q_vid, q_val, cnt, 0, pending, 0,
+                         (0,) * c.state.shape[0], 0)
+    return thr, in_bucket, tmp, push._spmd_push_prep(pspec, spec, parrays, tmp, pg)
+
+
+def run_delta_dist_chunk(prog, pspec: PushSpec, spec: ShardSpec, delta: int, arrays,
+                         parrays, carry: DeltaCarry, it_stop: int, pg,
+                         method: str = "auto") -> DeltaCarry:
+    """Distributed delta rounds from ``carry`` (this rank's k resident
+    parts; ``arrays`` its pull layout rows for the allgather dense
+    rounds) until nothing is pending anywhere or ``it_stop`` rounds have
+    run.  Returns the carry with its pending count settled over the
+    ranks."""
+    _validate(prog, delta)
+    method = push._resolve(prog, method, pg.device)
+    dense_fn = push._allgather_dense_fn(prog, arrays, pg, method)
+    c = carry
+    while c.it < it_stop:
+        thr, in_bucket, tmp, plan = _spmd_delta_prep(prog, pspec, spec, delta, arrays,
+                                                     parrays, c, pg)
+        if plan.active == 0:
+            return c._replace(active=torch.zeros((), dtype=torch.int32,
+                                                 device=c.state.device))
+        new = push._spmd_push_relax(prog, pspec, spec, arrays, parrays, tmp, plan, dense_fn)
+        changed = (new != c.state) & arrays.vtx_mask
+        kept = torch.zeros_like(c.pending) if plan.dense else c.pending & ~in_bucket
+        c = DeltaCarry(new, kept | changed, thr, c.it + 1, None,
+                       push._acc_edges(c.edges, spec.ne, plan),
+                       c.dense_rounds + int(plan.dense))
+    return push.settle_active(pg, c)
+
+
+def delta_init_dist(prog, shards: PushShards, delta: int, pg):
+    """This rank's (arrays, parrays, carry0) for the distributed delta."""
+    arrays, parrays, _ = push.push_init_dist(prog, shards, pg)
+    return arrays, parrays, _init_carry(prog, arrays, delta)
+
+
+def init_on(lay, delta: int) -> DeltaCarry:
+    """The initial delta carry of a placed push.PushLayout (allgather),
+    its pending count summed over the ranks under a group."""
+    c = _init_carry(lay.prog, lay.view, delta)
+    return c if lay.pg is None else push.settle_active(lay.pg, c._replace(active=None))
+
+
+def run_window(lay, delta: int, carry: DeltaCarry, it_stop: int) -> DeltaCarry:
+    """Delta rounds from ``carry`` on a placed push.PushLayout
+    (allgather) until nothing is pending or ``it_stop``: the
+    single-device loop with the layout's route, or the distributed one."""
+    sh = lay.shards
+    if lay.pg is None:
+        return run_delta_chunk(lay.prog, sh.pspec, sh.spec, delta, lay.arrays, lay.parrays,
+                               carry, it_stop, lay.method, lay.route)
+    return run_delta_dist_chunk(lay.prog, sh.pspec, sh.spec, delta, lay.arrays, lay.parrays,
+                                carry, it_stop, lay.pg, lay.method)
+
+
+def run_push_delta_dist(prog, shards: PushShards, delta: int, pg,
+                        max_iters: int = 100_000, method: str = "auto"):
+    """Distributed delta-stepping over the ranks of ``pg`` (k resident
+    parts a rank): the single-device bucket discipline with the bucket
+    vote and the threshold's jump from one all-gather a round.  Returns
+    (this rank's final (k, V) block, rounds run, traversed edges)."""
+    _validate(prog, delta)
+    arrays, parrays, c0 = delta_init_dist(prog, shards, delta, pg)
+    out = run_delta_dist_chunk(prog, shards.pspec, shards.spec, delta, arrays, parrays, c0,
+                               max_iters, pg, method)
     return out.state, out.it, out.edges

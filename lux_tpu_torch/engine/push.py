@@ -1,7 +1,6 @@
-"""The push (frontier) execution engine with direction optimization, on
-one device.
+"""The push (frontier) execution engine with direction optimization.
 
-Counterpart of the single-device half of ``lux_tpu.engine.push``:
+Counterpart of ``lux_tpu.engine.push``:
 
   * State per part: the vertex values (distances or labels) and a sparse
     frontier QUEUE of (vertex id, value) pairs with static capacity
@@ -43,11 +42,26 @@ direction branch, from the round's input state.
 the ones the round's one host read already returned, so it adds no read
 and leaves every result bitwise unchanged.
 
-Not ported here: carry donation; the distributed and ring push wait for
-the multi-GPU port.
+The distributed push (``run_push_dist``, ``run_push_ring``, and the
+bodies ``parallel/pallas_dist`` and ``engine/delta`` share) runs the same
+rounds over the ranks of torch.distributed, rank r holding parts [r*k,
+(r+1)*k): each round exchanges the (k, f_cap) queues (one all-gather, or
+``merge="tree"``'s staged point-to-point rounds), sums the round's votes
+over the ranks in ONE all-reduce read with the round's one host read,
+and branches only on the summed values, so every rank takes the same
+path.  Dense rounds all-gather the state (or stream it around the ring).
+Results, iterations and traversed edges are bitwise the single-process
+run's at the same parts.  ``place_layout`` places any of these layouts
+(or every part on one device) as a ``PushLayout`` with one window loop:
+the apps' one frontier driver, the adaptive repartitioning and the
+models run through it.
+
+Not ported: carry donation; the routed gather under the distributed push
+(ROADMAP Queue 1 item 7.5).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional, Protocol
 
 import torch
@@ -225,7 +239,10 @@ SP_WORK_MAX = 0xFFFFFFFF
 class PushCarry(NamedTuple):
     """The loop state.  Device tensors: ``state`` (P, V), the queues
     ``q_vid``/``q_val`` (P, f_cap), ``count`` (P,) and ``active`` (the
-    changed-vertex total of the last round, 1 before the first).  Host
+    changed-vertex total of the last round, 1 before the first; None
+    after a distributed round, whose ranks sum it in the next round's
+    all-reduce, :func:`settle_active`).  On a rank the stacked fields
+    hold its k resident parts.  Host
     values: ``it``; ``edges``, the exact count of edges traversed (dense
     rounds walk every real edge, sparse rounds the frontier's out-edges);
     ``sp_work``, a tuple of P ints: the sparse-round out-edges walked per
@@ -349,20 +366,28 @@ def _push_relax(prog, pspec: PushSpec, spec: ShardSpec, method, arrays,
             for p in range(spec.num_parts)
         ])
     else:
-        step = sparse_part_step if merge == "bulk" else sparse_part_step_tree
-        cap = pspec.e_sp_small if plan.small else pspec.e_sp
-        new = torch.stack([
-            torch.where(arrays.vtx_mask[p],
-                        step(prog, pspec, parrays.part(p), V, plan.q_vids,
-                             plan.q_vals, plan.rows[p], plan.incl[p], c.state[p], cap),
-                        c.state[p])
-            for p in range(spec.num_parts)
-        ])
+        new = _sparse_all(prog, pspec, V, arrays.vtx_mask, parrays, c, plan, merge)
     if overlays is None:
         return new
     return torch.stack([ovl.delta_scatter(new[p], full, overlays[p], prog.relax,
                                           prog.reduce)
                         for p in range(spec.num_parts)])
+
+
+def _sparse_all(prog, pspec: PushSpec, nv_pad: int, vtx_mask, parrays, c: PushCarry,
+                plan: PushPlan, merge: str):
+    """The sparse round over the carry's parts (every part on one device,
+    or a rank's k resident parts): each part's walk of the whole queue,
+    in the tier the plan chose, through the bulk or the tree merge."""
+    step = sparse_part_step if merge == "bulk" else sparse_part_step_tree
+    cap = pspec.e_sp_small if plan.small else pspec.e_sp
+    return torch.stack([
+        torch.where(vtx_mask[p],
+                    step(prog, pspec, parrays.part(p), nv_pad, plan.q_vids, plan.q_vals,
+                         plan.rows[p], plan.incl[p], c.state[p], cap),
+                    c.state[p])
+        for p in range(c.state.shape[0])
+    ])
 
 
 def _push_requeue(prog, pspec: PushSpec, spec: ShardSpec, arrays,
@@ -515,3 +540,443 @@ def run_push(prog: PushProgram, shards: PushShards, max_iters: int = 10_000,
         return out.state, out.it, out.edges
     out, ring = out
     return out.state, out.it, out.edges, ring
+
+
+# ---------------------------------------------------------------------------
+# the distributed push: k = P / W resident parts a rank over torch.distributed
+# ---------------------------------------------------------------------------
+
+#: the refusal of every routed gather under the distributed push engines
+ROUTED_DIST = ("route= under the distributed push is not ported to lux_tpu_torch yet "
+               "(ROADMAP Queue 1 item 7.5: the ring, scatter and edge2d bucket routes); "
+               "the distributed engines gather directly")
+
+
+def _exchange_queues(c: PushCarry, pg, merge: str):
+    """Every rank's (k, f_cap) queues, exchanged as ONE (k, 2, f_cap) int32
+    block (vids and values' bits): the bulk all-gather flattens in rank
+    order x resident order = global part order; the tree's staged rounds
+    leave a rotated part order, which every consumer absorbs.  Returns
+    the (P * f_cap,) vids and values."""
+    from lux_tpu_torch.ops.merge_tree import staged_concat_gather
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    if c.q_val.element_size() != 4:
+        raise ValueError(f"the distributed push exchanges 4-byte states, not "
+                         f"{c.q_val.dtype}")
+    pair = torch.stack([c.q_vid, c.q_val.view(torch.int32)], 1)
+    if merge == "tree":
+        got = staged_concat_gather(pair, pg)
+    else:
+        got = halo_all_gather(pair, pg).view(-1, 2, pair.shape[-1])
+    return got[:, 0].reshape(-1), got[:, 1].reshape(-1).view(c.q_val.dtype)
+
+
+def _spmd_push_prep(pspec: PushSpec, spec: ShardSpec, parrays: PushArrays, c: PushCarry,
+                    pg, merge: str = "bulk") -> PushPlan:
+    """LOAD phase on a rank: exchange the queues, plan each resident
+    part's walk, and decide the round for every rank alike.  The global
+    votes (frontier size, queue and edge-buffer overflows, the small-tier
+    vote, the sparse edge total) are summed over the ranks in ONE
+    all-reduce of an int64 vector, read on the host with this rank's
+    per-part totals in one copy (parallel/dist.reduce_read); every branch
+    is taken on those reduced values only.  ``c.active`` is None after a
+    distributed round (the active count is then the queues' global
+    count), else the replicated count it holds."""
+    from lux_tpu_torch.parallel.dist import reduce_read
+
+    q_vids, q_vals = _exchange_queues(c, pg, merge)
+    k = c.state.shape[0]
+    preps = [sparse_prep(parrays.part(j), q_vids) for j in range(k)]
+    rows = torch.stack([x[0] for x in preps])
+    incl = torch.stack([x[2] for x in preps])
+    totals = torch.stack([x[3] for x in preps]).to(torch.int64)
+    i64 = torch.int64
+    shared = torch.stack([
+        c.count.sum(dtype=i64), (c.count > pspec.f_cap).sum(dtype=i64),
+        (totals > pspec.e_sp).sum(dtype=i64),
+        (totals > pspec.e_sp_small).sum(dtype=i64) if pspec.e_sp_small
+        else torch.zeros((), dtype=i64, device=totals.device),
+        totals.sum()])
+    local = totals if c.active is None else torch.cat([totals, c.active.reshape(1).to(i64)])
+    (g_cnt, over, e_over, small_over, g_total), loc = reduce_read(pg, shared, local)
+    dense = (g_cnt > spec.nv // pspec.pull_threshold_den) or over > 0 or e_over > 0
+    small = bool(pspec.e_sp_small) and small_over == 0
+    active = g_cnt if c.active is None else loc[k]
+    return PushPlan(q_vids, q_vals, rows, incl, active, dense, small, tuple(loc[:k]),
+                    g_total)
+
+
+def _spmd_push_relax(prog, pspec: PushSpec, spec: ShardSpec, view, parrays,
+                     c: PushCarry, plan: PushPlan, dense_fn, merge: str = "bulk"):
+    """COMP phase on a rank: the engine's dense relaxation of the resident
+    (k, V) block, or the sparse round over its resident parts."""
+    if plan.dense:
+        return dense_fn(c.state)
+    return _sparse_all(prog, pspec, spec.nv_pad, view.vtx_mask, parrays, c, plan, merge)
+
+
+def _spmd_push_requeue(prog, pspec: PushSpec, spec: ShardSpec, view, c: PushCarry,
+                       new, plan: PushPlan) -> PushCarry:
+    """UPDATE phase on a rank: the resident parts' queues and the edge and
+    load accounting (the plan's edge total is already global); the active
+    count is left to the next round's all-reduce (None)."""
+    return _push_requeue(prog, pspec, spec, view, c, new, plan)._replace(active=None)
+
+
+def _spmd_push_iter(prog, pspec: PushSpec, spec: ShardSpec, view, parrays, c: PushCarry,
+                    plan: PushPlan, dense_fn, merge: str = "bulk") -> PushCarry:
+    """ONE direction-optimized round on a rank, after its LOAD phase: the
+    body every distributed engine shares (allgather, tree, ring, pallas,
+    delta); only ``dense_fn(block) -> block`` differs."""
+    new = _spmd_push_relax(prog, pspec, spec, view, parrays, c, plan, dense_fn, merge)
+    return _spmd_push_requeue(prog, pspec, spec, view, c, new, plan)
+
+
+def _allgather_dense_fn(prog, arrays: ShardArrays, pg, method: str):
+    """The allgather engines' dense round: the whole state gathered over
+    the ranks, then each resident part's pull over its in-edges."""
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    def dense_fn(block):
+        full = halo_all_gather(block, pg)
+        return torch.stack([dense_part_step(prog, arrays.part(j), full, block[j], method)
+                            for j in range(block.shape[0])])
+
+    return dense_fn
+
+
+def settle_active(pg, c):
+    """The carry (push or delta) with its ``active`` count summed over the
+    ranks when a distributed round left it to the next all-reduce."""
+    if c.active is not None:
+        return c
+    from lux_tpu_torch.parallel.dist import global_active
+
+    live = getattr(c, "pending", None)
+    local = (live if live is not None else c.count).sum(dtype=torch.int64)
+    n = global_active(pg, local)
+    return c._replace(active=torch.tensor(n, dtype=torch.int32, device=c.state.device))
+
+
+def run_dist_chunk(prog, pspec: PushSpec, spec: ShardSpec, view, parrays,
+                   carry: PushCarry, it_stop: int, pg, dense_fn,
+                   merge: str = "bulk") -> PushCarry:
+    """Distributed rounds from ``carry`` (this rank's k resident parts)
+    until nothing is active anywhere or ``it_stop`` rounds have run in
+    all; every rank takes the same branches.  ``view`` holds the resident
+    parts' global_vid and vtx_mask; ``dense_fn`` is the engine's dense
+    round.  Returns the carry with its active count settled over the
+    ranks.  One host read a round (the prep's)."""
+    c = carry
+    while c.it < it_stop:
+        plan = _spmd_push_prep(pspec, spec, parrays, c, pg, merge)
+        if plan.active == 0:
+            return c._replace(active=torch.zeros((), dtype=torch.int32,
+                                                 device=c.state.device))
+        c = _spmd_push_iter(prog, pspec, spec, view, parrays, c, plan, dense_fn, merge)
+    return settle_active(pg, c)
+
+
+def _check_parts(spec: ShardSpec, pg) -> None:
+    if spec.num_parts != pg.num_parts:
+        raise ValueError(f"the shards have {spec.num_parts} parts, the group "
+                         f"{pg.num_parts}")
+
+
+def push_init_dist(prog, shards: PushShards, pg):
+    """This rank's (arrays, parrays, carry0) on its device: its k parts of
+    the pull layout (the allgather dense rounds) and of the frontier CSR,
+    and its parts' initial carry."""
+    from lux_tpu_torch.parallel.mesh import shard_stacked
+
+    _check_parts(shards.spec, pg)
+    arrays = shard_stacked(pg, shards.arrays)
+    parrays = shard_stacked(pg, shards.parrays)
+    return arrays, parrays, _init_carry(prog, shards.pspec, arrays)
+
+
+def shard_carry(pg, c: PushCarry) -> PushCarry:
+    """This rank's parts of a stacked (P, ...) carry (host or device), on
+    its device; the host fields and ``active`` (replicated) are kept."""
+    from lux_tpu_torch.parallel.mesh import shard_stacked
+
+    state, q_vid, q_val, count = (shard_stacked(pg, a)
+                                  for a in (c.state, c.q_vid, c.q_val, c.count))
+    sp = tuple(c.sp_work)
+    sp = sp[pg.lo:pg.hi] if len(sp) == pg.num_parts else sp
+    active = c.active if c.active is None else torch.as_tensor(c.active).to(pg.device)
+    return c._replace(state=state, q_vid=q_vid, q_val=q_val, count=count, active=active,
+                      sp_work=sp)
+
+
+def assemble_carry(pg, c_local: PushCarry) -> PushCarry:
+    """Every rank's resident carry stitched into the stacked (P, ...) one,
+    on every rank (the inverse of :func:`shard_carry`): state, queues,
+    counts and the window's per-part sp_work, with the active count
+    settled."""
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    c = settle_active(pg, c_local)
+    P = pg.num_parts
+
+    def full(a):
+        return halo_all_gather(a, pg).view((P,) + tuple(a.shape[1:]))
+
+    counts, sp_work = gather_counts(pg, c)
+    return c._replace(state=full(c.state), q_vid=full(c.q_vid), q_val=full(c.q_val),
+                      count=torch.from_numpy(counts).to(c.count), sp_work=sp_work)
+
+
+def gather_counts(pg, c: PushCarry):
+    """Every part's queue count and window sp_work, from every rank's
+    resident parts in one all-gather: ((P,) int64 host array, P-tuple)."""
+    from lux_tpu_torch.parallel.placement import halo_all_gather
+
+    ints = torch.stack([c.count.to(torch.int64),
+                        torch.tensor(c.sp_work, dtype=torch.int64, device=c.count.device)], 1)
+    got = halo_all_gather(ints, pg).view(pg.num_parts, 2).cpu()
+    return got[:, 0].numpy(), tuple(got[:, 1].tolist())
+
+
+def run_push_dist(prog: PushProgram, shards: PushShards, pg, max_iters: int = 10_000,
+                  method: str = "auto", route=None, merge: Optional[str] = None):
+    """Distributed driver over the ranks of ``pg`` (parallel.mesh
+    .PartsGroup): the queues are exchanged every round (``merge="bulk"``:
+    one all-gather; ``"tree"``: the staged rounds of ops/merge_tree), the
+    whole state is all-gathered in dense rounds.  Bitwise the
+    single-process :func:`run_push` at the same parts and method.
+    ``shards`` is the whole layout (each rank places its own parts).
+    Returns (this rank's final (k, V) block, iterations, traversed edges
+    as an int)."""
+    lay = place_layout(prog, shards, pg, method, route=route, merge=merge)
+    out = lay.loop(lay.init(), max_iters)
+    return out.state, out.it, out.edges
+
+
+def compile_push_phases_dist(prog, pg, pspec: PushSpec, spec: ShardSpec,
+                             method: str = "auto"):
+    """One distributed push round as THREE callables for the ``-verbose``
+    split on a rank (the reference's per-device load/comp/update):
+
+      load(parrays, carry)               -> plan (queue exchange, walk
+                                            plans, the reduced votes)
+      comp(arrays, parrays, carry, plan) -> new (k, V) block (the dense
+                                            rounds' state all-gather here)
+      update(arrays, carry, new, plan)   -> next carry (its active count
+                                            settled over the ranks)
+
+    Their bodies are the fused engine's, so they compose to its result
+    bit for bit.  Bulk merge, as in the reference."""
+    method = _resolve(prog, method, pg.device)
+
+    def load(parrays, carry):
+        return _spmd_push_prep(pspec, spec, parrays, carry, pg, "bulk")
+
+    def comp(arrays, parrays, carry, plan):
+        return _spmd_push_relax(prog, pspec, spec, arrays, parrays, carry, plan,
+                                _allgather_dense_fn(prog, arrays, pg, method))
+
+    def update(arrays, carry, new, plan):
+        return settle_active(pg, _spmd_push_requeue(prog, pspec, spec, arrays, carry,
+                                                    new, plan))
+
+    return load, comp, update
+
+
+def _ring_dense_fn(prog, rarr, view, spec: ShardSpec, pg, method: str):
+    """The ring engine's dense round: the resident blocks go around the
+    ranks (parallel/ring.ring_sweep); each arriving block's bucket of
+    every resident part relaxes and folds (segment_reduce_by_ends) into
+    the part's accumulator, so no rank holds the whole state."""
+    from lux_tpu_torch.parallel.ring import neutral_like, ring_sweep
+
+    V, k, op = spec.nv_pad, pg.k, _op(prog)
+
+    def fold(s, acc, stream):
+        first = (pg.rank + s) % pg.world * k  # global part of streamed lane 0
+        out = []
+        for i in range(k):
+            a = acc[i]
+            for j in range(k):
+                q = first + j
+                src = stream[j].index_select(0, rarr.src_local[i, q])
+                vals = prog.relax(src, rarr.weights[i, q])
+                a = op(a, segment.segment_reduce_by_ends(
+                    vals, rarr.head_flag[i, q], rarr.dst_local[i, q], V,
+                    reduce=prog.reduce, method=method))
+            out.append(a)
+        return torch.stack(out)
+
+    def dense_fn(block):
+        acc = ring_sweep(block, neutral_like(block, prog.reduce), fold, pg)
+        return torch.where(view.vtx_mask, op(block, acc.to(block.dtype)), block)
+
+    return dense_fn
+
+
+def place_ring_statics(shards, pg):
+    """This rank's ring push statics on its device: its parts' buckets
+    and frontier CSR (O(part edges)) and vertex view (O(V)), never the
+    pull layout's O(E) arrays.  Returns (rarrays, parrays, view)."""
+    from lux_tpu_torch.parallel.mesh import shard_stacked
+    from lux_tpu_torch.parallel.ring import check_subset, vertex_view
+
+    _check_parts(shards.spec, pg)
+    check_subset(shards.parts_subset, pg)
+    return (shard_stacked(pg, shards.rarrays), shard_stacked(pg, shards.parrays),
+            vertex_view(pg, shards.arrays))
+
+
+def ring_init_dist(prog, shards, pg):
+    """(rarrays, parrays, view, carry0) of this rank for the ring push."""
+    rarrays, parrays, view = place_ring_statics(shards, pg)
+    return rarrays, parrays, view, _init_carry(prog, shards.pspec, view)
+
+
+def run_push_ring(prog: PushProgram, shards, pg, max_iters: int = 10_000,
+                  method: str = "auto", route=None, merge: Optional[str] = None):
+    """Distributed push with the RING dense exchange
+    (``shards``: parallel.ring.PushRingShards, all parts or this rank's
+    subset): sparse rounds exchange the queues as :func:`run_push_dist`
+    does, dense rounds stream the resident blocks around the ranks, so
+    the per-rank state stays O(V).  Bitwise the single-process run.
+    Returns (this rank's final (k, V) block, iterations, edges)."""
+    lay = place_layout(prog, shards, pg, method, route=route, merge=merge)
+    out = lay.loop(lay.init(), max_iters)
+    return out.state, out.it, out.edges
+
+
+# ---------------------------------------------------------------------------
+# a layout placed on its device: the one window loop every driver runs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PushLayout:
+    """A push layout's statics on the device and its window loop: every
+    part stacked on one device (``pg`` None), or this rank's k resident
+    parts of the allgather, ring or block-CSR layout (``exchange``).
+    ``view`` holds the resident parts' global_vid, degree and vtx_mask
+    (the carry reads them); ``arrays`` the pull rows of the allgather
+    dense rounds (None on the ring and block-CSR layouts, which never
+    place them); ``dense_fn`` a distributed engine's dense round;
+    ``statics`` the ring's buckets or the block-CSR part."""
+
+    prog: Any
+    shards: Any
+    pg: Any
+    exchange: str
+    method: str
+    view: Any
+    parrays: Any
+    arrays: Any = None
+    dense_fn: Any = None
+    statics: Any = None
+    route: Any = None
+    merge: Optional[str] = None
+
+    @property
+    def rows(self) -> slice:
+        """The stacked rows this process holds."""
+        return slice(None) if self.pg is None else slice(self.pg.lo, self.pg.hi)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes and reports: rank 0, or the only one."""
+        return self.pg is None or self.pg.rank == 0
+
+    def init(self) -> PushCarry:
+        """The resident parts' initial carry."""
+        return _init_carry(self.prog, self.shards.pspec, self.view)
+
+    def loop(self, carry: PushCarry, it_stop: int) -> PushCarry:
+        """Rounds from ``carry`` until nothing is active (anywhere) or
+        ``it_stop`` rounds have run in all; under a group the carry comes
+        back with its active count settled over the ranks."""
+        sh = self.shards
+        if self.pg is None:
+            return run_push_chunk(self.prog, sh.pspec, sh.spec, self.arrays, self.parrays,
+                                  carry, it_stop, self.method, self.route, self.merge)
+        return run_dist_chunk(self.prog, sh.pspec, sh.spec, self.view, self.parrays, carry,
+                              it_stop, self.pg, self.dense_fn, _resolve_merge(self.merge))
+
+    def stack(self, block):
+        """The stacked (P, V, ...) block of every part, on every rank (a
+        collective under a group)."""
+        if self.pg is None:
+            return block
+        from lux_tpu_torch.parallel.placement import halo_all_gather
+
+        return halo_all_gather(block, self.pg).view((self.pg.num_parts,)
+                                                    + tuple(block.shape[1:]))
+
+    def full(self, carry: PushCarry) -> PushCarry:
+        """The stacked (P, ...) carry of every part (assemble_carry under a
+        group)."""
+        return carry if self.pg is None else assemble_carry(self.pg, carry)
+
+    def global_state(self, block):
+        """The (nv,) global state, on every rank."""
+        return self.shards.scatter_to_global(self.stack(block).cpu().numpy())
+
+    def read(self, block):
+        """The (nv,) global state on rank 0 (or the only process), None on
+        the other ranks."""
+        if self.pg is None:
+            return self.shards.scatter_to_global(block.cpu().numpy())
+        from lux_tpu_torch.parallel import multihost
+
+        stacked = multihost.assemble_global(self.pg, block)
+        return None if stacked is None else self.shards.scatter_to_global(stacked)
+
+    def release(self) -> None:
+        """Drop the device statics (a recut places the rebuilt layout only
+        after the old one left the device); the layout is unusable after."""
+        self.view = self.parrays = self.arrays = self.dense_fn = self.statics = None
+
+
+def place_layout(prog, shards, pg=None, method: str = "auto", device="cuda", placed=None,
+                 route=None, merge: Optional[str] = None) -> PushLayout:
+    """``shards`` placed on the device, with its window loop: on
+    ``device`` (``pg`` None; ``placed``: its (arrays, parrays) already
+    there, ``route`` an expand plan for the dense rounds' gather), or this
+    rank's parts over the ranks of ``pg`` with the dense round of the
+    layout's kind: a PushShards all-gathers the state, a parallel.ring
+    .PushRingShards streams it around the ring (``method`` scan or
+    scatter), a parallel.pallas_dist.PushPallasShards reduces on the
+    block-CSR kernel (one part a rank, min/max programs)."""
+    from lux_tpu_torch.parallel.pallas_dist import PushPallasShards
+    from lux_tpu_torch.parallel.ring import PushRingShards
+
+    if pg is None:
+        if isinstance(shards, (PushRingShards, PushPallasShards)):
+            raise ValueError("the ring and block-CSR push layouts run over a group of ranks")
+        dev = resolve_device(device)
+        arrays, parrays = placed if placed is not None else place(shards, dev)
+        return PushLayout(prog, shards, None, "allgather", _resolve(prog, method, dev),
+                          arrays, parrays, arrays=arrays, route=route, merge=merge)
+    if route is not None:
+        raise NotImplementedError(ROUTED_DIST)
+    if isinstance(shards, PushPallasShards):
+        from lux_tpu_torch.parallel import pallas_dist
+
+        if prog.reduce not in ("min", "max"):
+            raise ValueError("pallas push drives min/max frontier programs; sum programs "
+                             "use the pull engines")
+        part, parrays, view = pallas_dist.push_pallas_statics(shards, pg)
+        return PushLayout(prog, shards, pg, "pallas", "pallas", view, parrays,
+                          dense_fn=pallas_dist.push_pallas_dense_fn(prog, shards, part, pg),
+                          statics=part, merge=merge)
+    if isinstance(shards, PushRingShards):
+        from lux_tpu_torch.parallel.ring import resolve_bucketed
+
+        method = resolve_bucketed(method, prog.reduce, pg.device)
+        rarrays, parrays, view = place_ring_statics(shards, pg)
+        return PushLayout(prog, shards, pg, "ring", method, view, parrays,
+                          dense_fn=_ring_dense_fn(prog, rarrays, view, shards.spec, pg, method),
+                          statics=rarrays, merge=merge)
+    method = _resolve(prog, method, pg.device)
+    arrays, parrays, _ = push_init_dist(prog, shards, pg)
+    return PushLayout(prog, shards, pg, "allgather", method, arrays, parrays, arrays=arrays,
+                      dense_fn=_allgather_dense_fn(prog, arrays, pg, method), merge=merge)

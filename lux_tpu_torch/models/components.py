@@ -1,6 +1,6 @@
 """Connected components by max-label propagation.
 
-Counterpart of ``lux_tpu.models.components`` on one device:
+Counterpart of ``lux_tpu.models.components``:
   * labels start at the vertex's own id;
   * each iteration a vertex takes the max of its label and its
     in-neighbors' labels;
@@ -10,7 +10,8 @@ Counterpart of ``lux_tpu.models.components`` on one device:
 
 :func:`connected_components` is the pull form (engine/pull
 .run_pull_until); :func:`connected_components_push` the direction-
-optimized push form the reference's app runs.
+optimized push form the reference's app runs, on one device or over the
+ranks of a parallel.mesh.PartsGroup (allgather or ring).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from lux_tpu_torch.engine import pull
 from lux_tpu_torch.graph.csc import HostGraph
 from lux_tpu_torch.graph.push_shards import PushShards, build_push_shards
 from lux_tpu_torch.graph.shards import PullShards, build_pull_shards, to_device
-from lux_tpu_torch.models.sssp import push_run, refuse_unported
+from lux_tpu_torch.models.sssp import push_run
 from lux_tpu_torch.program import library
 from lux_tpu_torch.program.spec import SpecBacked
 from lux_tpu_torch.utils.device import resolve_device
@@ -72,11 +73,15 @@ def connected_components_push(g: HostGraph | PushShards, max_iters: int = 10_000
     """CC on the push engine (direction-optimized; what the reference's app
     runs); returns (nv,) int32 labels.  ``route``: an expand plan of the
     push shards' pull layout for the dense rounds; ``repartition_every >
-    0`` enables the adaptive repartitioning (``g`` a HostGraph)."""
-    refuse_unported(mesh, exchange)
-    shards = g if isinstance(g, PushShards) else build_push_shards(g, num_parts)
+    0`` enables the adaptive repartitioning (``g`` a HostGraph); ``mesh``
+    (a parallel.mesh.PartsGroup) runs over its ranks, ``exchange="ring"``
+    streaming the dense rounds (every rank returns the labels)."""
+    from lux_tpu_torch.parallel.ring import PushRingShards
+
+    shards = (g if isinstance(g, (PushShards, PushRingShards))
+              else build_push_shards(g, num_parts))
     return push_run(MaxLabelProgram(), g, shards, max_iters, method, route, merge,
-                    device, repartition_every, repartition_threshold)
+                    device, repartition_every, repartition_threshold, mesh, exchange)
 
 
 def check_labels(g: HostGraph, labels: np.ndarray) -> int:

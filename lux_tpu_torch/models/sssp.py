@@ -1,6 +1,6 @@
 """Single-source shortest paths (BFS flavor) on the push engine.
 
-Counterpart of ``lux_tpu.models.sssp`` on one device:
+Counterpart of ``lux_tpu.models.sssp``:
   * unweighted relaxation ``dist[dst] = min(dist[dst], dist[src] + 1)``;
   * dist is int32 with INF encoded as nv;
   * a single-source sparse frontier at ``start``;
@@ -10,8 +10,10 @@ Counterpart of ``lux_tpu.models.sssp`` on one device:
 ``WeightedSSSPProgram`` relaxes with integer edge costs (an extension
 beyond Lux, as in the reference); ``delta=`` runs it by delta-stepping
 (engine/delta.py) and ``repartition_every=`` rebalances the parts' cuts
-from their measured load (engine/repartition.py).  The distributed and
-ring drivers are not ported: their arguments raise.
+from their measured load (engine/repartition.py).  ``mesh=`` (a
+parallel.mesh.PartsGroup, the reference's device mesh) spreads the parts
+over the ranks of torch.distributed: the allgather push, or with
+``exchange="ring"`` the ring push; every rank gets the global answer.
 """
 from __future__ import annotations
 
@@ -63,38 +65,43 @@ class WeightedSSSPProgram(SSSPProgram):
         return 1 << 30
 
 
-def refuse_unported(mesh=None, exchange="allgather") -> None:
-    """Raise for a driver option of the reference that is not ported (a
-    silently ignored option would misreport what ran)."""
-    for name, val, default in (("mesh", mesh, None), ("exchange", exchange, "allgather")):
-        if val != default:
-            raise NotImplementedError(
-                f"{name}={val!r}: the distributed and ring push drivers are not "
-                "ported to lux_tpu_torch yet (ROADMAP Queue 1 item 7; -ng parts "
-                "stack on one device)")
+def push_run(prog, g, shards, max_iters, method, route, merge, device,
+             repartition_every: int = 0, repartition_threshold: float = 1.25,
+             mesh=None, exchange: str = "allgather") -> np.ndarray:
+    """Run ``prog`` on the push engine: on ``device``, or over the ranks of
+    ``mesh`` with the allgather or the ring dense exchange; with
+    ``repartition_every > 0`` on the adaptive repartitioning driver
+    (which needs the HostGraph ``g`` for its rebuilds).  ``shards`` is a
+    PushShards or a parallel.ring.PushRingShards.  Returns the (nv,)
+    global state (on every rank)."""
+    from lux_tpu_torch.parallel.ring import PushRingShards, build_push_ring_shards
 
-
-def push_run(prog, g, shards: PushShards, max_iters, method, route, merge, device,
-             repartition_every: int = 0, repartition_threshold: float = 1.25
-             ) -> np.ndarray:
-    """Run ``prog`` on the push engine, or with ``repartition_every > 0``
-    on the adaptive repartitioning driver (which needs the HostGraph
-    ``g`` for its rebuilds); (nv,) int32 global state."""
-    if repartition_every > 0:
-        if route is not None:
-            raise ValueError("route= is a non-adaptive driver option; the "
-                             "repartitioning push runs the direct gather")
+    if exchange not in ("allgather", "ring"):
+        raise ValueError(f"unsupported exchange {exchange!r}")
+    if exchange == "ring" and mesh is None:
+        raise ValueError("exchange='ring' needs a mesh (a parallel.mesh.PartsGroup)")
+    if route is not None and (mesh is not None or repartition_every > 0):
+        raise ValueError("route= is a single-device non-adaptive driver option; the "
+                         "distributed and repartitioning push run the direct gather")
+    push_sh = shards.push if isinstance(shards, PushRingShards) else shards
+    if repartition_every > 0 and not isinstance(g, HostGraph):
+        raise ValueError("repartition_every needs the HostGraph (shard rebuilds)")
+    if exchange == "ring" and not isinstance(shards, PushRingShards):
         if not isinstance(g, HostGraph):
-            raise ValueError("repartition_every needs the HostGraph (shard rebuilds)")
+            raise ValueError("exchange='ring' needs a HostGraph or pre-built PushRingShards")
+        # ring buckets on the SAME partition: no second push build
+        shards = build_push_ring_shards(g, push_sh.spec.num_parts,
+                                        parts_subset=list(mesh.parts), push=push_sh)
+    layout = shards if exchange == "ring" else push_sh
+    if repartition_every > 0:
         from lux_tpu_torch.engine import repartition
 
         return repartition.run_push_adaptive(
-            prog, g, shards.spec.num_parts, chunk=repartition_every,
+            prog, g, push_sh.spec.num_parts, chunk=repartition_every,
             threshold=repartition_threshold, max_iters=max_iters, method=method,
-            shards=shards, device=device).state
-    final, _, _ = push.run_push(prog, shards, max_iters, method=method,
-                                route=route, merge=merge, device=device)
-    return shards.scatter_to_global(final.cpu().numpy())
+            mesh=mesh, shards=layout, exchange=exchange, device=device).state
+    lay = push.place_layout(prog, layout, mesh, method, device, route=route, merge=merge)
+    return lay.global_state(lay.loop(lay.init(), max_iters).state)
 
 
 def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
@@ -108,9 +115,13 @@ def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
     ``repartition_every > 0`` rebalances the vertex cuts from the
     measured per-part load every N iterations; ``delta > 0`` selects the
     delta-stepping driver (weighted runs): the same distances, far fewer
-    relaxed edges than chaotic relaxation."""
-    refuse_unported(mesh, exchange)
-    shards = g if isinstance(g, PushShards) else build_push_shards(g, num_parts)
+    relaxed edges than chaotic relaxation.  ``mesh`` (a
+    parallel.mesh.PartsGroup) runs over its ranks, ``exchange="ring"``
+    streaming the dense rounds; every rank returns the distances."""
+    from lux_tpu_torch.parallel.ring import PushRingShards
+
+    shards = (g if isinstance(g, (PushShards, PushRingShards))
+              else build_push_shards(g, num_parts))
     if not 0 <= start < shards.spec.nv:
         raise ValueError(f"start vertex {start} out of range [0, {shards.spec.nv})")
     if weighted:
@@ -125,19 +136,24 @@ def sssp(g: HostGraph | PushShards, start: int = 0, num_parts: int = 1,
         if not weighted:
             raise ValueError("delta-stepping orders WEIGHTED distances; "
                              "unweighted BFS buckets are the iterations")
-        if repartition_every:
-            raise ValueError("delta-stepping does not combine with repartition_every")
+        if exchange != "allgather" or repartition_every:
+            raise ValueError("delta-stepping is an allgather-exchange driver; it does not "
+                             "combine with exchange='ring' or repartition_every")
+        if route is not None and mesh is not None:
+            raise ValueError("route= delta-stepping is single-device")
         # the SHARDS' weights (covers pre-built PushShards too): bucket
         # order finalizes too early under negative costs
         if float(np.asarray(shards.arrays.weights).min()) < 0:
             raise ValueError("delta-stepping needs non-negative weights")
         from lux_tpu_torch.engine import delta as delta_mod
 
-        final, _, _ = delta_mod.run_push_delta(prog, shards, delta, max_iters,
-                                               method=method, route=route, device=device)
-        return shards.scatter_to_global(final.cpu().numpy())
+        delta_mod._validate(prog, delta)
+        push_sh = shards.push if isinstance(shards, PushRingShards) else shards
+        lay = push.place_layout(prog, push_sh, mesh, method, device, route=route)
+        out = delta_mod.run_window(lay, delta, delta_mod.init_on(lay, delta), max_iters)
+        return lay.global_state(out.state)
     return push_run(prog, g, shards, max_iters, method, route, merge, device,
-                    repartition_every, repartition_threshold)
+                    repartition_every, repartition_threshold, mesh, exchange)
 
 
 def sssp_batched(g: HostGraph | PushShards, sources, num_parts: int = 1,

@@ -13,7 +13,10 @@ the single-process ``run_pull_fixed`` at the same P and method.
 
 The method resolves through ``engine/methods`` on the rank's device, as
 on one card: an f32 sum is ``mxscan`` on the card (the segmented-scan
-kernel).  The routed gather under the distributed engines is not ported.
+kernel).  The routed gather under the distributed engines is not ported
+(ROADMAP Queue 1 item 7.5).  The small collectives of the distributed
+push's round decision (:func:`reduce_read`, :func:`gather_small`) live
+here too.
 """
 from __future__ import annotations
 
@@ -125,3 +128,47 @@ def run_pull_until_dist(prog: PullProgram, spec: ShardSpec, arrays, state0,
         if active == 0:
             break
     return block, it
+
+
+def _timed_collective(pg, run) -> None:
+    """``run()`` (a collective on small tensors), its seconds added to
+    ``pg.times`` when ``pg.timed``."""
+    t0 = pg.fence() if pg.timed else 0.0
+    run()
+    if pg.timed:
+        pg.times.collective_s += pg.fence() - t0
+        pg.times.calls += 1
+
+
+def reduce_read(pg: PartsGroup, shared: torch.Tensor, local: torch.Tensor):
+    """Sum the small int64 vector ``shared`` over the ranks and read it on
+    the host together with this rank's own int64 ``local`` values, in ONE
+    device-to-host copy: under NCCL the sum runs on the card before the
+    copy, under gloo on the host after it.  Returns (summed list, local
+    list).  The distributed push's round decision (engine/push)."""
+    import torch.distributed as dist
+
+    n = shared.numel()
+    if pg.backend == "nccl":
+        _timed_collective(pg, lambda: dist.all_reduce(shared, group=pg.group))
+        vals = torch.cat([shared, local]).tolist()
+        return vals[:n], vals[n:]
+    vals = torch.cat([shared, local]).tolist()
+    red = torch.tensor(vals[:n], dtype=torch.int64)
+    _timed_collective(pg, lambda: dist.all_reduce(red, group=pg.group))
+    return red.tolist(), vals[n:]
+
+
+def gather_small(pg: PartsGroup, vec: torch.Tensor) -> torch.Tensor:
+    """Every rank's small int64 vector, as a (W, n) tensor in rank order:
+    on the card under NCCL (no host read), on the host under gloo (one
+    read).  One collective where a sum and a min are both wanted (the
+    distributed delta's bucket vote and threshold)."""
+    import torch.distributed as dist
+
+    if pg.backend != "nccl":
+        vec = vec.cpu()
+    vec = vec.contiguous().reshape(-1)
+    out = torch.empty(pg.world * vec.numel(), dtype=vec.dtype, device=vec.device)
+    _timed_collective(pg, lambda: dist.all_gather_into_tensor(out, vec, group=pg.group))
+    return out.view(pg.world, -1)

@@ -14,8 +14,12 @@ Host layout: each part's padded vertex range (the pull shards' nv_pad row)
 is tiled into v_blk-wide blocks; every part gets the same number of blocks
 and chunks (padded with no-op chunks whose slots are all padding), so the
 per-part arrays stack into (P, C, T) like the reference's, byte for byte.
-The distributed push on this kernel (``PushPallasShards``,
-``run_push_pallas_dist``) is not ported yet.
+
+The distributed push runs its dense rounds on the same kernel
+(``PushPallasShards``, ``run_push_pallas_dist``): the gathered state's
+slot values relaxed, then ``spmv_blockcsr`` in int32 min (SSSP) or max
+(components) over the rank's chunks; the sparse rounds are the push
+engine's (engine/push), on the frontier CSR of the same partition.
 """
 from __future__ import annotations
 
@@ -177,8 +181,8 @@ class _Part(NamedTuple):
     vtx_mask: torch.Tensor
 
 
-def _device_part(pg: PartsGroup, pp: PallasParts) -> _Part:
-    a = shard_stacked(pg, pp.arrays)
+def _device_part(pg: PartsGroup, arrays: PallasArrays) -> _Part:
+    a = shard_stacked(pg, arrays)
     return _Part(a.e_src_pos[0].reshape(-1), a.e_dst_rel[0], a.e_weight[0],
                  a.chunk_block[0], a.chunk_first[0], a.global_vid[0], a.degree[0],
                  a.vtx_mask[0])
@@ -191,7 +195,7 @@ def run_pull_fixed_pallas_dist(prog, pp: PallasParts, state0, num_iters: int,
     block."""
     _guard(prog)
     _one_part(pg, pp)
-    arr = _device_part(pg, pp)
+    arr = _device_part(pg, pp.arrays)
     local = shard_stacked(pg, state0)[0]
     shape = arr.e_dst_rel.shape
     nv_pad = pp.spec.nv_pad
@@ -219,7 +223,7 @@ def run_cf_pallas_dist(prog, pp: PallasParts, state0, num_iters: int,
     if not pp.spec.weighted:
         raise ValueError("CF requires a weighted graph")
     _one_part(pg, pp)
-    arr = _device_part(pg, pp)
+    arr = _device_part(pg, pp.arrays)
     local = shard_stacked(pg, state0)[0]
     shape = arr.e_dst_rel.shape
     nv_pad = pp.spec.nv_pad
@@ -237,3 +241,114 @@ def run_cf_pallas_dist(prog, pp: PallasParts, state0, num_iters: int,
                                     num_vblocks=pp.num_vblocks)[:nv_pad]
         local = prog.apply(local, acc, arr)
     return local[None]
+
+
+@dataclasses.dataclass
+class PushPallasShards:
+    """Push layout whose DENSE rounds reduce on the block-CSR kernel: the
+    frontier CSR and queues of ``build_push_shards``, and the block-CSR
+    chunks (gathered-coordinate sources) of the same partition instead
+    of the pull layout's O(E) arrays."""
+
+    push: Any  # graph.push_shards.PushShards
+    pl: PallasArrays
+    num_vblocks: int
+    v_blk: int
+    t_chunk: int
+    #: the parts whose rows ``pl`` holds, in order
+    parts_subset: list = dataclasses.field(default_factory=list)
+
+    @property
+    def spec(self):
+        return self.push.spec
+
+    @property
+    def pspec(self):
+        return self.push.pspec
+
+    @property
+    def cuts(self):
+        return self.push.cuts
+
+    @property
+    def pull(self):
+        return self.push.pull
+
+    @property
+    def arrays(self):
+        return self.push.arrays
+
+    @property
+    def parrays(self):
+        return self.push.parrays
+
+    def scatter_to_global(self, stacked: np.ndarray) -> np.ndarray:
+        return self.push.scatter_to_global(stacked)
+
+
+def build_push_pallas_shards(g: HostGraph, num_parts: int, v_blk: Optional[int] = None,
+                             t_chunk: Optional[int] = None, cuts=None,
+                             parts_subset: Optional[Sequence[int]] = None
+                             ) -> PushPallasShards:
+    """Push shards and the block-CSR dense-round layout on one
+    edge-balanced partition (``base=push.pull``): states are
+    interchangeable with every other push engine.  ``parts_subset``
+    builds only those parts' chunks (a rank's own)."""
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+
+    push_sh = build_push_shards(g, num_parts, cuts=cuts)
+    pp = build_pallas_parts(g, num_parts, v_blk=v_blk, t_chunk=t_chunk, base=push_sh.pull,
+                            parts_subset=parts_subset)
+    return PushPallasShards(push=push_sh, pl=pp.arrays, num_vblocks=pp.num_vblocks,
+                            v_blk=pp.v_blk, t_chunk=pp.t_chunk,
+                            parts_subset=pp.parts_subset)
+
+
+def push_pallas_statics(shards: PushPallasShards, pg: PartsGroup):
+    """This rank's statics on its device: its part's chunks, frontier CSR
+    and (1, V) vertex view; never the pull layout's O(E) arrays.
+    Returns (part, parrays, view)."""
+    if shards.spec.num_parts != pg.world or pg.k != 1:
+        raise ValueError(
+            f"the block-CSR push keeps one part a rank: {shards.spec.num_parts} parts "
+            f"over {pg.world} ranks (-ng must equal the rank count)")
+    from lux_tpu_torch.parallel.ring import _RingView
+
+    part = _device_part(pg, shards.pl)
+    # the (1, V) vertex view the push engine's carry reads
+    view = _RingView(part.global_vid[None], part.degree[None], part.vtx_mask[None])
+    return part, shard_stacked(pg, shards.push.parrays), view
+
+
+def push_pallas_dense_fn(prog, shards: PushPallasShards, part: _Part, pg: PartsGroup):
+    """The pallas push's dense round: the state all-gathered, each slot's
+    source value relaxed, then ``spmv_blockcsr`` in the program's int32
+    min or max over this rank's chunks (padding slots hold ``v_blk`` and
+    drop); vertices the kernel leaves at the neutral keep their value."""
+    shape, nv_pad = part.e_dst_rel.shape, shards.spec.nv_pad
+    op = torch.minimum if prog.reduce == "min" else torch.maximum
+
+    def dense_fn(block):
+        local = block[0]
+        full = halo_all_gather(block, pg)
+        vals = prog.relax(full.index_select(0, part.e_src_flat).view(shape), part.e_weight)
+        acc = spmv.spmv_blockcsr(vals.contiguous(), part.e_dst_rel, part.chunk_block,
+                                 part.chunk_first, op=prog.reduce, v_blk=shards.v_blk,
+                                 num_vblocks=shards.num_vblocks)[:nv_pad]
+        return torch.where(part.vtx_mask, op(local, acc), local)[None]
+
+    return dense_fn
+
+
+def run_push_pallas_dist(prog, shards: PushPallasShards, pg: PartsGroup,
+                         max_iters: int = 10_000):
+    """Distributed push with block-CSR kernel dense rounds (min/max frontier
+    programs: SSSP, weighted SSSP, components), one part a rank.  Only the
+    chunks, the frontier CSR and the vertex view reach the device.
+    Bitwise the single-process push.  Returns (this rank's final (1, V)
+    block, iterations, traversed edges)."""
+    from lux_tpu_torch.engine import push
+
+    lay = push.place_layout(prog, shards, pg)
+    out = lay.loop(lay.init(), max_iters)
+    return out.state, out.it, out.edges

@@ -13,8 +13,9 @@ reference's layout.
 Destinations are always local, so a program that reads the destination
 state per edge (CF's error term) takes it from the resident block.  The
 ring runs ``--method scan|scatter`` only (bucketed reductions carry no
-row_ptr), as in the reference.  The ring push (``PushRingShards``) is not
-ported yet.
+row_ptr), as in the reference.  The ring push (``PushRingShards`` here,
+its driver ``engine/push.run_push_ring``) folds the same buckets into its
+dense rounds.
 """
 from __future__ import annotations
 
@@ -196,6 +197,64 @@ def build_ring_shards(g: HostGraph, num_parts: int,
                       e_bucket_pad=B, parts_subset=rows, host_io=native_io.host_path())
 
 
+@dataclasses.dataclass
+class PushRingShards:
+    """Push shards with the RING dense exchange: the frontier CSR (sparse
+    rounds exchange queues) and the per-source-owner ring buckets (dense
+    rounds fold streamed state blocks instead of gathering the whole
+    state), on one partition.  The O(E) pull arrays inside ``push`` stay
+    on the host: the ring push driver never places them."""
+
+    push: object  # graph.push_shards.PushShards
+    rarrays: RingArrays
+    e_bucket_pad: int
+    #: the parts whose bucket rows rarrays holds, in order
+    parts_subset: list
+
+    @property
+    def spec(self):
+        return self.push.spec
+
+    @property
+    def pspec(self):
+        return self.push.pspec
+
+    @property
+    def parrays(self):
+        return self.push.parrays
+
+    @property
+    def arrays(self):
+        return self.push.arrays
+
+    @property
+    def pull(self):
+        return self.push.pull
+
+    @property
+    def cuts(self):
+        return self.push.cuts
+
+    def scatter_to_global(self, stacked):
+        return self.push.scatter_to_global(stacked)
+
+
+def build_push_ring_shards(g: HostGraph, num_parts: int,
+                           parts_subset: Optional[Sequence[int]] = None,
+                           cuts=None, push=None) -> PushRingShards:
+    """Push shards and ring buckets over the SAME partition: one
+    ``build_push_shards`` (``cuts``: a recut's bounds), or the already
+    built ``push`` layout, wrapped with the buckets of ``parts_subset``
+    (default all parts)."""
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+
+    if push is None:
+        push = build_push_shards(g, num_parts, cuts=cuts)
+    rs = build_ring_shards(g, num_parts, parts_subset, pull=push.pull)
+    return PushRingShards(push=push, rarrays=rs.rarrays, e_bucket_pad=rs.e_bucket_pad,
+                          parts_subset=rs.parts_subset)
+
+
 def neutral_like(local: torch.Tensor, reduce: str) -> torch.Tensor:
     """The fold accumulator's neutral element, in the REDUCTION dtype:
     floats reduce in f32 (a bf16 state's edge values are f32), integer
@@ -286,6 +345,14 @@ def vertex_view(pg: PartsGroup, arrays) -> _RingView:
     return _RingView(*(shard_stacked(pg, getattr(arrays, f)) for f in _RingView._fields))
 
 
+def check_subset(parts_subset, pg: PartsGroup) -> None:
+    """Ring buckets built for all parts, or for exactly this rank's."""
+    rows = list(parts_subset)
+    if len(rows) not in (pg.num_parts, pg.k) or (
+            len(rows) == pg.k and rows != list(pg.parts)):
+        raise ValueError(f"ring shards hold parts {rows}, this rank {list(pg.parts)}")
+
+
 def run_pull_fixed_ring(prog: PullProgram, shards: RingShards, state0, num_iters: int,
                         pg: PartsGroup, method: str = "auto") -> torch.Tensor:
     """Fixed-iteration distributed pull with ring-streamed state blocks.
@@ -296,10 +363,7 @@ def run_pull_fixed_ring(prog: PullProgram, shards: RingShards, state0, num_iters
     if shards.spec.num_parts != pg.num_parts:
         raise ValueError(f"the shards have {shards.spec.num_parts} parts, the group "
                          f"{pg.num_parts}")
-    if len(shards.parts_subset) not in (pg.num_parts, pg.k) or (
-            len(shards.parts_subset) == pg.k and list(shards.parts_subset) != list(pg.parts)):
-        raise ValueError(f"ring shards hold parts {shards.parts_subset}, this rank "
-                         f"{list(pg.parts)}")
+    check_subset(shards.parts_subset, pg)
     rarr = shard_stacked(pg, shards.rarrays)
     view = vertex_view(pg, shards.arrays)
     block = shard_stacked(pg, state0)

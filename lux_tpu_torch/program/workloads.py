@@ -40,11 +40,21 @@ import torch
 from lux_tpu_torch.engine import pull
 from lux_tpu_torch.graph.csc import HostGraph, from_edge_list
 from lux_tpu_torch.graph.shards import PullShards, build_pull_shards, to_device
-from lux_tpu_torch.models.sssp import refuse_unported
 from lux_tpu_torch.ops import expand
 from lux_tpu_torch.program import library
 from lux_tpu_torch.program.spec import SpecProgram, active_changed, bind
 from lux_tpu_torch.utils.device import resolve_device
+
+def refuse_unported(mesh=None, exchange="allgather") -> None:
+    """Raise for a workload driver option of the reference that is not
+    ported (a silently ignored option would misreport what ran)."""
+    for name, val, default in (("mesh", mesh, None), ("exchange", exchange, "allgather")):
+        if val != default:
+            raise NotImplementedError(
+                f"{name}={val!r}: the workloads' mesh and ring drivers are not ported "
+                "to lux_tpu_torch yet (ROADMAP Queue 1 item 7.3; -ng parts stack on "
+                "one device)")
+
 
 #: triangle counting builds (V, ceil(nv/32)) bitsets — quadratic memory
 #: in nv.  Bound it loudly instead of running out of memory quietly.

@@ -24,7 +24,10 @@ about 1.1 GB at scale 24), written by the native counting sort, then:
      buckets, timed after an untimed run and held to step 4's ranks
      (rtol 1e-4),
   6. the push layout and SSSP from the largest out-degree to
-     convergence, timed after an untimed run,
+     convergence, timed after an untimed run; with ``--sssp-exchange
+     ring`` also the ring push over ``--ranks`` ranks (each building only
+     its parts' buckets), timed after an untimed run and held bitwise to
+     the one-card distances,
 
 printing one JSON line a step with the host's peak RSS and the card's
 peak allocated bytes so far.  Runs on the card unless ``--device cpu``.
@@ -55,6 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--file", default=None, help=".lux path (default: the temporary "
                                                  "directory; generated when missing)")
     ap.add_argument("--skip-sssp", action="store_true")
+    ap.add_argument("--sssp-exchange", default="allgather", choices=["allgather", "ring"],
+                    help="ring: also run SSSP on the ring push over --ranks ranks")
     ap.add_argument("--ranks", type=int, default=2,
                     help="ranks of the ring and reduce_scatter legs (--parts must be a "
                          "multiple); their backend is LUX_DIST_BACKEND, gloo unless "
@@ -192,8 +197,66 @@ def main(argv=None) -> int:
         note("sssp", start=start, iters=res.it, dense_rounds=res.dense_rounds,
              traversed=res.edges, seconds=secs, gteps=res.edges / secs / 1e9,
              reached=int((dist < inf_value(nv)).sum()))
+        if args.sssp_exchange == "ring":
+            del arrays, parrays, carry0, res, psh
+            if cuda:
+                torch.cuda.empty_cache()
+            got = spawn.run_ranks(args.ranks, "lux_tpu_torch.tools.biggraph_check:sssp_ring_leg",
+                                  (path, P, start), num_parts=P, device=args.device,
+                                  backend=backend, deadline_s=3000.0, threads=4,
+                                  env={multihost.BACKEND_ENV: backend})
+            lead = got[0]["result"]
+            same = bool(np.array_equal(lead["dist"], dist))
+            note("sssp_ring", parts=P, ranks=args.ranks, backend=backend,
+                 k_resident=P // args.ranks, build_s=lead["build_s"],
+                 estimate_bytes=lead["estimate_bytes"], bucket_pad=lead["bucket_pad"],
+                 iters=lead["iters"], traversed=lead["edges"], seconds=lead["seconds"],
+                 gteps=lead["edges"] / lead["seconds"] / 1e9, bitwise_one_card=same)
+            if not same:
+                print("sssp over the ring differs from the one-card run", file=sys.stderr)
+                return 1
     note("done")
     return 0
+
+
+def sssp_ring_leg(pg, path: str, parts: int, start: int) -> dict:
+    """One rank of the ring push leg: the push layout with this rank's
+    buckets, the ring estimate against its device, an untimed run, then a
+    timed one (the ranks lined up by a barrier).  Rank 0 returns the
+    distances and the timings."""
+    import torch
+
+    from lux_tpu_torch.engine import push
+    from lux_tpu_torch.graph import format as fmt
+    from lux_tpu_torch.models.sssp import SSSPProgram
+    from lux_tpu_torch.ops import cuda_build
+    from lux_tpu_torch.parallel.ring import build_push_ring_shards
+    from lux_tpu_torch.utils import preflight
+    from lux_tpu_torch.utils.timing import Timer
+
+    header = fmt.read_lux(path, mmap=True)
+    t0 = time.monotonic()
+    sh = build_push_ring_shards(header, parts, parts_subset=list(pg.parts))
+    build_s = time.monotonic() - t0
+    est = preflight.scale_residency(
+        preflight.estimate_push_ring(sh.spec, sh.pspec, sh.e_bucket_pad), pg.k)
+    preflight.check_fits(est, device=pg.device)
+    if pg.device.type == "cuda":
+        cuda_build.load_all()
+    prog = SSSPProgram(nv=header.nv, start=start)
+    lay = push.place_layout(prog, sh, pg, "scatter")
+    carry0 = lay.init()
+    lay.loop(carry0, 10_000)
+    pg.barrier()
+    timer = Timer(pg.device)
+    out = lay.loop(carry0, 10_000)
+    seconds = timer.stop()
+    dist = lay.read(out.state)
+    if pg.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"dist": dist, "iters": out.it,
+            "edges": out.edges, "seconds": seconds, "build_s": build_s,
+            "estimate_bytes": est.total_bytes, "bucket_pad": sh.e_bucket_pad}
 
 
 def exchange_leg(pg, path: str, parts: int, kind: str, iters: int) -> dict:

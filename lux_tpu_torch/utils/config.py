@@ -13,11 +13,14 @@ flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
 (``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
 knobs and ``--max-iters``; SSSP and PageRank (``serve=True``) the
 ``--serve`` group of the batched query service, as the reference's flag
-sets do; the pull apps also ``--distributed`` and ``--exchange`` (the
-parts spread over the ranks of torch.distributed, parallel/).  The
-reference flags of the features not ported (``NOT_PORTED``: the 2-D edge
-and feature meshes; ``PULL_DISTRIBUTED`` on the other apps) are rejected
-with a message that they are not ported yet, never silently ignored.
+sets do; the pull and push apps also ``--distributed`` and ``--exchange``
+(the parts spread over the ranks of torch.distributed, parallel/: the
+pull apps exchange by allgather, ring or scatter, the push apps by
+allgather or ring, as in the reference).  The reference flags of the
+features not ported (``NOT_PORTED``: the 2-D edge and feature meshes;
+``DISTRIBUTED`` on the generic program driver, whose mesh drivers wait
+for ROADMAP Queue 1 item 7.3) are rejected with a message that they are
+not ported yet, never silently ignored.
 """
 from __future__ import annotations
 
@@ -76,9 +79,11 @@ NOT_PORTED = (
     "-start", "-verbose", "-v", "--max-iters", "--edge-shards", "--feat-shards",
     "--weighted",
 )
-#: the pull apps' multi-GPU flags: the other apps do not run distributed yet
-PULL_DISTRIBUTED = ("--distributed", "--exchange")
+#: the multi-GPU flags: the generic program driver does not run distributed yet
+DISTRIBUTED = ("--distributed", "--exchange")
 EXCHANGES = ("allgather", "ring", "scatter")
+#: the push apps' dense-round exchanges (the reference's choices)
+PUSH_EXCHANGES = ("allgather", "ring")
 
 METHODS = ("auto", "scan", "cumsum", "mxsum", "mxscan", "scatter", "pallas")
 
@@ -181,13 +186,20 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                         help="save state every N iterations")
     if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
-    if pull:
+    if pull or push:
         ap.add_argument("--distributed", action="store_true",
                         help="spread the -ng parts over the ranks of "
                              "torch.distributed (launch with python -m "
                              "torch.distributed.run --nproc-per-node W; "
                              "LUX_DIST_BACKEND=gloo for ranks that share a "
                              "card)")
+    if push:
+        ap.add_argument("--exchange", default="allgather", choices=PUSH_EXCHANGES,
+                        help="dense-round state exchange under --distributed: "
+                             "allgather (every rank gathers the whole state) "
+                             "or ring (blocks stream rank to rank); sparse "
+                             "rounds exchange the frontier queues")
+    if pull:
         ap.add_argument("--exchange", default="allgather", choices=EXCHANGES,
                         help="distributed state exchange: allgather (every "
                              "rank gathers the whole state), ring (blocks "
@@ -258,8 +270,9 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         ap.add_argument("--weighted", action="store_true",
                         help="relax with integer edge weights")
         ap.add_argument("--delta", type=int, default=0,
-                        help="delta-stepping bucket width (weighted, one "
-                             "device): expand only pending vertices with "
+                        help="delta-stepping bucket width (weighted; one "
+                             "device or --distributed allgather): expand "
+                             "only pending vertices with "
                              "dist < the current bucket's bound — "
                              "near-Dijkstra edge counts (0 = chaotic "
                              "relaxation)")
@@ -318,10 +331,11 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED:
             ap.error(f"{flag} is not ported to lux_tpu_torch yet")
-        if flag in PULL_DISTRIBUTED:
+        if flag in DISTRIBUTED:
             ap.error(f"{flag} is not ported to lux_tpu_torch yet for this app "
-                     "(the distributed engines run the pull apps: pagerank, "
-                     "colfilter)")
+                     "(the distributed engines run pagerank, colfilter, sssp and "
+                     "components; the workloads' mesh drivers are ROADMAP Queue 1 "
+                     "item 7.3)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if ns.num_parts < 1:
@@ -336,7 +350,8 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                  "--distributed")
     if ns.route_gather and getattr(ns, "distributed", False):
         ap.error("--route-gather under --distributed is not ported to lux_tpu_torch "
-                 "yet (the distributed engines gather directly)")
+                 "yet (ROADMAP Queue 1 item 7.5; the distributed engines gather "
+                 "directly)")
     if ns.route_gather and ns.method == "pallas":
         ap.error("--route-gather does not combine with --method pallas: the "
                  "block-CSR runner has its own gather and no routed form")

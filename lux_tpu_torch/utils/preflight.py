@@ -12,9 +12,11 @@ of what the port builds.
 
 The distributed engines (parallel/) are estimated per rank, against that
 rank's device: the allgather pull's k resident parts plus the gathered
-(P*V) state, the ring and reduce-scatter bucket layouts, and the
-distributed block-CSR pull.  The 2-D edge and feature-sharded estimates
-come with those meshes.
+(P*V) state, the ring and reduce-scatter bucket layouts, the distributed
+block-CSR pull, and the distributed push's ring and block-CSR layouts
+(:func:`estimate_push_ring`, :func:`estimate_push_pallas`; the allgather
+push is :func:`estimate_push` with :func:`push_exchange_bytes`).  The
+2-D edge and feature-sharded estimates come with those meshes.
 """
 from __future__ import annotations
 
@@ -229,6 +231,66 @@ def estimate_push(spec: ShardSpec, pspec: PushSpec,
         base.gathered_bytes,
         base.total_bytes + extra + queues + sparse_buf,
     )
+
+
+def push_exchange_bytes(spec: ShardSpec, pspec: PushSpec,
+                        state_dtype_bytes: int = 4) -> int:
+    """A rank's exchanged frontier queues in the distributed push: the
+    gathered (P, 2, f_cap) block of every part's vids and values, and
+    the flattened (P * f_cap,) vids and values the walk reads."""
+    return 2 * spec.num_parts * pspec.f_cap * (4 + state_dtype_bytes)
+
+
+def _frontier_csr_bytes(spec: ShardSpec, pspec: PushSpec) -> int:
+    """One part's frontier CSR: uniq_src, csr_row_ptr, csr_dst_local int32
+    and csr_weight f32."""
+    U, E = pspec.u_pad, spec.e_pad
+    return 4 * U + 4 * (U + 1) + 4 * E + 4 * E
+
+
+def _push_part_state(pspec: PushSpec, blocks: int, nv_pad: int,
+                     state_dtype_bytes: int) -> int:
+    """One part's state ``blocks`` times, its queues old and new, and the
+    sparse walk's buffer (as :func:`estimate_push` counts them)."""
+    s = state_dtype_bytes
+    return (blocks * nv_pad * s + 2 * (4 + s) * pspec.f_cap
+            + (4 + s + 8) * pspec.e_sp)
+
+
+def estimate_push_ring(spec: ShardSpec, pspec: PushSpec, e_bucket_pad: int,
+                       state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """One resident part of the ring push (engine/push.run_push_ring): the
+    frontier CSR, the part's P ring buckets (13 B a slot) and its vertex
+    view (global_vid, degree int32, vtx_mask bool), as the reference
+    counts them; the resident block, the block in flight, the fold
+    accumulator and the new state, the queues and the sparse buffer; and
+    the rank's exchanged queues (:func:`push_exchange_bytes`, as gathered
+    bytes).  No O(E) pull arrays and no gathered state: dense rounds
+    stream the blocks."""
+    V = spec.nv_pad
+    shard = (_frontier_csr_bytes(spec, pspec) + spec.num_parts * e_bucket_pad * 13
+             + V * 9)
+    state = _push_part_state(pspec, 4, V, state_dtype_bytes)
+    gathered = push_exchange_bytes(spec, pspec, state_dtype_bytes)
+    return MemoryEstimate(shard, state, gathered, shard + state + gathered)
+
+
+def estimate_push_pallas(spec: ShardSpec, pspec: PushSpec, num_chunks: int, t_chunk: int,
+                         state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """The one part of a rank of the block-CSR push
+    (parallel/pallas_dist.run_push_pallas_dist): the (C, T) e_src_pos and
+    e_dst_rel int32, the slot weights f32 (a 4-byte placeholder
+    unweighted), chunk_block and chunk_first int32, the frontier CSR and
+    the vertex view; the state and the new state, the queues and the
+    sparse buffer; the gathered (P*V) state, the (C, T) slot values the
+    kernel reduces, and the exchanged queues."""
+    V, ct = spec.nv_pad, num_chunks * t_chunk
+    blockcsr = 4 * ct * 2 + (4 * ct if spec.weighted else 4) + 4 * num_chunks * 2
+    shard = blockcsr + _frontier_csr_bytes(spec, pspec) + V * 9
+    state = _push_part_state(pspec, 2, V, state_dtype_bytes)
+    gathered = (spec.gathered_size * state_dtype_bytes + ct * state_dtype_bytes
+                + push_exchange_bytes(spec, pspec, state_dtype_bytes))
+    return MemoryEstimate(shard, state, gathered, shard + state + gathered)
 
 
 def estimate_pallas_pull(num_chunks: int, t_chunk: int, nv_pad: int,

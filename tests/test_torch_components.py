@@ -87,9 +87,13 @@ def test_active_counts():
 
 
 def test_unported_arguments_raise(graphs):
-    for kw in ({"mesh": object()}, {"exchange": "ring"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cc.connected_components_push(graphs[0], device="cpu", **kw)
+    """The reference's engine options that take a group: the ring
+    needs one (a parallel.mesh.PartsGroup), and the routed gather stays a
+    single-device option (its distributed form is ROADMAP item 7.5)."""
+    with pytest.raises(ValueError, match="needs a mesh"):
+        cc.connected_components_push(graphs[0], device="cpu", exchange="ring")
+    with pytest.raises(ValueError, match="single-device"):
+        cc.connected_components_push(graphs[0], device="cpu", mesh=object(), route=object())
     # ported since: the adaptive driver gives the static labels
     np.testing.assert_array_equal(
         cc.connected_components_push(graphs[0], device="cpu", num_parts=3,
@@ -186,7 +190,7 @@ def test_app_cuda_without_card_raises():
 
 @pytest.mark.parametrize("argv,msg", [
     (["-start", "3"], "not ported"), (["--weighted"], "not ported"),
-    (["--method", "pallas"], "distributed push is not ported"),
+    (["--method", "pallas"], "add --distributed"),
     (["--route-gather", "fused-mx"], "invalid choice")])
 def test_app_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:

@@ -1322,3 +1322,70 @@ def test_dist_ranks_sharing_the_card(cuda):
                                   _pallas_single_process(g, 2, 6, cuda))
     np.testing.assert_allclose(res[0]["result"]["pallas"], pr.pagerank_reference(g, 6),
                                rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("app,op", [("sssp", "min"), ("wsssp", "min"), ("cc", "max")])
+@pytest.mark.parametrize("mid_run", [False, True])
+def test_spmv_int32_minmax_on_push_pallas_part(cuda, app, op, mid_run):
+    """Kernel 1 in int32 min / max on a rank's part of the block-CSR push
+    (parallel/pallas_dist.build_push_pallas_shards at 2 parts): the dense
+    round's relaxed slot values, from the initial state (SSSP: everything
+    at inf but the source) or a random one, bitwise the plain version."""
+    import torch_push_dist_jobs as jobs
+    from lux_tpu_torch.parallel import pallas_dist as pd
+
+    g = jobs.graph(("rmat", 12, 8, 7, app == "wsssp"))
+    prog = jobs.program(app, g)
+    sh = pd.build_push_pallas_shards(g, 2)
+    view = [torch.from_numpy(np.ascontiguousarray(getattr(sh.pl, f))).to(cuda)
+            for f in ("global_vid", "degree", "vtx_mask")]
+    state = torch.stack([prog.init_state(view[0][p], view[1][p], view[2][p])
+                         for p in range(2)])
+    if mid_run:
+        rng = np.random.default_rng(5)
+        state = torch.from_numpy(rng.integers(-1, g.nv, state.shape).astype(np.int32)).to(cuda)
+    full = state.reshape(-1)
+    for p in range(2):
+        t = {f: torch.from_numpy(np.ascontiguousarray(getattr(sh.pl, f)[p])).to(cuda)
+             for f in ("e_src_pos", "e_dst_rel", "e_weight", "chunk_block", "chunk_first")}
+        vals = prog.relax(full.index_select(0, t["e_src_pos"].reshape(-1))
+                          .view(t["e_dst_rel"].shape), t["e_weight"]).contiguous()
+        assert vals.dtype == torch.int32
+        args = (vals, t["e_dst_rel"], t["chunk_block"], t["chunk_first"])
+        got = spmv.spmv_blockcsr(*args, op=op, v_blk=sh.v_blk, num_vblocks=sh.num_vblocks)
+        want = spmv.spmv_blockcsr_plain(*args, op, sh.v_blk, sh.num_vblocks)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_push_dist_nccl_one_rank_matches_run_push(cuda):
+    """One NCCL rank holding 4 parts: run_push_dist (bulk and tree) and the
+    pallas push at one part, bitwise the single-process card run in
+    state, iterations and edges; mxscan and the spmv kernel launched in
+    the rank."""
+    import torch_push_dist_jobs as jobs
+    from lux_tpu_torch.engine import push
+    from lux_tpu_torch.graph.push_shards import build_push_shards
+    from lux_tpu_torch.parallel import spawn
+
+    spec = ("rmat", 12, 8, 7)
+    cases = {"bulk": {"graph": spec, "prog": "sssp", "parts": 4, "engine": "dist",
+                      "method": "mxscan"},
+             "tree": {"graph": spec, "prog": "cc", "parts": 4, "engine": "dist",
+                      "method": "mxscan", "merge": "tree"},
+             "pallas": {"graph": spec, "prog": "sssp", "parts": 1, "engine": "pallas"}}
+    res = spawn.run_ranks(1, "torch_push_dist_jobs:run_all", (cases, []), num_parts=1,
+                          device="cuda", backend="nccl", deadline_s=300,
+                          env={"LUX_DIST_BACKEND": "nccl"})
+    assert res[0]["backend"] == "nccl"
+    assert res[0]["launches"]["mxscan_segmented"] > 0
+    assert res[0]["launches"]["spmv_blockcsr"] > 0
+    g = jobs.graph(spec)
+    for name, case in cases.items():
+        prog = jobs.program(case["prog"], g)
+        sh = build_push_shards(g, case["parts"])
+        st, it, e = push.run_push(prog, sh, method="mxscan", device="cuda")
+        got = res[0]["result"]["cases"][name]
+        np.testing.assert_array_equal(got[0], sh.scatter_to_global(st.cpu().numpy()))
+        assert (got[1], got[2]) == (it, e)

@@ -141,7 +141,7 @@ def test_validation_errors(graphs, layouts):
         delta.run_push_delta(cc.MaxLabelProgram(), sh, 2, device="cpu")
     with pytest.raises(ValueError, match="WEIGHTED"):
         sssp.sssp(generate.rmat(7, 4, seed=1), delta=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="allgather-exchange driver"):
         sssp.sssp(graphs[0], weighted=True, delta=2, exchange="ring", device="cpu")
 
 

@@ -139,6 +139,78 @@ def test_routed_plan_bytes_wide(graph):
     assert abs(analytic - exact) <= 0.01 * exact
 
 
+def _push_state_bytes(sh, prog, carry, parrays, blocks: int) -> int:
+    """One part's ``blocks`` state copies, its queues old and new, and the
+    sparse walk's buffer, from the port's own tensors."""
+    plan = push._push_prep(sh.pspec, sh.spec, parrays, carry)
+    walk = push._sparse_walk(prog, sh.pspec, parrays.part(0), sh.spec.nv_pad, plan.q_vids,
+                             plan.q_vals, plan.rows[0], plan.incl[0], sh.pspec.e_sp)
+    queues = carry.q_vid[0].nbytes + carry.q_val[0].nbytes
+    return blocks * carry.state[0].nbytes + 2 * queues + _nbytes(walk), plan
+
+
+def _exchanged(carry, plan) -> int:
+    """The gathered (P, 2, f_cap) queue block and its flattened vids and
+    values (one device holds every part's queues: the gathered layout)."""
+    pair = torch.stack([carry.q_vid, carry.q_val.view(torch.int32)], 1)
+    return pair.nbytes + plan.q_vids.nbytes + plan.q_vals.nbytes
+
+
+def test_estimate_push_ring_is_the_ports_arrays(graph):
+    """One resident part of the ring push: its buckets, frontier CSR and
+    vertex view (the graph bytes equal the reference's estimate on the
+    same specs), four state blocks with the queues and the sparse walk,
+    and the exchanged queues."""
+    from lux_tpu.graph import generate as ref_generate
+    from lux_tpu.parallel import ring as ref_ring
+    from lux_tpu.utils import preflight as ref_preflight
+    from lux_tpu_torch.parallel import ring
+
+    sh = ring.build_push_ring_shards(graph, 2)
+    prog = sssp_model.SSSPProgram(nv=graph.nv, start=0)
+    arrays, parrays, carry = push.push_init(prog, sh.push, "cpu")
+    est = preflight.estimate_push_ring(sh.spec, sh.pspec, sh.e_bucket_pad)
+    one = [torch.from_numpy(a[0]) for a in sh.rarrays] + list(parrays.part(0)) + [
+        arrays.global_vid[0], arrays.degree[0], arrays.vtx_mask[0]]
+    assert est.shard_bytes == _nbytes(one)
+    state, plan = _push_state_bytes(sh, prog, carry, parrays, 4)
+    assert est.state_bytes == state
+    assert est.gathered_bytes == _exchanged(carry, plan)
+    rsh = ref_ring.build_push_ring_shards(ref_generate.rmat(9, 8, seed=13, weighted=True), 2)
+    assert est.shard_bytes == ref_preflight.estimate_push_ring(
+        rsh.spec, rsh.pspec, rsh.e_bucket_pad).shard_bytes
+
+
+def test_estimate_push_pallas_is_the_ports_arrays(graph):
+    """The one part of a rank of the block-CSR push: its chunks, frontier
+    CSR and vertex view (the reference's graph bytes on the same specs),
+    two state blocks with the queues and the walk, and the gathered state,
+    the (C, T) slot values and the exchanged queues."""
+    from lux_tpu.graph import generate as ref_generate
+    from lux_tpu.parallel import pallas_dist as ref_pd
+    from lux_tpu.utils import preflight as ref_preflight
+    from lux_tpu_torch.parallel import pallas_dist
+
+    sh = pallas_dist.build_push_pallas_shards(graph, 2, v_blk=128, t_chunk=128)
+    prog = sssp_model.WeightedSSSPProgram(nv=graph.nv, start=0)
+    arrays, parrays, carry = push.push_init(prog, sh.push, "cpu")
+    C = sh.pl.e_src_pos.shape[1]
+    est = preflight.estimate_push_pallas(sh.spec, sh.pspec, C, sh.t_chunk)
+    chunks = [torch.from_numpy(getattr(sh.pl, f)[0]) for f in
+              ("e_src_pos", "e_dst_rel", "e_weight", "chunk_block", "chunk_first")]
+    view = [arrays.global_vid[0], arrays.degree[0], arrays.vtx_mask[0]]
+    assert est.shard_bytes == _nbytes(chunks + list(parrays.part(0)) + view)
+    state, plan = _push_state_bytes(sh, prog, carry, parrays, 2)
+    assert est.state_bytes == state
+    full = carry.state.reshape(-1)
+    vals = full.index_select(0, chunks[0].reshape(-1))
+    assert est.gathered_bytes == full.nbytes + vals.nbytes + _exchanged(carry, plan)
+    rsh = ref_pd.build_push_pallas_shards(ref_generate.rmat(9, 8, seed=13, weighted=True), 2,
+                                          v_blk=128, t_chunk=128)
+    assert est.shard_bytes == ref_preflight.estimate_push_pallas(
+        rsh.spec, rsh.pspec, rsh.pl.e_src_pos.shape[1], rsh.t_chunk).shard_bytes
+
+
 def test_check_fits(capsys):
     est = preflight.MemoryEstimate(1 << 30, 1 << 29, 1 << 28, (1 << 30) + (3 << 28))
     assert preflight.check_fits(est, hbm_bytes=2 << 30)

@@ -175,8 +175,8 @@ def test_sp_work_and_mid_run_carry_match_reference(graphs, app):
 def test_refusals_and_wrappers(graphs):
     g = graphs[0]
     prog = cc.MaxLabelProgram()
-    for kw, exc in (({"mesh": object()}, NotImplementedError),
-                    ({"exchange": "ring"}, NotImplementedError),
+    for kw, exc in (({"exchange": "ring", "sort_segments": True}, ValueError),
+                    ({"exchange": "ring"}, ValueError),
                     ({"exchange": "scatter"}, ValueError), ({"chunk": 0}, ValueError)):
         with pytest.raises(exc):
             repartition.run_push_adaptive(prog, g, 2, device="cpu", **kw)
@@ -216,3 +216,36 @@ def test_cli_repartition_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:
         sssp_app.main(["--rmat-scale", "6", "--device", "cpu", "-ng", "2"] + argv)
     assert msg in str(e.value) + capsys.readouterr().err
+
+
+def test_placed_layout_is_the_only_copy(graphs):
+    """``placed=`` hands the adaptive driver a layout already on the
+    device: it runs on that layout (nothing placed twice), releases its
+    statics at the first recut before the rebuilt layout is placed, and
+    the result is bitwise the run that placed its own."""
+    g, _ = graphs
+    prog = sssp.SSSPProgram(nv=g.nv, start=0)  # its sparse BFS tail recuts
+    sh = build_push_shards(g, 4)
+    placed = []
+    real = push.place_layout
+
+    def counted(*a, **kw):
+        placed.append(a[1])
+        return real(*a, **kw)
+
+    lay = push.place_layout(prog, sh, None, "scan", "cpu")
+    seen = []
+    try:
+        push.place_layout = counted
+        got = repartition.run_push_adaptive(
+            prog, g, 4, chunk=1, threshold=1.0, method="scan", device="cpu", placed=lay,
+            on_repartition=lambda it, o, n, w: seen.append(it))
+    finally:
+        push.place_layout = real
+    assert got.reparts == len(seen) == len(placed) > 0
+    assert all(s is not sh for s in placed)  # only the recuts' layouts were placed
+    assert lay.view is None and lay.arrays is None and lay.parrays is None
+    want = repartition.run_push_adaptive(prog, g, 4, chunk=1, threshold=1.0, method="scan",
+                                         device="cpu", shards=sh)
+    np.testing.assert_array_equal(got.state, want.state)
+    assert (got.iters, got.edges, got.reparts) == (want.iters, want.edges, want.reparts)

@@ -86,9 +86,10 @@ def test_argument_errors(graphs):
         sssp.sssp(g, start=g.nv, device="cpu")
     with pytest.raises(ValueError, match="edge-weighted"):
         sssp.sssp(g, weighted=True, device="cpu")
-    for kw in ({"mesh": object()}, {"exchange": "ring"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sssp.sssp(g, device="cpu", **kw)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        sssp.sssp(g, device="cpu", exchange="ring")
+    with pytest.raises(ValueError, match="single-device"):
+        sssp.sssp(g, device="cpu", mesh=object(), route=object())
     # ported since: the adaptive driver gives the static distances, and
     # delta-stepping refuses unweighted runs as the reference does
     np.testing.assert_array_equal(
@@ -155,12 +156,12 @@ def test_app_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--method", "pallas"], "distributed push is not ported"),
+    (["--method", "pallas"], "add --distributed"),
     (["--method", "cumsum"], "sum-reduce programs only"),
     (["-verbose", "--route-gather", "expand"], "cannot combine with -verbose"),
     (["--route-gather", "fused"], "invalid choice"),
     (["-start", "100000"], "out of range"),
-    (["--exchange", "ring"], "not ported"), (["--delta", "4"], "add --weighted"),
+    (["--exchange", "ring"], "requires --distributed"), (["--delta", "4"], "add --weighted"),
     (["--dtype", "bfloat16"], "unrecognized")])
 def test_app_refusals(argv, msg, capsys):
     with pytest.raises(SystemExit) as e:

@@ -207,8 +207,9 @@ Phases, each printing one JSON line with its seconds:
               2, each cut at half its rounds; the seconds a save takes and
               its bytes on disk.
   17. serve_main the batched query service on the main graph: `apps.sssp
-              --serve --serve-queries 64 --serve-buckets 1,8,64 -check` and
-              `apps.pagerank --serve -ni 10 --serve-queries 64 -check`
+              --serve --serve-queries 16 --serve-buckets 1,8,16 -check` and
+              `apps.pagerank --serve -ni 10 --serve-queries 16
+              --serve-buckets 1,8,16 -check` (64 queries before PR 19)
               (QPS, latency p50/p95/p99, batch occupancy, warm hit ratio,
               the estimate and the peak memory); every SSSP answer 0 at its
               source with no triangle-inequality violation, the first 8
@@ -229,7 +230,7 @@ Phases, each printing one JSON line with its seconds:
               refreshed, the 1 % churn (k = ne / 200 deletes, then k
               inserts, default_rng(0)) applied as two batches; the three
               warm refreshes timed best of two (two runs bitwise equal);
-              batched SSSP serving (Q = 64, scatter) through a
+              batched SSSP serving (Q = 16, scatter) through a
               WarmEngineCache holding the overlay and the scheduler;
               compaction (snapshot + plan-cache invalidation report);
               the cold legs (read_lux, the shard builds with the same
@@ -269,14 +270,14 @@ Phases, each printing one JSON line with its seconds:
   20. fleet   the serving fleet (see fleet_main): two replica workers as
               CUDA processes through the launcher, apps sssp and ppr,
               buckets 1, 8, 64, the controller here, the main graph as a
-              .lux snapshot.  Under auto the 64 serving sources of phase
+              .lux snapshot.  Under auto the 16 serving sources of phase
               17: SSSP bitwise, PPR within rtol 1e-5 of phase 17's
               in-process answers; phase 18's compacted 1 %-churn snapshot
-              published (mutate/compact.publish_to_fleet) under a 64-query
+              published (mutate/compact.publish_to_fleet) under a 16-query
               burst: nothing shed, and then every answer bitwise a fresh
               engine on the snapshot.  Under scatter (SSSP) the
               worker_kill_mid_burst drill: the victim SIGKILLs itself at
-              its 5th query and the survivor answers all 64, bitwise.
+              its 5th query and the survivor answers all 16, bitwise.
               measure_fleet_saturation at width 1 under scatter: QPS
               and p99 at the knee.  Every worker's peak device bytes.
   21. pod     run_pull_pod over two pod worker processes on the card, the
@@ -300,7 +301,7 @@ Phases, each printing one JSON line with its seconds:
               LiveFleetController.  The mixed window: 16 churn batches of
               4,096 rows (2,048 deletes of live base edges, 2,048 random
               inserts) admitted while two closed-loop readers send SSSP
-              over the 64 serving sources, a quarter bounded by the last
+              over the 16 serving sources, a quarter bounded by the last
               acknowledged generation; the 10th batch overflows and
               escalates to a fleet compaction.  Write batches/s and
               rows/s, read QPS, staleness p50/p99 in generations, the
@@ -400,7 +401,23 @@ Phases, each printing one JSON line with its seconds:
               rank; in each rank kernel 1's int32 min (SSSP) and max
               (components) on its push part and kernel 2's int32 min at a
               dense round held bitwise to their plain versions and timed
-              beside them (and scatter_reduce_ for kernel 1).  NCCL across
+              beside them (and scatter_reduce_ for kernel 1).  The spec
+              workloads' mesh drivers in the 2 gloo ranks, through
+              `apps.run --distributed -ng 4 -check`: bfs from phase 11's
+              sources (push mxscan, push over --exchange ring with
+              --method scatter, --engine pull mxscan), kcore (mxscan, the
+              symmetrized view) and labelprop (8 labels, stride 16, 10
+              iterations); bfs and kcore bitwise phase 11's runs in
+              distances or coreness, iterations, traversed edges and dense
+              rounds, kernel 2 launched at least once a dense round or
+              round in every rank (the ring runs none), labelprop within
+              rtol 2e-4 / atol 1e-6 of its float64 oracle.  (e) gloo, 4
+              ranks as a 2 x 2 grid: `apps.pagerank --edge-shards 2 -ng 2
+              --method scan` (RMAT 20, 10 iterations) within rtol 1e-4 of
+              float64, `apps.colfilter --feat-shards 2 -ng 2` over the
+              allgather and the ring (CF 20, K = 20, the step at gamma
+              1e-3) within 1e-4 of the float64 CF oracle, each with its
+              ms an iteration and split on the lead rank.  NCCL across
               cards is not exercised (one card).
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
@@ -513,7 +530,11 @@ STREAM_SCALE, STREAM_GIB = 22, 0.3
 STREAM_MIN_CHUNKS = 4  # every part must stream in at least this many chunks
 CKPT_PR_EVERY, CKPT_DELTA_EVERY, CKPT_CC_EVERY = 5, 2, 2  # --ckpt-every
 SERVE_Q = 64  # the serving row's batch (bench.py:918-921): Q = 64, one part
-SERVE_BUCKETS = "1,8,64"  # the warm Q buckets of the SSSP service
+#: the queries of the two --serve app runs and of mutate_main's service (64
+#: before PR 19, whose smoke cut their depth: host-bound, they grew most on
+#: a slower host); measure_serving and serve_split keep SERVE_Q
+SERVE_APP_Q = 16
+SERVE_BUCKETS = "1,8,16"  # the warm Q buckets of the two app runs
 SERVE_BFS = 8  # SSSP answers held to scipy's BFS
 SERVE_PPR = 4  # PPR answers held to the float64 oracle
 SERVE_METHODS = ("auto", "scatter")  # measure_serving's runs
@@ -551,13 +572,33 @@ class Stopped(BaseException):
     teardown (not an Exception, so no phase's handler catches it)."""
 
 
+#: [phase, seconds since the start of its last line] for each run of
+#: consecutive lines of one phase, in order (the timeline line)
+_SPANS = []
+
+
 def emit(obj) -> None:
     if "phase" in obj:
         # seconds since the smoke started: the phases' place on its clock
         obj = {**obj, "at_s": round(time.perf_counter() - _T0, 3)}
         _LAST["phase"] = f"{obj['phase']} {obj.get('run', '')} at {obj['at_s']} s".replace(
             "  ", " ")
+        if _SPANS and _SPANS[-1][0] == obj["phase"]:
+            _SPANS[-1][1] = obj["at_s"]
+        else:
+            _SPANS.append([obj["phase"], obj["at_s"]])
     print(json.dumps(obj), flush=True)
+
+
+def timeline() -> list:
+    """Each phase's seconds: from the previous phase's last line to its own
+    last line, in the order the phases ran (a phase whose lines come in
+    two runs appears twice)."""
+    out, prev = [], 0.0
+    for name, end in _SPANS:
+        out.append([name, round(end - prev, 3)])
+        prev = end
+    return out
 
 
 def child_processes() -> list:
@@ -1641,7 +1682,9 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
     """Phases 11-12 on the main graph ``g`` (its pull layout ``sh`` and the
     phase-4 expand plans ``push_plans``): spec_main, spec_kernels and
     sum_race; the oracles are the pool's pending results.  Returns the
-    launch counts of every spec run."""
+    launch counts of every spec run, and the single-process results phase
+    dist holds its distributed workload runs to (bfs push and pull,
+    kcore, and labelprop's float64 oracle)."""
     from lux_tpu_torch.apps import run as run_app
     from lux_tpu_torch.engine import methods, pull
     from lux_tpu_torch.graph import generate
@@ -1677,6 +1720,10 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
     require(np.array_equal(res.state, bfs["mxscan"].state), "bfs pull: distances differ")
     require(spec_launches["bfs-pull"]["mxscan_segmented"] >= res.iters,
             "bfs pull: the scan kernel launched too few times")
+    spec_ref = {"sources": srcs,
+                "bfs": {"state": bfs["mxscan"].state, "iters": bfs["mxscan"].iters,
+                        "stats": bfs["mxscan"].stats},
+                "bfs-pull": {"state": res.state, "iters": res.iters}}
     o_dist, o_probs, o_secs = spec_oracle_a.result(timeout=900)
     require(np.array_equal(bfs["mxscan"].state, o_dist), "bfs distances differ from scipy's")
     emit({"phase": "spec_main", "program": "bfs", "sources": srcs,
@@ -1694,6 +1741,9 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
             "kcore mxscan: the scan kernel launched fewer times than the rounds")
     o_core, o_inc, o2_secs = spec_oracle_b.result(timeout=900)
     require(np.array_equal(kc["mxscan"].state, o_core), "coreness differs from the host peel")
+    spec_ref["kcore"] = {"state": kc["mxscan"].state, "iters": kc["mxscan"].iters,
+                         "stats": kc["mxscan"].stats}
+    spec_ref["labelprop64"] = o_probs
     gs = kc["mxscan"].graph
     emit({"phase": "spec_main", "program": "kcore", "ne_symmetrized": gs.ne,
           "max_degree": int(gs.in_degrees().max()), "k_max": kc["mxscan"].stats["k_max"],
@@ -1801,7 +1851,7 @@ def spec_phases(torch, np, g, sh, push_plans: dict, kernels: dict, smi: str, dev
           "winners_row": methods.WINNERS.get(("cuda", "sum")),
           "graph": {"pagerank_f32": [g.nv, g.ne], "kcore_int32": [gs.nv, gs.ne]},
           "seconds": time.perf_counter() - t0, "device": smi})
-    return spec_launches
+    return spec_launches, spec_ref
 
 
 def save_graph(np, tmp: str, name: str, g) -> None:
@@ -2455,7 +2505,7 @@ def serve_oracles(scale: int):
 
     g = generate.rmat(scale, EF, seed=0)
     t0 = time.perf_counter()
-    src = pick_sources(g, SERVE_Q, seed=0)
+    src = pick_sources(g, SERVE_APP_Q, seed=0)
     adj = csr_matrix((np.ones(g.ne), (g.col_idx, g.dst_of_edges())), shape=(g.nv, g.nv))
     d = shortest_path(adj, directed=True, unweighted=True, indices=src[:SERVE_BFS])
     dist = np.where(np.isinf(d), g.nv, d).astype(np.int32)
@@ -2500,8 +2550,9 @@ def serve_split(torch, np, g, sh, dev, sources, reps: int = 3) -> dict:
 def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     """Phase 17: the batched query service on the main graph, through the
     apps' library entry with the graph built above: `apps.sssp --serve
-    --serve-queries SERVE_Q --serve-buckets SERVE_BUCKETS -check` and
-    `apps.pagerank --serve -ni ITERS --serve-queries SERVE_Q -check`, each
+    --serve-queries SERVE_APP_Q --serve-buckets SERVE_BUCKETS -check` and
+    `apps.pagerank --serve -ni ITERS --serve-queries SERVE_APP_Q
+    --serve-buckets SERVE_BUCKETS -check`, each
     summary (QPS, latency percentiles, batch occupancy, warm hit ratio)
     with the estimate and the peak memory; every SSSP answer 0 at its
     source with no triangle-inequality violation (the driver's -check),
@@ -2515,17 +2566,17 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
     from lux_tpu_torch.apps import pagerank as pr_app
     from lux_tpu_torch.apps import sssp as sssp_app
     from lux_tpu_torch.serve.batched import resolve_method
-    from lux_tpu_torch.serve.benchmarks import measure_serving
+    from lux_tpu_torch.serve.benchmarks import measure_serving, pick_sources
     from lux_tpu_torch.utils import preflight
 
     t0 = time.perf_counter()
     for k in kernels.values():
         k.launches = 0
     base = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0",
-            "--device", "cuda", "--serve", "--serve-queries", str(SERVE_Q), "-check"]
+            "--device", "cuda", "--serve", "--serve-queries", str(SERVE_APP_Q), "-check",
+            "--serve-buckets", SERVE_BUCKETS]
     runs = {}
-    for app, mod, extra in (("sssp", sssp_app, ["--serve-buckets", SERVE_BUCKETS]),
-                            ("ppr", pr_app, ["-ni", str(ITERS)])):
+    for app, mod, extra in (("sssp", sssp_app, []), ("ppr", pr_app, ["-ni", str(ITERS)])):
         t1 = time.perf_counter()
         res = mod.run(base + extra, graph=g)
         runs[app] = res
@@ -2544,8 +2595,8 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
         require(res.peak_bytes <= res.estimate_bytes,
                 f"serve_main {app}: peak {res.peak_bytes} B over the printed estimate "
                 f"{res.estimate_bytes} B")
-        require(s["completed"] == SERVE_Q and s["timeouts"] == 0,
-                f"serve_main {app}: {s['completed']} of {SERVE_Q} answered")
+        require(s["completed"] == SERVE_APP_Q and s["timeouts"] == 0,
+                f"serve_main {app}: {s['completed']} of {SERVE_APP_Q} answered")
         require(all(a is not None and a.shape == (g.nv,) for a in res.answers),
                 f"serve_main {app}: an answer is missing or misshaped")
     ss, pp = runs["sssp"], runs["ppr"]
@@ -2596,7 +2647,7 @@ def serve_main(torch, np, kernels, smi, dev, g, sh, serve_oracle):
                 f"serve_main measure_serving {method}: no throughput")
         torch.cuda.empty_cache()
     emit({"phase": "serve_main", "q": SERVE_Q, "split_ms": serve_split(
-        torch, np, g, sh, dev, o_src), "device": smi})
+        torch, np, g, sh, dev, pick_sources(g, SERVE_Q, seed=0)), "device": smi})
     torch.cuda.empty_cache()
     counts = {name: k.launches for name, k in kernels.items()}
     emit({"phase": "serve_main", "launches": counts, "seconds": time.perf_counter() - t0})
@@ -2673,7 +2724,7 @@ def mutate_oracles(scale: int):
         np.concatenate([np.asarray(cur.col_idx, np.int64)[keep], inserts[0]]),
         np.concatenate([cur.dst_of_edges().astype(np.int64)[keep], inserts[1]]), g.nv)
     start = int(np.argmax(np.bincount(g.col_idx, minlength=g.nv)))
-    sources = pick_sources(g, SERVE_Q, seed=0)[:SERVE_BFS]
+    sources = pick_sources(g, SERVE_APP_Q, seed=0)[:SERVE_BFS]
     adj = csr_matrix((np.ones(merged.ne), (merged.col_idx, merged.dst_of_edges())),
                      shape=(g.nv, g.nv))
     d = shortest_path(adj, directed=True, unweighted=True,
@@ -2910,7 +2961,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     SSSP from the largest out-degree, components), a one-edge warm-up
     batch refreshed, then the 1 % churn (mutate_churn) applied as two
     batches; the three refreshes timed best of two, the two runs bitwise
-    equal; batched SSSP serving (Q = SERVE_Q, scatter) through a
+    equal; batched SSSP serving (Q = SERVE_APP_Q, scatter) through a
     WarmEngineCache holding the overlay, with the scheduler; compaction
     (snapshot + invalidation report); the cold legs: read_lux of the
     snapshot, the shard builds with the same cuts, the expand-pf plan
@@ -3031,9 +3082,9 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     del ov_dev, s0
     # serving: the overlay installed in a warm cache, through the scheduler
     t0 = time.perf_counter()
-    sources = pick_sources(g, SERVE_Q, seed=0)
+    sources = pick_sources(g, SERVE_APP_Q, seed=0)
     ostatic, oarr = mg.pull_overlay()
-    cache = WarmEngineCache(mg.pull_shards, apps=("sssp",), q_buckets=(SERVE_Q,),
+    cache = WarmEngineCache(mg.pull_shards, apps=("sssp",), q_buckets=(SERVE_APP_Q,),
                             method="scatter", overlay_static=ostatic, device=dev)
     cache.prewarm()
     cache.set_overlay(1, oarr)
@@ -3056,7 +3107,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
     shutil.copyfile(snap, churn_snap)
     inval = rep["invalidation"]
     merged_sha = edge_sha(np, mg.base)
-    cold_eng = batched.BatchedEngine(mg.pull_shards, "sssp", SERVE_Q, method="scatter",
+    cold_eng = batched.BatchedEngine(mg.pull_shards, "sssp", SERVE_APP_Q, method="scatter",
                                      device=dev)
     cold_serve = cold_eng.run(sources).state
     require(np.array_equal(live, cold_serve),
@@ -3140,7 +3191,7 @@ def mutate_main(torch, np, kernels, smi, dev, g, tmp, mutate_oracle, routed, rep
           "pagerank_iteration_ms": iter_ms, "host_seconds": host_s,
           "invalidated_bucket_fraction": inval["fraction"], "invalidation": inval,
           "apply_s": apply_s, "compact_s": compact_s, "delta_occupancy": occ, "parts": P,
-          "serve": {"q": SERVE_Q, "method": "scatter", "seconds": serve_s,
+          "serve": {"q": SERVE_APP_Q, "method": "scatter", "seconds": serve_s,
                     "bfs_checked": SERVE_BFS},
           "plan_cache": {"build": built, "load": loaded}, "oracle_seconds": o["seconds"],
           "device": smi})
@@ -3496,15 +3547,26 @@ def cold_profile_dir(torch, kernels, smi, dev, g, pallas_counts, snap):
         # the device's time for the work, not the host's: a sleeping
         # kernel queued first lets the host enqueue the whole window
         # before the start event runs, as the trace's kernels ran
-        # back to back
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(dev)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        profiled_work()
-        end.record()
-        torch.cuda.synchronize(dev)
+        # back to back.  A host slowed by the oracle pool can take longer
+        # than the sleep to enqueue the window (the gaps would then count
+        # as the work's): the head start grows until it covers the enqueue
+        cycles = SLEEP_CYCLES
+        for _ in range(3):
+            head = torch.cuda.Event(enable_timing=True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            head.record()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            profiled_work()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            torch.cuda.synchronize(dev)
+            if enqueue_ms < head.elapsed_time(start):
+                break
+            cycles *= 8
         return start.elapsed_time(end)
 
     profiled_work()
@@ -3679,18 +3741,18 @@ def fleet_main(torch, np, kernels, smi, dev, snap, serve_out, churn_snap):
     graph as a .lux snapshot); FLEET_WORKERS replica workers are CUDA
     processes started through the launcher (serve/fleet/bench.start_fleet,
     kernels built once in this process first) with apps FLEET_APPS and
-    buckets FLEET_BUCKETS, the controller here.  Under auto: the 64
-    serving sources of phase 17 for both apps at once, SSSP bitwise and
+    buckets FLEET_BUCKETS, the controller here.  Under auto: the
+    SERVE_APP_Q serving sources of phase 17 for both apps at once, SSSP bitwise and
     PPR within FLEET_RTOL of phase 17's in-process answers; then the
     compacted 1 %-churn snapshot of phase 18 published through
-    mutate/compact.publish_to_fleet while a 64-query burst is in flight:
+    mutate/compact.publish_to_fleet while a burst of them is in flight:
     nothing shed, every burst answer the old graph's or the new one's,
-    and after the commit all 64 bitwise a fresh single-process engine on
+    and after the commit all of them bitwise a fresh single-process engine on
     the snapshot (its first SERVE_BFS also equal phase 18's oracle).
     Under scatter (SSSP only: scatter's f32 index_add_ sums PPR in atomic
     order) with fault/drills.worker_kill_mid_burst in the workers'
     LUX_FAULT_PLAN: FLEET_VICTIM SIGKILLs itself at its FLEET_NTH query
-    frame, and every query of the 64-source burst is answered by the
+    frame, and every query of the sources' burst is answered by the
     survivor, bitwise phase 17's answers.  Last,
     serve/fleet/bench.measure_fleet_saturation at widths FLEET_WIDTHS
     under scatter: QPS and p99 at the knee.  Each worker's peak device
@@ -3731,7 +3793,7 @@ def fleet_main(torch, np, kernels, smi, dev, snap, serve_out, churn_snap):
         t1 = time.perf_counter()
         g2 = read_lux(churn_snap, mmap=False)
         sh2 = build_pull_shards(g2, 1)
-        eng = BatchedEngine(sh2, "sssp", SERVE_Q, method="auto", device=dev)
+        eng = BatchedEngine(sh2, "sssp", len(sources), method="auto", device=dev)
         want_new = eng.run(sources).state
         fresh_s = time.perf_counter() - t1
         del eng, sh2, g2
@@ -4181,7 +4243,7 @@ def live_main(torch, np, kernels, smi, dev, g, snap, start, plan_dir, live_oracl
 
     The mixed window (serve/live/bench.mixed_window): a writer admits
     LIVE_BATCHES churn batches of LIVE_ROWS rows while LIVE_READERS
-    closed-loop readers send SSSP queries over the 64 serving sources, a
+    closed-loop readers send SSSP queries over the 16 serving sources, a
     quarter of them bounded by the last acknowledged generation; batch
     LIVE_COMPACT_AT overflows the workers' capacity and escalates to a
     fleet compaction.  Then one refresh_fleet (the standing states' first
@@ -4828,11 +4890,13 @@ def disk_main(torch, np, kernels, smi, dev, tmp, g, start, o_dist, o_labels, lon
 
 DIST_RANKS = 2  # gloo ranks that share the card in runs (b)-(d)
 DIST_PALLAS_PARTS = 2  # the block-CSR runs keep one part a rank
-DIST_DEADLINE_S = 240.0  # a spawn group that outlives this is killed and fails the phase
+DIST_DEADLINE_S = 360.0  # a spawn group that outlives this is killed and fails the phase
 DIST_KERNEL = {"allgather": "mxscan_segmented", "pallas": "spmv_blockcsr",
                "cf-app": "spmv_blockcsr_2d", "cf": "spmv_blockcsr_2d"}
 DIST_PUSH_PARTS = 4  # the gloo push runs: 2 ranks of 2 resident parts (pallas: 2 parts)
 DIST_DELTA = 25  # the distributed --delta run's width (delta_main's first)
+#: the 2-D grids: 4 gloo ranks on the card, 2 part rows x 2 edge or feat shards
+DIST_GRID_RANKS, DIST_GRID_PARTS, DIST_GRID_SHARDS = 4, 2, 2
 
 
 def dist_hold(torch, got, want64, what: str) -> float:
@@ -4972,7 +5036,10 @@ def dist_rank(pg, runs, tmp):
     graph its options name (``graph``: a saved one, else -file), under
     their ``env``, then (``split``) one more fenced run to convergence for
     the exchange's split, then the kernel its ``hold`` names held on this
-    rank's part.
+    rank's part.  A "run" run is ``apps.run.run(argv)`` on the main graph;
+    "edge2d" ``apps.pagerank.run(argv)`` on the main graph and "feat"
+    ``apps.colfilter.run(argv)`` on the rating graph with the program's
+    step at CF_GAMMA, each then timing its split on a further fenced run.
     Returns {label: {"state" (rank 0), "seconds", "launches", ...}}."""
     import numpy as np
     import torch
@@ -4995,6 +5062,41 @@ def dist_rank(pg, runs, tmp):
         spawn.reset_launches()
         t0 = time.perf_counter()
         row = {}
+        if kind == "run":
+            # a spec workload through apps/run.py on the main graph
+            from lux_tpu_torch.apps import run as run_app
+
+            res = run_app.run(argv, graph=load_saved_graph(np, csc, tmp, "main"))
+            torch.cuda.synchronize()
+            row.update(state=res.state if pg.rank == 0 else None, seconds=res.seconds,
+                       gteps=res.gteps, rc=res.rc, iters=res.iters, stats=res.stats,
+                       launches=spawn.kernel_launches(), wall_s=time.perf_counter() - t0)
+            del res
+            out[label] = row
+            continue
+        if kind in ("edge2d", "feat"):
+            # the 2-D grids through the apps: PageRank on the main graph,
+            # CF on the rating graph with the accuracy runs' step
+            if kind == "edge2d":
+                res = pr_app.run(argv, graph=load_saved_graph(np, csc, tmp, "main"))
+                state = res.ranks
+            else:
+                plain_program = cf_app.program
+                cf_app.program = lambda cfg: cf_model.CFProgram(
+                    dtype=cfg.dtype, err_dot=cf_model._resolve_err_dot(None), gamma=CF_GAMMA)
+                try:
+                    res = cf_app.run(argv, graph=load_saved_graph(np, csc, tmp, "cf"))
+                finally:
+                    cf_app.program = plain_program
+                state = res.state
+            torch.cuda.synchronize()
+            ds, block = res.dist
+            row.update(state=state, seconds=res.seconds, gteps=res.gteps, rc=res.rc,
+                       launches=spawn.kernel_launches(), wall_s=time.perf_counter() - t0)
+            row["exchange"] = ds.exchange_split(block, ITERS)
+            del res, ds, block
+            out[label] = row
+            continue
         if kind in ("sssp", "components"):
             # the distributed push through the app; the graph handed over
             # from the smoke's scratch directory (or -file)
@@ -5091,7 +5193,48 @@ def dist_push_check(np, label: str, kind: str, argv: list, per_rank: list, want:
             "kernel": kernel}
 
 
-def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, push_ref):
+def dist_workload_check(np, label: str, per_rank: list, want: dict, g_nv: int):
+    """A distributed spec workload run (apps/run.py --distributed) against
+    phase 11's single-process run: bfs and kcore bitwise in distances or
+    coreness, iterations (peel rounds) and, for the push, traversed edges
+    and dense rounds; labelprop within LP_RTOL / LP_ATOL of the float64
+    oracle; every rank's exit code 0; kernel 2 launched at least once a
+    dense round (the push) or an iteration (the pull-until rounds, the
+    peel's rounds) in every rank, on the mxscan runs."""
+    lead = per_rank[0]
+    state = lead["state"]
+    require(state is not None, f"dist {label}: no state on rank 0")
+    require(all(r["rc"] == 0 for r in per_rank), f"dist {label}: a rank's -check failed")
+    out = {}
+    if label == "labelprop":
+        err = float(np.max(np.abs(state - want["labelprop64"])))
+        require(bool(np.isfinite(state).all())
+                and np.allclose(state, want["labelprop64"], rtol=LP_RTOL, atol=LP_ATOL),
+                f"dist labelprop: off the float64 oracle by {err}")
+        return {"max_abs_err_vs_f64": err, "rtol": LP_RTOL, "atol": LP_ATOL}
+    ref = want[{"bfs-pull": "bfs-pull", "kcore": "kcore"}.get(label, "bfs")]
+    require(np.array_equal(state, ref["state"]),
+            f"dist {label}: rank 0's state differs from phase 11's single-process run")
+    for r in per_rank:
+        require(r["iters"] == ref["iters"],
+                f"dist {label}: {r['iters']} iterations, phase 11's run {ref['iters']}")
+        if label.startswith("bfs-push") or label == "kcore":
+            require(r["stats"] == ref["stats"],
+                    f"dist {label}: stats {r['stats']} differ from phase 11's {ref['stats']}")
+    out.update(bitwise_single_process=True, iters=lead["iters"], stats=lead["stats"],
+               reached=int((state < g_nv).sum()) if label.startswith("bfs") else None)
+    if "ring" not in label:  # the ring push runs the scatter method: no kernel
+        need = max(lead["stats"].get("dense_rounds", lead["iters"]), 1)
+        got = [r["launches"]["mxscan_segmented"] for r in per_rank]
+        require(all(n >= need for n in got),
+                f"dist {label}: mxscan_segmented launched {got} times in the ranks over "
+                f"{need} rounds")
+        out["kernel"] = "mxscan_segmented"
+    return out
+
+
+def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, push_ref,
+              spec_ref):
     """Phase dist: the distributed pull and push engines (parallel/,
     engine/push) as ranks that share the card.  (a) NCCL, one rank holding the 8 parts of the RMAT
     22 file: allgather + mxscan PageRank, bitwise the single-process
@@ -5105,7 +5248,15 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
     gamma CF_GAMMA (within CF_RTOL of cf_oracle_f64).  Then the push
     runs of each group (the module docstring, phase 25), each held by
     dist_push_check to its single-process twin in ``push_ref`` (or
-    ``disk["sssp"]``).  Every rank's counters must show its kernel
+    ``disk["sssp"]``), and the spec workloads through ``apps.run
+    --distributed`` (bfs push over allgather and ring, bfs pull-until,
+    kcore, labelprop), held by dist_workload_check to phase 11's runs
+    (``spec_ref``).  (e) gloo, DIST_GRID_RANKS ranks as a 2 x 2 grid: the
+    2-D meshes through the apps, PageRank ``--edge-shards 2 -ng 2
+    --method scan`` within RANK_RTOL of the float64 oracle ``pr_ref20``,
+    and CF ``--feat-shards 2 -ng 2`` over allgather and ring at gamma
+    CF_GAMMA within CF_RTOL of ``v64``, each with its split on the lead
+    rank.  Every rank's counters must show its kernel
     launched on the run and every rank's exit code must be 0; each run
     prints ms an iteration, and one push run of each exchange (and every
     pull run) its split into compute, staging and collective.
@@ -5127,6 +5278,13 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             "--distributed", "--device", "cuda", "-check"]
     ng = ["-ng", str(DIST_PUSH_PARTS)]
     ngp = ["-ng", str(DIST_PALLAS_PARTS), "--method", "pallas"]
+    bfs_src = ["--sources", ",".join(map(str, spec_ref["sources"]))]
+    main_pr = ["--rmat-scale", str(SCALE), "--rmat-ef", str(EF), "--seed", "0", "-ni",
+               str(ITERS), "--distributed", "--device", "cuda", "-check"]
+    # no -check on the CF runs: they are held to the float64 oracle, and
+    # check_training's float64 pass over 16.8 M ratings is host seconds
+    grid_cf = [a for a in cf_argv(SCALE) if a != "-check"] + [
+        "-ng", str(DIST_GRID_PARTS), "--feat-shards", str(DIST_GRID_SHARDS), "--distributed"]
     push_want = {
         "push-nccl": sf, "push-allgather": push_ref["sssp"], "push-tree": push_ref["sssp"],
         "cc-allgather": push_ref["components"], "cc-ring": push_ref["components"],
@@ -5167,7 +5325,22 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             ("push-repart", "sssp", main + ng + [
                 "--method", "mxscan", "-start", str(tail["start"]), "--repartition-every",
                 "1", "--repartition-threshold", str(REPART_THRESHOLD)],
-             {"graph": "main"})]))
+             {"graph": "main"}),
+            # the spec workloads' mesh drivers (apps/run.py --distributed)
+            ("bfs-push", "run", ["bfs"] + main + ng + bfs_src + ["--method", "mxscan"]),
+            ("bfs-push-ring", "run", ["bfs"] + main + ng + bfs_src + [
+                "--exchange", "ring", "--method", "scatter"]),
+            ("bfs-pull", "run", ["bfs"] + main + ng + bfs_src + [
+                "--engine", "pull", "--method", "mxscan"]),
+            ("kcore", "run", ["kcore"] + main + ng + ["--method", "mxscan"]),
+            ("labelprop", "run", ["labelprop"] + main + ng + [
+                "-ni", str(ITERS), "--labels", str(LP_LABELS), "--seed-stride",
+                str(LP_STRIDE)])]),
+        ("e", "gloo", DIST_GRID_RANKS, [
+            ("edge2d", "edge2d", main_pr + ["-ng", str(DIST_GRID_PARTS), "--edge-shards",
+                                            str(DIST_GRID_SHARDS), "--method", "scan"]),
+            ("feat", "feat", grid_cf),
+            ("feat-ring", "feat", grid_cf + ["--exchange", "ring"])]))
     total = {k: 0 for k in kernels}
     rows = []
     for name, backend, world, runs in groups:
@@ -5175,7 +5348,7 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
         try:
             res = spawn.run_ranks(world, dist_rank, (runs, tmp), num_parts=world,
                                   device="cuda", backend=backend,
-                                  deadline_s=DIST_DEADLINE_S, threads=4,
+                                  deadline_s=DIST_DEADLINE_S, threads=8 // max(world, 2),
                                   env={"LUX_DIST_BACKEND": backend})
         except spawn.RankFailure as e:
             raise PhaseFailure(f"dist {name}: {e}")
@@ -5186,6 +5359,15 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             for c in launches:
                 for k in total:
                     total[k] += c.get(k, 0)
+            if kind == "run":
+                err = dist_workload_check(np, label, per_rank, spec_ref, 1 << SCALE)
+                emit({"phase": "dist", "run": label, "group": name, "backend": backend,
+                      "ranks": world, "argv": argv, **err,
+                      "ms_per_iter": lead["seconds"] * 1e3 / max(lead["iters"], 1),
+                      "seconds": lead["seconds"], "gteps": lead["gteps"],
+                      "launches": launches, "wall_s": [r["wall_s"] for r in per_rank],
+                      "rank_devices": [r["device"] for r in res], "device": smi})
+                continue
             if kind in ("sssp", "components"):
                 err = dist_push_check(np, label, kind, argv, per_rank, push_want[label])
                 require(label != "push-repart" or lead["recuts"] > 0,
@@ -5217,6 +5399,17 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
                                    / np.abs(pr_ref20.astype(np.float64))))
                 require(rel <= RANK_RTOL, f"dist {label}: off the float64 oracle by {rel}")
                 err = {"max_rel_err_vs_f64": rel}
+            elif kind == "edge2d":
+                rel = float(np.max(np.abs(state.astype(np.float64) - pr_ref20)
+                                   / np.abs(pr_ref20.astype(np.float64))))
+                require(rel <= RANK_RTOL, f"dist {label}: off the float64 oracle by {rel}")
+                err = {"max_rel_err_vs_f64": rel}
+            elif kind == "feat":
+                require(state.shape == v64.shape, f"dist {label}: state {state.shape}, "
+                                                  f"the oracle's {v64.shape}")
+                rel = float(np.max(np.abs(state - v64) / np.abs(v64)))
+                require(rel <= CF_RTOL, f"dist {label}: off the float64 oracle by {rel}")
+                err = {"max_rel_err_vs_f64": rel, "gamma": CF_GAMMA}
             elif kind == "cf-app":
                 rel = float(np.max(np.abs(state - cf_pallas20) / np.abs(cf_pallas20)))
                 require(rel <= CF_RTOL, f"dist {label}: off the single-process pallas run "
@@ -5486,8 +5679,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11-12. the spec workloads, their kernel callers, the sum race
-    spec_launches = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
-                                spec_oracle_a, spec_oracle_b)
+    spec_launches, spec_ref = spec_phases(torch, np, g, sh, push_plans, kernels, smi, dev,
+                                          spec_oracle_a, spec_oracle_b)
     torch.cuda.empty_cache()
 
     # 13-14. the long runs: delta-stepping and adaptive repartitioning
@@ -5773,8 +5966,8 @@ def main() -> int:
 
     # 25. the distributed pull engine: ranks that share the card
     dist_launches, dist_rows = dist_main(torch, np, kernels, smi, _TMP, disk, pr_ref20,
-                                         cf_pallas20, v64, push_ref)
-    del disk, pr_ref20, cf_pallas20, v64, push_ref
+                                         cf_pallas20, v64, push_ref, spec_ref)
+    del disk, pr_ref20, cf_pallas20, v64, push_ref, spec_ref
     obs_log_main(smi)
 
     table = []
@@ -5837,6 +6030,7 @@ def main() -> int:
         for errs in (mutate_err, live_err):
             if row["name"] in errs:
                 row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
+    print(json.dumps({"timeline": timeline()}), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_smoke,
           "loadavg": os.getloadavg()})
     emit({"kernels": table})

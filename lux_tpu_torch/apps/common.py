@@ -91,8 +91,10 @@ def check_distributed(cfg: RunConfig, prog, was_auto: bool) -> None:
     needs a sum program without destination reads, pallas runs on the
     allgather exchange, and the relayouts bind to the allgather pull
     layout."""
-    import sys
-
+    if cfg.feat_shards > 1:
+        return check_feat(cfg, prog, was_auto)
+    if cfg.edge_shards > 1:
+        return check_edge2d(cfg, prog, was_auto)
     if cfg.exchange != "allgather" and not cfg.distributed:
         raise SystemExit(f"--exchange {cfg.exchange} requires --distributed")
     if not cfg.distributed:
@@ -113,22 +115,110 @@ def check_distributed(cfg: RunConfig, prog, was_auto: bool) -> None:
             "--sort-segments/--compact-gather relay out the allgather pull "
             "layout; the bucket (ring/scatter) layouts have their own edge "
             "orders and ship their own slices")
-    from lux_tpu_torch.parallel.ring import bucketed_method
-
-    try:
-        method = bucketed_method(cfg.method, was_auto)
-    except ValueError as e:
-        raise SystemExit(f"--exchange {cfg.exchange}: {e}")
-    if method != cfg.method:
-        print(f"# --method auto: the {cfg.method} winner falls back to {method} on "
-              f"--exchange {cfg.exchange} (bucketed reductions run scan/scatter)",
-              file=sys.stderr)
-        cfg.method = method
+    _downgrade_scan_family(cfg, was_auto, f"--exchange {cfg.exchange}")
     if cfg.exchange == "scatter" and (
             prog.reduce != "sum" or getattr(prog, "needs_dst_state", False)):
         raise SystemExit(
             "--exchange scatter needs a sum-reducible program without "
             "per-edge destination reads; use --exchange ring or allgather")
+
+
+def _downgrade_scan_family(cfg: RunConfig, was_auto: bool, where: str) -> None:
+    """The method a bucketed or chunked layout runs (scan or scatter;
+    parallel/ring.bucketed_method): an ``auto`` winner it cannot run
+    falls back to scan, with a note; an explicit one is refused."""
+    import sys
+
+    from lux_tpu_torch.parallel.ring import bucketed_method
+
+    try:
+        method = bucketed_method(cfg.method, was_auto)
+    except ValueError as e:
+        raise SystemExit(f"{where}: {e}")
+    if method != cfg.method:
+        print(f"# --method auto: the {cfg.method} winner falls back to {method} on "
+              f"{where} (bucketed reductions run scan/scatter)", file=sys.stderr)
+        cfg.method = method
+
+
+def _refuse_2d_relayouts(cfg: RunConfig) -> None:
+    if cfg.sort_segments or cfg.compact_gather:
+        raise SystemExit(
+            "--sort-segments/--compact-gather relay out the allgather pull layout; "
+            "the edge-sharded and feat-sharded layouts have their own edge orders and "
+            "ship their own slices")
+
+
+def check_feat(cfg: RunConfig, prog, was_auto: bool) -> None:
+    """The reference's --feat-shards rules (``lux_tpu.apps.common
+    .validate_exchange``): CF's wide state only, --distributed, the
+    allgather or ring exchange (scan/scatter on the ring), no pallas, F
+    dividing K, and no -verbose or checkpointing; then the grid: the
+    ranks a multiple of F, -ng a multiple of the part rows."""
+    from lux_tpu_torch.parallel.multihost import dist_world
+
+    F = cfg.feat_shards
+    if getattr(prog, "k", 1) <= 1:
+        raise SystemExit(
+            "--feat-shards shards a wide (V, K) latent state; this app's state has no "
+            "feature dim (colfilter only)")
+    if not cfg.distributed:
+        raise SystemExit("--feat-shards requires --distributed")
+    if cfg.exchange not in ("allgather", "ring") or cfg.edge_shards > 1:
+        raise SystemExit(
+            "--feat-shards (2-D parts x feat mesh) runs on the allgather or ring "
+            "exchange; it cannot combine with --exchange scatter or --edge-shards")
+    _refuse_2d_relayouts(cfg)
+    if cfg.exchange == "ring":
+        _downgrade_scan_family(cfg, was_auto, "--feat-shards --exchange ring")
+    if cfg.method == "pallas":
+        raise SystemExit(
+            "--feat-shards supports --method scan/scatter/cumsum/mxsum (the kernel "
+            "path has its own distribution)")
+    if prog.k % F:
+        raise SystemExit(f"--feat-shards {F} must divide the latent dim K={prog.k}")
+    if cfg.verbose or cfg.ckpt_every or cfg.ckpt_dir:
+        raise SystemExit(
+            "--feat-shards: -verbose/checkpointing are not wired to the 2-D feat mesh; "
+            "drop --feat-shards for those")
+    W = dist_world()
+    if W < F:
+        raise SystemExit(f"--feat-shards {F}: needs at least that many devices (ranks), "
+                         f"{W} available")
+    if W % F or cfg.num_parts % (W // F):
+        raise SystemExit(
+            f"--feat-shards {F}: {W} ranks form {W // F} part rows of {F} feat shards "
+            f"only when F divides the rank count and the part rows divide -ng "
+            f"({cfg.num_parts})")
+
+
+def check_edge2d(cfg: RunConfig, prog, was_auto: bool) -> None:
+    """The reference's --edge-shards rules: --distributed, the 2-D grid's
+    own exchange (not ring/scatter), scan or scatter (an auto winner
+    downgraded), one part a part row: -ng x --edge-shards ranks."""
+    from lux_tpu_torch.parallel.multihost import dist_world
+
+    if not cfg.distributed:
+        raise SystemExit("--edge-shards requires --distributed")
+    if cfg.exchange != "allgather":
+        raise SystemExit(
+            "--edge-shards (2-D mesh) has its own exchange; it cannot combine with "
+            "--exchange ring/scatter")
+    _refuse_2d_relayouts(cfg)
+    if cfg.method == "pallas":
+        raise SystemExit("--method pallas runs on the allgather exchange, 1-D mesh")
+    if cfg.method in ("cumsum", "mxsum") or (
+            cfg.method == "mxscan" and not was_auto):
+        raise SystemExit(
+            "--edge-shards supports --method scan or scatter (edge chunks carry no "
+            "row_ptr for prefix-diff reduces; the mxscan kernel is confined to the csc "
+            "engines here)")
+    _downgrade_scan_family(cfg, was_auto, "--edge-shards")
+    need, W = cfg.num_parts * cfg.edge_shards, dist_world()
+    if W != need:
+        raise SystemExit(
+            f"--edge-shards: {cfg.num_parts} x {cfg.edge_shards} = {need} devices needed "
+            f"(one rank each), {W} available")
 
 
 def refuse_relayouts(cfg: RunConfig) -> None:
@@ -389,11 +479,12 @@ def run_streamed(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1,
     from lux_tpu_torch.engine import stream as stream_eng
 
     if (cfg.method == "pallas" or cfg.verbose or cfg.ckpt_every or cfg.ckpt_dir
-            or cfg.repartition_every or cfg.route_gather):
+            or cfg.repartition_every or cfg.route_gather or cfg.edge_shards > 1
+            or cfg.feat_shards > 1):
         raise SystemExit(
             "--stream-hbm-gib is the single-process host-offload mode; it "
             "does not combine with --method pallas/-verbose/checkpointing/"
-            "--repartition-every/--route-gather")
+            "--repartition-every/--route-gather/--edge-shards/--feat-shards")
     validate_exchange(cfg, prog, dev)
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
     t0 = time.perf_counter()
@@ -588,12 +679,17 @@ def main_rank() -> bool:
 def make_mesh_if(cfg: RunConfig, dev):
     """This rank's parallel.mesh.PartsGroup under --distributed (joining
     the process group: parallel/multihost.initialize reads the launcher's
-    environment and LUX_DIST_BACKEND), else None."""
+    environment and LUX_DIST_BACKEND), its mesh.Grid2D under
+    --edge-shards or --feat-shards, else None."""
     if not cfg.distributed:
         return None
     from lux_tpu_torch.parallel import multihost
 
     try:
+        if cfg.edge_shards > 1:
+            return multihost.initialize_grid(cfg.num_parts, cfg.edge_shards, "edge", dev)
+        if cfg.feat_shards > 1:
+            return multihost.initialize_grid(cfg.num_parts, cfg.feat_shards, "feat", dev)
         return multihost.initialize(cfg.num_parts, dev)
     except ValueError as e:
         raise SystemExit(f"--distributed: {e}")
@@ -609,15 +705,21 @@ def require_parts_fit_devices(cfg: RunConfig, pg, what: str) -> None:
             "parts a rank)")
 
 
-def build_exchange_shards(g: HostGraph, cfg: RunConfig, pg):
+def build_exchange_shards(g: HostGraph, cfg: RunConfig, pg, grid=None):
     """This rank's layout for the selected exchange: the block-CSR parts
-    (--method pallas, its one part), the pull shards (allgather: this
-    rank's parts from the file's byte ranges with -file, else built), or
-    the ring / reduce-scatter buckets of its parts over the same pull
-    geometry."""
+    (--method pallas, its one part), its (part, chunk) of the 2-D edge
+    grid (``grid``, --edge-shards; with -file read by pread), the pull
+    shards (allgather and the feat grid: this rank's parts from the
+    file's byte ranges with -file, else built), or the ring /
+    reduce-scatter buckets of its parts over the same pull geometry."""
     from lux_tpu_torch.graph import sharded_load
 
     P, mine = cfg.num_parts, list(pg.parts)
+    if cfg.edge_shards > 1:
+        from lux_tpu_torch.parallel.edge2d import build_edge2d_shards
+
+        return build_edge2d_shards(g, P, cfg.edge_shards, parts_subset=mine,
+                                   chunks_subset=[grid.index], path=cfg.file)
     if cfg.method == "pallas":
         from lux_tpu_torch.parallel import pallas_dist
 
@@ -647,6 +749,10 @@ def estimate_dist(layout, cfg: RunConfig, pg, state_width: int = 1,
     block-CSR pull."""
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
     spec = layout.spec
+    if cfg.edge_shards > 1:
+        return preflight.estimate_edge2d(spec, layout.e2_pad, state_width, sbytes)
+    if cfg.feat_shards > 1:
+        state_width //= cfg.feat_shards  # a rank holds K/F features of its parts
     gathered = spec.gathered_size * state_width * sbytes
     if cfg.method == "pallas":
         a = layout.arrays
@@ -679,13 +785,23 @@ class DistSetup:
     method: str
     pallas: bool
     arrays: object = None  # allgather: this rank's (k, ...) ShardArrays
+    #: --edge-shards / --feat-shards: this rank's mesh.Grid2D (``pg`` is
+    #: then its parts-axis group)
+    grid: object = None
 
     def iterate(self, state, n: int) -> None:
         """n iterations in place on this rank's (k, V, ...) block."""
-        from lux_tpu_torch.parallel import dist, pallas_dist, ring, scatter
+        from lux_tpu_torch.parallel import dist, edge2d, feat, pallas_dist, ring, scatter
 
         prog, pg, lay = self.prog, self.pg, self.layout
-        if self.pallas:
+        if self.grid is not None and self.grid.axis == "edge":
+            out = edge2d.run_pull_fixed_2d(prog, lay, state, n, self.grid, self.method)
+        elif self.grid is not None and self.exchange == "ring":
+            out = feat.run_cf_feat_ring(prog, lay, state, n, self.grid, self.method)
+        elif self.grid is not None:
+            out = feat.run_cf_feat_dist(prog, lay.spec, self.arrays, state, n, self.grid,
+                                        self.method)
+        elif self.pallas:
             run = (pallas_dist.run_cf_pallas_dist if prog.needs_dst_state
                    else pallas_dist.run_pull_fixed_pallas_dist)
             out = run(prog, lay, state, n, pg)
@@ -698,12 +814,29 @@ class DistSetup:
                                            self.method)
         state.copy_(out)
 
+    def assemble(self, state) -> Optional[np.ndarray]:
+        """The stacked (P, V, ...) global state on rank 0 (float32), None
+        elsewhere (every rank takes part)."""
+        from lux_tpu_torch.parallel import edge2d, feat, multihost
+
+        if self.grid is None:
+            return multihost.assemble_global(self.pg, state)
+        mod = edge2d if self.grid.axis == "edge" else feat
+        return mod.assemble_global(self.grid, state)
+
     def read(self, state) -> Optional[np.ndarray]:
         """The (nv, ...) global state on rank 0 (float32), None elsewhere."""
-        from lux_tpu_torch.parallel import multihost
-
-        stacked = multihost.assemble_global(self.pg, state)
+        stacked = self.assemble(state)
         return None if stacked is None else self.layout.scatter_to_global(stacked)
+
+    def barrier(self) -> None:
+        """Line up every rank of the run (the whole grid under a 2-D mesh)."""
+        import torch.distributed as tdist
+
+        if self.grid is None:
+            self.pg.barrier()
+        else:
+            tdist.barrier()
 
     def exchange_split(self, state, n: int) -> dict:
         """ms an iteration of n more iterations on a copy of ``state``,
@@ -723,11 +856,15 @@ class DistSetup:
             pg.timed = False
         t = pg.times
         per = 1e3 / max(n, 1)
-        return {"ms_per_iter": total * per,
-                "compute_ms": (total - t.stage_s - t.collective_s) * per,
-                "staging_ms": t.stage_s * per, "collective_ms": t.collective_s * per,
-                "exchanges": t.calls, "backend": pg.backend, "ranks": pg.world,
-                "resident_parts": pg.k, "staged": pg.staged}
+        out = {"ms_per_iter": total * per,
+               "compute_ms": (total - t.stage_s - t.collective_s) * per,
+               "staging_ms": t.stage_s * per, "collective_ms": t.collective_s * per,
+               "exchanges": t.calls, "backend": pg.backend, "ranks": pg.world,
+               "resident_parts": pg.k, "staged": pg.staged}
+        if self.grid is not None:
+            out.update(ranks=self.grid.world,
+                       grid=f"{pg.world}x{self.grid.size} {self.grid.axis}")
+        return out
 
 
 def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
@@ -739,22 +876,52 @@ def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
     from lux_tpu_torch.parallel.mesh import shard_stacked
     from lux_tpu_torch.parallel.ring import vertex_view
 
-    pg = make_mesh_if(cfg, dev)
+    grid = pg = make_mesh_if(cfg, dev)
+    if cfg.edge_shards > 1 or cfg.feat_shards > 1:
+        pg = grid.parts
+    else:
+        grid = None
     pallas = cfg.method == "pallas"
     if pallas:
         require_parts_fit_devices(cfg, pg, "--method pallas")
     t0 = time.perf_counter()
-    layout = build_exchange_shards(g, cfg, pg)
+    layout = build_exchange_shards(g, cfg, pg, grid)
     kind = "block-CSR" if pallas else cfg.exchange
+    if grid is not None:
+        kind = f"{kind} on a {pg.world}x{grid.size} {grid.axis} grid"
+    world = pg.world if grid is None else grid.world
     est = estimate_dist(layout, cfg, pg, state_width, dst_state=prog.needs_dst_state)
     if main_rank():
-        report_layout(f"{kind} (rank 0 of {pg.world})", layout, time.perf_counter() - t0)
+        report_layout(f"{kind} (rank 0 of {world})", layout, time.perf_counter() - t0)
         print(est)
-    preflight.check_fits(est, device=pg.device)
+    # the 1-D allgather pull's hint names the --edge-shards a grid of these
+    # ranks could run
+    hint = grid is None and cfg.exchange == "allgather" and not pallas
+    preflight.check_fits(est, device=pg.device, spec=layout.spec if hint else None,
+                         state_width=state_width,
+                         state_dtype_bytes=2 if cfg.dtype == "bfloat16" else 4,
+                         max_edge_shards=world // cfg.num_parts if hint else 0)
     if pg.device.type == "cuda":
         cuda_build.load_all()
     arrays = None
-    if pallas:
+    if grid is not None and grid.axis == "edge":
+        from lux_tpu_torch.parallel.edge2d import place_cells
+
+        layout = place_cells(layout, pg.device)
+        state = pull.init_state(prog, layout.arrays)
+    elif grid is not None:
+        from lux_tpu_torch.parallel import feat
+
+        if cfg.exchange == "allgather":
+            arrays = shard_stacked(pg, layout.arrays)
+            state = feat.init_state_feat(prog, arrays, grid)
+        else:
+            view = vertex_view(pg, layout.pull.arrays)
+            layout = dataclasses.replace(
+                layout, pull=dataclasses.replace(layout.pull, arrays=view),
+                rarrays=shard_stacked(pg, layout.rarrays))
+            state = feat.init_state_feat(prog, view, grid)
+    elif pallas:
         layout = dataclasses.replace(layout, arrays=shard_stacked(pg, layout.arrays))
         state = pallas_dist.init_state_pallas(prog, layout).to(pg.device)
     elif cfg.exchange == "allgather":
@@ -769,7 +936,7 @@ def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
             **{f: shard_stacked(pg, getattr(layout, f)) for f in ("rarrays", "sarrays")
                if hasattr(layout, f)})
         state = pull.init_state(prog, view)
-    return DistSetup(prog, pg, layout, cfg.exchange, cfg.method, pallas, arrays), state
+    return DistSetup(prog, pg, layout, cfg.exchange, cfg.method, pallas, arrays, grid), state
 
 
 def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width: int = 1):
@@ -787,7 +954,7 @@ def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width:
     ds, state = setup_dist(cfg, g, dev, prog, state_width)
     state, start_it = resume_or_init(cfg, app, ds.layout, state, g.nv, ds.pg)
     n = max(cfg.num_iters - start_it, 0)
-    stepwise = cfg.verbose and cfg.exchange == "allgather"
+    stepwise = cfg.verbose and cfg.exchange == "allgather" and ds.grid is None
     if cfg.verbose and not stepwise and main_rank():
         print("note: -verbose per-iteration stepping is an allgather-exchange mode; "
               "this run stays fused")
@@ -800,7 +967,7 @@ def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width:
         elif cfg.ckpt_every:
             state, elapsed = run_fixed_dist_chunked(ds, state, start_it, cfg, app)
         else:
-            elapsed = timed_iterations(ds.iterate, state, n, ds.pg.device, ds.pg.barrier)
+            elapsed = timed_iterations(ds.iterate, state, n, ds.pg.device, ds.barrier)
     if cfg.verbose and n:
         split = ds.exchange_split(state, n)
         if main_rank():
@@ -809,15 +976,13 @@ def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width:
     return ds.read(state), elapsed, n, (ds, state)
 
 
-def save_global(cfg: RunConfig, app: str, shards, iteration: int, state, pg=None):
+def save_global(cfg: RunConfig, app: str, shards, iteration: int, state, ds=None):
     """Checkpoint the stacked device state as the layout-independent
     global vector (elastic: any later -ng can resume it); under
-    --distributed ``state`` is this rank's block, gathered to rank 0,
-    which writes."""
-    if pg is not None:
-        from lux_tpu_torch.parallel import multihost
-
-        stacked = multihost.assemble_global(pg, state)
+    --distributed (``ds``, this rank's DistSetup) ``state`` is this
+    rank's block, gathered to rank 0, which writes."""
+    if ds is not None:
+        stacked = ds.assemble(state)
         if stacked is None:
             return None
         glob = shards.scatter_to_global(stacked)
@@ -855,7 +1020,7 @@ def run_pull_stepwise_dist(ds: DistSetup, state, start_it: int, cfg: RunConfig, 
         state = update(ds.arrays, state, acc)
         stats.record_phases(it, nv, lt, ct, t.stop())
         if cfg.ckpt_every and (it + 1) % cfg.ckpt_every == 0:
-            save_global(cfg, app, ds.layout, it + 1, state, ds.pg)
+            save_global(cfg, app, ds.layout, it + 1, state, ds)
     return state, stats
 
 
@@ -872,7 +1037,7 @@ def run_fixed_dist_chunked(ds: DistSetup, state, start_it: int, cfg: RunConfig, 
         compute += t.stop()
         it += n
         if it < cfg.num_iters or cfg.num_iters % cfg.ckpt_every == 0:
-            save_global(cfg, app, ds.layout, it, state, ds.pg)
+            save_global(cfg, app, ds.layout, it, state, ds)
     return state, compute
 
 

@@ -160,6 +160,15 @@ def shard_geometry(row_ptr_global: np.ndarray, num_parts: int,
     return cuts, nv_pad, e_pad
 
 
+def edge2d_chunk_pad(max_part_edges: int, num_edge_shards: int) -> int:
+    """Padded per-chunk edge capacity E2 of the 2-D (parts x edge)
+    layout: one formula shared by the builder
+    (parallel/edge2d.build_edge2d_shards) and the preflight hint
+    (utils/preflight.suggest_edge_shards), so they cannot diverge."""
+    chunk_max = -(-max(1, int(max_part_edges)) // max(1, num_edge_shards))
+    return _round_up(max(1, chunk_max), LANE)
+
+
 def alloc_arrays(num_rows: int, nv_pad: int, e_pad: int) -> ShardArrays:
     """Zeroed stacked arrays for ``num_rows`` parts."""
     return ShardArrays(

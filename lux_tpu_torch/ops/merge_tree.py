@@ -137,8 +137,10 @@ def staged_concat_gather(block: torch.Tensor, pg) -> torch.Tensor:
             send, recv = buf, torch.empty_like(buf)
         t1 = pg.fence() if pg.timed else 0.0
         works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, _wire(send), (pg.rank - s) % W, group=pg.group),
-            dist.P2POp(dist.irecv, _wire(recv), (pg.rank + s) % W, group=pg.group)])
+            dist.P2POp(dist.isend, _wire(send), pg.peer((pg.rank - s) % W),
+                       group=pg.group),
+            dist.P2POp(dist.irecv, _wire(recv), pg.peer((pg.rank + s) % W),
+                       group=pg.group)])
         for w in works:
             w.wait()
         t2 = pg.fence() if pg.timed else 0.0

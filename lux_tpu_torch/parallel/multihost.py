@@ -75,6 +75,60 @@ def rank_device(device: torch.device, backend: str, local_rank: int) -> torch.de
     return torch.device("cuda", local_rank % max(torch.cuda.device_count(), 1))
 
 
+def _join(device: torch.device, backend: Optional[str], init_method: Optional[str],
+          rank: Optional[int], world_size: Optional[int], local_rank: Optional[int],
+          local_world: Optional[int]) -> torch.device:
+    """Join the default process group once a process; returns this
+    rank's device."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        # joined before (by a launcher, or an earlier run in this process):
+        # its backend and device stand, unless the caller asks otherwise
+        current = dist.get_backend()
+        wanted = backend or os.environ.get(BACKEND_ENV, "").strip()
+        if wanted and wanted != current:
+            raise ValueError(f"torch.distributed already runs {current}, not {wanted}")
+        return (torch.device("cuda", torch.cuda.current_device())
+                if device.type == "cuda" else torch.device("cpu"))
+    rank = _env_int("RANK", 0) if rank is None else rank
+    world_size = _env_int("WORLD_SIZE", 1) if world_size is None else world_size
+    local_rank = _env_int("LOCAL_RANK", rank) if local_rank is None else local_rank
+    if local_world is None:
+        local_world = _env_int("LOCAL_WORLD_SIZE", world_size)
+    chosen = resolve_backend(device, backend, local_world)
+    dev = rank_device(device, chosen, local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = {}
+    if chosen == "nccl":
+        kw["device_id"] = dev
+    dist.init_process_group(
+        chosen, init_method=init_method or "env://",
+        rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
+    return dev
+
+
+def _announce(pg: PartsGroup, dev, num_parts: int, where: str = "") -> None:
+    import torch.distributed as dist
+
+    staged = " (collectives staged through pinned host buffers)" if pg.staged else ""
+    print(f"distributed: rank {dist.get_rank()}/{dist.get_world_size()}, backend "
+          f"{pg.backend}{staged}, device {dev}, parts [{pg.lo}, {pg.hi}) of "
+          f"{num_parts}{where}", flush=True)
+
+
+def dist_world() -> int:
+    """The rank count: of the joined group, else the launcher's
+    WORLD_SIZE (1 without one)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return _env_int("WORLD_SIZE", 1)
+
+
 def initialize(num_parts: int, device="cuda", backend: Optional[str] = None,
                init_method: Optional[str] = None, rank: Optional[int] = None,
                world_size: Optional[int] = None, local_rank: Optional[int] = None,
@@ -87,41 +141,26 @@ def initialize(num_parts: int, device="cuda", backend: Optional[str] = None,
     MASTER_PORT); ``init_method`` takes a ``file://`` rendezvous
     instead.  Prints the rank, the backend and the
     device unless ``quiet``."""
-    import torch.distributed as dist
-
-    device = torch.device(device)
-    if dist.is_initialized():
-        # joined before (by a launcher, or an earlier run in this process):
-        # its backend and device stand, unless the caller asks otherwise
-        current = dist.get_backend()
-        wanted = backend or os.environ.get(BACKEND_ENV, "").strip()
-        if wanted and wanted != current:
-            raise ValueError(f"torch.distributed already runs {current}, not {wanted}")
-        dev = (torch.device("cuda", torch.cuda.current_device())
-               if device.type == "cuda" else torch.device("cpu"))
-    else:
-        rank = _env_int("RANK", 0) if rank is None else rank
-        world_size = _env_int("WORLD_SIZE", 1) if world_size is None else world_size
-        local_rank = _env_int("LOCAL_RANK", rank) if local_rank is None else local_rank
-        if local_world is None:
-            local_world = _env_int("LOCAL_WORLD_SIZE", world_size)
-        chosen = resolve_backend(device, backend, local_world)
-        dev = rank_device(device, chosen, local_rank)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
-        kw = {}
-        if chosen == "nccl":
-            kw["device_id"] = dev
-        dist.init_process_group(
-            chosen, init_method=init_method or "env://",
-            rank=rank, world_size=world_size,
-            timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
+    dev = _join(torch.device(device), backend, init_method, rank, world_size, local_rank,
+                local_world)
     pg = make_parts_group(num_parts, dev)
     if not quiet:
-        staged = " (collectives staged through pinned host buffers)" if pg.staged else ""
-        print(f"distributed: rank {pg.rank}/{pg.world}, backend {pg.backend}{staged}, "
-              f"device {dev}, parts [{pg.lo}, {pg.hi}) of {num_parts}", flush=True)
+        _announce(pg, dev, num_parts)
     return pg
+
+
+def initialize_grid(num_parts: int, size: int, axis: str, device="cuda",
+                    backend: Optional[str] = None, quiet: bool = False):
+    """:func:`initialize` for the 2-D meshes: join the default group and
+    return this rank's mesh.Grid2D, the ranks as a (W/size) x size grid
+    of part rows and ``axis`` ("edge" | "feat") shards."""
+    from lux_tpu_torch.parallel.mesh import make_grid
+
+    dev = _join(torch.device(device), backend, None, None, None, None, None)
+    grid = make_grid(num_parts, size, axis, dev)
+    if not quiet:
+        _announce(grid.parts, dev, num_parts, f", {axis} shard {grid.index} of {size}")
+    return grid
 
 
 def shutdown() -> None:

@@ -292,8 +292,10 @@ def ring_sweep(block: torch.Tensor, acc, fold, pg: PartsGroup):
             send, recv = stream, torch.empty_like(stream)
         t1 = pg.fence() if pg.timed else 0.0
         works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, _wire(send), (pg.rank - 1) % W, group=pg.group),
-            dist.P2POp(dist.irecv, _wire(recv), (pg.rank + 1) % W, group=pg.group)])
+            dist.P2POp(dist.isend, _wire(send), pg.peer((pg.rank - 1) % W),
+                       group=pg.group),
+            dist.P2POp(dist.irecv, _wire(recv), pg.peer((pg.rank + 1) % W),
+                       group=pg.group)])
         acc = fold(s, acc, stream)
         t2 = pg.fence() if pg.timed else 0.0
         for w in works:

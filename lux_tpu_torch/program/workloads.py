@@ -25,8 +25,12 @@ Stress corners, by design:
                  The bitsets run as int32 bit patterns (:class:`BitPatterns`):
                  PyTorch's CUDA build has no uint32 arithmetic.
 
-``mesh=`` and ``exchange="ring"`` raise NotImplementedError: the
-distributed drivers come with multi-GPU.
+``mesh=`` (this rank's parallel.mesh.PartsGroup, in a process group of
+torch.distributed) runs a workload over the ranks: bfs on the distributed
+push engine (``exchange="ring"``: its ring dense exchange) or the
+distributed pull-until engine, kcore's levels on the distributed
+pull-until engine, labelprop on the distributed pull; every rank returns
+the global result (its blocks all-gathered).
 """
 from __future__ import annotations
 
@@ -41,24 +45,27 @@ from lux_tpu_torch.engine import pull
 from lux_tpu_torch.graph.csc import HostGraph, from_edge_list
 from lux_tpu_torch.graph.shards import PullShards, build_pull_shards, to_device
 from lux_tpu_torch.ops import expand
+from lux_tpu_torch.parallel.mesh import shard_stacked
 from lux_tpu_torch.program import library
 from lux_tpu_torch.program.spec import SpecProgram, active_changed, bind
 from lux_tpu_torch.utils.device import resolve_device
 
-def refuse_unported(mesh=None, exchange="allgather") -> None:
-    """Raise for a workload driver option of the reference that is not
-    ported (a silently ignored option would misreport what ran)."""
-    for name, val, default in (("mesh", mesh, None), ("exchange", exchange, "allgather")):
-        if val != default:
-            raise NotImplementedError(
-                f"{name}={val!r}: the workloads' mesh and ring drivers are not ported "
-                "to lux_tpu_torch yet (ROADMAP Queue 1 item 7.3; -ng parts stack on "
-                "one device)")
+def active_changed_scalar(old, new):
+    """The count of vertices whose state changed in a rank's resident
+    parts (the distributed pull-until's ``active_fn``)."""
+    return (old != new).sum()
 
 
 #: triangle counting builds (V, ceil(nv/32)) bitsets — quadratic memory
 #: in nv.  Bound it loudly instead of running out of memory quietly.
 TRIANGLES_MAX_NV = 1 << 15
+
+
+def _run_starts(sorted_keys: np.ndarray) -> np.ndarray:
+    """Index of the first element of each run of equal values."""
+    if not len(sorted_keys):
+        return np.zeros(0, np.int64)
+    return np.flatnonzero(np.concatenate([[True], sorted_keys[1:] != sorted_keys[:-1]]))
 
 
 def symmetrize(g: HostGraph, unit_weights: bool = False) -> HostGraph:
@@ -74,14 +81,19 @@ def symmetrize(g: HostGraph, unit_weights: bool = False) -> HostGraph:
     lo = np.minimum(src, dst)
     hi = np.maximum(src, dst)
     key = lo * g.nv + hi
+    # the distinct pairs in key order by one sort and a neighbour compare:
+    # np.unique's own result, but np.unique of tens of millions of keys
+    # runs many times a sort's time on some numpy builds
     if g.weights is None or unit_weights:
-        pairs = np.unique(key)
+        key_s = np.sort(key)
+        pairs = key_s[_run_starts(key_s)]
         w_und = np.ones(pairs.shape[0], np.int32)
     else:
         order = np.argsort(key, kind="stable")
         key_s = key[order]
         w_s = np.asarray(g.weights)[keep][order]
-        pairs, first = np.unique(key_s, return_index=True)
+        first = _run_starts(key_s)
+        pairs = key_s[first]
         w_und = np.maximum.reduceat(w_s, first).astype(np.int32)
     lo = (pairs // g.nv).astype(np.int64)
     hi = (pairs % g.nv).astype(np.int64)
@@ -108,8 +120,16 @@ def _pull_setup(g, num_parts: int, device):
     return shards, to_device(shards.arrays, resolve_device(device))
 
 
-def _global(shards, state: torch.Tensor) -> np.ndarray:
+def _global(shards, state: torch.Tensor, mesh=None) -> np.ndarray:
+    """The (nv, ...) global state of the stacked ``state``; under ``mesh``
+    this rank's (k, V, ...) block, all-gathered on every rank."""
+    if mesh is not None:
+        from lux_tpu_torch.parallel.placement import halo_all_gather
+
+        full = halo_all_gather(state, mesh)
+        state = full.reshape((mesh.num_parts,) + tuple(state.shape[1:]))
     return shards.scatter_to_global(state.cpu().numpy())
+
 
 
 # ---------------------------------------------------------------------------
@@ -140,17 +160,48 @@ def bfs(g, sources: Sequence[int], num_parts: int = 1,
     (dist (nv,), iters)."""
     from lux_tpu_torch.graph.push_shards import PushShards, build_push_shards
 
-    refuse_unported(mesh=mesh, exchange=exchange)
     if engine == "push":
         from lux_tpu_torch.engine import push
 
+        if exchange == "ring":
+            from lux_tpu_torch.parallel.ring import PushRingShards, build_push_ring_shards
+
+            if mesh is None:
+                raise ValueError("bfs exchange='ring' needs a mesh")
+            rsh = (g if isinstance(g, PushRingShards)
+                   else build_push_ring_shards(g, num_parts, parts_subset=list(mesh.parts)))
+            prog = bfs_program(rsh.spec.nv, sources)
+            final, it, _ = push.run_push_ring(prog, rsh, mesh, max_iters, method,
+                                              route=route)
+            return _global(rsh, final, mesh), int(it)
         shards = g if isinstance(g, PushShards) else build_push_shards(g, num_parts)
         prog = bfs_program(shards.spec.nv, sources)
-        final, it, _ = push.run_push(prog, shards, max_iters, method,
-                                     route=route, device=device)
-        return _global(shards, final), int(it)
+        if mesh is None:
+            final, it, _ = push.run_push(prog, shards, max_iters, method,
+                                         route=route, device=device)
+        else:
+            final, it, _ = push.run_push_dist(prog, shards, mesh, max_iters, method,
+                                              route=route)
+        return _global(shards, final, mesh), int(it)
     if engine != "pull":
         raise ValueError(f"bfs engine must be 'push' or 'pull', got {engine!r}")
+    if mesh is not None:
+        if route is not None:
+            # run_pull_until_dist has no routed form: a dropped plan would
+            # misreport what ran
+            raise ValueError(
+                "bfs engine='pull' routes single-device runs only; the dist "
+                "pull-until driver has no route= path (use engine='push' for "
+                "routed distributed dense rounds)")
+        from lux_tpu_torch.parallel import dist
+
+        shards = g if isinstance(g, PullShards) else build_pull_shards(g, num_parts)
+        arrays = shard_stacked(mesh, shards.arrays)
+        prog = bfs_program(shards.spec.nv, sources)
+        final, it = dist.run_pull_until_dist(prog, shards.spec, arrays,
+                                             pull.init_state(prog, arrays), max_iters,
+                                             active_changed_scalar, mesh, method)
+        return _global(shards, final, mesh), int(it)
     shards, arrays = _pull_setup(g, num_parts, device)
     prog = bfs_program(shards.spec.nv, sources)
     state0 = pull.init_state(prog, arrays)
@@ -235,10 +286,20 @@ def kcore(g, kmax: int = 0, num_parts: int = 1, max_iters: int = 10_000,
     level binds its own program (k is a parameter); the levels reuse one
     layout and one ``route`` plan on the device, and the coreness stays
     there too: a level costs its rounds' reads and one read of whether
-    any vertex survived.  Returns (coreness (nv,) int32, k_max,
-    total_rounds)."""
-    refuse_unported(mesh=mesh)
-    shards, arrays = _pull_setup(g, num_parts, device)
+    any vertex survived.  Under ``mesh`` each level runs on the
+    distributed pull-until engine over this rank's resident parts, and
+    whether any vertex survived is summed over the ranks.  Returns
+    (coreness (nv,) int32, k_max, total_rounds)."""
+    if mesh is not None:
+        if route is not None:
+            raise ValueError("kcore routes single-device runs only; the dist "
+                             "pull-until driver has no route= path")
+        from lux_tpu_torch.parallel import dist
+
+        shards = g if isinstance(g, PullShards) else build_pull_shards(g, num_parts)
+        arrays = shard_stacked(mesh, shards.arrays)
+    else:
+        shards, arrays = _pull_setup(g, num_parts, device)
     dev = arrays.src_pos.device
     if route is not None:
         route = expand.plan_to_device(route, dev)
@@ -250,16 +311,23 @@ def kcore(g, kmax: int = 0, num_parts: int = 1, max_iters: int = 10_000,
         prog = bind(library.KCORE, kk=k)
         if state is None:
             state = pull.init_state(prog, arrays)
-        state, it = pull.run_pull_until(prog, shards.spec, arrays, state,
-                                        max_iters, active_changed, method,
-                                        route=route)
+        if mesh is not None:
+            state, it = dist.run_pull_until_dist(prog, shards.spec, arrays, state,
+                                                 max_iters, active_changed_scalar, mesh,
+                                                 method)
+        else:
+            state, it = pull.run_pull_until(prog, shards.spec, arrays, state,
+                                            max_iters, active_changed, method,
+                                            route=route)
         rounds += int(it)
         alive = state > 0
-        if not bool(alive.any()):
+        survived = (dist.global_active(mesh, alive.sum()) if mesh is not None
+                    else bool(alive.any()))
+        if not survived:
             break
         coreness = torch.where(alive, k, coreness)
         k += 1
-    core = _global(shards, coreness)
+    core = _global(shards, coreness, mesh)
     return core, int(core.max(initial=0)), rounds
 
 
@@ -350,11 +418,19 @@ def labelprop(g, labels: int = 8, stride: int = 16, num_iters: int = 10,
     """Seeded multi-class label propagation (dense pull, WIDE state):
     every ``stride``-th vertex is pinned to one-hot class
     ``vid % labels``; everyone else averages incoming class rows for
-    ``num_iters`` fixed iterations.  Returns (nv, labels) float32
-    class probabilities."""
-    refuse_unported(mesh=mesh)
-    shards, arrays = _pull_setup(g, num_parts, device)
+    ``num_iters`` fixed iterations (under ``mesh`` on the distributed
+    pull).  Returns (nv, labels) float32 class probabilities."""
     prog = labelprop_program(labels, stride)
+    if mesh is not None:
+        from lux_tpu_torch.parallel import dist
+
+        shards = g if isinstance(g, PullShards) else build_pull_shards(g, num_parts)
+        arrays = shard_stacked(mesh, shards.arrays)
+        final = dist.run_pull_fixed_dist(prog, shards.spec, arrays,
+                                         pull.init_state(prog, arrays), num_iters, mesh,
+                                         method)
+        return _global(shards, final, mesh)
+    shards, arrays = _pull_setup(g, num_parts, device)
     state0 = pull.init_state(prog, arrays)
     final = pull.run_pull_fixed(prog, shards.spec, arrays, state0, num_iters,
                                 method)

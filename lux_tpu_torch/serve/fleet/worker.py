@@ -166,6 +166,12 @@ class ReplicaWorker:
         # can overlap: the second waits for the first instead of racing
         # it through the schedulers' and sockets' teardown
         self._stop_lock = threading.Lock()
+        # the connection and op threads (daemons): stop() joins them, so a
+        # process that returns from main() after stop() leaves none of them
+        # inside torch while the interpreter finalizes (a daemon thread that
+        # comes back from native code then is ended by a forced unwind, which
+        # aborts the process: -6 at exit)
+        self._live_threads: set = set()
         # (conn, req_id, ServeFuture, ...) tuples the responder resolves
         self._resp_wake = threading.Condition(self._lock)
         self._unanswered: List[tuple] = []
@@ -234,8 +240,36 @@ class ReplicaWorker:
             for t in self._threads:
                 t.join(timeout=5.0)
             self._threads = []
+            self._join_live_threads(timeout_s=10.0)
             with self._stream_lock:
                 self._streams.clear()
+
+    def _track(self, fn):
+        """``fn`` wrapped to register its thread in ``_live_threads`` while
+        it runs (the op and connection threads)."""
+        def run(*args):
+            me = threading.current_thread()
+            with self._lock:
+                self._live_threads.add(me)
+            try:
+                fn(*args)
+            finally:
+                with self._lock:
+                    self._live_threads.discard(me)
+        return run
+
+    def _join_live_threads(self, timeout_s: float) -> None:
+        """Wait (up to ``timeout_s`` in all) for the connection and op
+        threads other than this one to end: their sockets are closed, so
+        each ends with the op it is running."""
+        deadline = time.monotonic() + timeout_s
+        me = threading.current_thread()
+        while True:
+            with self._lock:
+                left = [t for t in self._live_threads if t is not me]
+            if not left or time.monotonic() > deadline:
+                return
+            left[0].join(timeout=max(0.0, deadline - time.monotonic()))
 
     def kill(self) -> None:
         """Fault drill: vanish abruptly — close every socket WITHOUT
@@ -307,7 +341,7 @@ class ReplicaWorker:
             # daemon + untracked: stop()/kill() closes their sockets,
             # which ends their recv loops promptly
             threading.Thread(
-                target=self._conn_loop, args=(conn,),
+                target=self._track(self._conn_loop), args=(conn,),
                 name=f"lux-fleet-{self.worker_id}-conn",
                 daemon=True).start()
 
@@ -355,7 +389,7 @@ class ReplicaWorker:
                     fn(*args)
                 except fault.InjectedKill:
                     pass  # killed mid-op: a crashed worker says nothing
-        threading.Thread(target=run, name=name, daemon=True).start()
+        threading.Thread(target=self._track(run), name=name, daemon=True).start()
 
     def _dispatch(self, conn: Conn, msg: dict, arr=None) -> None:
         op = msg.get("op")
@@ -1178,8 +1212,10 @@ def main(argv=None) -> int:
             stop.wait(0.2)
     except KeyboardInterrupt:
         pass
-    if worker._running:
-        worker.stop()
+    # always, also after a shutdown op: its stop thread holds the stop lock
+    # until the worker is down, so this waits for it (a second stop finds
+    # nothing left to do) and no worker thread runs past main()
+    worker.stop()
     return 0
 
 

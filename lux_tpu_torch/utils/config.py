@@ -13,14 +13,16 @@ flags and the adaptive repartitioning's; SSSP (``sssp=True``) ``-start``,
 (``program=True``, ``python -m lux_tpu_torch.apps.run``) its workload
 knobs and ``--max-iters``; SSSP and PageRank (``serve=True``) the
 ``--serve`` group of the batched query service, as the reference's flag
-sets do; the pull and push apps also ``--distributed`` and ``--exchange``
-(the parts spread over the ranks of torch.distributed, parallel/: the
-pull apps exchange by allgather, ring or scatter, the push apps by
-allgather or ring, as in the reference).  The reference flags of the
-features not ported (``NOT_PORTED``: the 2-D edge and feature meshes;
-``DISTRIBUTED`` on the generic program driver, whose mesh drivers wait
-for ROADMAP Queue 1 item 7.3) are rejected with a message that they are
-not ported yet, never silently ignored.
+sets do; the pull and push apps and the generic program driver also
+``--distributed`` and ``--exchange`` (the parts spread over the ranks of
+torch.distributed, parallel/: the pull apps and the pull workloads
+exchange by allgather, ring or scatter, the push apps and bfs by
+allgather or ring, as in the reference), and the pull apps and pull
+workloads the 2-D grids ``--edge-shards`` and ``--feat-shards``
+(parallel/edge2d.py, parallel/feat.py; the workloads refuse them, as the
+reference's do).  A reference flag of a feature not ported
+(``NOT_PORTED``) is rejected with a message that it is not ported yet,
+never silently ignored.
 """
 from __future__ import annotations
 
@@ -75,12 +77,7 @@ def env_float(name: str, default: Optional[float] = None, *,
 
 #: reference flags this package does not run yet (and, as before the push
 #: apps took them, the push flags on the apps that do not take them)
-NOT_PORTED = (
-    "-start", "-verbose", "-v", "--max-iters", "--edge-shards", "--feat-shards",
-    "--weighted",
-)
-#: the multi-GPU flags: the generic program driver does not run distributed yet
-DISTRIBUTED = ("--distributed", "--exchange")
+NOT_PORTED = ("-start", "-verbose", "-v", "--max-iters", "--weighted")
 EXCHANGES = ("allgather", "ring", "scatter")
 #: the push apps' dense-round exchanges (the reference's choices)
 PUSH_EXCHANGES = ("allgather", "ring")
@@ -123,6 +120,12 @@ class RunConfig:
     distributed: bool = False
     #: the distributed state exchange: allgather | ring | scatter
     exchange: str = "allgather"
+    #: >1 = split each part's edges over this many ranks (the 2-D parts x
+    #: edge grid, parallel/edge2d.py; ranks = num_parts * edge_shards)
+    edge_shards: int = 1
+    #: >1 = split CF's latent dim over this many ranks (the 2-D parts x
+    #: feat grid, parallel/feat.py)
+    feat_shards: int = 1
     #: >0 = host-offload streaming under this device-byte budget in GiB
     #: (engine/stream.py; pagerank/colfilter fixed, components until)
     stream_hbm_gib: float = 0.0
@@ -186,7 +189,11 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                         help="save state every N iterations")
     if push or program:
         ap.add_argument("--max-iters", type=int, default=10_000)
-    if pull or push:
+    # the pull workloads of the generic program driver take the pull
+    # apps' exchange flags (and refuse all but allgather, as the
+    # reference's do)
+    mesh = pull or (program and not push)
+    if mesh or push:
         ap.add_argument("--distributed", action="store_true",
                         help="spread the -ng parts over the ranks of "
                              "torch.distributed (launch with python -m "
@@ -199,13 +206,24 @@ def parse_args(argv=None, description: str = "", push: bool = False,
                              "allgather (every rank gathers the whole state) "
                              "or ring (blocks stream rank to rank); sparse "
                              "rounds exchange the frontier queues")
-    if pull:
+    if mesh:
         ap.add_argument("--exchange", default="allgather", choices=EXCHANGES,
                         help="distributed state exchange: allgather (every "
                              "rank gathers the whole state), ring (blocks "
                              "stream rank to rank) or scatter (partials "
                              "summed by a reduce-scatter; sum programs "
                              "without destination reads)")
+        ap.add_argument("--edge-shards", type=int, default=1,
+                        help="split each part's edges over N ranks (2-D parts x "
+                             "edge grid; ranks = num_parts * N). A capacity "
+                             "feature for parts bigger than one device: the "
+                             "state is gathered on every edge shard, so the "
+                             "exchange's volume scales xN")
+        ap.add_argument("--feat-shards", type=int, default=1,
+                        help="split the latent feature dim over N ranks (2-D "
+                             "parts x feat grid, CF only; the rank count a "
+                             "multiple of N, -ng a multiple of ranks / N)")
+    if pull:
         ap.add_argument("--sort-segments", action="store_true",
                         help="reorder edges within each destination segment "
                              "by gather index (gather locality; commutative "
@@ -331,11 +349,6 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         flag = arg.split("=", 1)[0]
         if flag in NOT_PORTED:
             ap.error(f"{flag} is not ported to lux_tpu_torch yet")
-        if flag in DISTRIBUTED:
-            ap.error(f"{flag} is not ported to lux_tpu_torch yet for this app "
-                     "(the distributed engines run pagerank, colfilter, sssp and "
-                     "components; the workloads' mesh drivers are ROADMAP Queue 1 "
-                     "item 7.3)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if ns.num_parts < 1:
@@ -377,6 +390,8 @@ def parse_args(argv=None, description: str = "", push: bool = False,
         delta=getattr(ns, "delta", 0),
         distributed=getattr(ns, "distributed", False),
         exchange=getattr(ns, "exchange", "allgather"),
+        edge_shards=getattr(ns, "edge_shards", 1),
+        feat_shards=getattr(ns, "feat_shards", 1),
         stream_hbm_gib=getattr(ns, "stream_hbm_gib", 0.0),
         repartition_every=getattr(ns, "repartition_every", 0),
         repartition_threshold=getattr(ns, "repartition_threshold", 1.25),

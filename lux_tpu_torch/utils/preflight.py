@@ -16,7 +16,11 @@ rank's device: the allgather pull's k resident parts plus the gathered
 block-CSR pull, and the distributed push's ring and block-CSR layouts
 (:func:`estimate_push_ring`, :func:`estimate_push_pallas`; the allgather
 push is :func:`estimate_push` with :func:`push_exchange_bytes`).  The
-2-D edge and feature-sharded estimates come with those meshes.
+2-D (parts x edge) grid's is :func:`estimate_edge2d`, the reference's
+formula, and :func:`suggest_edge_shards` names the smallest edge-shard
+count whose footprint fits, the hint :func:`check_fits` prints for a 1-D
+pull layout that does not (the feature-sharded CF is the pull or ring
+estimate at K/F columns).
 """
 from __future__ import annotations
 
@@ -326,12 +330,48 @@ def device_memory_bytes(device) -> Optional[int]:
     return int(torch.cuda.get_device_properties(dev).total_memory)
 
 
+def estimate_edge2d(spec: ShardSpec, e2_pad: int, state_width: int = 1,
+                    state_dtype_bytes: int = 4) -> MemoryEstimate:
+    """One rank of the 2-D (parts x edge) grid: one edge chunk (src_pos,
+    dst_local int32, head_flag bool, weights f32: 13 B a slot), the part's
+    vertex view and state, plus the all-gathered whole state (edge
+    sharding splits the EDGE arrays; the state is still gathered on every
+    rank)."""
+    V = spec.nv_pad
+    shard = e2_pad * 13 + V * 9
+    blk = V * state_width * state_dtype_bytes
+    state = 3 * blk  # local + new + combined accumulator
+    gathered = spec.gathered_size * state_width * state_dtype_bytes
+    return MemoryEstimate(shard, state, gathered, shard + state + gathered)
+
+
+def suggest_edge_shards(spec: ShardSpec, hbm_bytes: int, state_width: int = 1,
+                        state_dtype_bytes: int = 4, max_shards: int = 64) -> Optional[int]:
+    """The smallest edge-shard count EP >= 2 whose 2-D per-rank footprint
+    fits ``hbm_bytes``, or None when no EP <= ``max_shards`` does (the
+    gathered state is the floor: edge sharding divides only the edge
+    arrays).  Pass the run's state width and dtype; cap ``max_shards`` at
+    ranks // num_parts (edge2d keeps one part a part row)."""
+    from lux_tpu_torch.graph.shards import edge2d_chunk_pad
+
+    for ep in range(2, max_shards + 1):
+        # e_pad >= the builder's raw per-part maximum, so a suggested EP fits
+        e2 = edge2d_chunk_pad(spec.e_pad, ep)
+        if estimate_edge2d(spec, e2, state_width, state_dtype_bytes).total_bytes <= hbm_bytes:
+            return ep
+    return None
+
+
 def check_fits(est: MemoryEstimate, hbm_bytes: Optional[int] = None,
-               device=None) -> bool:
+               device=None, spec: Optional[ShardSpec] = None, state_width: int = 1,
+               state_dtype_bytes: int = 4, max_edge_shards: int = 0) -> bool:
     """Warn (returns False) when the estimate exceeds the device memory:
     ``hbm_bytes`` when given, else the memory of ``device`` when it is a
     card.  Off a card with no ``hbm_bytes`` there is nothing to hold the
-    estimate to: it says so and returns True."""
+    estimate to: it says so and returns True.  With ``spec`` (a 1-D pull
+    layout) the warning names the smallest --edge-shards that would fit
+    (:func:`suggest_edge_shards`, capped at ``max_edge_shards``: ranks //
+    parts), as the reference's does."""
     if hbm_bytes is None and device is not None:
         hbm_bytes = device_memory_bytes(device)
     if hbm_bytes is None:
@@ -339,10 +379,16 @@ def check_fits(est: MemoryEstimate, hbm_bytes: Optional[int] = None,
               "(pass hbm_bytes)")
         return True
     if est.total_bytes > hbm_bytes:
+        hint = "spread the parts over more ranks (--distributed), or use --exchange ring"
+        if spec is not None and max_edge_shards >= 2:
+            ep = suggest_edge_shards(spec, hbm_bytes, state_width, state_dtype_bytes,
+                                     max_shards=max_edge_shards)
+            if ep is not None:
+                hint = (f"spread the parts over more ranks, or split the edge arrays "
+                        f"with --distributed --edge-shards {ep}")
         print(
             f"WARNING: estimated {est.total_bytes/(1<<30):.2f} GiB exceeds "
-            f"device memory {hbm_bytes/(1<<30):.2f} GiB — spread the parts "
-            "over more ranks (--distributed), or use --exchange ring"
+            f"device memory {hbm_bytes/(1<<30):.2f} GiB — {hint}"
         )
         return False
     return True

@@ -373,6 +373,34 @@ def test_submit_retrying_waits_out_an_empty_fleet(small):
         _teardown(ctl, [w])
 
 
+def test_worker_stop_joins_its_op_threads(small):
+    """stop() returns only after the op threads still running have ended:
+    a worker process returns from main() with no thread of its left in
+    torch (one that comes back from native code while the interpreter
+    finalizes aborts the process, -6)."""
+    import time as _time
+
+    import torch
+
+    _, shards = small
+    w = ReplicaWorker(shards, "w0", q_buckets=(1,), device="cpu").start()
+    started, done = threading.Event(), threading.Event()
+    x = torch.ones(256, 256)
+
+    def op():
+        started.set()
+        t0 = _time.perf_counter()
+        while _time.perf_counter() - t0 < 0.5:
+            x.mm(x).sum()
+        done.set()
+
+    w._spawn_op(op, (), "lux-fleet-w0-test-op")
+    assert started.wait(10)
+    w.stop()
+    assert done.is_set()
+    assert not any(t.name == "lux-fleet-w0-test-op" for t in threading.enumerate())
+
+
 def test_worker_kill_mid_burst_drill(small):
     """fault/drills.worker_kill_mid_burst at the port's wire.recv site:
     the victim dies at its 5th query frame and every query of the burst

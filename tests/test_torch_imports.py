@@ -64,6 +64,6 @@ def test_port_imports_no_jax_and_no_lux_tpu():
                  "native.io", "tools.converter", "tools.gen_graph",
                  "tools.biggraph_check", "parallel.mesh", "parallel.multihost",
                  "parallel.dist", "parallel.pallas_dist", "parallel.ring",
-                 "parallel.scatter", "parallel.spawn"):
+                 "parallel.scatter", "parallel.spawn", "parallel.edge2d", "parallel.feat"):
         assert f"lux_tpu_torch.{name}" in res["modules"]
     assert len(res["modules"]) >= 70

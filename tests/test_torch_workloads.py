@@ -32,6 +32,8 @@ from lux_tpu_torch.graph.csc import from_edge_list
 from lux_tpu_torch.graph.push_shards import build_push_shards
 from lux_tpu_torch.graph.shards import build_pull_shards, to_device
 from lux_tpu_torch.ops import expand
+from lux_tpu_torch.parallel import spawn
+from lux_tpu_torch.parallel.mesh import PartsGroup
 from lux_tpu_torch.program import expr, library
 from lux_tpu_torch.program import spec as spec_mod
 from lux_tpu_torch.program import workloads as wl
@@ -106,11 +108,16 @@ def test_bfs_routed_matches_reference(engine, mode):
 
 
 def test_bfs_refuses_unported_drivers():
+    """The reference's refusals (``lux_tpu/program/workloads.py``): the
+    ring needs a mesh, and the distributed pull-until has no routed form
+    (the mesh runs themselves are the mesh cases below)."""
     g, _ = _graphs()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        wl.bfs(g, SOURCES, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         wl.bfs(g, SOURCES, exchange="ring", device="cpu")
+    pg = PartsGroup(num_parts=2, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="single-device runs only"):
+        wl.bfs(build_pull_shards(g, 2), SOURCES, engine="pull", mesh=pg, route=object(),
+               device="cpu")
     with pytest.raises(ValueError, match="engine"):
         wl.bfs(g, SOURCES, engine="sideways", device="cpu")
     with pytest.raises(ValueError, match="out of range"):
@@ -459,3 +466,140 @@ def test_run_cli_cuda_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_app.main(["kcore", "--rmat-scale", "7"])
+
+
+# ---------------------------------------------------------------------------
+# the mesh drivers: 2 gloo ranks, 4 parts (2 resident a rank)
+# ---------------------------------------------------------------------------
+
+RMAT8 = ("rmat", 8, 6, 3)
+MESH_CASES = {
+    "bfs_push": {"kind": "workload", "graph": RMAT8, "prog": "bfs", "sources": SOURCES,
+                 "parts": 4},
+    "bfs_ring": {"kind": "workload", "graph": RMAT8, "prog": "bfs", "sources": SOURCES,
+                 "parts": 4, "exchange": "ring"},
+    "bfs_pull": {"kind": "workload", "graph": RMAT8, "prog": "bfs", "sources": SOURCES,
+                 "parts": 4, "engine": "pull"},
+    "bfs_rerun": {"kind": "workload", "graph": RMAT8, "prog": "bfs", "sources": SOURCES,
+                  "parts": 4},
+    "kcore": {"kind": "workload", "graph": RMAT8, "prog": "kcore", "parts": 4,
+              "symmetrize": True},
+    "labelprop": {"kind": "workload", "graph": RMAT8, "prog": "labelprop", "parts": 4,
+                  "labels": 8, "stride": 16, "iters": 10},
+}
+MESH_APPS = {
+    "bfs": ["bfs", "--sources", "0,3"],
+    "bfs-ring": ["bfs", "--sources", "0,3", "--exchange", "ring"],
+    "bfs-pull": ["bfs", "--sources", "0,3", "--engine", "pull"],
+    "kcore": ["kcore"],
+    "labelprop": ["labelprop", "--labels", "4", "-ni", "3"],
+}
+
+
+@pytest.fixture(scope="module")
+def mesh_w2():
+    cases = dict(MESH_CASES)
+    for name, argv in MESH_APPS.items():
+        cases[f"app-{name}"] = {"kind": "app", "app": "run",
+                                "argv": argv[:1] + SMALL + ["-ng", "4", "--distributed",
+                                                            "-check"] + argv[1:]}
+    return spawn.run_ranks(2, "torch_mesh_jobs:run_cases", (cases,), num_parts=4,
+                           device="cpu", deadline_s=300)
+
+
+@lru_cache(maxsize=None)
+def _ref_bfs_mesh(engine: str, exchange: str):
+    from lux_tpu.parallel.mesh import make_mesh_for_parts
+
+    _, rg = _graphs()
+    mesh = make_mesh_for_parts(4, jax.devices()[:2])
+    sh = ref_pull_shards(rg, 4) if engine == "pull" else (
+        rg if exchange == "ring" else ref_push_shards(rg, 4))
+    dist, it = ref_wl.bfs(sh, SOURCES, num_parts=4, method="scan", engine=engine,
+                          mesh=mesh, exchange=exchange)
+    return np.asarray(dist), int(it)
+
+
+@pytest.mark.parametrize("name,engine,exchange", [("bfs_push", "push", "allgather"),
+                                                  ("bfs_ring", "push", "ring"),
+                                                  ("bfs_pull", "pull", "allgather")])
+def test_bfs_mesh_matches_reference(name, engine, exchange, mesh_w2):
+    """bfs over the ranks, bitwise the reference's mesh run and the port's
+    single process (distances and iterations); every rank holds them."""
+    dist, it = mesh_w2[0]["result"][name]
+    want, want_it = _ref_bfs_mesh(engine, exchange)
+    np.testing.assert_array_equal(dist, want)
+    assert it == want_it
+    g, _ = _graphs()
+    sh = build_push_shards(g, 4) if engine == "push" else build_pull_shards(g, 4)
+    single, single_it = wl.bfs(sh, SOURCES, engine=engine, method="scan", device="cpu")
+    np.testing.assert_array_equal(dist, single)
+    assert it == single_it
+    assert mesh_w2[1]["result"][name] is None  # rank 1 returns nothing
+
+
+def test_bfs_mesh_rerun_is_bitwise(mesh_w2):
+    out = mesh_w2[0]["result"]
+    assert out["bfs_push"][0].tobytes() == out["bfs_rerun"][0].tobytes()
+    assert out["bfs_push"][1] == out["bfs_rerun"][1]
+
+
+def test_kcore_mesh_matches_reference(mesh_w2):
+    core, kmax, rounds = mesh_w2[0]["result"]["kcore"]
+    ref_core, ref_kmax, ref_rounds = _ref_kcore(False, 0)
+    np.testing.assert_array_equal(core, np.asarray(ref_core))
+    assert (kmax, rounds) == (int(ref_kmax), int(ref_rounds))
+    g, rg = _graphs(False)
+    np.testing.assert_array_equal(core, ref_wl.kcore_reference(rg))
+    single = wl.kcore(g, num_parts=4, method="scan", device="cpu")
+    np.testing.assert_array_equal(core, single[0])
+    assert (kmax, rounds) == single[1:]
+
+
+def test_labelprop_mesh_matches_reference(mesh_w2):
+    from lux_tpu.parallel.mesh import make_mesh_for_parts
+
+    probs = mesh_w2[0]["result"]["labelprop"]
+    _, rg = _graphs()
+    want = np.asarray(ref_wl.labelprop(rg, 8, 16, 10, num_parts=4, method="scan",
+                                       mesh=make_mesh_for_parts(4, jax.devices()[:2])))
+    np.testing.assert_allclose(probs, want, rtol=1e-5, atol=1e-7)
+    g, _ = _graphs()
+    np.testing.assert_allclose(probs, wl.labelprop(g, 8, 16, 10, num_parts=4, method="scan",
+                                                   device="cpu"), rtol=1e-5)
+    assert wl.check_labelprop(probs, 8, 16) == 0
+
+
+@pytest.mark.parametrize("name", list(MESH_APPS))
+def test_run_cli_distributed(name, mesh_w2):
+    """`apps.run <program> --distributed -ng 4` on 2 ranks: every rank's
+    -check passes, rank 0's result is the single-process run's (bitwise
+    for bfs and kcore, rtol 1e-5 for labelprop)."""
+    outs = [r["result"][f"app-{name}"] for r in mesh_w2]
+    assert all(o["rc"] == 0 for o in outs)
+    argv = MESH_APPS[name]
+    single = run_app.run(argv[:1] + SMALL + ["-ng", "4"] + [
+        a for a in argv[1:] if a not in ("--exchange", "ring")])
+    if name == "labelprop":
+        np.testing.assert_allclose(outs[0]["state"], single.state, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(outs[0]["state"], single.state)
+        assert all((o["iters"], o["stats"]) == (single.iters, single.stats) for o in outs)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["kcore", "--distributed", "--exchange", "ring"], "allgather pull layout"),
+    (["labelprop", "--distributed", "--edge-shards", "2"], "allgather pull layout"),
+    (["kcore", "--distributed", "--feat-shards", "2"], "allgather pull layout"),
+    (["bfs", "--engine", "pull", "--distributed", "--exchange", "ring"],
+     "allgather pull layout"),
+    (["triangles", "--distributed"], "single-device two-phase"),
+    (["bfs", "--distributed", "--route-gather", "expand"], "7.5"),
+])
+def test_run_cli_mesh_refusals(argv, match, capsys):
+    try:
+        run_app.run(argv[:1] + SMALL + argv[1:])
+    except SystemExit as e:
+        assert match in f"{e.code}{capsys.readouterr().err}"
+    else:
+        raise AssertionError(f"{argv} ran")

@@ -18,8 +18,9 @@ processes taking writes, with standing queries), the autopilot
 (serve/autopilot: the autoscaler over CUDA worker processes, the soaks,
 the election drill), big graphs from disk (the native host I/O
 library, a `.lux` file loaded by parts, the --sort-segments and
---compact-gather gather relayouts) and the distributed pull engine
-(parallel/: ranks of torch.distributed that share the card).
+--compact-gather gather relayouts) and the distributed pull and push
+engines, direct and routed (parallel/: ranks of torch.distributed that
+share the card).
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -61,7 +62,10 @@ Phases, each printing one JSON line with its seconds:
               plan of phase 22's post-compaction base, the
               --sort-segments fused-pf plan of phase 24 (RMAT 18) and the
               "min" fused-mx plan of phase 13b's weighted graph build at
-              once, each in a process of its own, started after phase 3;
+              once, each in a process of its own, started after phase 3
+              (and, in a seventh process of DIST_PLAN_THREADS colorer
+              threads, waited for only at phase 25, every plan family of
+              phase 25's routed legs: dist_plans);
               they share one plan cache, whose route memo
               (ops/route.build_route_memo) colours each permutation they
               have in common once (the expand half of the main graph's
@@ -295,14 +299,14 @@ Phases, each printing one JSON line with its seconds:
               mutate.refresh, xprof.trace, fleet.start, fleet.worker.start
               and mutate.publish.
   22. live    live serving (see live_main): two live replica workers as
-              CUDA processes (--live, a journal each, --delta-cap 18432,
+              CUDA processes (--live, a journal each, --delta-cap 10240,
               standing SSSP from 732873, components and PageRank on the
               fused-pf route from phase 4's plan cache) behind a
-              LiveFleetController.  The mixed window: 16 churn batches of
+              LiveFleetController.  The mixed window: 8 churn batches of
               4,096 rows (2,048 deletes of live base edges, 2,048 random
               inserts) admitted while two closed-loop readers send SSSP
               over the 16 serving sources, a quarter bounded by the last
-              acknowledged generation; the 10th batch overflows and
+              acknowledged generation; the 6th batch overflows and
               escalates to a fleet compaction.  Write batches/s and
               rows/s, read QPS, staleness p50/p99 in generations, the
               compaction's seconds; 0 shed, 0 deaths, every bounded read
@@ -318,12 +322,12 @@ Phases, each printing one JSON line with its seconds:
               lane_gather) of the standing ranks with the tombstones,
               bitwise the replay on the plain versions.  The kill drill:
               w1 SIGKILLs itself at worker.before_delta_ack of generation
-              17; the survivor takes 17 and 18 and answers a 16-query
+              9; the survivor takes 9 and 10 and answers a 16-query
               burst; w1 relaunched from the compaction snapshot and its
-              journal (replayed to 17) is caught up to 18; standing SSSP
+              journal (replayed to 9) is caught up to 10; standing SSSP
               and components bitwise the survivor's and the oracles,
               PageRank bitwise the survivor's and within rtol 1e-4 of the
-              float64 fixpoint of generation 18.  Refresh seconds by
+              float64 fixpoint of generation 10.  Refresh seconds by
               app (first, warm, after the relaunch), catch-up seconds,
               deaths, heartbeat stalls, each worker's peak bytes beside
               the estimate and its kernel launches.
@@ -417,8 +421,26 @@ Phases, each printing one JSON line with its seconds:
               float64, `apps.colfilter --feat-shards 2 -ng 2` over the
               allgather and the ring (CF 20, K = 20, the step at gamma
               1e-3) within 1e-4 of the float64 CF oracle, each with its
-              ms an iteration and split on the lead rank.  NCCL across
-              cards is not exercised (one card).
+              ms an iteration and split on the lead rank.  The routed
+              legs (--route-gather under --distributed; routed_legs), in
+              the same two groups at RMAT 18 / ef 16 (a depth cut; CF at
+              scale 18, K = 20), every plan loaded from phase 4's cache
+              (a rank that builds one cold fails the leg): 2 ranks of 2
+              parts, PageRank allgather expand-pf (kernel 5) and fused-mx
+              (kernel 6; within rtol 1e-5 of rank 0's single-process
+              fused-mx run over every part's plan), ring and scatter
+              expand (kernel 3), SSSP allgather and components ring
+              expand (kernel 3, the push's dense rounds); on the 2 x 2
+              grid PageRank --edge-shards 2 and CF --feat-shards 2,
+              expand (kernel 3).  Each leg bitwise its direct twin, run
+              in the same rank processes on the same shard build (push:
+              state, iterations and traversed edges); the leg's kernel
+              launched at least once an iteration (a dense round) in
+              every rank, then held on that rank's plan slice against
+              its plain version (the mx sum against float64) and timed
+              beside it (and torch.gather for kernel 3); each leg's ms an
+              iteration and split.  NCCL across cards is not exercised
+              (one card).
 Times: kernel, plain, one PyTorch library call where one computes the
 same function, and the bound: the bytes the function must move over the
 card's memory rate (every kernel here does at most one add or compare
@@ -4009,12 +4031,14 @@ def pod_main(torch, np, kernels, smi, dev, g, snap, start):
 #: live serving and the autopilot (phases 22-23)
 LIVE_WORKERS = 2  # live replica worker processes on the one card
 LIVE_SEED = 0  # the window's churn: np.random.default_rng(LIVE_SEED), serve/live/bench.churn_batch
-LIVE_BATCHES, LIVE_ROWS = 16, 4096  # the mixed window: 16 batches of 2,048 deletes + 2,048 inserts
-#: per-part insert capacity of the live workers (--delta-cap): 9 batches fit
-#: (18,432), the 10th overflows (20,480) and escalates to a fleet compaction;
-#: the 8 batches after it (11-18, 16,384 inserts) fit the new epoch
-LIVE_CAP, LIVE_COMPACT_AT = 18432, 10
-LIVE_DRILL = 2  # after the window: generation 17 (the victim dies before its ack), 18
+#: the mixed window: 8 batches of 2,048 deletes + 2,048 inserts (16 before
+#: PR 20, whose smoke cut this depth to pay for phase 25's routed legs)
+LIVE_BATCHES, LIVE_ROWS = 8, 4096
+#: per-part insert capacity of the live workers (--delta-cap): 5 batches fit
+#: (10,240), the 6th overflows (12,288) and escalates to a fleet compaction;
+#: the 4 batches after it (7-10, 8,192 inserts) fit the new epoch
+LIVE_CAP, LIVE_COMPACT_AT = 10240, 6
+LIVE_DRILL = 2  # after the window: generation 9 (the victim dies before its ack), 10
 LIVE_VICTIM = "w1"
 LIVE_ROUTE = "fused-pf"  # --route-gather of the standing PageRank (the reference's default)
 LIVE_BUCKETS = (1, 8)
@@ -4897,6 +4921,65 @@ DIST_PUSH_PARTS = 4  # the gloo push runs: 2 ranks of 2 resident parts (pallas: 
 DIST_DELTA = 25  # the distributed --delta run's width (delta_main's first)
 #: the 2-D grids: 4 gloo ranks on the card, 2 part rows x 2 edge or feat shards
 DIST_GRID_RANKS, DIST_GRID_PARTS, DIST_GRID_SHARDS = 4, 2, 2
+#: the routed legs (--route-gather under --distributed) run at RMAT 18 / ef 16
+#: and the CF rating graph of scale 18: a depth cut, as SORTED_SCALE (plan
+#: builds at RMAT 20 take 51-108 s a family on the card's host); phase 4's
+#: seventh process (dist_plans) builds their plans into the cache the ranks load
+DIST_ROUTED_SCALE = 18
+#: the colorer threads of that process, which runs beside phases 17 and 9-14
+DIST_PLAN_THREADS = 2
+#: the kernel each routed leg must launch in every rank, by --route-gather mode
+DIST_ROUTED_KERNEL = {"expand": "lane_gather", "expand-pf": "fused_pass_gather",
+                      "fused-mx": "mxreduce_pass_gather"}
+
+
+def dist_plans(tmp: str, plan_dir: str) -> dict:
+    """Phase 4's seventh process: every plan family the routed legs of
+    phase 25 load, built into the plan cache through the cached planners
+    the ranks call, on the layouts the ranks build (the same per-part and
+    per-bucket keys): on RMAT DIST_ROUTED_SCALE at DIST_PUSH_PARTS parts
+    the expand and expand-pf plans (the pull and the push allgather), the
+    fused-mx "sum" plan (every part's group template, which the ranks
+    agree on), the ring and reduce-scatter bucket plans (the push ring's
+    buckets are the pull ring's), and the 2 x 2 edge grid's cells; on the
+    CF rating graph of that scale the CF plans at DIST_GRID_PARTS parts.
+    The graphs are handed to the ranks under ``tmp``.  Returns each
+    family's seconds and the SSSP leg's source (the largest out-degree)."""
+    os.environ["LUX_ROUTE_THREADS"] = str(DIST_PLAN_THREADS)
+    import numpy as np
+
+    from lux_tpu_torch.graph import generate
+    from lux_tpu_torch.graph.shards import build_pull_shards
+    from lux_tpu_torch.ops import expand
+    from lux_tpu_torch.parallel import edge2d, ring, scatter
+
+    t_all = time.perf_counter()
+    g = generate.rmat(DIST_ROUTED_SCALE, EF, seed=0)
+    save_graph(np, tmp, f"dist{DIST_ROUTED_SCALE}", g)
+    n_half = (1 << DIST_ROUTED_SCALE) // 2
+    gcf = generate.bipartite_ratings(n_half, n_half, (1 << DIST_ROUTED_SCALE) * EF // 2, seed=0)
+    save_graph(np, tmp, f"cf{DIST_ROUTED_SCALE}", gcf)
+    sh = build_pull_shards(g, DIST_PUSH_PARTS)
+    fams = (
+        ("expand-pf", lambda: expand.plan_expand_shards_cached(sh, plan_dir, pf=True)),
+        ("fused-mx", lambda: expand.plan_fused_shards_cached(sh, "sum", plan_dir, mx=True)),
+        ("ring", lambda: expand.plan_ring_route_shards_cached(
+            ring.build_ring_shards(g, DIST_PUSH_PARTS, pull=sh), plan_dir)),
+        ("scatter", lambda: expand.plan_scatter_route_shards_cached(
+            scatter.build_scatter_shards(g, DIST_PUSH_PARTS, pull=sh), plan_dir)),
+        ("edge2d", lambda: expand.plan_edge2d_route_shards_cached(
+            edge2d.build_edge2d_shards(g, DIST_GRID_PARTS, DIST_GRID_SHARDS), plan_dir)),
+        ("cf", lambda: expand.plan_cf_route_shards_cached(
+            build_pull_shards(gcf, DIST_GRID_PARTS), plan_dir)))
+    seconds = {}
+    for name, build in fams:
+        t0 = time.perf_counter()
+        build()
+        seconds[name] = time.perf_counter() - t0
+    return {"scale": DIST_ROUTED_SCALE, "parts": DIST_PUSH_PARTS, "seconds": seconds,
+            "threads": DIST_PLAN_THREADS, "hub": int(np.argmax(g.out_degrees())),
+            "plan_stats": expand.plan_stats_snapshot(),
+            "wall_s": time.perf_counter() - t_all, "process_cpu_seconds": time.process_time()}
 
 
 def dist_hold(torch, got, want64, what: str) -> float:
@@ -5020,6 +5103,214 @@ def dist_push_split(lay, delta: int):
     return common.push_exchange_split(lay.pg, lambda: lay.loop(lay.init(), 10_000))
 
 
+def dist_hold_routed(torch, shuffle, name: str, replay, reps: int) -> dict:
+    """The routed kernel ``name`` held on this rank's plan slice: ``replay()``
+    (one more iteration, or dense round, of the leg on its final state;
+    a collective every rank takes) runs with the kernel's launches
+    captured, not counted; the largest launch's inputs then go through
+    the kernel and its plain version: gathers bitwise, the mx kernel's f32
+    sum against float64 within SUM_RTOL (its min / max / int32 bitwise);
+    timed beside the plain version and, for lane_gather, torch.gather;
+    bound: the bytes the launch moves."""
+    orig, calls = getattr(shuffle, name), []
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+    # the wrapper counts its launches by its module name, which is the
+    # spy's while it is in place: the kernels' own counters stay untouched
+    spy.launches = 0
+    setattr(shuffle, name, spy)
+    try:
+        replay()
+        torch.cuda.synchronize()
+    finally:
+        setattr(shuffle, name, orig)
+    require(bool(calls), f"dist: {name} was not launched in the rank's routed replay")
+    a, kw = max(calls, key=lambda c: c[0][0].numel())
+    plain = getattr(shuffle, f"{name}_plain")
+    got, want = orig(*a, **kw), plain(*a, **kw)
+    x = a[0]
+    lib = None
+    if name == "mxreduce_pass_gather":
+        y, idx, dst_rel, tile_block = a[:4]
+        g = a[4] if len(a) > 4 else kw["group"]
+        if g.op == "sum" and y.dtype == torch.float32:
+            want = mx_sum_f64(torch, shuffle, y, idx, dst_rel, tile_block, g)
+        err = compare(torch, got, want, g.op != "sum" or y.dtype != torch.float32,
+                      what=f"dist {name}")
+        nbytes = (y.numel() * (4 + len(idx) * idx[0].element_size() + dst_rel.element_size())
+                  + g.num_blocks * g.v_blk * 4)
+    else:
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"dist: {name} differs from its plain version on "
+                                        "the rank's plan slice")
+        err = 0.0
+        if name == "lane_gather":
+            idx = a[1]
+            idx64 = idx.long()
+            lib = lambda: torch.gather(x, 1, idx64)  # noqa: E731
+            nbytes = x.numel() * (2 * x.element_size() + idx.element_size())
+        else:
+            idx = a[1]
+            nbytes = x.numel() * (2 * x.element_size() + len(idx) * idx[0].element_size())
+    return {"kernel": name, "shape": list(x.shape), "launches_in_replay": len(calls),
+            "max_abs_err": err, "kernel_ms": time_ms(torch, lambda: orig(*a, **kw), reps),
+            "plain_ms": time_ms(torch, lambda: plain(*a, **kw), max(2, reps // 4)),
+            "library_ms": None if lib is None else time_ms(torch, lib, reps),
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+
+
+def dist_routed_leg(torch, np, pg, argv: list, opt: dict, tmp: str) -> dict:
+    """One routed leg of phase dist in this rank: ``apps.<app>.run(argv)``
+    (--route-gather under --distributed) on the graph phase 4's seventh
+    process saved, its launches and plan-cache counts read just after;
+    then its direct twin on the same shard build in this process (the
+    app's DistSetup without its plan, ITERS iterations from the initial
+    block; or the push layout placed again without it, to convergence),
+    with ``opt["single"]`` rank 0's single-process routed run over every
+    part's plan (loaded from the cache), the exchange's split, and the
+    leg's kernel held on this rank's plan slice."""
+    import importlib
+
+    from lux_tpu_torch.engine import pull, push
+    from lux_tpu_torch.graph import csc
+    from lux_tpu_torch.graph.shards import to_device
+    from lux_tpu_torch.ops import expand, shuffle
+    from lux_tpu_torch.parallel import spawn
+
+    app = importlib.import_module(f"lux_tpu_torch.apps.{opt['app']}")
+    g = load_saved_graph(np, csc, tmp, opt["graph"])
+    expand.reset_plan_stats()
+    t0 = time.perf_counter()
+    res = app.run(argv, graph=g)
+    torch.cuda.synchronize()
+    row = {"rc": res.rc, "seconds": res.seconds, "gteps": res.gteps, "iters": res.iters,
+           "launches": spawn.kernel_launches(), "plans": expand.plan_stats_snapshot(),
+           "wall_s": time.perf_counter() - t0}
+    kernel = DIST_ROUTED_KERNEL[argv[argv.index("--route-gather") + 1]]
+    if opt["app"] in ("sssp", "components"):
+        lay, final = res.dist[0], res.dist[1]
+        row.update(traversed=res.traversed, dense_rounds=res.dense_rounds,
+                   state=lay.read(final.state))
+        twin = push.place_layout(lay.prog, lay.shards, lay.pg, lay.method, merge=lay.merge)
+        tw = twin.loop(twin.init(), 10_000)
+        row.update(twin=twin.read(tw.state), twin_iters=int(tw.it), twin_traversed=int(tw.edges))
+        twin.release()
+        row["exchange"] = dist_push_split(lay, 0)
+        row["held"] = dist_hold_routed(torch, shuffle, kernel, lambda: lay.dense_fn(final.state),
+                                       REPS)
+        return row
+    ds, block = res.dist
+    row["state"] = res.ranks if opt["app"] == "pagerank" else res.state
+    direct = dataclasses.replace(ds, route=None)
+    tb = ds.initial()
+    direct.iterate(tb, ITERS)
+    row["twin"] = direct.read(tb)
+    del tb, direct
+    if opt.get("single") and pg.rank == 0:
+        sh = ds.layout
+        plan = expand.plan_fused_shards_cached(sh, "sum", mx=True)
+        arrays = to_device(sh.arrays, pg.device)
+        out = pull.run_pull_fixed(ds.prog, sh.spec, arrays, pull.init_state(ds.prog, arrays),
+                                  ITERS, ds.method, route=plan)
+        row["single"] = sh.scatter_to_global(out.float().cpu().numpy())
+        del plan, arrays, out
+    row["exchange"] = ds.exchange_split(block, ITERS)
+    row["held"] = dist_hold_routed(torch, shuffle, kernel,
+                                   lambda: ds.iterate(block.clone(), 1), REPS)
+    return row
+
+
+def dist_routed_check(np, label: str, argv: list, per_rank: list) -> dict:
+    """A routed leg against its direct twin in the same ranks: every
+    rank's exit code 0, no plan built cold (every entry loaded from phase
+    4's cache), the leg's kernel launched in every rank (ITERS times an
+    iteration's worth at least: once an iteration, or a dense round of
+    the push); the pull legs' state bitwise the twin's (fused-mx: within
+    SUM_RTOL of rank 0's single-process routed run), the push legs'
+    state, iterations and traversed edges bitwise."""
+    lead = per_rank[0]
+    mode = argv[argv.index("--route-gather") + 1]
+    kernel = DIST_ROUTED_KERNEL[mode]
+    require(all(r["rc"] == 0 for r in per_rank), f"dist {label}: a rank's -check failed")
+    for r in per_rank:
+        require(r["plans"]["built"] == 0 and r["plans"]["loaded"] > 0,
+                f"dist {label}: a rank built its plan cold: {r['plans']}")
+    push_leg = "traversed" in lead
+    need = max(lead["dense_rounds"], 1) if push_leg else ITERS
+    got = [r["launches"][kernel] for r in per_rank]
+    require(all(n >= need for n in got),
+            f"dist {label}: {kernel} launched {got} times in the ranks (need {need} each)")
+    state = lead["state"]
+    require(state is not None and bool(np.isfinite(state).all()),
+            f"dist {label}: no finite state on rank 0")
+    out = {"kernel": kernel, "mode": mode, "plans_loaded": [r["plans"]["loaded"]
+                                                            for r in per_rank]}
+    if push_leg:
+        require(np.array_equal(state, lead["twin"]),
+                f"dist {label}: rank 0's state differs from the direct twin's")
+        for r in per_rank:
+            require((r["iters"], r["traversed"]) == (r["twin_iters"], r["twin_traversed"]),
+                    f"dist {label}: (iterations, edges) {(r['iters'], r['traversed'])} differ "
+                    f"from the direct twin's {(r['twin_iters'], r['twin_traversed'])}")
+        out.update(bitwise_direct_twin=True, iters=lead["iters"],
+                   traversed_edges=lead["traversed"], dense_rounds=lead["dense_rounds"])
+        return out
+    if "single" in lead:
+        single = lead["single"]
+        rel = float(np.max(np.abs(state.astype(np.float64) - single) / np.abs(single)))
+        require(rel <= SUM_RTOL, f"dist {label}: off the single-process routed run by {rel}")
+        out.update(max_rel_err_vs_single_process=rel,
+                   bitwise_single_process=bool(np.array_equal(state, single)),
+                   max_rel_err_vs_direct_twin=float(np.max(
+                       np.abs(state.astype(np.float64) - lead["twin"]) / np.abs(lead["twin"]))))
+        return out
+    require(np.array_equal(state, lead["twin"]),
+            f"dist {label}: rank 0's state differs from the direct twin's")
+    out["bitwise_direct_twin"] = True
+    return out
+
+
+def routed_legs(hub: int):
+    """The routed legs of phase dist, (the 2-rank group's, the grid's):
+    (label, "routed", argv, options), on RMAT DIST_ROUTED_SCALE (SSSP from
+    its vertex ``hub``) and the CF rating graph of that scale, every plan
+    loaded from phase 4's cache."""
+    g18 = ["--rmat-scale", str(DIST_ROUTED_SCALE), "--rmat-ef", str(EF), "--seed", "0",
+           "--distributed", "--device", "cuda"]
+    pr18 = g18 + ["-ng", str(DIST_PUSH_PARTS), "-ni", str(ITERS), "-check"]
+    push18 = g18 + ["-ng", str(DIST_PUSH_PARTS), "-check"]
+    on18 = {"app": "pagerank", "graph": f"dist{DIST_ROUTED_SCALE}"}
+    routed_b = [
+        ("routed-ag-expand-pf", "routed", pr18 + ["--method", "mxscan", "--route-gather",
+                                                  "expand-pf"], on18),
+        ("routed-ag-fused-mx", "routed", pr18 + ["--method", "mxscan", "--route-gather",
+                                                 "fused-mx"], dict(on18, single=True)),
+        # --method scan: the scatter method's f32 index_add_ sums in atomic
+        # order on the card, so two runs of it are not bitwise
+        ("routed-ring", "routed", pr18 + ["--exchange", "ring", "--method", "scan",
+                                          "--route-gather", "expand"], on18),
+        ("routed-scatter", "routed", pr18 + ["--exchange", "scatter", "--method", "scan",
+                                             "--route-gather", "expand"], on18),
+        ("routed-sssp", "routed", push18 + ["--method", "mxscan", "-start",
+                                            str(hub), "--route-gather", "expand"],
+         dict(on18, app="sssp")),
+        ("routed-cc-ring", "routed", push18 + ["--exchange", "ring", "--method", "scatter",
+                                               "--route-gather", "expand"],
+         dict(on18, app="components"))]
+    routed_e = [
+        ("routed-edge2d", "routed", g18 + ["-ng", str(DIST_GRID_PARTS), "-ni", str(ITERS),
+                                           "-check", "--edge-shards", str(DIST_GRID_SHARDS),
+                                           "--method", "scan", "--route-gather", "expand"],
+         on18),
+        ("routed-feat", "routed", [a for a in cf_argv(DIST_ROUTED_SCALE) if a != "-check"] + [
+            "-ng", str(DIST_GRID_PARTS), "--feat-shards", str(DIST_GRID_SHARDS),
+            "--distributed", "--route-gather", "expand"],
+         {"app": "colfilter", "graph": f"cf{DIST_ROUTED_SCALE}"})]
+    return routed_b, routed_e
+
+
 def dist_rank(pg, runs, tmp):
     """One rank of phase dist: each run of ``runs`` in order, with this
     process's launch counters set to 0 just before and read just after.
@@ -5062,6 +5353,9 @@ def dist_rank(pg, runs, tmp):
         spawn.reset_launches()
         t0 = time.perf_counter()
         row = {}
+        if kind == "routed":
+            out[label] = dist_routed_leg(torch, np, pg, argv, opt, tmp)
+            continue
         if kind == "run":
             # a spec workload through apps/run.py on the main graph
             from lux_tpu_torch.apps import run as run_app
@@ -5234,7 +5528,7 @@ def dist_workload_check(np, label: str, per_rank: list, want: dict, g_nv: int):
 
 
 def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, push_ref,
-              spec_ref):
+              spec_ref, plan_dir, routed_plans):
     """Phase dist: the distributed pull and push engines (parallel/,
     engine/push) as ranks that share the card.  (a) NCCL, one rank holding the 8 parts of the RMAT
     22 file: allgather + mxscan PageRank, bitwise the single-process
@@ -5285,6 +5579,7 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
     # check_training's float64 pass over 16.8 M ratings is host seconds
     grid_cf = [a for a in cf_argv(SCALE) if a != "-check"] + [
         "-ng", str(DIST_GRID_PARTS), "--feat-shards", str(DIST_GRID_SHARDS), "--distributed"]
+    routed_b, routed_e = routed_legs(routed_plans["hub"])
     push_want = {
         "push-nccl": sf, "push-allgather": push_ref["sssp"], "push-tree": push_ref["sssp"],
         "cc-allgather": push_ref["components"], "cc-ring": push_ref["components"],
@@ -5335,12 +5630,12 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             ("kcore", "run", ["kcore"] + main + ng + ["--method", "mxscan"]),
             ("labelprop", "run", ["labelprop"] + main + ng + [
                 "-ni", str(ITERS), "--labels", str(LP_LABELS), "--seed-stride",
-                str(LP_STRIDE)])]),
+                str(LP_STRIDE)])] + routed_b),
         ("e", "gloo", DIST_GRID_RANKS, [
             ("edge2d", "edge2d", main_pr + ["-ng", str(DIST_GRID_PARTS), "--edge-shards",
                                             str(DIST_GRID_SHARDS), "--method", "scan"]),
             ("feat", "feat", grid_cf),
-            ("feat-ring", "feat", grid_cf + ["--exchange", "ring"])]))
+            ("feat-ring", "feat", grid_cf + ["--exchange", "ring"])] + routed_e))
     total = {k: 0 for k in kernels}
     rows = []
     for name, backend, world, runs in groups:
@@ -5349,7 +5644,8 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             res = spawn.run_ranks(world, dist_rank, (runs, tmp), num_parts=world,
                                   device="cuda", backend=backend,
                                   deadline_s=DIST_DEADLINE_S, threads=8 // max(world, 2),
-                                  env={"LUX_DIST_BACKEND": backend})
+                                  env={"LUX_DIST_BACKEND": backend,
+                                       "LUX_TORCH_PLAN_CACHE": plan_dir})
         except spawn.RankFailure as e:
             raise PhaseFailure(f"dist {name}: {e}")
         for label, kind, argv, *_ in runs:
@@ -5359,6 +5655,19 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
             for c in launches:
                 for k in total:
                     total[k] += c.get(k, 0)
+            if kind == "routed":
+                err = dist_routed_check(np, label, argv, per_rank)
+                held = [r["held"] for r in per_rank]
+                rows += held
+                emit({"phase": "dist", "run": label, "group": name, "backend": backend,
+                      "ranks": world, "argv": argv, **err,
+                      "ms_per_iter": lead["seconds"] * 1e3 / max(lead["iters"], 1),
+                      "seconds": lead["seconds"], "gteps": lead["gteps"],
+                      "split": lead.get("exchange"), "launches": launches, "held": held,
+                      "plans": [r["plans"] for r in per_rank],
+                      "wall_s": [r["wall_s"] for r in per_rank],
+                      "rank_devices": [r["device"] for r in res], "device": smi})
+                continue
             if kind == "run":
                 err = dist_workload_check(np, label, per_rank, spec_ref, 1 << SCALE)
                 emit({"phase": "dist", "run": label, "group": name, "backend": backend,
@@ -5442,7 +5751,8 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
     left = [c for pid, c in child_processes()
             if pid not in before and "resource_tracker" not in c]
     require(not left, f"dist: rank processes left behind: {left}")
-    emit({"phase": "dist", "launches": total, "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "dist", "launches": total, "routed_plans": routed_plans,
+          "seconds": time.perf_counter() - t_phase})
     return total, rows
 
 
@@ -5621,6 +5931,10 @@ def main() -> int:
     save_graph(np, _TMP, "main", g)
     plan_pool = concurrent.futures.ProcessPoolExecutor(
         len(PLAN_CHAINS) + 3, mp_context=multiprocessing.get_context("spawn"))
+    # the routed legs' plans (phase 25): a pool of their own, waited for at phase 25
+    dist_plan_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    dist_plan_fut = dist_plan_pool.submit(dist_plans, _TMP, plan_dir)
     variants_plan_fut = plan_pool.submit(variants_plan, plan_dir)
     live_plan_fut = plan_pool.submit(live_plan, _TMP, plan_dir)
     sorted_plan_fut = plan_pool.submit(sorted_plan, _TMP, plan_dir)
@@ -5965,8 +6279,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 25. the distributed pull engine: ranks that share the card
+    routed_plans = dist_plan_fut.result()
+    dist_plan_pool.shutdown()
     dist_launches, dist_rows = dist_main(torch, np, kernels, smi, _TMP, disk, pr_ref20,
-                                         cf_pallas20, v64, push_ref, spec_ref)
+                                         cf_pallas20, v64, push_ref, spec_ref, plan_dir,
+                                         routed_plans)
     del disk, pr_ref20, cf_pallas20, v64, push_ref, spec_ref
     obs_log_main(smi)
 

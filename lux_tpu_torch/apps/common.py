@@ -91,6 +91,8 @@ def check_distributed(cfg: RunConfig, prog, was_auto: bool) -> None:
     needs a sum program without destination reads, pallas runs on the
     allgather exchange, and the relayouts bind to the allgather pull
     layout."""
+    if cfg.distributed:
+        check_route(cfg, prog)
     if cfg.feat_shards > 1:
         return check_feat(cfg, prog, was_auto)
     if cfg.edge_shards > 1:
@@ -121,6 +123,62 @@ def check_distributed(cfg: RunConfig, prog, was_auto: bool) -> None:
         raise SystemExit(
             "--exchange scatter needs a sum-reducible program without "
             "per-edge destination reads; use --exchange ring or allgather")
+
+
+def downgrade_pf(cfg: RunConfig, layout: str) -> None:
+    """expand-pf -> expand, with a note: the pass-fused plans bind the
+    allgather pull layout, and pf is a bitwise-identical grouping of the
+    kernels, so a layout that plans a bucket at a time runs the unfused
+    family rather than failing (the reference's one policy for the pull
+    apps and the push apps' ring)."""
+    import sys
+
+    print(f"# --route-gather expand-pf: {layout} plans per-bucket; running the unfused "
+          "'expand' family (bitwise-identical)", file=sys.stderr)
+    cfg.route_gather = "expand"
+
+
+def check_route(cfg: RunConfig, prog) -> None:
+    """The reference's --route-gather matrix under --distributed, before
+    any set-up: every layout routes in ``expand`` (allgather, the ring
+    and reduce-scatter buckets, the edge-sharded chunks, the feat-sharded
+    columns; a bucketed layout downgrades expand-pf to expand with a
+    note); the fused modes and the pass-fused ones run on the allgather
+    exchange alone, and the fused modes only on scalar state; no mode
+    combines with --method pallas, --compact-gather, --stream-hbm-gib,
+    -verbose or --ckpt-every."""
+    if not cfg.route_gather:
+        return
+    resolve_route_auto(cfg)
+    wide = getattr(prog, "k", 1) > 1
+    if cfg.route_gather == "expand-pf" and (
+            cfg.exchange != "allgather" or cfg.edge_shards > 1 or cfg.feat_shards > 1):
+        downgrade_pf(cfg, "this exchange/layout")
+    if wide and route_base(cfg.route_gather) == "fused":
+        raise SystemExit(
+            "--route-gather fused supports scalar vertex state; colfilter's wide "
+            "dst-dependent load routes with --route-gather expand (per-column src + "
+            "dst plans)")
+    expand_only = cfg.route_gather == "expand"
+    bucket_ok = cfg.exchange in ("ring", "scatter") and expand_only and not wide
+    feat_ok = cfg.feat_shards > 1 and expand_only and cfg.exchange == "allgather"
+    e2d_ok = (cfg.edge_shards > 1 and expand_only and cfg.exchange == "allgather"
+              and not wide)
+    if ((cfg.exchange != "allgather" and not bucket_ok)
+            or (cfg.edge_shards > 1 and not e2d_ok)
+            or (cfg.feat_shards > 1 and not feat_ok)
+            or cfg.method == "pallas" or cfg.compact_gather or cfg.stream_hbm_gib):
+        raise SystemExit(
+            "--route-gather expand covers every pull layout (allgather, ring/scatter "
+            "buckets, edge-sharded chunks, feat-sharded columns); 'fused' and the "
+            "pass-fused '-pf' variants are allgather-only, and no mode combines with "
+            "--method pallas/--compact-gather/--stream-hbm-gib")
+    if cfg.verbose:
+        raise SystemExit(_ROUTE_VERBOSE_ERR)
+    if cfg.ckpt_every:
+        raise SystemExit(
+            "--route-gather with checkpointing is a single-device stepping mode; the "
+            "distributed chunked driver runs the direct gather — drop one of the flags")
 
 
 def _downgrade_scan_family(cfg: RunConfig, was_auto: bool, where: str) -> None:
@@ -580,11 +638,11 @@ def resolve_route_auto(cfg) -> None:
                         else "expand")
 
 
-def report_plan(build):
-    """Run a cached planner call ``build()`` and print whether its entries
-    were loaded from the plan disk cache (``LUX_TORCH_PLAN_CACHE``) or
-    built, and the seconds it took (ops/expand.plan_stats_snapshot).
-    Returns the plan."""
+def report_plan(build, show: bool = True):
+    """Run a cached planner call ``build()`` and print (``show``) whether
+    its entries were loaded from the plan disk cache
+    (``LUX_TORCH_PLAN_CACHE``) or built, and the seconds it took
+    (ops/expand.plan_stats_snapshot).  Returns the plan."""
     before = expand.plan_stats_snapshot()
     plan = build()
     after = expand.plan_stats_snapshot()
@@ -593,7 +651,8 @@ def report_plan(build):
     secs = (after["cold_s"] - before["cold_s"]) + (after["warm_s"] - before["warm_s"])
     how = "built" if built and not loaded else "loaded" if loaded and not built \
         else f"built {built} / loaded {loaded}"
-    print(f"routed plan {how}: {built + loaded} cache entries in {secs:.3f} s")
+    if show:
+        print(f"routed plan {how}: {built + loaded} cache entries in {secs:.3f} s")
     return plan
 
 
@@ -625,17 +684,92 @@ def build_pull_route(cfg: RunConfig, shards, prog):
     return report_plan(lambda: expand.plan_expand_shards_cached(shards, pf=pf))
 
 
-def build_push_route(cfg: RunConfig, shards):
+def build_push_route(cfg: RunConfig, shards, rows=None, show: bool = True):
     """The push apps' --route-gather plan (host set-up, outside the timed
-    window): the expand plan of the push shards' embedded pull layout,
-    pass-fused for 'expand-pf', through the plan disk cache as in
-    :func:`build_pull_route`; '' = None.  The dense rounds route their
-    gather only, so there is no fused form."""
+    window): on the ring exchange the bucket plans of the ring push
+    layout, else the expand plan of the push shards' embedded pull layout
+    (``rows``: a rank's parts only), pass-fused for 'expand-pf', through
+    the plan disk cache as in :func:`build_pull_route`; '' = None.  The
+    dense rounds route their gather only, so there is no fused form."""
     if not cfg.route_gather:
         return None
     resolve_route_auto(cfg)
+    if cfg.exchange == "ring":
+        return report_plan(lambda: expand.plan_ring_route_shards_cached(shards), show)
     pf = route_is_pf(cfg.route_gather)
-    return report_plan(lambda: expand.plan_expand_shards_cached(shards.pull, pf=pf))
+    return report_plan(lambda: expand.plan_expand_shards_cached(shards.pull, pf=pf, rows=rows),
+                       show)
+
+
+def _resident_rows(pg, arrays) -> list:
+    """This rank's rows of a stacked layout: its parts of all P rows, or
+    every row of a subset build of its k."""
+    n = arrays.src_pos.shape[0]
+    return list(pg.parts) if n == pg.num_parts else list(range(n))
+
+
+def _dist_planner(cfg: RunConfig, layout, prog, pg, grid, template):
+    """The cached planner call of this rank's --route-gather plan."""
+    rg = cfg.route_gather
+    if grid is not None and grid.axis == "edge":
+        return lambda: expand.plan_edge2d_route_shards_cached(layout)
+    if cfg.exchange == "ring":
+        return lambda: expand.plan_ring_route_shards_cached(layout)
+    if cfg.exchange == "scatter":
+        return lambda: expand.plan_scatter_route_shards_cached(layout)
+    rows, pf = _resident_rows(pg, layout.arrays), route_is_pf(rg)
+    if template is not None:
+        return lambda: expand.plan_fused_shards_cached(
+            layout, prog.reduce, pf=pf, mx=route_mx(rg), rows=rows, template=template)
+    if getattr(prog, "k", 1) > 1:
+        return lambda: expand.plan_cf_route_shards_cached(layout, pf=pf, rows=rows)
+    return lambda: expand.plan_expand_shards_cached(layout, pf=pf, rows=rows)
+
+
+def _agree_planned(err) -> None:
+    """Every rank's plan made (``err`` None here), agreed in one
+    all-reduce every rank takes; else every rank exits, naming the
+    error where it happened."""
+    from lux_tpu_torch.parallel import dist
+
+    if not dist.agree_ok(err is None):
+        raise SystemExit(f"--route-gather: the routed plan failed on "
+                         f"{'this rank' if err else 'another rank'}"
+                         + (f": {err}" if err else ""))
+
+
+def build_dist_route(cfg: RunConfig, layout, prog, pg, grid=None):
+    """This rank's --route-gather plan under --distributed (host set-up,
+    before the first exchange), through the plan disk cache: the rows of
+    its own parts (allgather, feat: the pull layout's; the fused modes
+    against the group template agreed over the ranks), the buckets of
+    its ring or reduce-scatter build, its edge2d cell; '' = None.  The
+    ranks then agree that every plan was made, in one all-reduce, so a
+    rank whose plan failed fails every rank instead of leaving them in
+    the first exchange.  Rank 0 prints the load line.  Returns the
+    stacked (static, arrays) plan of this rank's rows."""
+    if not cfg.route_gather:
+        return None
+    from lux_tpu_torch.parallel import dist
+
+    rg, show = cfg.route_gather, main_rank()
+    plan, err, template = None, None, None
+    if route_base(rg) == "fused":
+        try:
+            local = expand._group_template(layout.arrays, _resident_rows(pg, layout.arrays))
+        except Exception as e:  # every rank still takes the template's collective
+            local, err = None, e
+        try:
+            template = dist.agree_template(pg, local)
+        except RuntimeError as e:
+            err = err or e
+    try:
+        if err is None:
+            plan = report_plan(_dist_planner(cfg, layout, prog, pg, grid, template), show)
+    except Exception as e:  # agreed on below, by every rank
+        err = e
+    _agree_planned(err)
+    return plan
 
 
 def route_mode_of(plan) -> str:
@@ -746,7 +880,29 @@ def estimate_dist(layout, cfg: RunConfig, pg, state_width: int = 1,
                   dst_state: bool = False) -> preflight.MemoryEstimate:
     """One rank's memory estimate: its k resident parts of the exchange's
     layout, plus the gathered (P*V, ...) state of the allgather and the
-    block-CSR pull."""
+    block-CSR pull, plus the --route-gather plans of its resident parts
+    (preflight.routed_plan_bytes_analytic, or the bucket plans':
+    routed_bucket_plan_bytes_analytic)."""
+    est = _estimate_dist_layout(layout, cfg, pg, state_width, dst_state)
+    if not cfg.route_gather:
+        return est
+    # the routed plans are static device arrays a resident part, charged
+    # from the geometry before any is built
+    spec = layout.spec
+    if cfg.edge_shards > 1:
+        extra = preflight.routed_bucket_plan_bytes_analytic(
+            1, layout.e2_pad, spec.num_parts * spec.nv_pad)
+    elif cfg.exchange in ("ring", "scatter"):
+        extra = pg.k * preflight.routed_bucket_plan_bytes_analytic(
+            spec.num_parts, layout.e_bucket_pad, spec.nv_pad)
+    else:
+        extra = pg.k * preflight.routed_plan_bytes_analytic(
+            spec, cfg.route_gather, wide=state_width > 1)
+    return preflight.add_routed_bytes(est, extra)
+
+
+def _estimate_dist_layout(layout, cfg: RunConfig, pg, state_width: int,
+                          dst_state: bool) -> preflight.MemoryEstimate:
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
     spec = layout.spec
     if cfg.edge_shards > 1:
@@ -788,30 +944,52 @@ class DistSetup:
     #: --edge-shards / --feat-shards: this rank's mesh.Grid2D (``pg`` is
     #: then its parts-axis group)
     grid: object = None
+    #: --route-gather: this rank's rows of the routed plan, on its device
+    #: (parallel/mesh.place_plan), or None
+    route: object = None
+
+    def initial(self):
+        """This rank's initial (k, V, ...) block on its device, from the
+        placed layout's vertex arrays."""
+        from lux_tpu_torch.parallel import feat, pallas_dist
+
+        prog, grid = self.prog, self.grid
+        if grid is not None and grid.axis == "feat":
+            view = self.arrays if self.arrays is not None else self.layout.pull.arrays
+            return feat.init_state_feat(prog, view, grid)
+        if self.pallas:
+            return pallas_dist.init_state_pallas(prog, self.layout).to(self.pg.device)
+        if self.arrays is not None:
+            return pull.init_state(prog, self.arrays)
+        if grid is not None:  # the edge grid's placed cells
+            return pull.init_state(prog, self.layout.arrays)
+        return pull.init_state(prog, self.layout.pull.arrays)
 
     def iterate(self, state, n: int) -> None:
         """n iterations in place on this rank's (k, V, ...) block."""
         from lux_tpu_torch.parallel import dist, edge2d, feat, pallas_dist, ring, scatter
 
-        prog, pg, lay = self.prog, self.pg, self.layout
+        prog, pg, lay, route = self.prog, self.pg, self.layout, self.route
         if self.grid is not None and self.grid.axis == "edge":
-            out = edge2d.run_pull_fixed_2d(prog, lay, state, n, self.grid, self.method)
+            out = edge2d.run_pull_fixed_2d(prog, lay, state, n, self.grid, self.method,
+                                           route=route)
         elif self.grid is not None and self.exchange == "ring":
             out = feat.run_cf_feat_ring(prog, lay, state, n, self.grid, self.method)
         elif self.grid is not None:
             out = feat.run_cf_feat_dist(prog, lay.spec, self.arrays, state, n, self.grid,
-                                        self.method)
+                                        self.method, route=route)
         elif self.pallas:
             run = (pallas_dist.run_cf_pallas_dist if prog.needs_dst_state
                    else pallas_dist.run_pull_fixed_pallas_dist)
             out = run(prog, lay, state, n, pg)
         elif self.exchange == "ring":
-            out = ring.run_pull_fixed_ring(prog, lay, state, n, pg, self.method)
+            out = ring.run_pull_fixed_ring(prog, lay, state, n, pg, self.method, route=route)
         elif self.exchange == "scatter":
-            out = scatter.run_pull_fixed_scatter(prog, lay, state, n, pg, self.method)
+            out = scatter.run_pull_fixed_scatter(prog, lay, state, n, pg, self.method,
+                                                 route=route)
         else:
             out = dist.run_pull_fixed_dist(prog, lay.spec, self.arrays, state, n, pg,
-                                           self.method)
+                                           self.method, route=route)
         state.copy_(out)
 
     def assemble(self, state) -> Optional[np.ndarray]:
@@ -870,9 +1048,10 @@ class DistSetup:
 def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
     """This rank's set-up: join the group, build its layout (printed on
     rank 0), check its memory estimate against its device, build the
-    kernels, place the arrays; returns (DistSetup, its initial (k, V, ...)
+    kernels, make its --route-gather plan (:func:`build_dist_route`: its
+    rows only, agreed over the ranks before the first exchange), place
+    the arrays and the plan; returns (DistSetup, its initial (k, V, ...)
     block on the device)."""
-    from lux_tpu_torch.parallel import pallas_dist
     from lux_tpu_torch.parallel.mesh import shard_stacked
     from lux_tpu_torch.parallel.ring import vertex_view
 
@@ -903,30 +1082,22 @@ def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
                          max_edge_shards=world // cfg.num_parts if hint else 0)
     if pg.device.type == "cuda":
         cuda_build.load_all()
+    route = build_dist_route(cfg, layout, prog, pg, grid)
+    if route is not None:
+        from lux_tpu_torch.parallel.mesh import place_plan
+
+        route = place_plan(pg, route)
     arrays = None
     if grid is not None and grid.axis == "edge":
         from lux_tpu_torch.parallel.edge2d import place_cells
 
         layout = place_cells(layout, pg.device)
-        state = pull.init_state(prog, layout.arrays)
-    elif grid is not None:
-        from lux_tpu_torch.parallel import feat
-
-        if cfg.exchange == "allgather":
-            arrays = shard_stacked(pg, layout.arrays)
-            state = feat.init_state_feat(prog, arrays, grid)
-        else:
-            view = vertex_view(pg, layout.pull.arrays)
-            layout = dataclasses.replace(
-                layout, pull=dataclasses.replace(layout.pull, arrays=view),
-                rarrays=shard_stacked(pg, layout.rarrays))
-            state = feat.init_state_feat(prog, view, grid)
+    elif grid is not None and cfg.exchange == "allgather":
+        arrays = shard_stacked(pg, layout.arrays)
     elif pallas:
         layout = dataclasses.replace(layout, arrays=shard_stacked(pg, layout.arrays))
-        state = pallas_dist.init_state_pallas(prog, layout).to(pg.device)
     elif cfg.exchange == "allgather":
         arrays = shard_stacked(pg, layout.arrays)
-        state = pull.init_state(prog, arrays)
     else:
         # the buckets and the per-vertex view go to the device; the pull
         # layout's O(E) arrays never do
@@ -935,8 +1106,8 @@ def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
             layout, pull=dataclasses.replace(layout.pull, arrays=view),
             **{f: shard_stacked(pg, getattr(layout, f)) for f in ("rarrays", "sarrays")
                if hasattr(layout, f)})
-        state = pull.init_state(prog, view)
-    return DistSetup(prog, pg, layout, cfg.exchange, cfg.method, pallas, arrays, grid), state
+    ds = DistSetup(prog, pg, layout, cfg.exchange, cfg.method, pallas, arrays, grid, route)
+    return ds, ds.initial()
 
 
 def run_dist_app(cfg: RunConfig, g: HostGraph, dev, prog, app: str, state_width: int = 1):
@@ -1091,17 +1262,25 @@ def estimate_push_dist(shards, cfg: RunConfig, pg) -> preflight.MemoryEstimate:
     """One rank's memory estimate of the distributed push: its k resident
     parts of the exchange's layout (the allgather push shards, the ring
     push buckets, the block-CSR push's one part), plus the exchanged
-    frontier queues, and for the allgather the gathered (P*V) state."""
+    frontier queues, and for the allgather the gathered (P*V) state; with
+    --route-gather the dense rounds' plans of its parts."""
     spec, pspec = shards.spec, shards.pspec
     if cfg.method == "pallas":
         return preflight.estimate_push_pallas(spec, pspec, shards.pl.e_src_pos.shape[1],
                                               shards.t_chunk)
     if cfg.exchange == "ring":
-        return preflight.scale_residency(
+        est = preflight.scale_residency(
             preflight.estimate_push_ring(spec, pspec, shards.e_bucket_pad), pg.k)
-    est = preflight.scale_residency(preflight.estimate_push(spec, pspec), pg.k)
-    return preflight.add_gathered_bytes(
-        est, spec.gathered_size * 4 + preflight.push_exchange_bytes(spec, pspec))
+        extra = preflight.routed_bucket_plan_bytes_analytic(
+            spec.num_parts, shards.e_bucket_pad, spec.nv_pad)
+    else:
+        est = preflight.add_gathered_bytes(
+            preflight.scale_residency(preflight.estimate_push(spec, pspec), pg.k),
+            spec.gathered_size * 4 + preflight.push_exchange_bytes(spec, pspec))
+        extra = preflight.routed_plan_bytes_analytic(spec, "expand")
+    if cfg.route_gather:  # the dense rounds' plans, a resident part each
+        est = preflight.add_routed_bytes(est, pg.k * extra)
+    return est
 
 
 def setup_push_dist(cfg: RunConfig, g: HostGraph, dev, prog):
@@ -1109,7 +1288,7 @@ def setup_push_dist(cfg: RunConfig, g: HostGraph, dev, prog):
     its layout (the block-CSR and ring layouts only its own parts' chunks
     and buckets; printed on rank 0 with the memory estimate), check the
     estimate against its device before anything lands there, build the
-    kernels, place its statics.  Returns (engine/push.PushLayout, the
+    kernels, make and place its --route-gather plan, place its statics.  Returns (engine/push.PushLayout, the
     estimate)."""
     from lux_tpu_torch.engine import push
     from lux_tpu_torch.graph.push_shards import build_push_shards
@@ -1136,4 +1315,24 @@ def setup_push_dist(cfg: RunConfig, g: HostGraph, dev, prog):
     preflight.check_fits(est, device=pg.device)
     if pg.device.type == "cuda":
         cuda_build.load_all()
-    return push.place_layout(prog, shards, pg, cfg.method), est
+    route = build_push_dist_route(cfg, shards, pg)
+    return push.place_layout(prog, shards, pg, cfg.method, route=route), est
+
+
+def build_push_dist_route(cfg: RunConfig, shards, pg):
+    """This rank's --route-gather plan of the distributed push (the ring
+    build's bucket plans, else its parts' rows of the pull layout's
+    expand plan), on its device, the ranks agreeing that every plan was
+    made before the first exchange; '' = None."""
+    if not cfg.route_gather:
+        return None
+    from lux_tpu_torch.parallel.mesh import place_plan
+
+    plan, err = None, None
+    try:
+        rows = None if cfg.exchange == "ring" else _resident_rows(pg, shards.pull.arrays)
+        plan = build_push_route(cfg, shards, rows=rows, show=main_rank())
+    except Exception as e:  # agreed on below, by every rank
+        err = e
+    _agree_planned(err)
+    return place_plan(pg, plan)

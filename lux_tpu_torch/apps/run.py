@@ -13,7 +13,8 @@ Shipped programs:
              ``--engine pull`` runs the pull-until surface — bitwise the
              same distances); the push apps' flags apply (-verbose,
              --max-iters, --route-gather expand|expand-pf, --distributed
-             with --exchange allgather|ring)
+             with --exchange allgather|ring, routed there too; the pull
+             surface routes single-device runs only)
   kcore      k-core decomposition by iterative peel (``--kmax``); runs on
              the symmetrized simple view unless ``--directed``
   labelprop  seeded multi-class label propagation (dense pull, wide
@@ -247,6 +248,9 @@ def _run_kcore(cfg, g0, route) -> SpecRunResult:
     common.resolve_route_auto(cfg)
     prog = bind(library.KCORE, kk=1)
     _require_allgather(cfg, "kcore")
+    if cfg.distributed and (cfg.route_gather or route is not None):
+        raise SystemExit("kcore routes single-device runs only; the distributed "
+                         "pull-until driver has no route= path")
     pg = None
     if cfg.distributed:
         shards, pg, est = _dist_set_up(cfg, g, prog, dev)

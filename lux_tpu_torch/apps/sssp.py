@@ -11,7 +11,9 @@ ranks that share a card): ``--exchange allgather|ring`` for the dense
 rounds, ``--method pallas`` for the block-CSR kernel's (one part a
 rank), with --delta, --repartition-every, the checkpoints and -verbose
 (allgather) as on one device; rank 0 prints and checks.
-``--route-gather expand|expand-pf`` routes the dense rounds' gather;
+``--route-gather expand|expand-pf`` routes the dense rounds' gather (under
+--distributed on the allgather and the ring, each rank planning its own
+parts or buckets; not with --distributed --delta);
 ``--weighted`` relaxes with integer edge weights, and ``--delta N`` runs
 delta-stepping with bucket width N (engine/delta.py).
 ``--ckpt-dir``/``--ckpt-every`` run in windows with an elastic frontier
@@ -251,10 +253,21 @@ def _refuse(cfg: RunConfig, prog) -> None:
 
 def _refuse_dist(cfg: RunConfig, was_auto: bool) -> None:
     """The reference's refusals of the distributed push arms (after
-    :func:`_refuse`): pallas runs one part a rank on the allgather exchange,
+    :func:`_refuse`): --route-gather routes the allgather and the ring
+    dense rounds (expand-pf downgraded to expand on the ring, with a
+    note), without --delta; pallas runs one part a rank on the allgather exchange,
     without -verbose, checkpoints, repartitioning or delta; the ring runs the bucketed methods (an ``auto`` winner it
     cannot run falls back, with a note), without delta or the allgather
     relayouts."""
+    if cfg.route_gather:
+        if cfg.delta:
+            raise SystemExit(
+                "--route-gather on push apps routes the allgather dense rounds "
+                "(single-device or --distributed; composes with single-device "
+                "--delta) and the distributed ring dense rounds; it cannot combine "
+                "with --distributed --delta")
+        if cfg.route_gather == "expand-pf" and cfg.exchange == "ring":
+            common.downgrade_pf(cfg, "the ring exchange")
     if cfg.method == "pallas":
         if cfg.exchange != "allgather":
             raise SystemExit("--method pallas has its own dense path; it cannot "
@@ -340,8 +353,8 @@ def run_convergence_app(prog, shards: Optional[PushShards], cfg: RunConfig, name
         delta_eng._validate(prog, cfg.delta)
     if cfg.distributed:
         if route is not None:
-            raise ValueError("a routed plan was handed in, but --distributed gathers "
-                             "directly")
+            raise ValueError("a routed plan was handed in, but under --distributed each "
+                             "rank plans its own rows (--route-gather)")
         lay, est = common.setup_push_dist(cfg, g, dev, prog)
     else:
         lay, est = _place_one_device(prog, shards, cfg, dev, route)

@@ -56,8 +56,13 @@ run's at the same parts.  ``place_layout`` places any of these layouts
 the apps' one frontier driver, the adaptive repartitioning and the
 models run through it.
 
-Not ported: carry donation; the routed gather under the distributed push
-(ROADMAP Queue 1 item 7.5).
+``route=`` under a group routes the dense rounds' gather: the allgather
+layout's parts through their expand plans over the pull layout, the ring
+layout's buckets through their bucket plans (ops/expand
+.plan_ring_route_shards), each the rank's rows of a stacked plan; bitwise
+the direct rounds.
+
+Not ported: carry donation.
 """
 from __future__ import annotations
 
@@ -430,12 +435,16 @@ def _overlay_parts(overlay_static, oarrays, device, spec: ShardSpec):
     return pull.overlay_parts((overlay_static, oarrays), device, spec)
 
 
-def _route_parts(route, device, num_parts: int):
+def _check_expand(route) -> None:
     if route is not None and not isinstance(route[0], expand.ExpandStatic):
         raise ValueError(
             "the push engine's dense rounds route their gather only: pass "
             "an expand plan (ops/expand.plan_expand_shards, pf or not), "
             f"not a {type(route[0]).__name__}")
+
+
+def _route_parts(route, device, num_parts: int):
+    _check_expand(route)
     return pull._route_parts(route, device, num_parts)
 
 
@@ -546,12 +555,6 @@ def run_push(prog: PushProgram, shards: PushShards, max_iters: int = 10_000,
 # the distributed push: k = P / W resident parts a rank over torch.distributed
 # ---------------------------------------------------------------------------
 
-#: the refusal of every routed gather under the distributed push engines
-ROUTED_DIST = ("route= under the distributed push is not ported to lux_tpu_torch yet "
-               "(ROADMAP Queue 1 item 7.5: the ring, scatter and edge2d bucket routes); "
-               "the distributed engines gather directly")
-
-
 def _exchange_queues(c: PushCarry, pg, merge: str):
     """Every rank's (k, f_cap) queues, exchanged as ONE (k, 2, f_cap) int32
     block (vids and values' bits): the bulk all-gather flattens in rank
@@ -633,14 +636,16 @@ def _spmd_push_iter(prog, pspec: PushSpec, spec: ShardSpec, view, parrays, c: Pu
     return _spmd_push_requeue(prog, pspec, spec, view, c, new, plan)
 
 
-def _allgather_dense_fn(prog, arrays: ShardArrays, pg, method: str):
+def _allgather_dense_fn(prog, arrays: ShardArrays, pg, method: str, routes=None):
     """The allgather engines' dense round: the whole state gathered over
-    the ranks, then each resident part's pull over its in-edges."""
+    the ranks, then each resident part's pull over its in-edges (its
+    gather through ``routes[j]``, its placed expand plan, when given)."""
     from lux_tpu_torch.parallel.placement import halo_all_gather
 
     def dense_fn(block):
         full = halo_all_gather(block, pg)
-        return torch.stack([dense_part_step(prog, arrays.part(j), full, block[j], method)
+        return torch.stack([dense_part_step(prog, arrays.part(j), full, block[j], method,
+                                            route=None if routes is None else routes[j])
                             for j in range(block.shape[0])])
 
     return dense_fn
@@ -784,12 +789,13 @@ def compile_push_phases_dist(prog, pg, pspec: PushSpec, spec: ShardSpec,
     return load, comp, update
 
 
-def _ring_dense_fn(prog, rarr, view, spec: ShardSpec, pg, method: str):
+def _ring_dense_fn(prog, rarr, view, spec: ShardSpec, pg, method: str, plans=None):
     """The ring engine's dense round: the resident blocks go around the
     ranks (parallel/ring.ring_sweep); each arriving block's bucket of
     every resident part relaxes and folds (segment_reduce_by_ends) into
-    the part's accumulator, so no rank holds the whole state."""
-    from lux_tpu_torch.parallel.ring import neutral_like, ring_sweep
+    the part's accumulator, so no rank holds the whole state.  ``plans``
+    (parallel/ring.bucket_routes) routes each bucket's gather."""
+    from lux_tpu_torch.parallel.ring import gather_bucket, neutral_like, ring_sweep
 
     V, k, op = spec.nv_pad, pg.k, _op(prog)
 
@@ -800,7 +806,7 @@ def _ring_dense_fn(prog, rarr, view, spec: ShardSpec, pg, method: str):
             a = acc[i]
             for j in range(k):
                 q = first + j
-                src = stream[j].index_select(0, rarr.src_local[i, q])
+                src = gather_bucket(stream[j], rarr.src_local[i, q], plans and plans[i][q])
                 vals = prog.relax(src, rarr.weights[i, q])
                 a = op(a, segment.segment_reduce_by_ends(
                     vals, rarr.head_flag[i, q], rarr.dst_local[i, q], V,
@@ -945,7 +951,11 @@ def place_layout(prog, shards, pg=None, method: str = "auto", device="cuda", pla
     layout's kind: a PushShards all-gathers the state, a parallel.ring
     .PushRingShards streams it around the ring (``method`` scan or
     scatter), a parallel.pallas_dist.PushPallasShards reduces on the
-    block-CSR kernel (one part a rank, min/max programs)."""
+    block-CSR kernel (one part a rank, min/max programs).  Under ``pg``,
+    ``route`` is a stacked plan (all P rows or this rank's k): expand
+    plans of the pull layout for the allgather, bucket plans
+    (ops/expand.plan_ring_route_shards) for the ring; the block-CSR
+    layout has none."""
     from lux_tpu_torch.parallel.pallas_dist import PushPallasShards
     from lux_tpu_torch.parallel.ring import PushRingShards
 
@@ -956,8 +966,8 @@ def place_layout(prog, shards, pg=None, method: str = "auto", device="cuda", pla
         arrays, parrays = placed if placed is not None else place(shards, dev)
         return PushLayout(prog, shards, None, "allgather", _resolve(prog, method, dev),
                           arrays, parrays, arrays=arrays, route=route, merge=merge)
-    if route is not None:
-        raise NotImplementedError(ROUTED_DIST)
+    if route is not None and isinstance(shards, PushPallasShards):
+        raise ValueError("the block-CSR push has its own dense gather and no routed form")
     if isinstance(shards, PushPallasShards):
         from lux_tpu_torch.parallel import pallas_dist
 
@@ -971,12 +981,21 @@ def place_layout(prog, shards, pg=None, method: str = "auto", device="cuda", pla
     if isinstance(shards, PushRingShards):
         from lux_tpu_torch.parallel.ring import resolve_bucketed
 
+        from lux_tpu_torch.parallel.ring import bucket_routes
+
         method = resolve_bucketed(method, prog.reduce, pg.device)
         rarrays, parrays, view = place_ring_statics(shards, pg)
+        plans = bucket_routes(pg, route)
         return PushLayout(prog, shards, pg, "ring", method, view, parrays,
-                          dense_fn=_ring_dense_fn(prog, rarrays, view, shards.spec, pg, method),
-                          statics=rarrays, merge=merge)
+                          dense_fn=_ring_dense_fn(prog, rarrays, view, shards.spec, pg, method,
+                                                  plans),
+                          statics=rarrays, route=plans, merge=merge)
+    from lux_tpu_torch.parallel.mesh import resident_plans
+
     method = _resolve(prog, method, pg.device)
     arrays, parrays, _ = push_init_dist(prog, shards, pg)
+    _check_expand(route)
+    routes = resident_plans(pg, route)
     return PushLayout(prog, shards, pg, "allgather", method, arrays, parrays, arrays=arrays,
-                      dense_fn=_allgather_dense_fn(prog, arrays, pg, method), merge=merge)
+                      dense_fn=_allgather_dense_fn(prog, arrays, pg, method, routes),
+                      route=routes, merge=merge)

@@ -983,13 +983,15 @@ def _width_classes(counts: np.ndarray) -> np.ndarray:
     return np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64)
 
 
-def _group_template(arrays) -> dict[int, int]:
+def _group_template(arrays, rows=None) -> dict[int, int]:
     """Shared per-width-class group counts: the MAX over parts of each
     class's segment count.  Every part planned against this template
     yields an identical FusedStatic (dummy rows mask to the reduce
-    neutral), so the parts share one static."""
+    neutral), so the parts share one static.  ``rows``: only those rows
+    of the stacked arrays (a rank's parts; the ranks then agree on the
+    maxima, parallel/dist.agree_template)."""
     template: dict[int, int] = {}
-    for i in range(arrays.src_pos.shape[0]):
+    for i in _rows(arrays, rows):
         dl = arrays.dst_local[i][arrays.edge_mask[i]]
         _, counts = np.unique(dl, return_counts=True)
         ks = _width_classes(counts)
@@ -1014,6 +1016,17 @@ def resolve_fused_mx(mx: bool | None) -> bool:
     return methods.reduce_mode() == "mxreduce"
 
 
+def _rows(arrays, rows=None) -> list:
+    """The rows of a stacked layout a planner plans: ``rows`` (a rank's
+    resident parts), else every row."""
+    return list(range(arrays.src_pos.shape[0])) if rows is None else list(rows)
+
+
+def _on_rows(rows, key_one):
+    """A per-part cache key over the planner's i-th planned row."""
+    return lambda h, i: key_one(h, rows[i])
+
+
 def _fused_plan_one(shards, template, reduce: str, i: int,
                     mx: bool = False):
     """ONE part's fused plan against a SHARED template."""
@@ -1027,24 +1040,23 @@ def _fused_plan_one(shards, template, reduce: str, i: int,
 
 
 def plan_fused_shards(shards, reduce: str = "sum", pf: bool = False,
-                      mx: bool | None = False):
+                      mx: bool | None = False, rows=None, template=None):
     """plan_fused for a PullShards bundle.  Parts share one group
     TEMPLATE (max segment count per width class across parts), so all
     parts produce the same FusedStatic; the price is a few dummy group
     rows per part, masked to the reduce neutral.  ``pf=True`` returns
     the pass-fused form; ``mx=True`` (or mx=None with LUX_REDUCE_MODE=
     mxreduce — resolve_fused_mx) the MXREDUCE form, which is inherently
-    pass-fused."""
-    if resolve_fused_mx(mx):
-        template = _group_template(shards.arrays)
-        return _stack_parts(
-            shards.arrays.src_pos.shape[0],
-            lambda i: _fused_plan_one(shards, template, reduce, i,
-                                      mx=True))
-    template = _group_template(shards.arrays)
-    plan = _stack_parts(shards.arrays.src_pos.shape[0],
-                        lambda i: _fused_plan_one(shards, template, reduce, i))
-    return to_pf(plan) if pf else plan
+    pass-fused.  ``rows`` plans only those rows (a rank's parts), against
+    ``template``, which must then be every part's (default: the planned
+    rows')."""
+    rows = _rows(shards.arrays, rows)
+    if template is None:
+        template = _group_template(shards.arrays, rows)
+    mx = resolve_fused_mx(mx)
+    plan = _stack_parts(len(rows),
+                        lambda i: _fused_plan_one(shards, template, reduce, rows[i], mx=mx))
+    return to_pf(plan) if pf and not mx else plan
 
 
 def _stack_from(per_part):
@@ -1080,17 +1092,18 @@ def _expand_plan_one(shards, i: int):
                        shards.spec.gathered_size)
 
 
-def plan_expand_shards(shards, pf: bool = False):
+def plan_expand_shards(shards, pf: bool = False, rows=None):
     """Plan the routed expand for every part of a PullShards bundle.
 
     Returns ``(ExpandStatic, tuple of (P, ...) stacked arrays)`` — the
     form the engine consumes (engine/pull.py ``route=``; numpy here,
     :func:`plan_to_device` moves the arrays).  All parts share one static
     (same e_pad / gathered size → same dims), asserted here.
-    ``pf=True`` returns the pass-fused form (see to_pf).
+    ``pf=True`` returns the pass-fused form (see to_pf).  ``rows`` plans
+    only those rows of the stacked layout (a rank's parts).
     """
-    plan = _stack_parts(shards.arrays.src_pos.shape[0],
-                        lambda i: _expand_plan_one(shards, i))
+    rows = _rows(shards.arrays, rows)
+    plan = _stack_parts(len(rows), lambda i: _expand_plan_one(shards, rows[i]))
     return to_pf(plan) if pf else plan
 
 
@@ -1122,12 +1135,13 @@ def _cf_plan_one(shards, i: int):
     return CFRouteStatic(src=s_src, dst=s_dst), tuple(a_src) + tuple(a_dst)
 
 
-def plan_cf_route_shards(shards, pf: bool = False):
+def plan_cf_route_shards(shards, pf: bool = False, rows=None):
     """(CFRouteStatic, stacked arrays) for the wide destination-dependent
     pull: the src plan's arrays, then the dst plan's (split by the
-    statics' array counts).  ``pf=True``: both sub-plans pass-fused."""
-    plan = _stack_parts(shards.arrays.src_pos.shape[0],
-                        lambda i: _cf_plan_one(shards, i))
+    statics' array counts).  ``pf=True``: both sub-plans pass-fused;
+    ``rows``: only those rows (a rank's parts)."""
+    rows = _rows(shards.arrays, rows)
+    plan = _stack_parts(len(rows), lambda i: _cf_plan_one(shards, rows[i]))
     return to_pf(plan) if pf else plan
 
 
@@ -1146,6 +1160,73 @@ def apply_cf_route(full_state: torch.Tensor, local_state: torch.Tensor,
 
     return (columns(full_state, static.src, a_src),
             columns(local_state, static.dst, a_dst))
+
+
+# ---------------------------------------------------------------------------
+# the bucket routes of the ring, reduce-scatter and edge-sharded layouts
+# ---------------------------------------------------------------------------
+
+
+def _bucket_plan_one(src_local, dst_local, v_pad: int, state_size: int, flat: int):
+    """ONE bucket's expand plan over the shared (R, B) bucket layout
+    (block-local source indices, real edges prefix-packed, destination
+    pads holding the V sentinel): the single derivation of the cached and
+    uncached ring, reduce-scatter and edge2d planners."""
+    num_src = src_local.shape[1]
+    i, q = divmod(flat, num_src)
+    m = int(np.count_nonzero(np.asarray(dst_local[i, q]) < v_pad))
+    return plan_expand(np.asarray(src_local[i, q]), m, state_size)
+
+
+def _unflatten(num_r: int, num_src: int, plan):
+    """A plan stacked over R*S flat buckets, with its (R, S) bucket axes."""
+    static, flat = plan
+    return static, tuple(a.reshape((num_r, num_src) + a.shape[1:]) for a in flat)
+
+
+def _plan_bucket_routes(src_local, dst_local, v_pad: int, state_size: int | None = None):
+    """Shared (R, S, B) bucket planner of the ring, reduce-scatter and
+    edge2d layouts: one expand plan a bucket, every bucket sharing one
+    static (asserted).  ``state_size`` defaults to the block's v_pad
+    (edge2d gathers the (P*V,) parts-gathered state instead)."""
+    state_size = v_pad if state_size is None else state_size
+    num_r, num_src = src_local.shape[:2]
+    return _unflatten(num_r, num_src, _stack_parts(
+        num_r * num_src,
+        lambda flat: _bucket_plan_one(src_local, dst_local, v_pad, state_size, flat)))
+
+
+def _edge2d_geometry(eshards):
+    """(v_pad, the parts-gathered state size) of an edge-sharded layout:
+    P*V over every part, also when a rank built only its own cell."""
+    return eshards.spec.nv_pad, eshards.spec.num_parts * eshards.spec.nv_pad
+
+
+def plan_ring_route_shards(rshards):
+    """(ExpandStatic, (R, P, ...) stacked arrays) for the RING exchange:
+    one expand plan a (resident part i, streamed source part q) bucket;
+    bucket (i, q) gathers q's (V,) streamed block with bucket-local
+    indices.  R is the rows the buckets were built for (all parts, or a
+    rank's subset).  The plans do not shrink with the streamed block:
+    O(P * n_b * passes) a rank (preflight.routed_bucket_plan_bytes_analytic)."""
+    v_pad = rshards.pull.spec.nv_pad
+    return _plan_bucket_routes(rshards.rarrays.src_local, rshards.rarrays.dst_local, v_pad)
+
+
+def plan_scatter_route_shards(sshards):
+    """Bucket plans of the reduce-scatter exchange: bucket (i, p) gathers
+    this rank's resident source block i for destination part p (the
+    ring's indexing transposed)."""
+    v_pad = sshards.pull.spec.nv_pad
+    return _plan_bucket_routes(sshards.sarrays.src_local, sshards.sarrays.dst_local, v_pad)
+
+
+def plan_edge2d_route_shards(eshards):
+    """(part, edge shard) chunk plans of the 2-D edge grid: each chunk's
+    E2-wide src_pos gathers the (P*V,) parts-gathered state."""
+    a2 = eshards.arrays2d
+    v_pad, size = _edge2d_geometry(eshards)
+    return _plan_bucket_routes(a2.src_pos, a2.dst_local, v_pad, size)
 
 
 def plan_to_device(plan, device):
@@ -1490,58 +1571,63 @@ def _cf_key_one(shards):
 
 
 def plan_expand_shards_cached(shards, cache_dir: str | None = None,
-                              cache_path=None, pf: bool = False):
+                              cache_path=None, pf: bool = False, rows=None):
     """plan_expand_shards with the per-part disk cache keyed on each
     part's gather layout (src_pos + edge_mask bytes + gathered size).
     ``pf=True``: the pass-fused family ("expand-pf"); a pf miss loads (or
     builds AND caches) the unfused entry and upgrades it with the numpy
     transform, so the coloring is never paid twice.  ``cache_path``: a
-    has_cached_expand_plan result of the same ``pf``, to skip hashing."""
-    num = shards.arrays.src_pos.shape[0]
-    key_one = _expand_key_one(shards)
+    has_cached_expand_plan result of the same ``pf`` and ``rows``, to
+    skip hashing.  ``rows``: only those rows (a rank's parts; the keys
+    are the parts' own, so ranks and a single process share entries)."""
+    rows = _rows(shards.arrays, rows)
+    key_one = _on_rows(rows, _expand_key_one(shards))
+    build = lambda i: _expand_plan_one(shards, rows[i])  # noqa: E731
     paths = list(cache_path) if cache_path else None
     if not pf:
-        return _cached_stack("expand", num, key_one,
-                             lambda i: _expand_plan_one(shards, i), cache_dir,
+        return _cached_stack("expand", len(rows), key_one, build, cache_dir,
                              paths=paths, validate=_plain_form(ExpandStatic))
-    base_one = _cached_part_fn("expand", num, key_one,
-                               lambda i: _expand_plan_one(shards, i), cache_dir,
+    base_one = _cached_part_fn("expand", len(rows), key_one, build, cache_dir,
                                validate=_plain_form(ExpandStatic))
-    return _cached_stack("expand-pf", num, _pf_key_one(key_one),
+    return _cached_stack("expand-pf", len(rows), _pf_key_one(key_one),
                          lambda i: _to_pf_one(*base_one(i)), cache_dir,
                          paths=paths, validate=_pf_form)
 
 
-def has_cached_expand_plan(shards, cache_dir: str | None = None, pf: bool = False):
+def has_cached_expand_plan(shards, cache_dir: str | None = None, pf: bool = False,
+                           rows=None):
     """The per-part cache paths when plan_expand_shards_cached would be a
     pure disk load (every entry present), else None."""
-    key_one = _expand_key_one(shards)
-    num = shards.arrays.src_pos.shape[0]
+    rows = _rows(shards.arrays, rows)
+    key_one = _on_rows(rows, _expand_key_one(shards))
     if pf:
-        return _warm_paths("expand-pf", num, _pf_key_one(key_one), cache_dir)
-    return _warm_paths("expand", num, key_one, cache_dir)
+        return _warm_paths("expand-pf", len(rows), _pf_key_one(key_one), cache_dir)
+    return _warm_paths("expand", len(rows), key_one, cache_dir)
 
 
 def plan_fused_shards_cached(shards, reduce: str = "sum",
                              cache_dir: str | None = None, pf: bool = False,
-                             mx: bool | None = False):
+                             mx: bool | None = False, rows=None, template=None):
     """plan_fused_shards with the per-part disk cache (the reduce joins
     the tag).  Each part's key folds the SHARED group template, so a
     recut that changes any part's width-class census invalidates exactly
     the parts it must.  ``pf=True``: the pass-fused family; ``mx`` (True,
     or None following engine/methods.reduce_mode): the mxreduce family,
-    its own "fused-mx-<reduce>" tag and key salt."""
-    template = _group_template(shards.arrays)
-    num = shards.arrays.src_pos.shape[0]
-    key_one = _fused_key_one(shards, template)
+    its own "fused-mx-<reduce>" tag and key salt.  ``rows`` and
+    ``template`` as plan_fused_shards takes them."""
+    rows = _rows(shards.arrays, rows)
+    if template is None:
+        template = _group_template(shards.arrays, rows)
+    num = len(rows)
+    key_one = _on_rows(rows, _fused_key_one(shards, template))
     if resolve_fused_mx(mx):
         return _cached_stack(
             f"fused-mx-{reduce}", num, _mx_key_one(key_one),
-            lambda i: _fused_plan_one(shards, template, reduce, i, mx=True),
+            lambda i: _fused_plan_one(shards, template, reduce, rows[i], mx=True),
             cache_dir, validate=_mx_form)
     base_one = _cached_part_fn(
         f"fused-{reduce}", num, key_one,
-        lambda i: _fused_plan_one(shards, template, reduce, i), cache_dir,
+        lambda i: _fused_plan_one(shards, template, reduce, rows[i]), cache_dir,
         validate=_plain_form(FusedStatic))
     if not pf:
         return _stack_from(_map_parts(num, base_one))
@@ -1551,12 +1637,15 @@ def plan_fused_shards_cached(shards, reduce: str = "sum",
 
 
 def has_cached_fused_plan(shards, reduce: str = "sum", cache_dir: str | None = None,
-                          pf: bool = False, mx: bool | None = False):
+                          pf: bool = False, mx: bool | None = False, rows=None,
+                          template=None):
     """Per-part paths when the fused plan family is fully cached, else
     None."""
-    template = _group_template(shards.arrays)
-    key_one = _fused_key_one(shards, template)
-    num = shards.arrays.src_pos.shape[0]
+    rows = _rows(shards.arrays, rows)
+    if template is None:
+        template = _group_template(shards.arrays, rows)
+    key_one = _on_rows(rows, _fused_key_one(shards, template))
+    num = len(rows)
     if resolve_fused_mx(mx):
         return _warm_paths(f"fused-mx-{reduce}", num, _mx_key_one(key_one), cache_dir)
     if pf:
@@ -1564,11 +1653,13 @@ def has_cached_fused_plan(shards, reduce: str = "sum", cache_dir: str | None = N
     return _warm_paths(f"fused-{reduce}", num, key_one, cache_dir)
 
 
-def plan_cf_route_shards_cached(shards, cache_dir: str | None = None, pf: bool = False):
+def plan_cf_route_shards_cached(shards, cache_dir: str | None = None, pf: bool = False,
+                                rows=None):
     """plan_cf_route_shards with the per-part disk cache."""
-    num = shards.arrays.src_pos.shape[0]
-    key_one = _cf_key_one(shards)
-    base_one = _cached_part_fn("cf", num, key_one, lambda i: _cf_plan_one(shards, i),
+    rows = _rows(shards.arrays, rows)
+    num = len(rows)
+    key_one = _on_rows(rows, _cf_key_one(shards))
+    base_one = _cached_part_fn("cf", num, key_one, lambda i: _cf_plan_one(shards, rows[i]),
                                cache_dir, validate=_plain_form(CFRouteStatic))
     if not pf:
         return _stack_from(_map_parts(num, base_one))
@@ -1577,10 +1668,57 @@ def plan_cf_route_shards_cached(shards, cache_dir: str | None = None, pf: bool =
                          validate=_pf_form)
 
 
-def has_cached_cf_plan(shards, cache_dir: str | None = None, pf: bool = False):
+def has_cached_cf_plan(shards, cache_dir: str | None = None, pf: bool = False, rows=None):
     """Per-part paths when the CF plan family is fully cached, else None."""
-    key_one = _cf_key_one(shards)
-    num = shards.arrays.src_pos.shape[0]
+    rows = _rows(shards.arrays, rows)
+    key_one = _on_rows(rows, _cf_key_one(shards))
     if pf:
-        return _warm_paths("cf-pf", num, _pf_key_one(key_one), cache_dir)
-    return _warm_paths("cf", num, key_one, cache_dir)
+        return _warm_paths("cf-pf", len(rows), _pf_key_one(key_one), cache_dir)
+    return _warm_paths("cf", len(rows), key_one, cache_dir)
+
+
+def _bucket_key_one(src_local, dst_local, v_pad: int, state_size: int):
+    """Bucket (i, q)'s cache key: ITS slices of src_local / dst_local."""
+    num_src = src_local.shape[1]
+
+    def key_one(h, flat):
+        i, q = divmod(flat, num_src)
+        _hash_array(h, src_local[i, q])
+        _hash_array(h, dst_local[i, q])
+        h.update(f"{v_pad}:{state_size}".encode())
+
+    return key_one
+
+
+def _bucket_route_cached(tag: str, src_local, dst_local, v_pad: int, state_size: int,
+                         cache_dir: str | None = None):
+    """The bucket planner with one disk-cache entry a bucket: bucket (i, q)
+    keys on ITS slices of src_local / dst_local only, so a rank that
+    built only its rows, another rank, and a single process share the
+    entries of the buckets they have in common."""
+    num_r, num_src = src_local.shape[:2]
+    return _unflatten(num_r, num_src, _cached_stack(
+        tag, num_r * num_src, _bucket_key_one(src_local, dst_local, v_pad, state_size),
+        lambda flat: _bucket_plan_one(src_local, dst_local, v_pad, state_size, flat),
+        cache_dir, validate=_plain_form(ExpandStatic)))
+
+
+def plan_ring_route_shards_cached(rshards, cache_dir: str | None = None):
+    """plan_ring_route_shards with the per-bucket disk cache."""
+    v_pad = rshards.pull.spec.nv_pad
+    return _bucket_route_cached("ring", rshards.rarrays.src_local, rshards.rarrays.dst_local,
+                                v_pad, v_pad, cache_dir)
+
+
+def plan_scatter_route_shards_cached(sshards, cache_dir: str | None = None):
+    """plan_scatter_route_shards with the per-bucket disk cache."""
+    v_pad = sshards.pull.spec.nv_pad
+    return _bucket_route_cached("rscat", sshards.sarrays.src_local,
+                                sshards.sarrays.dst_local, v_pad, v_pad, cache_dir)
+
+
+def plan_edge2d_route_shards_cached(eshards, cache_dir: str | None = None):
+    """plan_edge2d_route_shards with the per-bucket disk cache."""
+    a2 = eshards.arrays2d
+    v_pad, size = _edge2d_geometry(eshards)
+    return _bucket_route_cached("e2d", a2.src_pos, a2.dst_local, v_pad, size, cache_dir)

@@ -13,14 +13,20 @@ the single-process ``run_pull_fixed`` at the same P and method.
 
 The method resolves through ``engine/methods`` on the rank's device, as
 on one card: an f32 sum is ``mxscan`` on the card (the segmented-scan
-kernel).  The routed gather under the distributed engines is not ported
-(ROADMAP Queue 1 item 7.5).  The small collectives of the distributed
-push's round decision (:func:`reduce_read`, :func:`gather_small`) live
-here too.
+kernel).  ``route=`` runs each resident part's step through its routed
+plan (ops/expand: an ExpandStatic or CFRouteStatic routes the load,
+bitwise; a FusedStatic the load and the reduce), the rank's rows of a
+stacked plan; the exchange is unchanged, so a routed run is bitwise the
+single-process routed run at the same P.  A rank plans only its own
+rows; the fused planners' group template is every part's, agreed over
+the ranks (:func:`agree_template`), and the ranks agree that every plan
+was made before the first exchange (:func:`agree_ok`).  The small
+collectives of the distributed push's round decision
+(:func:`reduce_read`, :func:`gather_small`) live here too.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -28,7 +34,7 @@ from lux_tpu_torch.engine import methods
 from lux_tpu_torch.engine.pull import (PullProgram, local_pull_step, pull_gather_part,
                                        pull_reduce_part)
 from lux_tpu_torch.graph.shards import ShardArrays, ShardSpec
-from lux_tpu_torch.parallel.mesh import PartsGroup, shard_stacked
+from lux_tpu_torch.parallel.mesh import PartsGroup, resident_plans, shard_stacked
 from lux_tpu_torch.parallel.placement import halo_all_gather
 
 
@@ -44,24 +50,29 @@ def _place(pg: PartsGroup, spec: ShardSpec, arrays, state0):
 
 
 def dist_iteration(prog: PullProgram, arrays: ShardArrays, block: torch.Tensor,
-                   pg: PartsGroup, method: str) -> torch.Tensor:
+                   pg: PartsGroup, method: str, routes=None) -> torch.Tensor:
     """One iteration on this rank: gather the whole state, then each
-    resident part's local_pull_step.  Returns the new (k, V, ...) block."""
+    resident part's local_pull_step (through ``routes[j]``, its routed
+    plan on the device, when given).  Returns the new (k, V, ...) block."""
     full = halo_all_gather(block, pg)
-    return torch.stack([local_pull_step(prog, arrays.part(j), full, block[j], method)
+    return torch.stack([local_pull_step(prog, arrays.part(j), full, block[j], method,
+                                        route=None if routes is None else routes[j])
                         for j in range(pg.k)])
 
 
 def run_pull_fixed_dist(prog: PullProgram, spec: ShardSpec, arrays, state0,
-                        num_iters: int, pg: PartsGroup, method: str = "auto") -> torch.Tensor:
+                        num_iters: int, pg: PartsGroup, method: str = "auto",
+                        route=None) -> torch.Tensor:
     """Fixed-iteration distributed pull (PageRank, CF).  ``arrays`` and
     ``state0`` are stacked by part: all P parts (this rank takes its
-    rows) or this rank's k (a subset build).  Returns this rank's final
-    (k, V, ...) block."""
+    rows) or this rank's k (a subset build); ``route`` a stacked routed
+    plan of the same rows (ops/expand ``plan_*_shards``; ``rows=`` plans a
+    rank's alone).  Returns this rank's final (k, V, ...) block."""
     method = _method(prog, method, pg)
     arrays, block = _place(pg, spec, arrays, state0)
+    routes = resident_plans(pg, route)
     for _ in range(num_iters):
-        block = dist_iteration(prog, arrays, block, pg, method)
+        block = dist_iteration(prog, arrays, block, pg, method, routes)
     return block
 
 
@@ -172,3 +183,41 @@ def gather_small(pg: PartsGroup, vec: torch.Tensor) -> torch.Tensor:
     out = torch.empty(pg.world * vec.numel(), dtype=vec.dtype, device=vec.device)
     _timed_collective(pg, lambda: dist.all_gather_into_tensor(out, vec, group=pg.group))
     return out.view(pg.world, -1)
+
+
+#: the width classes a fused plan's group template can hold (2**63 edges)
+_CLASSES = 64
+
+
+def agree_template(pg: PartsGroup, local: Optional[dict]) -> dict:
+    """The fused planners' group template of every part
+    (ops/expand._group_template over all P), from each rank's template of
+    its own parts, in ONE max all-reduce over ``pg``'s ranks: a rank that
+    planned against its own parts' template alone would tile its groups
+    otherwise.  Every rank must call it; ``local`` None says this rank
+    failed to compute its template, and then every rank raises."""
+    import torch.distributed as dist
+
+    v = torch.zeros(_CLASSES + 1, dtype=torch.int64)
+    if local is None:
+        v[-1] = 1
+    else:
+        for k, n in local.items():
+            v[int(k)] = int(n)
+    if pg.backend == "nccl":
+        v = v.to(pg.device)
+    dist.all_reduce(v, op=dist.ReduceOp.MAX, group=pg.group)
+    v = v.cpu().tolist()
+    if v[-1]:
+        raise RuntimeError("a rank could not compute its parts' fused group template")
+    return {k: n for k, n in enumerate(v[:-1]) if n}
+
+
+def agree_ok(ok: bool) -> bool:
+    """Whether every rank of the default group says ``ok``, in one
+    all-reduce every rank takes (each rank's plan made before the first
+    exchange: a rank that failed must not leave the others waiting in
+    that exchange)."""
+    from lux_tpu_torch.parallel.multihost import agree_max
+
+    return agree_max(0 if ok else 1) == 0

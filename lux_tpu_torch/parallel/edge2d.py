@@ -16,8 +16,9 @@ column of the grid), the chunk's ``segment_reduce_by_ends``, the sum,
 min or max over the edge axis (mesh.axis_all_reduce), then apply.  The
 chunks carry no row_ptr, so the reductions run ``--method scan`` or
 ``scatter`` only; the mxscan kernel stays on the CSC engines, as in the
-reference.  ``route=`` (the routed chunk gather) is ROADMAP Queue 1 item
-7.5.
+reference.  ``route=`` (ops/expand.plan_edge2d_route_shards: one expand
+plan a cell, over the (P*V,) parts-gathered state) replays the chunk's
+gather as routed lane shuffles, bitwise the direct gather.
 
 Layout (P parts, EP edge shards, E2 = the padded chunk capacity), the
 reference's byte for byte:
@@ -45,16 +46,12 @@ from lux_tpu_torch.native import io as native_io
 from lux_tpu_torch.ops import segment
 from lux_tpu_torch.parallel.mesh import Grid2D, axis_all_reduce
 from lux_tpu_torch.parallel.placement import halo_all_gather
-from lux_tpu_torch.parallel.ring import _RingView, mark_bucket_heads
+from lux_tpu_torch.parallel.ring import _RingView, gather_bucket, mark_bucket_heads
 
 #: the reference's refusal of a method the chunks cannot reduce
 EDGE2D_METHODS_NOTE = (
     "edge-sharded chunks carry no row_ptr: method='scan' or 'scatter' only "
     "(--method; an auto mxscan winner downgrades to scan on this layout)")
-#: the refusal of the routed chunk gather
-ROUTED_EDGE2D = ("route= on the edge-sharded layout is not ported to lux_tpu_torch yet "
-                 "(ROADMAP Queue 1 item 7.5: the edge2d bucket routes); the 2-D "
-                 "drivers gather directly")
 
 
 class Edge2DArrays(NamedTuple):
@@ -212,10 +209,13 @@ class _Cell(NamedTuple):
     head_flag: torch.Tensor
     weights: torch.Tensor
     view: _RingView
+    #: the cell's routed plan (static, arrays on the device), or None
+    plan: object = None
 
 
-def _place(shards: Edge2DShards, state0, grid: Grid2D):
-    """This rank's cell and its (1, V, ...) state block on its device."""
+def _place(shards: Edge2DShards, state0, grid: Grid2D, route=None):
+    """This rank's cell (with its plan of a stacked (R, C, ...) ``route``
+    over the same cells) and its (1, V, ...) state block on its device."""
     pg = grid.parts
     spec = shards.spec
     if grid.axis != "edge" or grid.size != shards.num_edge_shards:
@@ -242,9 +242,18 @@ def _place(shards: Edge2DShards, state0, grid: Grid2D):
 
     V = spec.nv_pad
     dst = put(a.dst_local[i, j])
+    plan = None
+    if route is not None:
+        from lux_tpu_torch.ops import expand
+
+        if not isinstance(route[0], expand.ExpandStatic):
+            raise ValueError("the edge-sharded chunks route their gather with expand "
+                             "plans (ops/expand.plan_edge2d_route_shards), not a "
+                             f"{type(route[0]).__name__}")
+        plan = expand.plan_to_device((route[0], tuple(x[i, j] for x in route[1])), dev)
     cell = _Cell(put(a.src_pos[i, j]), dst, dst.clamp(0, V - 1), put(a.head_flag[i, j]),
                  put(a.weights[i, j]),
-                 _RingView(put(a.global_vid[i]), put(a.degree[i]), put(a.vtx_mask[i])))
+                 _RingView(put(a.global_vid[i]), put(a.degree[i]), put(a.vtx_mask[i])), plan)
     state0 = state0 if isinstance(state0, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(state0))
     if state0.shape[0] == spec.num_parts:
@@ -262,7 +271,8 @@ def _iteration(prog, cell: _Cell, block: torch.Tensor, grid: Grid2D,
     full = halo_all_gather(block, grid.parts)
     local = block[0]
     dst_state = local.index_select(0, cell.dst_clip) if prog.needs_dst_state else None
-    vals = prog.edge_value(full.index_select(0, cell.src_pos), cell.weights, dst_state)
+    src = gather_bucket(full, cell.src_pos, cell.plan)
+    vals = prog.edge_value(src, cell.weights, dst_state)
     part = segment.segment_reduce_by_ends(vals, cell.head_flag, cell.dst_local,
                                           local.shape[0], reduce=prog.reduce, method=method)
     acc = axis_all_reduce(grid, part, prog.reduce)
@@ -274,12 +284,12 @@ def run_pull_fixed_2d(prog, shards: Edge2DShards, state0, num_iters: int, grid: 
     """Fixed-iteration pull over the (parts x edge) grid.  ``state0`` is
     stacked by part, all P or this rank's one row (engine/pull
     .init_state over ``shards.arrays``); ``shards`` all cells or this
-    rank's.  Returns this rank's final (1, V, ...) block, which every
-    edge shard of the part holds alike."""
-    if route is not None:
-        raise ValueError(ROUTED_EDGE2D)
+    rank's; ``route`` the cells' plans (ops/expand.plan_edge2d_route_shards
+    [_cached] over the same cells), bitwise the direct run.  Returns this
+    rank's final (1, V, ...) block, which every edge shard of the part
+    holds alike."""
     method = resolve_method(method, prog.reduce, grid.parts.device)
-    cell, block = _place(shards, state0, grid)
+    cell, block = _place(shards, state0, grid, route)
     for _ in range(num_iters):
         block = _iteration(prog, cell, block, grid, method)
     return block

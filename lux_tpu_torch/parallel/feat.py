@@ -22,6 +22,11 @@ axis instead of gathering them (parallel/ring.ring_sweep; one feat sum
 of the (k, k, B) dots a fold step), so a rank holds O(nv/P * K/F) state:
 both big axes sharded at once.  With ``-ng`` a multiple of the part
 rows, k parts sit in one part row.
+
+``run_cf_feat_dist(route=)`` routes the source and destination reads per
+feature column (ops/expand.apply_cf_route); the plans are the 1-D CF
+plans of the pull layout, one serving every feat slice of a part row.
+The ring form gathers directly, as in the reference.
 """
 from __future__ import annotations
 
@@ -98,25 +103,35 @@ def run_cf_feat_dist(prog, spec: ShardSpec, arrays: ShardArrays, state0, num_ite
     """Fixed-iteration CF on the (parts x feat) grid over the allgather
     exchange.  ``arrays``: the pull layout stacked by part, all P or this
     rank's k (the same on every feat shard of a part row); ``state0`` as
-    :func:`shard_feat` takes it.  Returns this rank's final (k, V, K/F)
-    block."""
-    if route is not None:
-        raise ValueError("route= under the feat grid is not ported to lux_tpu_torch yet "
-                         "(ROADMAP Queue 1 item 7.5); the feat drivers gather directly")
+    :func:`shard_feat` takes it; ``route`` the CF plans of the same rows
+    (ops/expand.plan_cf_route_shards[_cached]: the source and destination
+    reads per feature column, bitwise the direct gathers; one plan serves
+    every feat slice).  Returns this rank's final (k, V, K/F) block."""
+    from lux_tpu_torch.ops import expand
+    from lux_tpu_torch.parallel.mesh import resident_plans
+
     _check(prog, grid, spec.num_parts)
     pg = grid.parts
+    if route is not None and not isinstance(route[0], expand.CFRouteStatic):
+        raise ValueError("the feat grid routes CF's wide reads with a CF plan "
+                         f"(ops/expand.plan_cf_route_shards), not a {type(route[0]).__name__}")
     arrays = shard_stacked(pg, arrays)
     block = shard_feat(prog, grid, state0)
     method = _method(method, pg.device)
     k, V = pg.k, spec.nv_pad
     parts = [arrays.part(j) for j in range(k)]
     clips = [a.dst_local.clamp(0, V - 1) for a in parts]
+    plans = resident_plans(pg, route)
     for _ in range(num_iters):
         full = halo_all_gather(block, pg)  # (P*V, Kf) over the parts axis only
         srcs, dots = [], []
         for j, a in enumerate(parts):
-            src = gather_sources(a, full).float()
-            dst = block[j].index_select(0, clips[j]).float()
+            if plans is None:
+                src = gather_sources(a, full).float()
+                dst = block[j].index_select(0, clips[j]).float()
+            else:
+                src, dst = expand.apply_cf_route(full, block[j], *plans[j])
+                src, dst = src.float(), dst.float()
             srcs.append(src)
             dots.append(dot_lanes(src, dst, prog.err_dot))
         # the only cross-feature exchange: the (k, E) error dots

@@ -171,6 +171,27 @@ def shard_stacked(pg: PartsGroup, tree):
     return _to_device(_local(pg, tree), pg.device)
 
 
+def place_plan(pg: PartsGroup, route):
+    """This rank's rows of a stacked routed plan (static, arrays stacked by
+    part, (P, ...) or this rank's (k, ...); a bucket plan's (R, S, ...)),
+    as (static, (k, ...) tensors on its device) (ops/expand.plan_to_device;
+    rows already there are not copied).  Placing is set-up: do it once."""
+    from lux_tpu_torch.ops import expand
+
+    static, arrays = route
+    return expand.plan_to_device((static, tuple(_local(pg, a) for a in arrays)), pg.device)
+
+
+def resident_plans(pg: PartsGroup, route) -> Optional[list]:
+    """This rank's resident parts' plans of a stacked routed plan
+    (:func:`place_plan`), each (static, its arrays) on the device, in
+    resident order; None for no plan."""
+    if route is None:
+        return None
+    static, local = place_plan(pg, route)
+    return [(static, tuple(a[j] for a in local)) for j in range(pg.k)]
+
+
 AXES = ("edge", "feat")
 
 

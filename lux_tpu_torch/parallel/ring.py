@@ -10,6 +10,11 @@ state.  Host side, each part's edges are bucketed by the part that owns
 their source (P buckets, padded to the largest), byte for byte the
 reference's layout.
 
+``route=`` (ops/expand.plan_ring_route_shards: one expand plan a (resident
+part, streamed part) bucket) replays each bucket's gather of the streamed
+block as routed lane shuffles, bitwise the direct gather; the sweep is a
+Python loop, so it takes bucket (i, q)'s plan directly.
+
 Destinations are always local, so a program that reads the destination
 state per edge (CF's error term) takes it from the resident block.  The
 ring runs ``--method scan|scatter`` only (bucketed reductions carry no
@@ -347,6 +352,36 @@ def vertex_view(pg: PartsGroup, arrays) -> _RingView:
     return _RingView(*(shard_stacked(pg, getattr(arrays, f)) for f in _RingView._fields))
 
 
+def bucket_routes(pg: PartsGroup, route):
+    """This rank's bucket plans of a stacked (R, S, ...) bucket plan (R:
+    all P rows or this rank's k; S: the P peer parts), on its device:
+    ``[i][q]`` is resident part i's plan of bucket q, (static, arrays);
+    None for no plan.  Only expand plans route a bucket's gather."""
+    if route is None:
+        return None
+    from lux_tpu_torch.ops import expand
+    from lux_tpu_torch.parallel.mesh import resident_plans
+
+    if not isinstance(route[0], expand.ExpandStatic):
+        raise ValueError("the bucketed exchanges route their gathers with expand plans "
+                         f"(ops/expand.plan_*_route_shards), not a {type(route[0]).__name__}")
+    if route[1] and route[1][0].shape[1] != pg.num_parts:
+        raise ValueError(f"the bucket plan has {route[1][0].shape[1]} buckets a part, the "
+                         f"group {pg.num_parts} parts")
+    return [[(static, tuple(a[q] for a in arr)) for q in range(pg.num_parts)]
+            for static, arr in resident_plans(pg, route)]
+
+
+def gather_bucket(block_lane: torch.Tensor, idx: torch.Tensor, plan) -> torch.Tensor:
+    """A bucket's gather of one state block: ``block_lane[idx]``, or its
+    routed replay through ``plan`` (bitwise on the bucket's real edges)."""
+    if plan is None:
+        return block_lane.index_select(0, idx)
+    from lux_tpu_torch.ops import expand
+
+    return expand.apply_expand(block_lane, plan[0], plan[1])
+
+
 def check_subset(parts_subset, pg: PartsGroup) -> None:
     """Ring buckets built for all parts, or for exactly this rank's."""
     rows = list(parts_subset)
@@ -356,11 +391,12 @@ def check_subset(parts_subset, pg: PartsGroup) -> None:
 
 
 def run_pull_fixed_ring(prog: PullProgram, shards: RingShards, state0, num_iters: int,
-                        pg: PartsGroup, method: str = "auto") -> torch.Tensor:
+                        pg: PartsGroup, method: str = "auto", route=None) -> torch.Tensor:
     """Fixed-iteration distributed pull with ring-streamed state blocks.
     ``state0`` is stacked by part, all P or this rank's k; ``shards`` all
-    parts or this rank's subset.  Returns this rank's final (k, V, ...)
-    block."""
+    parts or this rank's subset; ``route`` its bucket plans
+    (ops/expand.plan_ring_route_shards[_cached]), bitwise the direct
+    run.  Returns this rank's final (k, V, ...) block."""
     method = resolve_bucketed(method, prog.reduce, pg.device)
     if shards.spec.num_parts != pg.num_parts:
         raise ValueError(f"the shards have {shards.spec.num_parts} parts, the group "
@@ -370,6 +406,7 @@ def run_pull_fixed_ring(prog: PullProgram, shards: RingShards, state0, num_iters
     view = vertex_view(pg, shards.arrays)
     block = shard_stacked(pg, state0)
     k, V = pg.k, shards.spec.nv_pad
+    plans = bucket_routes(pg, route)
     clip = [[rarr.dst_local[i, q].clamp(0, V - 1) for q in range(pg.num_parts)]
             for i in range(k)] if prog.needs_dst_state else None
 
@@ -382,7 +419,8 @@ def run_pull_fixed_ring(prog: PullProgram, shards: RingShards, state0, num_iters
                 q = dev * k + j  # global part of streamed lane j
                 dst_state = (block[i].index_select(0, clip[i][q])
                              if clip is not None else None)
-                src = stream[j].index_select(0, rarr.src_local[i, q])
+                src = gather_bucket(stream[j], rarr.src_local[i, q],
+                                    plans and plans[i][q])
                 vals = prog.edge_value(src, rarr.weights[i, q], dst_state)
                 part = segment.segment_reduce_by_ends(
                     vals, rarr.head_flag[i, q], rarr.dst_local[i, q], V,

@@ -13,6 +13,8 @@ partials over the ranks and hands each rank its own destination block
 Only sum programs that read no destination state qualify (PageRank):
 the collective adds, and a destination's state is on another rank.  The
 exchange runs ``--method scan|scatter`` only, as the ring does.
+``route=`` replays each bucket's gather of a resident block as routed lane
+shuffles (ops/expand.plan_scatter_route_shards), bitwise.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ from lux_tpu_torch.parallel.mesh import PartsGroup, shard_stacked
 from lux_tpu_torch.parallel.placement import halo_reduce_scatter
 from lux_tpu_torch.parallel.ring import (_RingView, _alloc, _native_bucket_fill_ok,
                                          _owner_split, _slice_dst_local, _subset,
-                                         bucket_counts, mark_bucket_heads,
-                                         resolve_bucketed, vertex_view)
+                                         bucket_counts, bucket_routes, gather_bucket,
+                                         mark_bucket_heads, resolve_bucketed,
+                                         vertex_view)
 
 #: the reference's refusals (its driver asserts them)
 NOT_SUM = ("reduce_scatter exchange requires a sum-reducible program; "
@@ -144,10 +147,13 @@ def check_program(prog) -> None:
 
 def run_pull_fixed_scatter(prog: PullProgram, shards: ScatterShards, state0,
                            num_iters: int, pg: PartsGroup,
-                           method: str = "auto") -> torch.Tensor:
+                           method: str = "auto", route=None) -> torch.Tensor:
     """Fixed-iteration distributed pull over the reduce-scatter exchange,
     k parts resident a rank.  ``state0`` stacked by part (all P or this
-    rank's k); returns this rank's final (k, V, ...) block."""
+    rank's k); ``route`` the bucket plans
+    (ops/expand.plan_scatter_route_shards[_cached]: bucket (j, p) gathers
+    resident block j for destination part p), bitwise the direct run.
+    Returns this rank's final (k, V, ...) block."""
     check_program(prog)
     method = resolve_bucketed(method, prog.reduce, pg.device)
     if shards.spec.num_parts != pg.num_parts:
@@ -157,14 +163,15 @@ def run_pull_fixed_scatter(prog: PullProgram, shards: ScatterShards, state0,
     view = vertex_view(pg, shards.arrays)
     block = shard_stacked(pg, state0)
     k, V, Pn = pg.k, shards.spec.nv_pad, pg.num_parts
+    plans = bucket_routes(pg, route)
 
     def partial_for(local, p):
         # partials into destination part p from every resident source
         # part, summed before the collective (sum programs only)
         lanes = []
         for j in range(k):
-            vals = prog.edge_value(local[j].index_select(0, sarr.src_local[j, p]),
-                                   sarr.weights[j, p], None)
+            src = gather_bucket(local[j], sarr.src_local[j, p], plans and plans[j][p])
+            vals = prog.edge_value(src, sarr.weights[j, p], None)
             lanes.append(segment.segment_reduce_by_ends(
                 vals, sarr.head_flag[j, p], sarr.dst_local[j, p], V, reduce="sum",
                 method=method))

@@ -361,10 +361,6 @@ def parse_args(argv=None, description: str = "", push: bool = False,
     if getattr(ns, "serve", False) and getattr(ns, "distributed", False):
         ap.error("--serve answers queries in one process; it does not combine with "
                  "--distributed")
-    if ns.route_gather and getattr(ns, "distributed", False):
-        ap.error("--route-gather under --distributed is not ported to lux_tpu_torch "
-                 "yet (ROADMAP Queue 1 item 7.5; the distributed engines gather "
-                 "directly)")
     if ns.route_gather and ns.method == "pallas":
         ap.error("--route-gather does not combine with --method pallas: the "
                  "block-CSR runner has its own gather and no routed form")

@@ -216,6 +216,24 @@ def routed_plan_bytes_analytic(spec: ShardSpec, mode: str = "expand",
     return b
 
 
+def routed_bucket_plan_bytes_analytic(num_buckets: int, e_bucket_pad: int,
+                                      state_size: int) -> int:
+    """Bucket-plan bytes of ONE resident part of the bucketed routed
+    exchanges, from the geometry alone: ``num_buckets`` expand plans (the
+    ring and reduce-scatter: one a peer part, P; an edge2d cell: 1), each
+    over n_b = pow2(max(e_bucket_pad, state_size)).  Not the allgather
+    geometry: a skewed graph's padded bucket can make P * n_b far exceed
+    e_pad, and the plans do not shrink with the streamed block."""
+    from lux_tpu_torch.ops.expand import _idx8_enabled, _next_pow2
+    from lux_tpu_torch.ops.route import factor_digits
+
+    idx = 1 if _idx8_enabled() else 4
+    n_b = max(_next_pow2(e_bucket_pad), _next_pow2(state_size), 128)
+    k = len(factor_digits(n_b))
+    per_plan = 2 * (2 * k - 1) * n_b * idx + int(1.02 * n_b) * (idx + 1)
+    return num_buckets * per_plan
+
+
 def estimate_push(spec: ShardSpec, pspec: PushSpec,
                   state_dtype_bytes: int = 4) -> MemoryEstimate:
     """One part of the push engine: the pull layout of the dense rounds

@@ -13,6 +13,7 @@ refusals; the election fence; ``autopilot_soak`` and ``chaos_soak`` at seed
 0; ``measure_autoscale`` scaling up and back down; and a worker process
 through ``process_spawner``."""
 import os
+import time
 
 import numpy as np
 import pytest
@@ -449,6 +450,12 @@ def test_standby_election_drill(small, tmp_path, rec):
         assert plan.total_fired() == 1 and got is not None
         ctl2, rep = got
         fleet.controller = ctl2
+        # the loser may declare the death a moment after the winner is
+        # promoted: give every standby a few seconds to detect (its
+        # pilot.detect span follows detected_at) before stopping them
+        wait_until = time.monotonic() + 5.0
+        while any(s.detected_at is None for s in standbys) and time.monotonic() < wait_until:
+            time.sleep(0.01)
         for s in standbys:
             s.stop()
         assert group.claimed_by(inc0) == 0 and standbys[0].outcome == "won"

@@ -88,8 +88,10 @@ def test_active_counts():
 
 def test_unported_arguments_raise(graphs):
     """The reference's engine options that take a group: the ring
-    needs one (a parallel.mesh.PartsGroup), and the routed gather stays a
-    single-device option (its distributed form is ROADMAP item 7.5)."""
+    needs one (a parallel.mesh.PartsGroup), and the model driver's
+    route= stays a single-device option, as the reference's
+    (models/components.py); the routed distributed push runs through
+    engine/push and the apps (tests/test_torch_routed_dist.py)."""
     with pytest.raises(ValueError, match="needs a mesh"):
         cc.connected_components_push(graphs[0], device="cpu", exchange="ring")
     with pytest.raises(ValueError, match="single-device"):

@@ -172,11 +172,13 @@ def test_app_cuda_without_card_raises():
 
 @pytest.mark.parametrize("argv,msg", [
     (["--edge-shards", "2"], "requires --distributed"),
-    (["--distributed", "--route-gather", "expand"], "not ported"),
+    # fused is allgather-only under --distributed (the reference's refusal)
+    (["--distributed", "--exchange", "ring", "--route-gather", "fused"], "allgather-only"),
     (["--exchange", "ring", "--distributed", "--feat-shards", "2"], "colfilter only"),
     (["-ng", "2", "--method", "pallas"], "-ng"),
     (["--frobnicate"], "unrecognized")],
-    # the ids these cases had while the 2-D meshes were refused as not ported
+    # the ids these cases had while the 2-D meshes and the distributed
+    # routed gather were refused as not ported
     ids=["argv0-not ported", "argv1-not ported", "argv2-not ported", "argv3--ng",
          "argv4-unrecognized"])
 def test_app_rejects_unported_flags(argv, msg, capsys):

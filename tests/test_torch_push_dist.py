@@ -304,8 +304,13 @@ def test_app_arms_distributed(arm, w2, ckpt_dir):
      "cannot combine with --exchange ring"),
     (["--exchange", "scatter", "--distributed"], "invalid choice"),
     (["--exchange", "ring"], "requires --distributed"),
-    (["--distributed", "--route-gather", "expand"], "7.5"),
-])
+    # routed distributed delta-stepping stays refused, as in the reference
+    (["--distributed", "--weighted", "--delta", "4", "--route-gather", "expand"],
+     "--distributed --delta"),
+], ids=["argv0-add --distributed", "argv1-cannot combine with --exchange ring",
+        "argv2-invalid choice", "argv3-requires --distributed",
+        # the id this case had while the distributed routed gather was not ported
+        "argv4-7.5"])
 def test_app_refusals(argv, msg, capsys):
     """The reference's refusals, before any rank joins a group."""
     with pytest.raises(SystemExit) as e:
@@ -328,9 +333,13 @@ def test_pallas_push_refuses_sum_programs_and_shapes():
     with pytest.raises(ValueError, match="one part a rank"):
         pallas_dist.run_push_pallas_dist(jobs.program("cc", g),
                                          pallas_dist.build_push_pallas_shards(g, 4), pg4)
-    with pytest.raises(NotImplementedError, match="7.5"):
+    # the dense rounds route their gather only: a fused plan is refused,
+    # and the block-CSR push has no routed form
+    with pytest.raises(ValueError, match="route their gather only"):
         push.run_push_dist(jobs.program("cc", g), build_push_shards(g, 2), pg,
-                           route=object())
+                           route=(object(), ()))
+    with pytest.raises(ValueError, match="no routed form"):
+        push.place_layout(jobs.program("cc", g), sh, pg, route=(object(), ()))
 
 
 def test_push_layouts_are_the_references():

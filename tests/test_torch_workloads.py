@@ -594,8 +594,14 @@ def test_run_cli_distributed(name, mesh_w2):
     (["bfs", "--engine", "pull", "--distributed", "--exchange", "ring"],
      "allgather pull layout"),
     (["triangles", "--distributed"], "single-device two-phase"),
-    (["bfs", "--distributed", "--route-gather", "expand"], "7.5"),
-])
+    # the pull-until surface routes single-device runs only, as in the reference
+    (["bfs", "--engine", "pull", "--distributed", "--route-gather", "expand"],
+     "single-device"),
+], ids=["argv0-allgather pull layout", "argv1-allgather pull layout",
+        "argv2-allgather pull layout", "argv3-allgather pull layout",
+        "argv4-single-device two-phase",
+        # the id this case had while the distributed routed gather was not ported
+        "argv5-7.5"])
 def test_run_cli_mesh_refusals(argv, match, capsys):
     try:
         run_app.run(argv[:1] + SMALL + argv[1:])

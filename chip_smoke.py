@@ -502,7 +502,8 @@ CF_ROUTED_SCALE = 17  # the routed CF runs: two expand plans each
 CF_GAMMA = 1e-3  # the accuracy runs' step (the app's 3.5e-7 barely moves)
 CF_RTOL = 1e-4  # against the f64 oracle: 10 iterations of f32 sums
 #: the kernel each CF run must have launched >= ITERS times
-CF_RUN_KERNEL = {"pallas": "spmv_blockcsr_2d", "expand-pf": "fused_pass_gather",
+CF_RUN_KERNEL = {"pallas": "spmv_blockcsr_2d", "scatter": "segment_sum_sorted",
+                 "expand-pf": "fused_pass_gather",
                  "expand": "lane_gather"}
 
 
@@ -1047,10 +1048,11 @@ def ragged_graph(np, csc):
     return csc.from_edge_list(src, dst, nv)
 
 
-def counters(spmv, scan, shuffle) -> dict:
+def counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    return {"spmv_blockcsr": spmv.spmv_blockcsr, "spmv_blockcsr_2d": spmv.spmv_blockcsr_2d,
-            "mxscan_segmented": scan.mxscan_segmented, **shuffle.KERNELS}
+    from lux_tpu_torch.ops import kernel_wrappers
+
+    return kernel_wrappers()
 
 
 #: phase 4's plan chains, each built in a process of its own
@@ -1113,12 +1115,19 @@ def timed_plan(native, shuffle, mode: str, build):
 
 
 def lane_cases(torch, np, shuffle, dev, main_idx, reps: int):
-    """lane_gather against torch.gather: small row counts for every
-    value/index type, then the main path's shape with a real pass's
-    indices (timed)."""
+    """lane_gather against torch.gather: row counts from 1 to a part's
+    16384 for every value/index type (every tile size the kernel picks),
+    then the main path's shape with a real pass's indices (timed), and
+    the three shapes of its callers, a real pass's first rows at a part's
+    (16384, 128) and a bucket's (4096, 128), timed three ways in turns
+    with torch.gather (lux_tpu_torch/tools/kernel_timing.lane_timing:
+    back-to-back event time, a CUDA graph's device time, host enqueue
+    microseconds)."""
+    from lux_tpu_torch.tools import kernel_timing
+
     rng = np.random.default_rng(13)
     n_cases = 0
-    for rows in (1, 2, 4, 1000):
+    for rows in (1, 2, 4, 1000, 4096, 16384):
         for idt in (torch.uint8, torch.int32):
             for dt in (torch.float32, torch.bfloat16, torch.int32):
                 x = torch.from_numpy(rng.integers(-2**20, 2**20, (rows, 128))
@@ -1137,12 +1146,44 @@ def lane_cases(torch, np, shuffle, dev, main_idx, reps: int):
             "lane_gather differs at the main shape")
     idx64 = main_idx.long()
     n = x.numel()
-    return {"cases": n_cases, "shape": list(x.shape), "idx": "uint8",
-            "max_abs_err": 0.0,
-            "kernel_ms": time_ms(torch, lambda: shuffle.lane_gather(x, main_idx), reps),
-            "plain_ms": time_ms(torch, lambda: shuffle.lane_gather_plain(x, main_idx), reps),
-            "library_ms": time_ms(torch, lambda: torch.gather(x, 1, idx64), reps),
-            "bound_ms": bound_ms(n * (2 * 4 + 1)), "bytes": n * (2 * 4 + 1)}
+    row = {"cases": n_cases, "shape": list(x.shape), "idx": "uint8",
+           "max_abs_err": 0.0,
+           "kernel_ms": time_ms(torch, lambda: shuffle.lane_gather(x, main_idx), reps),
+           "plain_ms": time_ms(torch, lambda: shuffle.lane_gather_plain(x, main_idx), reps),
+           "library_ms": time_ms(torch, lambda: torch.gather(x, 1, idx64), reps),
+           "bound_ms": bound_ms(n * (2 * 4 + 1)), "bytes": n * (2 * 4 + 1)}
+    three = []
+    for rows in (main_idx.shape[0], 16384, 4096):
+        try:
+            three.append(kernel_timing.lane_timing(x[:rows].contiguous(),
+                                                   main_idx[:rows].contiguous()))
+        except AssertionError as e:
+            raise PhaseFailure(str(e)) from None
+    row["timed_three_ways"] = three
+    return row
+
+
+def segsum_cases(torch, kernel_timing, layouts, dev) -> list:
+    """The sorted-key sum kernel (segment_sum_sorted: the scatter method's
+    float sum on the card) at the scatter method's three shapes, on the
+    keys of real layouts and values drawn on the card from a seed: each
+    held bitwise across two launches, within SUM_RTOL of a float64
+    index_add_ (bf16 inputs within BF16_RTOL, also bitwise across two
+    runs), and timed beside index_add_ (the library call) and its bound,
+    with no other process on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    rows = []
+    for label, keys, n, k in layouts:
+        shape = (keys.numel(),) if k == 1 else (keys.numel(), k)
+        vals = torch.rand(shape, generator=gen, device=dev) + 0.01
+        try:
+            rows.append({"case": label, **kernel_timing.segsum_case(vals, keys, n)})
+        except AssertionError as e:
+            raise PhaseFailure(str(e)) from None
+        del vals
+        torch.cuda.empty_cache()
+    return rows
 
 
 def sublane_cases(torch, np, shuffle, dev, reps: int):
@@ -2119,7 +2160,9 @@ def variants_main(torch, np, kernels, smi, dev, g, sh, gw, w_dist, hub, plan_dir
                                   valid_end=end)
         got = kernel()
         if op == "sum":
-            ends = fn(vals.double(), a.row_ptr, a.head_flag, a.dst_local, method="scatter")
+            # float64 sums by the plain version (index_add_; the kernel sums f32)
+            ends = segment.segment_sum_sorted_plain(vals.double(), a.dst_local,
+                                                    a.row_ptr.shape[0] - 1)
             err = max(bf16_sum_err(torch, got[valid], scan.segmented_scan(
                 vals.double(), a.head_flag, torch.add)[valid], what),
                 bf16_sum_err(torch, out, ends, f"{what} (segment ends)"))
@@ -2184,8 +2227,8 @@ def variants_main(torch, np, kernels, smi, dev, g, sh, gw, w_dist, hub, plan_dir
         la = to_device(layout.arrays, dev).part(0)
         src = state.index_select(0, la.src_pos)
         if op == "sum":
-            want = segment.segment_sum_csc(src.double(), la.row_ptr, la.head_flag, la.dst_local,
-                                           method="scatter")
+            want = segment.segment_sum_sorted_plain(src.double(), la.dst_local,
+                                                    la.row_ptr.shape[0] - 1)
             require(acc.dtype == torch.float32, f"{what}: totals {acc.dtype}")
             compare(torch, acc, want, False, what=f"{what} (apply_fused)")
         else:
@@ -3771,8 +3814,8 @@ def fleet_main(torch, np, kernels, smi, dev, snap, serve_out, churn_snap):
     nothing shed, every burst answer the old graph's or the new one's,
     and after the commit all of them bitwise a fresh single-process engine on
     the snapshot (its first SERVE_BFS also equal phase 18's oracle).
-    Under scatter (SSSP only: scatter's f32 index_add_ sums PPR in atomic
-    order) with fault/drills.worker_kill_mid_burst in the workers'
+    Under scatter (SSSP only, for the smoke's clock) with
+    fault/drills.worker_kill_mid_burst in the workers'
     LUX_FAULT_PLAN: FLEET_VICTIM SIGKILLs itself at its FLEET_NTH query
     frame, and every query of the sources' burst is answered by the
     survivor, bitwise phase 17's answers.  Last,
@@ -4916,7 +4959,8 @@ DIST_RANKS = 2  # gloo ranks that share the card in runs (b)-(d)
 DIST_PALLAS_PARTS = 2  # the block-CSR runs keep one part a rank
 DIST_DEADLINE_S = 360.0  # a spawn group that outlives this is killed and fails the phase
 DIST_KERNEL = {"allgather": "mxscan_segmented", "pallas": "spmv_blockcsr",
-               "cf-app": "spmv_blockcsr_2d", "cf": "spmv_blockcsr_2d"}
+               "cf-app": "spmv_blockcsr_2d", "cf": "spmv_blockcsr_2d",
+               "ring": "segment_sum_sorted", "scatter": "segment_sum_sorted"}
 DIST_PUSH_PARTS = 4  # the gloo push runs: 2 ranks of 2 resident parts (pallas: 2 parts)
 DIST_DELTA = 25  # the distributed --delta run's width (delta_main's first)
 #: the 2-D grids: 4 gloo ranks on the card, 2 part rows x 2 edge or feat shards
@@ -5242,6 +5286,10 @@ def dist_routed_check(np, label: str, argv: list, per_rank: list) -> dict:
     got = [r["launches"][kernel] for r in per_rank]
     require(all(n >= need for n in got),
             f"dist {label}: {kernel} launched {got} times in the ranks (need {need} each)")
+    if not push_leg and "--method" in argv and argv[argv.index("--method") + 1] == "scatter":
+        sums = [r["launches"]["segment_sum_sorted"] for r in per_rank]
+        require(all(n >= ITERS for n in sums),
+                f"dist {label}: segment_sum_sorted launched {sums} times in the ranks")
     state = lead["state"]
     require(state is not None and bool(np.isfinite(state).all()),
             f"dist {label}: no finite state on rank 0")
@@ -5287,11 +5335,11 @@ def routed_legs(hub: int):
                                                   "expand-pf"], on18),
         ("routed-ag-fused-mx", "routed", pr18 + ["--method", "mxscan", "--route-gather",
                                                  "fused-mx"], dict(on18, single=True)),
-        # --method scan: the scatter method's f32 index_add_ sums in atomic
-        # order on the card, so two runs of it are not bitwise
-        ("routed-ring", "routed", pr18 + ["--exchange", "ring", "--method", "scan",
+        # --method scatter: the float sums go through the sorted-key kernel
+        # (segment_sum_sorted), bitwise between runs like every other leg
+        ("routed-ring", "routed", pr18 + ["--exchange", "ring", "--method", "scatter",
                                           "--route-gather", "expand"], on18),
-        ("routed-scatter", "routed", pr18 + ["--exchange", "scatter", "--method", "scan",
+        ("routed-scatter", "routed", pr18 + ["--exchange", "scatter", "--method", "scatter",
                                              "--route-gather", "expand"], on18),
         ("routed-sssp", "routed", push18 + ["--method", "mxscan", "-start",
                                             str(hub), "--route-gather", "expand"],
@@ -5732,7 +5780,7 @@ def dist_main(torch, np, kernels, smi, tmp, disk, pr_ref20, cf_pallas20, v64, pu
                 err = {"max_rel_err_vs_f64": rel}
             require(all(r["rc"] == 0 for r in per_rank), f"dist {label}: a rank's -check failed")
             kernel = DIST_KERNEL.get(kind if kind != "pagerank" else
-                                     ("allgather" if label.startswith("allgather") else ""))
+                                     ("allgather" if label.startswith("allgather") else label))
             if kernel:
                 need = ITERS * (DISK_PARTS // world if kind == "pagerank" else 1)
                 require(all(c[kernel] >= need for c in launches),
@@ -5781,6 +5829,7 @@ def main() -> int:
     from lux_tpu_torch.native import io as native_io
     from lux_tpu_torch.ops import cuda_build, expand, scan, segment, shuffle, spmv
     from lux_tpu_torch.ops import route as route_mod
+    from lux_tpu_torch.tools import kernel_timing
     from lux_tpu_torch.utils.config import parse_args
 
     share_push_layouts(sssp_app)
@@ -5808,7 +5857,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    kernels = counters(spmv, scan, shuffle)
+    kernels = counters()
 
     # 1. device
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
@@ -6132,6 +6181,21 @@ def main() -> int:
     del bc_cf
     torch.cuda.empty_cache()
 
+    # 7b. the scatter method's deterministic float sum: the sorted-key kernel
+    # at RMAT 20's (E,), CF 20's (E, K) and serving's (E, Q) on the main layout
+    t0 = time.perf_counter()
+    sh_cf = build_pull_shards(g_cf, 1)
+    main_keys = torch.from_numpy(sh.arrays.dst_local[0]).to(dev)
+    rows_sum = segsum_cases(torch, kernel_timing, (
+        (f"rmat{SCALE} (E,)", main_keys, sh.spec.nv_pad, 1),
+        (f"cf{SCALE} (E, {CF_K})", torch.from_numpy(sh_cf.arrays.dst_local[0]).to(dev),
+         sh_cf.spec.nv_pad, CF_K),
+        (f"serve (E, {SERVE_Q})", main_keys, sh.spec.nv_pad, SERVE_Q)), dev)
+    emit({"phase": "segsum", "segment_sum_sorted": rows_sum,
+          "seconds": time.perf_counter() - t0})
+    del sh_cf, main_keys
+    torch.cuda.empty_cache()
+
     # the oracles that only the later phases read start here, after phase
     # 4 and the kernel timings of phases 5, 13b and 7: from here on the
     # host's cores are mostly idle beside the card
@@ -6321,6 +6385,17 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": "bytes", "library_ms": r["library_ms"]})
+    r = rows_sum[0]
+    table.append({"name": "segment_sum_sorted", "route": "cuda",
+                  "source": f"lux_tpu_torch/csrc/{cuda_build.SOURCES['segment_sum_sorted']}",
+                  "replaces": "none: XLA's sorted segment_sum, lux_tpu/ops/segment.py:172",
+                  "launches": launches["cf-scatter"]["segment_sum_sorted"],
+                  "max_abs_err": max(x["max_abs_err"] for x in rows_sum),
+                  "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                  "bound_by": "bytes", "library_ms": r["library_ms"],
+                  "shapes": [{k: x[k] for k in ("case", "shape", "kernel_ms", "library_ms",
+                                                "bound_ms", "bitwise_rerun")}
+                             for x in rows_sum]})
     for row in table:
         run = PUSH_KERNEL_RUN.get(row["name"])
         row["launches_push"] = {"sssp": sssp_launches[run][row["name"]] if run else 0,

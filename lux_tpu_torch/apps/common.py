@@ -310,15 +310,15 @@ def report_layout(kind: str, layout, seconds: float) -> None:
 
 
 def estimate_exchange(shards, cfg: RunConfig, state_width: int = 1,
-                      dst_state: bool = False) -> preflight.MemoryEstimate:
+                      dst_state: bool = False, reduce: str = "sum") -> preflight.MemoryEstimate:
     """The memory estimate of a pull run of ``shards`` on one device: one
     part's arrays, state and per-edge gather (``dst_state``: the program
     reads the destination too), every part resident, plus the routed
     plan of ``cfg.route_gather`` from the geometry (before it is
     built)."""
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
-    est = preflight.estimate_pull(shards.spec, state_width, sbytes,
-                                  dst_state=dst_state, method=cfg.method)
+    est = preflight.estimate_pull(shards.spec, state_width, sbytes, dst_state=dst_state,
+                                  method=cfg.method, device=cfg.device, reduce=reduce)
     est = preflight.scale_residency(est, shards.spec.num_parts)
     if cfg.route_gather:
         resolve_route_auto(cfg)
@@ -406,7 +406,8 @@ def setup_pull(cfg: RunConfig, g: HostGraph, dev, prog, route=None,
                                compact_gather=cfg.compact_gather)
     report_layout("pull", shards, time.perf_counter() - t0)
     report_preflight(estimate_exchange(shards, cfg, state_width,
-                                       dst_state=prog.needs_dst_state), dev)
+                                       dst_state=prog.needs_dst_state,
+                                       reduce=prog.reduce), dev)
     if dev.type == "cuda":
         cuda_build.load_all()
     arrays = to_device(shards.arrays, dev)
@@ -877,13 +878,13 @@ def build_exchange_shards(g: HostGraph, cfg: RunConfig, pg, grid=None):
 
 
 def estimate_dist(layout, cfg: RunConfig, pg, state_width: int = 1,
-                  dst_state: bool = False) -> preflight.MemoryEstimate:
+                  dst_state: bool = False, reduce: str = "sum") -> preflight.MemoryEstimate:
     """One rank's memory estimate: its k resident parts of the exchange's
     layout, plus the gathered (P*V, ...) state of the allgather and the
     block-CSR pull, plus the --route-gather plans of its resident parts
     (preflight.routed_plan_bytes_analytic, or the bucket plans':
     routed_bucket_plan_bytes_analytic)."""
-    est = _estimate_dist_layout(layout, cfg, pg, state_width, dst_state)
+    est = _estimate_dist_layout(layout, cfg, pg, state_width, dst_state, reduce)
     if not cfg.route_gather:
         return est
     # the routed plans are static device arrays a resident part, charged
@@ -902,7 +903,7 @@ def estimate_dist(layout, cfg: RunConfig, pg, state_width: int = 1,
 
 
 def _estimate_dist_layout(layout, cfg: RunConfig, pg, state_width: int,
-                          dst_state: bool) -> preflight.MemoryEstimate:
+                          dst_state: bool, reduce: str) -> preflight.MemoryEstimate:
     sbytes = 2 if cfg.dtype == "bfloat16" else 4
     spec = layout.spec
     if cfg.edge_shards > 1:
@@ -925,7 +926,7 @@ def _estimate_dist_layout(layout, cfg: RunConfig, pg, state_width: int,
         return preflight.scale_residency(preflight.estimate_scatter(
             spec, layout.e_bucket_pad, state_width, sbytes), pg.k)
     est = preflight.estimate_pull(spec, state_width, sbytes, dst_state=dst_state,
-                                  method=cfg.method)
+                                  method=cfg.method, device=pg.device.type, reduce=reduce)
     return preflight.add_gathered_bytes(preflight.scale_residency(est, pg.k), gathered)
 
 
@@ -1069,7 +1070,8 @@ def setup_dist(cfg: RunConfig, g: HostGraph, dev, prog, state_width: int = 1):
     if grid is not None:
         kind = f"{kind} on a {pg.world}x{grid.size} {grid.axis} grid"
     world = pg.world if grid is None else grid.world
-    est = estimate_dist(layout, cfg, pg, state_width, dst_state=prog.needs_dst_state)
+    est = estimate_dist(layout, cfg, pg, state_width, dst_state=prog.needs_dst_state,
+                        reduce=prog.reduce)
     if main_rank():
         report_layout(f"{kind} (rank 0 of {world})", layout, time.perf_counter() - t0)
         print(est)

@@ -129,7 +129,7 @@ def _dist_set_up(cfg: RunConfig, g: HostGraph, prog, dev, state_width: int = 1):
     pg = common.make_mesh_if(cfg, dev)
     t0 = time.perf_counter()
     shards = build_pull_shards(g, cfg.num_parts)
-    est = common.estimate_dist(shards, cfg, pg, state_width)
+    est = common.estimate_dist(shards, cfg, pg, state_width, reduce=prog.reduce)
     if common.main_rank():
         common.report_layout(f"allgather (rank 0 of {pg.world})", shards,
                              time.perf_counter() - t0)
@@ -156,7 +156,8 @@ def _pull_set_up(cfg: RunConfig, g: HostGraph, prog, dev, route,
     shards = build_pull_shards(g, cfg.num_parts, sort_segments=cfg.sort_segments,
                                compact_gather=cfg.compact_gather)
     common.report_layout("pull", shards, time.perf_counter() - t0)
-    est = common.estimate_exchange(shards, cfg, state_width, dst_state=dst_state)
+    est = common.estimate_exchange(shards, cfg, state_width, dst_state=dst_state,
+                                   reduce=prog.reduce)
     common.report_preflight(est, dev)
     if dev.type == "cuda":
         cuda_build.load_all()  # building and loading are set-up

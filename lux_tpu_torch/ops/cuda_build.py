@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with :mod:`ctypes`.
 Nothing is compiled or loaded at import: the first CUDA launch of a
 kernel builds its library, and :func:`build_all` / :func:`load_all`
 build every missing one, one ``nvcc`` process per source, all started
-together.
+together.  :func:`launch` calls a bound entry point on the current
+stream of a tensor's device, the one host path of every wrapper.
 
 Libraries land in ``lux_tpu_torch/csrc/build/`` (git-ignored), named by a
 hash of the sources and flags, so an edit rebuilds and a rerun reuses.
@@ -35,6 +36,7 @@ SOURCES = {
     "sublane_gather": "sublane_gather.cu",
     "fused_pass_gather": "fused_pass_gather.cu",
     "mxreduce_pass_gather": "mxreduce_pass_gather.cu",
+    "segment_sum_sorted": "segment_sum_sorted.cu",
 }
 
 NVCC_FLAGS = (
@@ -44,6 +46,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: C entry point name -> its typed function; written once under _bind_lock,
+#: read without it on the hot path
+_bound: dict[str, object] = {}
+_bind_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -112,6 +118,9 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, building it on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -119,6 +128,39 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, symbol: str, argtypes) -> object:
+    """The C entry point ``symbol`` of kernel ``name``'s library, typed
+    with ``argtypes`` and an int return, built and loaded on first use."""
+    fn = _bound.get(symbol)
+    if fn is None:
+        with _bind_lock:
+            fn = _bound.get(symbol)
+            if fn is None:
+                fn = getattr(load(name), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _bound[symbol] = fn
+    return fn
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``: the bound C entry point ``fn`` called with
+    the current stream of CUDA ``device`` appended; returns its code.  The
+    current device is switched only when ``device`` is not already
+    current, and the stream handle is read once, raw where the build
+    offers it."""
+    import torch
+
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is not None and index != current:
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = raw(current) if raw is not None else torch.cuda.current_stream().cuda_stream
+    return fn(*args, stream)
 
 
 def load_all() -> None:

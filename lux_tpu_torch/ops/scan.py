@@ -155,13 +155,11 @@ def mxscan_segmented(vals: torch.Tensor, head_flag: torch.Tensor,
     ntiles = -(-n // _tile_elems)
     out = torch.empty_like(vals)
     scratch = torch.empty(4 * ntiles, dtype=torch.int32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        rc = lib.lux_mxscan_segmented(
-            vals.data_ptr(), _KIND[vals.dtype], head_flag.data_ptr(),
-            None if invalid is None else invalid.data_ptr(),
-            None if valid_end is None else valid_end.data_ptr(),
-            n, _OPS[op], out.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    rc = cuda_build.launch(
+        lib.lux_mxscan_segmented, vals.device, vals.data_ptr(), _KIND[vals.dtype],
+        head_flag.data_ptr(), None if invalid is None else invalid.data_ptr(),
+        None if valid_end is None else valid_end.data_ptr(), n, _OPS[op],
+        out.data_ptr(), scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"mxscan_segmented kernel launch failed: CUDA error {rc}")
     mxscan_segmented.launches += 1

@@ -14,7 +14,13 @@ Interchangeable strategies, all deterministic on a given device:
   * ``mxscan``  — the segmented scan as the hand-written CUDA kernel
                   (ops/scan.mxscan_segmented); 1-D values only, (E, K)
                   values fall back to ``scan``.
-  * ``scatter`` — index_add_ / scatter_reduce_ with the int32 ids.
+  * ``scatter`` — by the int32 ids: a float sum is
+                  :func:`segment_sum_sorted`, the hand-written CUDA kernel
+                  ``csrc/segment_sum_sorted.cu`` on the card (a fixed
+                  order over the sorted ids, no atomics) and ``index_add_``
+                  on the CPU (sequential); an integer sum ``index_add_``
+                  (exact in any order); min/max ``scatter_reduce_``
+                  (order-free).
 
 All take the static-shape padded inputs of lux_tpu_torch.graph.shards
 for one part: ``vals`` (E,) or (E, K), ``row_ptr`` (V+1,) int32,
@@ -22,8 +28,12 @@ for one part: ``vals`` (E,) or (E, K), ``row_ptr`` (V+1,) int32,
 """
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
+from lux_tpu_torch.ops import cuda_build
 from lux_tpu_torch.ops.scan import COMBINERS, mxscan_segmented, segmented_scan
 from lux_tpu_torch.ops.spmv import reduce_neutral
 
@@ -75,9 +85,9 @@ def _scatter_dtype(vals: torch.Tensor) -> torch.Tensor:
     return vals
 
 
-def _scatter(vals, dst_local, num_segments, reduce):
-    """Scatter-reduce into (num_segments, ...) with a dump row for the
-    padding sentinel ``dst_local == num_segments``."""
+def _scatter_into(vals, dst_local, num_segments, reduce):
+    """``index_add_`` / ``scatter_reduce_`` into (num_segments, ...) with a
+    dump row for the padding sentinel ``dst_local == num_segments``."""
     w = _scatter_dtype(vals)
     out = torch.full((num_segments + 1,) + vals.shape[1:],
                      reduce_neutral(reduce, w.dtype), dtype=w.dtype,
@@ -89,6 +99,110 @@ def _scatter(vals, dst_local, num_segments, reduce):
         idx = idx.reshape(idx.shape + (1,) * (w.dim() - 1)).expand_as(w)
         out.scatter_reduce_(0, idx, w, reduce="amin" if reduce == "min" else "amax")
     return out[:num_segments].to(vals.dtype)
+
+
+def _scatter(vals, dst_local, num_segments, reduce):
+    """The scatter method's reduction by ``dst_local`` into
+    (num_segments, ...).  A float sum goes through
+    :func:`segment_sum_sorted` (bf16/f16 widened to f32, rounded once on
+    the way out), whose order is fixed on every device; an integer sum
+    is exact in any order and min/max pick a value whatever the order, so
+    those keep ``index_add_`` / ``scatter_reduce_``."""
+    if reduce == "sum" and vals.is_floating_point():
+        return segment_sum_sorted(_scatter_dtype(vals).contiguous(), dst_local.contiguous(),
+                                  num_segments).to(vals.dtype)
+    return _scatter_into(vals, dst_local, num_segments, reduce)
+
+
+# ---------------------------------------------------------------------------
+# the sorted-key segment sum (csrc/segment_sum_sorted.cu)
+# ---------------------------------------------------------------------------
+
+#: slots of one (E,) span (one CTA), and rows of one (E, K) span
+SUM_SPAN_SLOTS = 8192
+SUM_SPAN_ROWS = 128
+#: bytes of an (E,) span's summary (lux_runs.cuh kPartBytes)
+SUM_PART_BYTES = 20
+
+
+def sum_scratch_bytes(rows: int, k: int) -> int:
+    """Bytes of the kernel's span summaries for (rows, k) values: 20 a
+    span of 8,192 slots for k = 1, else 12 + 8k a span of 128 rows."""
+    if k == 1:
+        return SUM_PART_BYTES * -(-rows // SUM_SPAN_SLOTS)
+    return -(-rows // SUM_SPAN_ROWS) * (12 + 8 * k)
+
+
+def keys_sorted(dst_local: torch.Tensor, num_segments: int) -> bool:
+    """Whether the keys in [0, num_segments) never decrease along
+    ``dst_local`` (the padding sentinel may sit anywhere): the kernel's
+    precondition."""
+    real = dst_local[(dst_local >= 0) & (dst_local < num_segments)]
+    return bool((real[1:] >= real[:-1]).all())
+
+
+def segment_sum_sorted_plain(vals, dst_local, num_segments: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sum_sorted`: an
+    ``index_add_`` into a dump row for the padding (sequential on the
+    CPU, so deterministic there)."""
+    return _scatter_into(vals, dst_local, num_segments, "sum")
+
+
+_VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SUM_ARGTYPES = [_VP, _VP, _CLL, _CI, _CI, _VP, _VP, _CLL, _VP]
+
+
+def segment_sum_sorted(vals: torch.Tensor, dst_local: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Sum f32 ``vals`` (E,) or (E, K...) by the int32 key ``dst_local``
+    (E,) -> (num_segments, ...) f32; keys outside [0, num_segments) are
+    padding and are dropped, keys no slot holds come out 0.  The keys in
+    range must never decrease along the array (every layout of the port
+    keeps them so): checked on the CPU, promised on the card.  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/segment_sum_sorted.cu``, whose order of combination is fixed
+    (two runs are bitwise equal), counted by
+    ``segment_sum_sorted.launches``."""
+    e = vals.shape[0] if vals.dim() else -1
+    if dst_local.dim() != 1 or dst_local.shape[0] != e:
+        raise ValueError(f"segment_sum_sorted: dst_local {tuple(dst_local.shape)} must be "
+                         f"(E,) over vals {tuple(vals.shape)}")
+    if dst_local.dtype != torch.int32:
+        raise TypeError(f"segment_sum_sorted takes int32 keys, got {dst_local.dtype}")
+    if vals.device != dst_local.device:
+        raise ValueError(f"segment_sum_sorted inputs span devices "
+                         f"{{{vals.device}, {dst_local.device}}}")
+    if vals.device.type == "cpu":
+        if not vals.is_floating_point():
+            raise TypeError(f"segment_sum_sorted sums floats, got {vals.dtype}")
+        if not keys_sorted(dst_local, num_segments):
+            raise ValueError("segment_sum_sorted: the keys in range decrease somewhere; "
+                             "the kernel needs them sorted")
+        return segment_sum_sorted_plain(vals, dst_local, num_segments)
+    if vals.device.type != "cuda":
+        raise ValueError(f"segment_sum_sorted runs on cpu or cuda, not {vals.device}")
+    if vals.dtype != torch.float32:
+        raise TypeError(f"segment_sum_sorted on the card takes float32 values (widen "
+                        f"bf16/f16 first), got {vals.dtype}")
+    if not (vals.is_contiguous() and dst_local.is_contiguous()):
+        raise ValueError("segment_sum_sorted needs contiguous inputs")
+    k = math.prod(vals.shape[1:])
+    out = torch.empty((num_segments,) + vals.shape[1:], dtype=torch.float32,
+                      device=vals.device)
+    if k == 0 or num_segments == 0:
+        return out
+    scratch = torch.empty(sum_scratch_bytes(e, k), dtype=torch.uint8, device=vals.device)
+    fn = cuda_build.bind("segment_sum_sorted", "lux_segment_sum_sorted", _SUM_ARGTYPES)
+    rc = cuda_build.launch(fn, vals.device, vals.data_ptr(),
+                           dst_local.data_ptr(), e, k, num_segments, out.data_ptr(),
+                           scratch.data_ptr(), scratch.numel())
+    if rc != 0:
+        raise RuntimeError(f"segment_sum_sorted kernel launch failed: CUDA error {rc}")
+    segment_sum_sorted.launches += 1
+    return out
+
+
+segment_sum_sorted.launches = 0
 
 
 def segment_sum_csc(vals, row_ptr, head_flag, dst_local=None,
@@ -174,8 +288,9 @@ def segment_reduce_by_ends(vals, head_flag, dst_local, num_segments: int,
             "'scan', 'scatter', 'mxscan'")
     is_end = torch.cat([head_flag[1:], head_flag.new_ones((1,))])
     idx = torch.where(is_end, dst_local, torch.full_like(dst_local, num_segments))
-    # one value per segment lands, so the scatter below is exact
-    return _scatter(scanned, idx, num_segments, reduce)
+    # one value per segment lands, so the scatter below is exact and its
+    # order does not matter on any device
+    return _scatter_into(scanned, idx, num_segments, reduce)
 
 
 def reducers():

@@ -67,8 +67,7 @@ _MX_OPS = {"sum": 0, "min": 1, "max": 2}
 # shared wrapper plumbing
 # ---------------------------------------------------------------------------
 
-_bound: dict[str, ctypes.CDLL] = {}
-#: guards _bound and _DESC_CACHE: planner threads and the caller may reach them at once
+#: guards _DESC_CACHE: planner threads and the caller may reach it at once
 _LOCK = threading.Lock()
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -86,30 +85,20 @@ _ARGTYPES = {
 
 def _fn(name: str):
     """The bound C entry point of kernel ``name`` (built on first use)."""
-    with _LOCK:
-        lib = _bound.get(name)
-        if lib is None:
-            lib = cuda_build.load(name)
-            sym, argtypes = _ARGTYPES[name]
-            getattr(lib, sym).argtypes = argtypes
-            getattr(lib, sym).restype = ctypes.c_int
-            _bound[name] = lib
-    return getattr(lib, _ARGTYPES[name][0])
+    return cuda_build.bind(name, *_ARGTYPES[name])
 
 
 def _same_device(name: str, *tensors) -> torch.device:
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name} inputs span devices {devices}")
-    dev = devices.pop()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"{name} inputs span devices {({t.device for t in tensors})}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     return dev
 
 
 def _launch(name: str, dev: torch.device, *args) -> None:
-    with torch.cuda.device(dev):
-        rc = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    rc = cuda_build.launch(_fn(name), dev, *args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -153,8 +142,9 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(R, 128) per-row lane shuffle: ``out[r, c] = x[r, idx[r, c]]``.
     ``idx`` is uint8 or int32 with values in [0, 128) — promised, not
     checked on the card (the planners assert it, ops/expand._narrow_idx).
-    Any R >= 1.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/lane_gather.cu``."""
+    Any R >= 1; on the card ``x`` and ``idx`` must start on a 16-byte
+    boundary (raises otherwise).  CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/lane_gather.cu``."""
     if x.dim() != 2 or x.shape[1] != LANE:
         raise ValueError(f"lane_gather takes (R, {LANE}), got {tuple(x.shape)}")
     dev = _check_gather("lane_gather", x, idx)
@@ -162,8 +152,11 @@ def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return lane_gather_plain(x, idx)
     out = torch.empty_like(x)
     if x.shape[0]:
-        _launch("lane_gather", dev, x.data_ptr(), x.element_size(),
-                idx.data_ptr(), idx.element_size(), x.shape[0], out.data_ptr())
+        xp, ip = x.data_ptr(), idx.data_ptr()
+        if (xp | ip) % 16:  # the kernel's bulk copies start on 16-byte boundaries
+            _check_aligned("lane_gather", x, idx)
+        _launch("lane_gather", dev, xp, x.element_size(), ip, idx.element_size(),
+                x.shape[0], out.data_ptr())
         lane_gather.launches += 1
     return out
 

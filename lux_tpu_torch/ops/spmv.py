@@ -263,12 +263,11 @@ def spmv_blockcsr(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
                       device=edge_vals.device)
     scratch = torch.empty(PART_BYTES * -(-edge_vals.numel() // SPAN_SLOTS),
                           dtype=torch.uint8, device=edge_vals.device)
-    with torch.cuda.device(edge_vals.device):
-        rc = _lib().lux_spmv_blockcsr(
-            edge_vals.data_ptr(), _KIND[edge_vals.dtype], e_dst_rel.data_ptr(),
-            chunk_block.data_ptr(), edge_vals.shape[0], edge_vals.shape[1],
-            v_blk, num_vblocks, _OPS[op], out.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), torch.cuda.current_stream().cuda_stream)
+    rc = cuda_build.launch(
+        _lib().lux_spmv_blockcsr, edge_vals.device, edge_vals.data_ptr(),
+        _KIND[edge_vals.dtype], e_dst_rel.data_ptr(), chunk_block.data_ptr(),
+        edge_vals.shape[0], edge_vals.shape[1], v_blk, num_vblocks, _OPS[op],
+        out.data_ptr(), scratch.data_ptr(), scratch.numel())
     if rc != 0:
         raise RuntimeError(f"spmv_blockcsr kernel launch failed: CUDA error {rc}")
     spmv_blockcsr.launches += 1
@@ -344,11 +343,10 @@ def spmv_blockcsr_2d(edge_vals: torch.Tensor, e_dst_rel: torch.Tensor,
     k = edge_vals.shape[2]
     out = torch.empty((num_vblocks * v_blk, k), dtype=torch.float32,
                       device=edge_vals.device)
-    with torch.cuda.device(edge_vals.device):
-        rc = _fn2d()(
-            edge_vals.data_ptr(), _KIND[edge_vals.dtype], e_dst_rel.data_ptr(),
-            chunk_block.data_ptr(), num_chunks, edge_vals.shape[1], v_blk,
-            num_vblocks, k, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    rc = cuda_build.launch(
+        _fn2d(), edge_vals.device, edge_vals.data_ptr(), _KIND[edge_vals.dtype],
+        e_dst_rel.data_ptr(), chunk_block.data_ptr(), num_chunks, edge_vals.shape[1],
+        v_blk, num_vblocks, k, out.data_ptr())
     if rc != 0:
         raise RuntimeError(f"spmv_blockcsr_2d kernel launch failed: CUDA error {rc}")
     spmv_blockcsr_2d.launches += 1

@@ -30,22 +30,15 @@ class RankFailure(RuntimeError):
 
 def kernel_launches() -> dict:
     """This process's launch counters of the hand-written kernels."""
-    from lux_tpu_torch.ops import scan, shuffle, spmv
+    from lux_tpu_torch.ops import kernel_wrappers
 
-    out = {"spmv_blockcsr": spmv.spmv_blockcsr.launches,
-           "spmv_blockcsr_2d": spmv.spmv_blockcsr_2d.launches,
-           "mxscan_segmented": scan.mxscan_segmented.launches}
-    out.update({name: k.launches for name, k in shuffle.KERNELS.items()})
-    return out
+    return {name: k.launches for name, k in kernel_wrappers().items()}
 
 
 def reset_launches() -> None:
-    from lux_tpu_torch.ops import scan, shuffle, spmv
+    from lux_tpu_torch.ops import kernel_wrappers
 
-    spmv.spmv_blockcsr.launches = 0
-    spmv.spmv_blockcsr_2d.launches = 0
-    scan.mxscan_segmented.launches = 0
-    for k in shuffle.KERNELS.values():
+    for k in kernel_wrappers().values():
         k.launches = 0
 
 

@@ -166,6 +166,7 @@ class ReplicaWorker:
         # can overlap: the second waits for the first instead of racing
         # it through the schedulers' and sockets' teardown
         self._stop_lock = threading.Lock()
+        self._stop_thread: Optional[threading.Thread] = None  # a shutdown op's
         # the connection and op threads (daemons): stop() joins them, so a
         # process that returns from main() after stop() leaves none of them
         # inside torch while the interpreter finalizes (a daemon thread that
@@ -243,6 +244,14 @@ class ReplicaWorker:
             self._join_live_threads(timeout_s=10.0)
             with self._stream_lock:
                 self._streams.clear()
+        # a shutdown op stops the worker from a thread of its own: wait for
+        # that thread to end too, so none runs past the caller (a daemon
+        # thread still running when the interpreter finalizes is ended by a
+        # forced unwind, which aborts the process)
+        with self._lock:
+            t = self._stop_thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=10.0)
 
     def _track(self, fn):
         """``fn`` wrapped to register its thread in ``_live_threads`` while
@@ -496,8 +505,11 @@ class ReplicaWorker:
             conn.send({"req_id": rid, "ok": True, "discarded": had})
         elif op == "shutdown":
             conn.send({"req_id": rid, "ok": True})
-            threading.Thread(target=self.stop, daemon=True,
-                             name=f"lux-fleet-{self.worker_id}-stop").start()
+            t = threading.Thread(target=self.stop, daemon=True,
+                                 name=f"lux-fleet-{self.worker_id}-stop")
+            with self._lock:
+                self._stop_thread = t
+            t.start()
         else:
             self._reply_err(conn, msg, "error", err=f"unknown op {op!r}")
 
@@ -1062,12 +1074,9 @@ def kernel_launches() -> dict:
     """This process's launch count of every CUDA kernel wrapper, by
     kernel name (each wrapper counts its own launches; a CPU tensor runs
     the plain version and counts nothing)."""
-    from lux_tpu_torch.ops import scan, shuffle, spmv
+    from lux_tpu_torch.ops import kernel_wrappers
 
-    fns = {"spmv_blockcsr": spmv.spmv_blockcsr,
-           "spmv_blockcsr_2d": spmv.spmv_blockcsr_2d,
-           "mxscan_segmented": scan.mxscan_segmented, **shuffle.KERNELS}
-    return {name: int(fn.launches) for name, fn in fns.items()}
+    return {name: int(fn.launches) for name, fn in kernel_wrappers().items()}
 
 
 def device_memory(device) -> dict:

@@ -28,6 +28,7 @@ import dataclasses
 from typing import Optional
 
 from lux_tpu_torch.graph.push_shards import PushSpec
+from lux_tpu_torch.ops.segment import sum_scratch_bytes
 from lux_tpu_torch.graph.shards import ShardSpec
 
 
@@ -64,19 +65,28 @@ def scale_residency(est: MemoryEstimate, k: int) -> MemoryEstimate:
 
 def estimate_pull(spec: ShardSpec, state_width: int = 1,
                   state_dtype_bytes: int = 4, dst_state: bool = False,
-                  method: str = "") -> MemoryEstimate:
+                  method: str = "", device: str = "cpu",
+                  reduce: str = "sum") -> MemoryEstimate:
     """One part of the pull engine: the ShardArrays (row_ptr, src_pos,
     dst_local, degree, global_vid int32; head_flag, edge_mask, vtx_mask
     bool; weights f32), the old and new state, and the per-edge gather
     (source values, and destination values when the program reads them).
     ``method="scatter"`` adds the int64 destination index its
-    ``index_add_``/``scatter_reduce_`` takes."""
+    ``index_add_``/``scatter_reduce_`` takes; on a card (``device``
+    "cuda") a sum takes the sorted-key kernel instead, whose span
+    summaries (ops/segment.sum_scratch_bytes) and, for a 2-byte state,
+    the values widened to f32 take the index's place."""
     V, E = spec.nv_pad, spec.e_pad
     shard = 4 * (V + 1) + 4 * E * 2 + E * 2 + V + 4 * V * 2 + 4 * E
     state = 2 * V * state_width * state_dtype_bytes
     gathered = E * state_width * state_dtype_bytes * (2 if dst_state else 1)
     if method == "scatter":
-        gathered += 8 * E
+        if str(device).startswith("cuda") and reduce == "sum":
+            gathered += sum_scratch_bytes(E, state_width)
+            if state_dtype_bytes < 4:
+                gathered += 4 * E * state_width
+        else:
+            gathered += 8 * E
     return MemoryEstimate(shard, state, gathered, shard + state + gathered)
 
 
@@ -95,7 +105,10 @@ def estimate_batched(spec: ShardSpec, q: int, method: str,
       and ``mxscan``, whose kernel is 1-D: (E, Q) values run the plain
       ladder), or its ends gather's three (V, Q) arrays; ``scatter``'s
       (V + 1, Q) output with its dump row and the int64 destination index
-      twice (``long()`` then ``clamp``); ``cumsum``'s prefix and its
+      twice (``long()`` then ``clamp``) — SSSP's min on either device and
+      PPR's sum on the CPU; PPR's sum on a card takes the sorted-key
+      kernel's (V, Q) output and span summaries, fewer bytes, so the one
+      estimate holds for both apps on both devices; ``cumsum``'s prefix and its
       padded copy; ``mxsum``'s padded copy, the blocked products and
       their sum, and the 512 x 512 triangle (its ones and its tril).
 

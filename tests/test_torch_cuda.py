@@ -208,14 +208,92 @@ def test_segment_sum_mxscan_on_card(cuda):
     assert got.tolist() == [3.0, 0.0, 18.0, 0.0]
 
 
+def _sorted_sum_case(name, rng):
+    """(keys, num_segments) of one case of the sorted-key sum kernel:
+    hub: one key over 3.5 spans of 8,192 slots, then singletons;
+    ragged: random keys, empty segments, E not a multiple of 16 or of a span;
+    interleaved: padding sentinels between the real keys;
+    tail: a short array ending in padding; all_pad: only padding."""
+    if name == "hub":
+        keys = np.concatenate([np.full(28_700, 3), np.arange(4, 2_000)])
+        return keys.astype(np.int32), 2_100
+    if name == "ragged":
+        return np.sort(rng.integers(0, 5_000, 70_001)).astype(np.int32), 6_000
+    if name == "interleaved":
+        keys = np.sort(rng.integers(0, 900, 20_000)).astype(np.int32)
+        keys[rng.random(keys.size) < 0.2] = 900
+        return keys, 900
+    if name == "tail":
+        return np.concatenate([np.sort(rng.integers(0, 40, 300)),
+                               np.full(37, 40)]).astype(np.int32), 40
+    assert name == "all_pad"
+    return np.full(5_000, 17, np.int32), 17
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hub", "ragged", "interleaved", "tail", "all_pad"])
+@pytest.mark.parametrize("k", [1, 3, 20, 64, 300])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_sum_sorted_kernel(cuda, case, k, offset):
+    """The sorted-key sum kernel: two launches bitwise equal, within rtol
+    1e-5 of the same sums in float64, keys no slot holds 0; bf16 values
+    through the scatter method within 2e-2 and bitwise across two runs.
+    ``offset`` 1 starts values and keys one element off a 16-byte boundary
+    (the (E,) kernel's scalar loads)."""
+    rng = np.random.default_rng(len(case) * 1000 + k)
+    keys, n = _sorted_sum_case(case, rng)
+    shape = (keys.size,) if k == 1 else (keys.size, k)
+    vals = rng.random(shape, dtype=np.float32) + 0.01
+    kt = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), keys])).to(cuda)[offset:]
+    vt = torch.from_numpy(np.concatenate([np.zeros((offset,) + shape[1:], np.float32),
+                                          vals])).to(cuda)[offset:]
+    before = segment.segment_sum_sorted.launches
+    a = segment.segment_sum_sorted(vt, kt, n)
+    b = segment.segment_sum_sorted(vt, kt, n)
+    assert segment.segment_sum_sorted.launches == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = np.zeros((n + 1,) + shape[1:])
+    np.add.at(want, np.minimum(keys, n), vals.astype(np.float64))
+    np.testing.assert_allclose(a.cpu().numpy(), want[:n], rtol=1e-5, atol=0)
+    vb = vt.to(torch.bfloat16)
+    ab = segment._scatter(vb, kt, n, "sum")
+    assert ab.dtype == torch.bfloat16
+    assert torch.equal(ab.view(torch.int16), segment._scatter(vb, kt, n, "sum").view(torch.int16))
+    wb = np.zeros((n + 1,) + shape[1:])
+    np.add.at(wb, np.minimum(keys, n), vb.float().cpu().numpy().astype(np.float64))
+    np.testing.assert_allclose(ab.float().cpu().numpy(), wb[:n], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_segment_sum_sorted_edges(cuda):
+    """No slot, no segment, and a wrong dtype: the empty sums are 0, a CUDA
+    float64 sum raises (no silent fallback), integer sums keep index_add_."""
+    empty = segment.segment_sum_sorted(torch.zeros((0, 4), device=cuda),
+                                       torch.zeros(0, dtype=torch.int32, device=cuda), 5)
+    assert empty.shape == (5, 4) and not bool(empty.any())
+    assert segment.segment_sum_sorted(torch.ones(3, device=cuda),
+                                      torch.zeros(3, dtype=torch.int32, device=cuda),
+                                      0).shape == (0,)
+    with pytest.raises(TypeError, match="float32"):
+        segment.segment_sum_sorted(torch.ones(3, dtype=torch.float64, device=cuda),
+                                   torch.zeros(3, dtype=torch.int32, device=cuda), 2)
+    before = segment.segment_sum_sorted.launches
+    ints = segment._scatter(torch.arange(6, dtype=torch.int32, device=cuda),
+                            torch.tensor([0, 0, 1, 1, 1, 2], dtype=torch.int32, device=cuda),
+                            2, "sum")
+    assert ints.tolist() == [1, 9] and segment.segment_sum_sorted.launches == before
+
+
 # --- the routed pull's kernels (ops/shuffle.py) ------------------------------
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 2, 4, 1000])
+@pytest.mark.parametrize("rows", [1, 2, 4, 1000, 4096, 16384, 131072])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("idx_dtype", [torch.uint8, torch.int32])
 def test_lane_gather_kernel_matches_plain(cuda, rows, dtype, idx_dtype):
+    """Bitwise the plain version at every tile size the kernel picks (32
+    rows down to 1) and a ragged last tile (1000 rows)."""
     rng = np.random.default_rng(rows)
     x = torch.from_numpy(rng.integers(-2**20, 2**20, (rows, 128)).astype(np.int32))
     x = x.to(dtype) if dtype != torch.int32 else x
@@ -224,6 +302,18 @@ def test_lane_gather_kernel_matches_plain(cuda, rows, dtype, idx_dtype):
     got = shuffle.lane_gather(x.to(cuda), idx.to(cuda))
     assert shuffle.lane_gather.launches == before + 1
     assert torch.equal(got.cpu(), shuffle.lane_gather_plain(x, idx))
+
+
+@pytest.mark.gpu
+def test_lane_gather_refuses_misaligned_views(cuda):
+    """The kernel's bulk copies start on 16-byte boundaries: a view one
+    element off raises, a view a whole row off runs."""
+    x = torch.arange(5 * 128, dtype=torch.float32, device=cuda)
+    idx = torch.randint(0, 128, (4, 128), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shuffle.lane_gather(x[1:1 + 4 * 128].view(4, 128), idx)
+    view = x[128:].view(4, 128)
+    assert torch.equal(shuffle.lane_gather(view, idx), shuffle.lane_gather_plain(view, idx))
 
 
 @pytest.mark.gpu
@@ -575,8 +665,8 @@ def test_long_run_engines_on_card_match_cpu(cuda, method):
     repartitioning of SSSP bitwise in state, rounds and traversed edges;
     the streamed components bitwise and the streamed PageRank within
     rtol 1e-5 of the CPU run, through the pinned double buffer (several
-    chunks a part), prefetch on and off bitwise equal (within rtol 1e-5
-    for scatter's f32 sum, whose atomic adds are not deterministic)."""
+    chunks a part), prefetch on and off bitwise equal (scatter's f32 sum
+    included: the sorted-key kernel's order is fixed)."""
     from lux_tpu_torch.engine import delta, pull, repartition, stream
     from lux_tpu_torch.graph import generate
     from lux_tpu_torch.graph.push_shards import build_push_shards
@@ -617,11 +707,7 @@ def test_long_run_engines_on_card_match_cpu(cuda, method):
                     out = stream.run_pull_fixed_streamed(prog, ssh, s0, 5, method=method,
                                                          prefetch=prefetch)
                 runs[str(dev), prefetch] = out.cpu()
-        if kw or method == "mxscan":
-            assert torch.equal(runs["cuda", True], runs["cuda", False])
-        else:  # index_add_ on the card adds f32 in atomic order: not bitwise run to run
-            np.testing.assert_allclose(runs["cuda", True].numpy(), runs["cuda", False].numpy(),
-                                       rtol=1e-5, atol=1e-9)
+        assert torch.equal(runs["cuda", True], runs["cuda", False])
         if kw:
             assert torch.equal(runs["cuda", True], runs["cpu", True])
         else:
@@ -636,7 +722,7 @@ def test_batched_serving_on_card_matches_cpu(cuda, parts, method):
     """The batched query engines on the card equal their CPU runs: SSSP
     bitwise in distances, iterations, rounds and traversed edges (under
     auto, mxscan falls back to the plain scan on (E, Q) values), PPR
-    within rtol 1e-5 (scatter adds f32 in atomic order on the card); a
+    within rtol 1e-5 (f32 sums in another order than the CPU's); a
     warm cache's engines share one copy of the arrays on the card, and a
     burst through the scheduler answers as the engine does."""
     from lux_tpu_torch.graph import generate

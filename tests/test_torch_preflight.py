@@ -52,6 +52,28 @@ def test_estimate_pull_is_the_ports_arrays(graph, parts):
     assert est_s.gathered_bytes - src.nbytes == arrays.dst_local[0].long().nbytes
 
 
+@pytest.mark.parametrize("width,sbytes", [(1, 4), (20, 4), (20, 2)])
+def test_estimate_pull_scatter_on_the_card(graph, width, sbytes):
+    """Under --method scatter on a card a sum's int64 destination index
+    gives way to the sorted-key kernel's span summaries (and, for a 2-byte
+    state, its f32 widening of the values); min/max keep the index; the
+    CPU's terms are unchanged."""
+    from lux_tpu_torch.ops import segment
+
+    spec = build_pull_shards(graph, 1).spec
+    E = spec.e_pad
+    base = preflight.estimate_pull(spec, width, sbytes).gathered_bytes
+    cpu = preflight.estimate_pull(spec, width, sbytes, method="scatter")
+    assert cpu.gathered_bytes - base == 8 * E
+    card = preflight.estimate_pull(spec, width, sbytes, method="scatter", device="cuda")
+    widen = 4 * E * width if sbytes < 4 else 0
+    assert card.gathered_bytes - base == segment.sum_scratch_bytes(E, width) + widen
+    card_min = preflight.estimate_pull(spec, width, sbytes, method="scatter", device="cuda",
+                                       reduce="min")
+    assert card_min.gathered_bytes - base == 8 * E
+    assert card.shard_bytes == cpu.shard_bytes and card.state_bytes == cpu.state_bytes
+
+
 def test_estimate_pull_wide_and_destination_reads(graph):
     """CF's (V, K) state and its destination read; bf16 state."""
     sh = build_pull_shards(graph, 1)
